@@ -1,0 +1,23 @@
+"""mxnet_tpu_torch — the PyTorch/CUDA port of mxnet_tpu, for NVIDIA Hopper.
+
+A second package beside ``mxnet_tpu`` (the JAX reference, unchanged). Module
+paths and class names follow the reference so each module's counterpart is
+easy to find; inside, the code is plain PyTorch on tensors with an explicit
+``device``. Every Pallas kernel the reference runs on a ported path is a
+hand-written CUDA kernel here (``ops/kernels/``), built with ``nvcc`` at
+first use.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card and without that request they raise (``context.py``).
+
+Ported so far: the continuous-batching generate path
+(``serving.generate``) with its flash-attention forward kernel.
+"""
+from . import base, context, engine
+from .base import MXNetError
+from .context import cpu, default_device, gpu
+
+__version__ = "0.9.5-torch.1"
+
+__all__ = ["MXNetError", "base", "context", "cpu", "default_device",
+           "engine", "gpu"]
