@@ -68,15 +68,16 @@ def _check_kernel(q, k, v):
 
 def flash_attention_plain(q, k, v, causal=False, scale=None,
                           return_lse=False):
-    """Plain PyTorch version (the reference's ``_grouped_attention`` /
-    ``dot_product_attention`` math): f32 logits and softmax, probabilities
-    cast to v's type for the PV product. With ``return_lse`` also returns
-    the per-row logsumexp (B, H, Tq) in f32."""
+    """Plain PyTorch version of the reference's Pallas forward: q/k/v
+    widened to f32, f32 logits, softmax and PV product (the
+    ``_grouped_attention`` math without its cast of the probabilities to
+    v's type), the output cast back to the input type. With
+    ``return_lse`` also returns the per-row logsumexp (B, H, Tq) in f32."""
     b, h, tq, d = q.shape
     logits = grouped_logits(q, k, k.shape[1], causal, scale)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgql,bkld->bkgqd", probs.to(v.dtype), v)
-    out = out.reshape(b, h, tq, d)
+    out = torch.einsum("bkgql,bkld->bkgqd", probs, v.float())
+    out = out.reshape(b, h, tq, d).to(q.dtype)
     if return_lse:
         return out, torch.logsumexp(logits, dim=-1).reshape(b, h, tq)
     return out

@@ -1,11 +1,12 @@
-"""Slot-allocated KV-cache slabs, one pair per replica.
+"""Slot-allocated KV-cache slabs.
 
 Counterpart of ``mxnet_tpu/serving/generate/kv_cache.py``.
 ``KVCacheManager`` owns the decode state the engine serializes: the two
-``(L, slots, Hkv, C, Dh)`` slabs live behind ONE engine variable per
-replica, and every program that touches them (admit, step) is pushed with
-``mutable_vars=[var]``, so the engine orders step N+1 after step N and
-after any admits between them.
+``(L, slots, Hkv, C, Dh)`` slabs live behind ONE engine variable, and
+every program that touches them (admit, step, both in place) is pushed
+with ``mutable_vars=[var]``, so the engine orders step N+1 after step N
+and after any admits between them. The reference keeps one manager per
+replica; the port serves one replica until ``InferenceServer`` comes.
 
 The host-side bookkeeping (which slot belongs to which sequence, each
 row's length) is guarded by ``_lock``, a leaf lock never held across an
@@ -35,11 +36,10 @@ class AdmitPlan:
 
 
 class KVCacheManager:
-    """Slot allocator + slab holder for one replica's decode state."""
+    """Slot allocator + slab holder for the decode state."""
 
-    def __init__(self, programs: DecodePrograms, replica: int = 0):
+    def __init__(self, programs: DecodePrograms):
         self.programs = programs
-        self.replica = replica
         self.slots = programs.slots
         self.capacity = programs.capacity
         self.var = _engine.new_variable()
@@ -94,16 +94,7 @@ class KVCacheManager:
         with self._lock:
             return int(self._lengths[slot])
 
-    def active_slots(self) -> List[int]:
-        with self._lock:
-            return [i for i in range(self.slots)
-                    if self._owner[i] is not None]
-
-    # --- slab plumbing (engine worker only) -------------------------------
-    def swap_slabs(self, k_slab, v_slab):
-        """Adopt the slabs a step/admit program returned."""
-        self.k_slab, self.v_slab = k_slab, v_slab
-
+    # --- slab plumbing ----------------------------------------------------
     def reset(self):
         """Fresh slabs + empty bookkeeping."""
         with self._lock:

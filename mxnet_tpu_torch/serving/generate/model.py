@@ -10,14 +10,16 @@ builds the callables the generate path runs:
   logits at ``length - 1`` and the prompt's K/V padded to slab capacity
   ``(L, 1, Hkv, C, Dh)``.
 - ``decode(params, k_slab, v_slab, lengths (B,), tokens (B,))`` — one
-  token for every slot: write each row's new k/v at ``lengths[i]``,
-  attend over its own prefix (``cached_attention``), return (B, V) logits.
+  token for every slot: write each row's new k/v at ``lengths[i]`` in
+  place, attend over its own prefix (``cached_attention``), return (B, V)
+  logits.
 - ``admit(k_slab, v_slab, k_new, v_new, slot)`` — slot a prefilled
-  sequence's K/V into its row.
+  sequence's K/V into its row, in place.
 
-The reference donates the slabs to its compiled programs; here the decode
-and admit callables update the slabs in place, which is what donation
-bought there (the steady-state step allocates no new slab).
+The reference donates the slabs to its compiled programs and takes back
+the updated ones; here the decode and admit callables update the slabs in
+place, which is what donation bought there (the steady-state step
+allocates no new slab), so they return no slabs.
 
 The math follows the reference op for op: LayerNorm eps 1e-5 with the
 population variance, no-bias q/k/v/o, RoPE on split halves at absolute
@@ -173,7 +175,7 @@ class DecodeModel:
         return cls(params_from_numpy(arg_params, device, dtype), spec)
 
     def kv_slab_shape(self, slots: int, capacity: int) -> tuple:
-        """(L, slots, Hkv, C, Dh) — one of the two per-replica slabs."""
+        """(L, slots, Hkv, C, Dh) — one of the two KV slabs."""
         return (self.layers, slots, self.spec.hkv, capacity, self.head_dim)
 
     # --- pieces -----------------------------------------------------------
@@ -239,7 +241,7 @@ class DecodeModel:
     def build_decode(self, slots: int, capacity: int,
                      kv_dtype: str = "float32"):
         """fn(params, k_slab, v_slab, lengths (B,), tokens (B,)) ->
-        (logits (B, V), k_slab, v_slab), the slabs updated in place.
+        logits (B, V), the slabs updated in place.
         Inactive slots run with lengths pinned to 0 — wasted lanes, never
         wrong lanes. bf16 slabs take cast writes; reads go through the
         f32 attention math."""
@@ -275,14 +277,14 @@ class DecodeModel:
                 att = att.transpose(1, 2).reshape(slots, self.dm)
                 x = x + _mm(params, att.to(x.dtype), "wo", l)
                 x = self._mlp(params, x, l)
-            return self._head(params, x), k_slab, v_slab
+            return self._head(params, x)
 
         return decode
 
     def build_admit(self, slots: int, capacity: int,
                     kv_dtype: str = "float32"):
-        """fn(k_slab, v_slab, k_new (L, 1, Hkv, C, Dh), v_new, slot) ->
-        the slabs, with row ``slot`` overwritten in place."""
+        """fn(k_slab, v_slab, k_new (L, 1, Hkv, C, Dh), v_new, slot):
+        overwrites row ``slot`` of the slabs in place."""
         _kv_dtype(kv_dtype)
 
         def admit(k_slab, v_slab, k_new, v_new, slot):
@@ -292,6 +294,5 @@ class DecodeModel:
                                    % (slot, slots))
             k_slab[:, slot] = k_new[:, 0]
             v_slab[:, slot] = v_new[:, 0]
-            return k_slab, v_slab
 
         return admit

@@ -9,9 +9,10 @@ bucket ladder, one fixed-shape step over all slots), which is also what a
 later CUDA-graph capture needs. There is no program cache and no compile
 witness.
 
-The reference donates the slabs to the step and admit programs; here those
-callables update the slabs in place, so the steady-state step allocates
-only its logits.
+The reference donates the slabs to the step and admit programs and
+adopts the slabs they return; here those callables update the slabs in
+place and return none, so the steady-state step allocates only its
+logits.
 """
 from __future__ import annotations
 
@@ -110,13 +111,12 @@ class DecodePrograms:
     def decode(self, k_slab, v_slab, lengths, tokens):
         """One step for every slot. ``lengths``/``tokens``: (slots,) ints
         (inactive slots: length 0, token 0). Updates the slabs in place
-        and returns (logits (slots, V), k_slab, v_slab)."""
+        and returns the logits (slots, V)."""
         return self._decode(
             self.model.params, k_slab, v_slab,
             torch.as_tensor(np.asarray(lengths, np.int64), device=self.device),
             torch.as_tensor(np.asarray(tokens, np.int64), device=self.device))
 
     def admit(self, k_slab, v_slab, k_new, v_new, slot: int):
-        """Slot a prefilled sequence's K/V into the slabs (in place).
-        Returns (k_slab, v_slab)."""
-        return self._admit(k_slab, v_slab, k_new, v_new, slot)
+        """Slot a prefilled sequence's K/V into the slabs (in place)."""
+        self._admit(k_slab, v_slab, k_new, v_new, slot)

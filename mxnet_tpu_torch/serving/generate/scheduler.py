@@ -1,10 +1,10 @@
 """Orca-style iteration-level scheduler for continuous-batching decode.
 
 Counterpart of ``mxnet_tpu/serving/generate/scheduler.py`` (unpaged path).
-One scheduler thread drives every replica: each loop iteration it
+One scheduler thread drives one KV cache: each loop iteration it
 (1) expires/admits waiting prompts into freed slots — each admission is a
 prefill through the flash-attention kernel plus an admit into the slot
-row — (2) pushes ONE fixed-shape decode step per occupied replica onto the
+row — (2) pushes ONE fixed-shape decode step over all slots onto the
 engine (``mutable_vars=[kv var]``, so the engine orders step N+1 after
 step N and after any admits between them), (3) fences, samples on the
 host, streams tokens out, and retires finished sequences. The batch is
@@ -16,8 +16,9 @@ under it.
 
 Not ported yet: paged KV, speculative decoding, weight quantization, int8
 KV and engine capture — setting any of them raises ``ServingError``
-(code ``not_ported``). Telemetry spans and the flight recorder are not
-ported either.
+(code ``not_ported``). Telemetry spans, the flight recorder and the
+reference's ``replicas`` (one cache per replica, for the multi-device
+``InferenceServer``) are not ported either.
 """
 from __future__ import annotations
 
@@ -130,13 +131,12 @@ class _Active:
     """One sequence occupying a slot, with its sampling context
     (temperature 0 = greedy; a private RandomState per stream keeps draws
     deterministic per seed and independent of co-resident streams)."""
-    __slots__ = ("stream", "replica", "slot", "last_token", "generated",
+    __slots__ = ("stream", "slot", "last_token", "generated",
                  "temperature", "rng")
 
-    def __init__(self, stream, replica, slot, last_token, generated,
+    def __init__(self, stream, slot, last_token, generated,
                  temperature=0.0, rng=None):
         self.stream = stream
-        self.replica = replica
         self.slot = slot
         self.last_token = last_token
         self.generated = generated
@@ -145,11 +145,10 @@ class _Active:
 
 
 class DecodeScheduler:
-    """Continuous-batching decode over one model across N replica slabs
-    (all on the model's device)."""
+    """Continuous-batching decode over one model and one pair of KV slabs
+    on the model's device."""
 
-    def __init__(self, model: DecodeModel, config: GenerateConfig,
-                 replicas: int = 1):
+    def __init__(self, model: DecodeModel, config: GenerateConfig):
         self.config = config
         self.kv_dtype = normalize_kv_dtype(config.kv_dtype)
         _refuse_unported(config, self.kv_dtype)
@@ -158,11 +157,10 @@ class DecodeScheduler:
                                        config.max_context,
                                        config.prefill_buckets,
                                        kv_dtype=self.kv_dtype)
-        self.replicas = int(replicas)
-        self.caches: List[KVCacheManager] = []
+        self.cache: Optional[KVCacheManager] = None
         self._cond = threading.Condition()
         self._queue: deque = deque()   # (stream, prompt, temperature, rng)
-        self._active: Dict[Tuple[int, int], _Active] = {}
+        self._active: Dict[int, _Active] = {}     # slot -> sequence
         self._state = "stopped"        # running|draining|stopped
         self._thread: Optional[threading.Thread] = None
         self.steps = 0
@@ -173,8 +171,7 @@ class DecodeScheduler:
             if self._state != "stopped":
                 return
             self._state = "running"
-        self.caches = [KVCacheManager(self.programs, i)
-                       for i in range(self.replicas)]
+        self.cache = KVCacheManager(self.programs)
         self._thread = threading.Thread(target=self._loop,
                                         name="decode-scheduler", daemon=True)
         self._thread.start()
@@ -207,15 +204,14 @@ class DecodeScheduler:
                 leftovers.append(self._queue.popleft()[0])
             actives, self._active = list(self._active.values()), {}
         for a in actives:
-            self.caches[a.replica].free(a.slot)
+            self.cache.free(a.slot)
             leftovers.append(a.stream)
         for s in leftovers:
             s._fail(ServingError("decode scheduler stopped", code=code))
-        if self.caches:
-            _engine.fence([c.var for c in self.caches]).wait()
-            for c in self.caches:
-                _engine.delete_variable(c.var)
-        self.caches = []
+        if self.cache is not None:
+            _engine.fence([self.cache.var]).wait()
+            _engine.delete_variable(self.cache.var)
+        self.cache = None
 
     # --- submission -------------------------------------------------------
     def submit(self, prompt: Sequence[int],
@@ -309,37 +305,25 @@ class DecodeScheduler:
 
     def _retire(self, a: _Active, reason: Optional[str] = None,
                 error: Optional[ServingError] = None):
-        self.caches[a.replica].free(a.slot)
+        self.cache.free(a.slot)
         with self._cond:
-            self._active.pop((a.replica, a.slot), None)
+            self._active.pop(a.slot, None)
         if error is not None:
             a.stream._fail(error)
         else:
             a.stream._finish(reason or "eos")
 
-    def _pick_replica(self) -> Optional[int]:
-        best, best_free = None, 0
-        for i, c in enumerate(self.caches):
-            free = c.slots - len(c.active_slots())
-            if free > best_free:
-                best, best_free = i, free
-        return best
-
     def _admit_waiting(self):
         """Prefill waiting prompts into free slots. Each admission is one
-        engine op on the target replica's kv var (prefill -> slot insert),
-        fenced as a group so fresh sequences join the very next step."""
+        engine op on the kv var (prefill -> slot insert), fenced as a
+        group so fresh sequences join the very next step."""
         admitted = []         # (active, holder)
-        touched = []
+        cache = self.cache
         while True:
-            rep = self._pick_replica()
-            if rep is None:
-                break
             with self._cond:
                 if not self._queue:
                     break
                 stream, prompt, temp, rng = self._queue.popleft()
-            cache = self.caches[rep]
             plan = cache.try_admit(stream, prompt, stream.max_new_tokens)
             if plan is None:      # slots exhausted — wait for retirement,
                 with self._cond:  # never evict mid-stream
@@ -349,15 +333,14 @@ class DecodeScheduler:
             # so the engine op never mutates the program dict
             self.programs.ensure_prefill(len(plan.suffix))
             holder: Dict[str, object] = {}
-            admitted.append((_Active(stream, rep, plan.slot, 0, 0,
+            admitted.append((_Active(stream, plan.slot, 0, 0,
                                      temperature=temp, rng=rng), holder))
-            touched.append(cache.var)
 
-            def op(cache=cache, plan=plan, holder=holder):
+            def op(plan=plan, holder=holder):
                 try:
                     last, k_new, v_new = self.programs.prefill(plan.suffix)
-                    cache.swap_slabs(*self.programs.admit(
-                        cache.k_slab, cache.v_slab, k_new, v_new, plan.slot))
+                    self.programs.admit(cache.k_slab, cache.v_slab, k_new,
+                                        v_new, plan.slot)
                     holder["logits"] = last.float().cpu().numpy()
                 except Exception as e:      # noqa: BLE001 — reported below
                     holder["error"] = e
@@ -365,16 +348,16 @@ class DecodeScheduler:
             _engine.push(op, mutable_vars=[cache.var], name="decode.prefill")
         if not admitted:
             return
-        _engine.fence(touched).wait()
+        _engine.fence([cache.var]).wait()
         for a, holder in admitted:
             err = holder.get("error")
             if err is not None:
-                self.caches[a.replica].free(a.slot)
+                cache.free(a.slot)
                 a.stream._fail(ServingError(
                     "prefill failed: %s" % err, code="dispatch_error"))
                 continue
             with self._cond:
-                self._active[(a.replica, a.slot)] = a
+                self._active[a.slot] = a
             self._emit(a, sample_token(holder["logits"], a.temperature,
                                        a.rng))
 
@@ -391,7 +374,7 @@ class DecodeScheduler:
         if a.generated >= a.stream.max_new_tokens:
             self._retire(a, reason="max_tokens")
             return False
-        if self.caches[a.replica].length(a.slot) >= self.programs.capacity:
+        if self.cache.length(a.slot) >= self.programs.capacity:
             # the next step would write at kv position == capacity (the
             # write position IS the current length)
             self._retire(a, reason="capacity")
@@ -399,56 +382,44 @@ class DecodeScheduler:
         return True
 
     def _step_all(self):
-        """One decode step on every replica with occupied slots: push all
-        step ops, fence once, then sample/stream on the host."""
-        stepped = []          # (replica, [active...], holder)
-        touched = []
+        """One decode step over all slots when any is occupied: push the
+        step op, fence, then sample/stream on the host."""
+        cache = self.cache
         with self._cond:
-            by_rep: Dict[int, List[_Active]] = {}
-            for (rep, _slot), a in self._active.items():
-                by_rep.setdefault(rep, []).append(a)
-        for rep, actives in sorted(by_rep.items()):
-            cache = self.caches[rep]
-            lengths = np.zeros(cache.slots, np.int64)
-            tokens = np.zeros(cache.slots, np.int64)
-            for a in actives:
-                lengths[a.slot] = cache.length(a.slot)
-                tokens[a.slot] = a.last_token
-            holder: Dict[str, object] = {}
-            stepped.append((rep, actives, holder))
-            touched.append(cache.var)
-
-            def op(cache=cache, lengths=lengths, tokens=tokens,
-                   holder=holder):
-                try:
-                    out = self.programs.decode(cache.k_slab, cache.v_slab,
-                                               lengths, tokens)
-                    cache.swap_slabs(*out[1:])
-                    holder["logits"] = out[0].float().cpu().numpy()
-                except Exception as e:      # noqa: BLE001 — reported below
-                    holder["error"] = e
-
-            _engine.push(op, mutable_vars=[cache.var], name="decode.step")
-        if not stepped:
+            actives = list(self._active.values())
+        if not actives:
             return
-        _engine.fence(touched).wait()
+        lengths = np.zeros(cache.slots, np.int64)
+        tokens = np.zeros(cache.slots, np.int64)
+        for a in actives:
+            lengths[a.slot] = cache.length(a.slot)
+            tokens[a.slot] = a.last_token
+        holder: Dict[str, object] = {}
+
+        def op():
+            try:
+                logits = self.programs.decode(cache.k_slab, cache.v_slab,
+                                              lengths, tokens)
+                holder["logits"] = logits.float().cpu().numpy()
+            except Exception as e:      # noqa: BLE001 — reported below
+                holder["error"] = e
+
+        _engine.push(op, mutable_vars=[cache.var], name="decode.step")
+        _engine.fence([cache.var]).wait()
         self.steps += 1
-        for rep, actives, holder in stepped:
-            err = holder.get("error")
-            if err is not None:
-                # a failed in-place step may leave the slabs half written:
-                # rebuild the replica rather than step on that state
-                for a in actives:
-                    self._retire(a, error=ServingError(
-                        "decode step failed: %s" % err,
-                        code="dispatch_error"))
-                self.caches[rep].reset()
-                continue
-            logits = holder["logits"]
+        err = holder.get("error")
+        if err is not None:
+            # a failed in-place step may leave the slabs half written:
+            # rebuild the cache rather than step on that state
             for a in actives:
-                self.caches[rep].advance(a.slot)
-                self._emit(a, sample_token(logits[a.slot], a.temperature,
-                                           a.rng))
+                self._retire(a, error=ServingError(
+                    "decode step failed: %s" % err, code="dispatch_error"))
+            cache.reset()
+            return
+        logits = holder["logits"]
+        for a in actives:
+            cache.advance(a.slot)
+            self._emit(a, sample_token(logits[a.slot], a.temperature, a.rng))
 
     # --- introspection ----------------------------------------------------
     def stats(self) -> Dict[str, object]:

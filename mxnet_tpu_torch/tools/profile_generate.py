@@ -2,8 +2,8 @@
 
     python3 -m mxnet_tpu_torch.tools.profile_generate     # from the repo root
 
-Builds the full-width LM of ``chip_smoke.py`` (same seeded weights, f32,
-no TF32), warms every program, then measures on the card:
+Builds the full-width LM that ``chip_smoke.py`` serves (``tools/lm.py``:
+same seeded weights, f32, no TF32), warms every program, then measures on the card:
 
 - host-clock time of one prefill per bucket and of one decode step over
   all slots (each ending in ``torch.cuda.synchronize()``, median of reps);
@@ -52,14 +52,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_generate: no CUDA device available", file=sys.stderr)
         return 2
-    import chip_smoke as cs
     from mxnet_tpu_torch.serving import generate as gen
+    from mxnet_tpu_torch.tools import lm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, serve = cs.LM, cs.SERVE
+    cfg, serve = lm.LM, lm.SERVE
     spec = gen.DecodeSpec(num_heads=cfg["heads"], num_kv_heads=cfg["kv_heads"])
-    model = gen.DecodeModel.from_arg_params(cs.lm_arg_params(cfg, cs.SEED),
+    model = gen.DecodeModel.from_arg_params(lm.lm_arg_params(cfg, lm.SEED),
                                             spec)
     progs = gen.DecodePrograms(model, serve["slots"], serve["max_context"],
                                serve["prefill_buckets"])
@@ -69,7 +69,7 @@ def main() -> int:
                for b in progs.buckets}
     for b in progs.buckets:                       # warm every program
         _last, k_new, v_new = progs.prefill(prompts[b])
-        k_slab, v_slab = progs.admit(k_slab, v_slab, k_new, v_new, 0)
+        progs.admit(k_slab, v_slab, k_new, v_new, 0)
     lengths = np.array([2045, 600, 300, 100][:progs.slots], np.int64)
     tokens = np.arange(progs.slots, dtype=np.int64)
 
@@ -83,14 +83,14 @@ def main() -> int:
                                       5) for b in progs.buckets},
            "decode_step_ms": _host_ms(step, 20),
            "decode_step_with_logits_to_host_ms": _host_ms(
-               lambda: step()[0].cpu(), 20),
-           "gpu": cs.nvidia_smi()})
+               lambda: step().cpu(), 20),
+           "gpu": lm.nvidia_smi()})
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for window, fn in (("prefill_2048", lambda: progs.prefill(
             prompts[progs.buckets[-1]])),
-            ("decode_x10", lambda: [step()[0].cpu() for _ in range(10)])):
+            ("decode_x10", lambda: [step().cpu() for _ in range(10)])):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()

@@ -49,6 +49,23 @@ def test_plain_matches_pallas_interpret(case):
                                atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("case", ["mha_causal", "gqa_causal_tq_lt_tk"])
+def test_plain_bf16_matches_pallas_interpret(case):
+    """bf16 in and out, f32 inside on both sides: the outputs differ by at
+    most one bf16 ulp (relative 2**-7), from f32 summation order."""
+    b, h, hkv, tq, tk, d, causal = CASES[case]
+    q, k, v = (a.astype(jnp.bfloat16) for a in _inputs(b, h, hkv, tq, tk, d))
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal, interpret=True)
+    q, k, v = (torch.from_numpy(a.astype(np.float32)).bfloat16()
+               for a in (q, k, v))
+    got = tfa.flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=1e-5, rtol=2 ** -7)
+
+
 @pytest.mark.parametrize("case", ["mha_causal", "gqa_causal_tq_lt_tk",
                                   "gqa"])
 def test_plain_lse_matches_pallas_interpret(case):

@@ -43,6 +43,16 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def test_package_never_imports_a_root_script():
+    """The package stands alone: chip_smoke.py imports from it, never the
+    other way round."""
+    root_scripts = {n[:-3] for n in os.listdir(ROOT) if n.endswith(".py")}
+    bad = [(os.path.relpath(p, ROOT), m) for p in _port_files()
+           if os.path.dirname(p) != ROOT for m in _imports(p)
+           if m.split(".")[0] in root_scripts]
+    assert not bad, bad
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving.generate, "
             "mxnet_tpu_torch.ops.kernels.flash_attention; "
