@@ -8,9 +8,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 1. ``build``   — build every CUDA kernel from ``mxnet_tpu_torch/ops/kernels/
    csrc`` with nvcc for sm_90a (seconds, ptxas report, card name + limit).
 2. ``kernel``  — each kernel against its plain PyTorch version on the card
-   at the serving path's shapes, f32 and bf16, then timed (CUDA events,
-   median) beside the plain version, one PyTorch library call and the
-   card's bound.
+   at the main paths' shapes, then timed (CUDA events, median) beside the
+   plain version, one PyTorch library call where there is one, and the
+   card's bound: the flash-attention forward, the flash-attention backward
+   (dQ and dK/dV kernels), and the fused sgd_mom / adam updates.
 3. ``serve``   — the continuous-batching generate path at full width (the
    GQA decoder LM of ``bench.py``: d 2048, 16 heads, 4 kv heads, ffn 8192,
    vocab 10000, bench.py's own 4 layers (not cut), seeded random weights,
@@ -18,7 +19,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    prompts through ``DecodeScheduler`` with four slots, so admissions
    happen mid-flight. Checks every stream, the kernel's launch count, and
    first-token logits against the port's plain path on the CPU.
-4. ``kernels`` — one line per the port's kernel table.
+4. ``train``   — the same LM trained through ``models.get_symbol`` ->
+   ``simple_bind`` -> ``forward``/``backward`` -> ``optimizer.Updater``,
+   f32, no TF32: first 2 SGD steps at 1 x 256 on the card and on the
+   port's CPU path from the same weights (losses and parameters must
+   agree), then Xavier-initialized 5 SGD-momentum + 3 Adam steps at
+   4 x 2048 (batch cut from bench.py's 32), with exact launch counts of
+   all four kernels.
+5. ``kernels`` — one line per the port's kernel table.
 
 Then the card's ``nvidia-smi`` name/power-limit line and, last, the
 ``{"ok": true, "device": ...}`` line. Exits non-zero without a CUDA card.
@@ -31,15 +39,40 @@ import time
 
 import numpy as np
 
-from mxnet_tpu_torch.tools.lm import LM, SERVE, SEED, lm_arg_params, \
-    nvidia_smi
+from mxnet_tpu_torch.tools.lm import LM, SERVE, SEED, TRAIN, \
+    lm_arg_params, lm_param_shapes, lm_train_executor, nvidia_smi
 
 H100 = {"bf16_flops": 989e12, "f32_flops": 67e12, "bytes_per_s": 3.35e12}
-FA_SRC = "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu"
+CSRC = "mxnet_tpu_torch/ops/kernels/csrc/"
+FA_SRC = CSRC + "flash_attention_fwd.cu"
 FA_REPLACES = "mxnet_tpu/ops/pallas/flash_attention.py:259"
+FA_BWD_SRC = CSRC + "flash_attention_bwd.cu"
+FA_BWD_REPLACES = "mxnet_tpu/ops/pallas/flash_attention.py:618"
+UPDATE_SRC = CSRC + "fused_update.cu"
+UPDATE_REPLACES = {"sgd_mom_update": "mxnet_tpu/ops/pallas/fused_update.py:31",
+                   "adam_update": "mxnet_tpu/ops/pallas/fused_update.py:60"}
 # (atol, rtol); bf16 outputs differ by an ulp of |O| (rtol), while atol
 # stays below |O| ~ sqrt(e / T) of the long rows
 TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-3, 2e-2)}
+# flash backward (atol, rtol) per gradient. f32: dQ as the forward; dK/dV
+# sum G * Tq (up to 8192) products per element in another order than the
+# plain einsum, so atol 5e-4. bf16: one bf16 ulp of the result (rtol), and
+# an atol far below the typical |dQ| / |dK| / |dV| the phase prints.
+BWD_TOL = {"float32": {"dq": (2e-4, 2e-4), "dk": (5e-4, 2e-4),
+                       "dv": (5e-4, 2e-4)},
+           "bfloat16": {"dq": (2e-3, 2e-2), "dk": (5e-3, 2e-2),
+                        "dv": (5e-3, 2e-2)}}
+# fused updates (atol, rtol): the kernel may contract a*b+c into one FMA
+# where the plain version rounds twice: a last-bit difference of f32, an
+# ulp of bf16
+UPDATE_TOL = {"float32": (1e-6, 1e-5), "bfloat16": (1e-2, 2e-2)}
+# train phase, card vs the port's CPU path after 2 SGD steps at 1 x 256:
+# losses within 1e-4 relative; parameters within 1e-5 absolute — f32
+# gradients whose sums run in other orders (cuBLAS vs the CPU's GEMM, the
+# flash kernels vs the plain einsums) differ in the last bits, scaled by
+# lr 0.05 and momentum into the weights
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-5
 
 
 def emit(obj):
@@ -51,18 +84,42 @@ def attention_bound(b, h, hkv, tq, tk, d, causal, dtype):
     """Least time (ms) for one forward on the card, and what bounds it:
     4*D flops per visible (query, key) pair and head (QK^T and PV, the
     causal count exact), and q/k/v read plus o written once each."""
-    if causal:
-        off = tk - tq
-        pairs = int(np.minimum(tk, np.arange(tq) + off + 1).sum())
-    else:
-        pairs = tq * tk
-    flops = 4 * b * h * d * pairs
+    flops = 4 * b * h * d * visible_pairs(tq, tk, causal)
     item = 4 if dtype == "float32" else 2
     nbytes = item * (2 * b * h * tq * d + 2 * b * hkv * tk * d)
     peak = H100["f32_flops"] if dtype == "float32" else H100["bf16_flops"]
     t_ops, t_bytes = flops / peak, nbytes / H100["bytes_per_s"]
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def visible_pairs(tq, tk, causal):
+    """(query, key) pairs a causal (offset tk - tq) or full mask keeps."""
+    if not causal:
+        return tq * tk
+    return int(np.minimum(tk, np.arange(tq) + (tk - tq) + 1).sum())
+
+
+def attention_bwd_bound(b, h, hkv, tq, tk, d, causal, dtype):
+    """Least time (ms) for one flash backward, and what bounds it: 10*D
+    flops per visible pair and head (q.k recomputed, dO.v, and the
+    products into dQ, dK, dV), and q/k/v/o/dO read, dQ/dK/dV written
+    once, plus the f32 lse read."""
+    flops = 10 * b * h * d * visible_pairs(tq, tk, causal)
+    item = 4 if dtype == "float32" else 2
+    nbytes = item * (4 * b * h * tq * d + 4 * b * hkv * tk * d) \
+        + 4 * b * h * tq
+    peak = H100["f32_flops"] if dtype == "float32" else H100["bf16_flops"]
+    t_ops, t_bytes = flops / peak, nbytes / H100["bytes_per_s"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def update_bound(kind, elements, item=4):
+    """Least time (ms) for one update pass over ``elements``: each reads
+    w, g and the state(s) once and writes w and the state(s) once."""
+    per = {"sgd_mom_update": 5, "adam_update": 7}[kind] * item
+    return elements * per / H100["bytes_per_s"] * 1e3, "bytes"
 
 
 def time_ms(torch, fn, reps=30, warmup=3):
@@ -176,6 +233,167 @@ def _sdpa(torch, q, k, v):
     return lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
 
 
+def _sdpa_bwd(torch, q, k, v, do):
+    """The library yardstick of the backward: autograd through one
+    :func:`_sdpa` call, the graph kept between calls. Timed only; the
+    port never calls it."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = _sdpa(torch, *leaves)()
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def phase_kernel_bwd(torch):
+    """Flash backward: kernels vs plain on the card (same q/k/v/o/lse/dO
+    into both), then timings at the training shape."""
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    cases = []     # (b, h, hkv, tq, tk, d, causal, dtype, heads_major)
+    for dtype in ("float32", "bfloat16"):
+        for t in (128, 512, 1000, 2048):
+            cases.append((1, 16, 4, t, t, 128, True, dtype, True))
+        cases.append((1, 16, 4, 2048, 2048, 128, True, dtype, False))
+        cases.append((1, 16, 16, 512, 512, 128, False, dtype, True))
+        cases.append((1, 16, 4, 300, 1000, 128, True, dtype, True))
+        cases.append((2, 8, 2, 777, 777, 64, True, dtype, True))
+    results, worst = [], {}
+    for b, h, hkv, tq, tk, d, causal, dtype, major in cases:
+        q, k, v = _qkv(torch, b, h, hkv, tq, tk, d, dtype, gen, major)
+        o, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                          return_lse=True)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        if not major:
+            do = do.transpose(1, 2).contiguous().transpose(1, 2)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        errs, typical = {}, {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            atol, rtol = BWD_TOL[dtype][name]
+            torch.testing.assert_close(g.float(), w.float(), atol=atol,
+                                       rtol=rtol, msg=lambda m, n=name: (
+                                           "%s: %s" % (n, m)))
+            errs[name] = float((g.float() - w.float()).abs().max())
+            typical[name] = float(w.float().abs().median())
+        results.append({"shape": [b, h, hkv, tq, tk, d], "causal": causal,
+                        "dtype": dtype,
+                        "layout": "bhtd" if major else "bthd view",
+                        "tol": BWD_TOL[dtype], "max_abs_err": errs,
+                        "median_abs": typical})
+        worst[dtype] = max([worst.get(dtype, 0.0)] + list(errs.values()))
+
+    timings = {}
+    b, h, hkv, t, d = 4, 16, 4, 2048, 128
+    for dtype in ("float32", "bfloat16"):
+        q, k, v = _qkv(torch, b, h, hkv, t, t, d, dtype, gen)
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        bound_ms, bound_by = attention_bwd_bound(b, h, hkv, t, t, d, True,
+                                                 dtype)
+        timings[dtype] = {
+            "shape": [b, h, hkv, t, t, d], "causal": True,
+            "ms": time_ms(torch, lambda: fa.flash_attention_bwd(
+                q, k, v, o, lse, do, True), reps=10),
+            "plain_ms": time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, True), reps=10),
+            "library_ms": time_ms(torch, _sdpa_bwd(torch, q, k, v, do),
+                                  reps=10),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "kernel": "flash_attention_bwd",
+          "cases": results, "max_abs_err": worst, "timings": timings})
+    return worst, timings
+
+
+def phase_kernel_update(torch):
+    """Fused updates: kernel vs plain on the card (clip and rescale on and
+    off, the LM's two largest shapes, a ragged length, f32 and bf16), then
+    one timed pass over all of the LM's parameters (f32)."""
+    from mxnet_tpu_torch.ops.kernels import fused_update as fu
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    hyper = {"sgd_mom_update": dict(lr=0.05, momentum=0.9, wd=1e-4),
+             "adam_update": dict(lr=1e-3, beta1=0.9, beta2=0.999,
+                                 epsilon=1e-8, wd=1e-4)}
+    plain = {"sgd_mom_update": fu.sgd_mom_update_plain,
+             "adam_update": fu.adam_update_plain}
+    kernel = {"sgd_mom_update": fu.sgd_mom_update,
+              "adam_update": fu.adam_update}
+    n_state = {"sgd_mom_update": 1, "adam_update": 2}
+
+    def buffers(kind, shape, dtype):
+        dt = getattr(torch, dtype)
+        w, g = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        states = [torch.randn(shape, generator=gen, device="cuda").to(dt)
+                  for _ in range(n_state[kind])]
+        if kind == "adam_update":
+            # a running mean of g * g, kept off zero so lr * m / sqrt(v)
+            # stays at the scale of real steps
+            states[1] = states[1].abs() + 0.01
+        return [w, g] + states
+
+    cases = []
+    for shape, dtype in (((8192, 2048), "float32"), ((10000, 2048),
+                                                     "float32"),
+                         ((1001,), "float32"), ((8192, 2048), "bfloat16"),
+                         ((1001,), "bfloat16")):
+        for rescale, clip in ((1.0, -1.0), (0.5, 0.3)):
+            cases.append((shape, dtype, rescale, clip))
+    results, worst = [], {k: 0.0 for k in kernel}
+    for kind in kernel:
+        for shape, dtype, rescale, clip in cases:
+            bufs = buffers(kind, shape, dtype)
+            got = [t.clone() for t in bufs]
+            want = [t.clone() for t in bufs]
+            kernel[kind](*got, rescale_grad=rescale, clip_gradient=clip,
+                         **hyper[kind])
+            plain[kind](*want, rescale_grad=rescale, clip_gradient=clip,
+                        **hyper[kind])
+            torch.cuda.synchronize()
+            atol, rtol = UPDATE_TOL[dtype]
+            errs = []
+            for i, (g, w) in enumerate(zip(got, want)):
+                if i == 1:
+                    continue  # the gradient is an input only
+                torch.testing.assert_close(g.float(), w.float(), atol=atol,
+                                           rtol=rtol)
+                errs.append(float((g.float() - w.float()).abs().max()))
+            results.append({"kernel": kind, "shape": list(shape),
+                            "dtype": dtype, "rescale_grad": rescale,
+                            "clip_gradient": clip, "atol": atol,
+                            "rtol": rtol, "max_abs_err": errs})
+            worst[kind] = max([worst[kind]] + errs)
+
+    shapes = list(lm_param_shapes(LM).values())
+    elements = int(sum(np.prod(s) for s in shapes))
+    timings = {}
+    for kind in kernel:
+        params = [buffers(kind, s, "float32") for s in shapes]
+        for p in params:
+            if kind == "adam_update":
+                p[3].zero_()
+        bound_ms, bound_by = update_bound(kind, elements)
+        timings[kind] = {
+            "parameters": len(shapes), "elements": elements,
+            "dtype": "float32",
+            "ms": time_ms(torch, lambda: [kernel[kind](*p, **hyper[kind])
+                                          for p in params], reps=10),
+            "plain_ms": time_ms(torch, lambda: [plain[kind](
+                *p, **hyper[kind]) for p in params], reps=10),
+            "library_ms": None,
+            "library_note": "no single PyTorch call has MXNet's update "
+                            "convention (torch.optim's momentum and Adam "
+                            "differ)",
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        del params
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "kernel": "fused_update", "cases": results,
+          "max_abs_err": worst, "timings": timings})
+    return worst, timings
+
+
 def phase_serve(cfg=LM, serve=SERVE, device=None, ref_device="cpu",
                 seed=SEED):
     """The generate path end to end. ``device`` None = the card (the
@@ -272,6 +490,136 @@ def phase_serve(cfg=LM, serve=SERVE, device=None, ref_device="cpu",
     return launches
 
 
+def _counters():
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    from mxnet_tpu_torch.ops.kernels import fused_update as fu
+
+    return {"flash_attention_fwd": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "sgd_mom_update": fu.sgd_mom_update,
+            "adam_update": fu.adam_update}
+
+
+def _train_steps(torch, exe, names, updater, steps, sync):
+    """``steps`` forward/backward/update rounds; (losses, seconds each)."""
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        exe.forward(is_train=True)
+        exe.backward()
+        for i, n in enumerate(names):
+            updater(i, exe.grad_dict[n], exe.arg_dict[n])
+        loss = float(exe.outputs[0].asnumpy())
+        if sync:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss)
+    return losses, secs
+
+
+def _batch(cfg, batch, seq, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, cfg["vocab"], (batch, seq)).astype(np.float32),
+            rng.randint(0, cfg["vocab"], (batch, seq)).astype(np.float32))
+
+
+def phase_train(cfg=LM, train=TRAIN, device=None, ref_device="cpu",
+                seed=SEED):
+    """The training path end to end. ``device`` None = the card; the
+    card-vs-reference check runs the same weights on ``ref_device``, where
+    every wrapper takes its plain version."""
+    import torch
+
+    from mxnet_tpu_torch import initializer, optimizer
+
+    sgd = dict(learning_rate=train["lr"], momentum=train["momentum"],
+               wd=train["wd"])
+    # 1. card vs the port's CPU path: same weights, same batch, 2 SGD steps
+    params = lm_arg_params(cfg, seed)
+    cb, cs = train["check_batch"], train["check_seq"]
+    x, y = _batch(cfg, cb, cs, seed + 3)
+    runs = []
+    for dev in (device, ref_device):
+        exe, names = lm_train_executor(cfg, cb, cs, dev)
+        exe.copy_params_from(params)
+        exe.arg_dict["data"][:] = x
+        exe.arg_dict["softmax_label"][:] = y
+        upd = optimizer.Updater(optimizer.SGD(
+            param_idx2name=dict(enumerate(names)), **sgd))
+        losses, _ = _train_steps(torch, exe, names, upd,
+                                 train["check_steps"], sync=False)
+        runs.append((losses, {n: exe.arg_dict[n].asnumpy() for n in names}))
+        del exe, upd
+    (got_l, got_p), (ref_l, ref_p) = runs
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got_l, ref_l))
+    param_err = max(float(np.abs(got_p[n] - ref_p[n]).max()) for n in ref_p)
+    if not loss_err <= TRAIN_LOSS_RTOL or not param_err <= TRAIN_PARAM_ATOL:
+        raise RuntimeError(
+            "train check: losses %s vs %s (rel err %g, tol %g), parameters "
+            "max abs err %g (tol %g)" % (got_l, ref_l, loss_err,
+                                         TRAIN_LOSS_RTOL, param_err,
+                                         TRAIN_PARAM_ATOL))
+    del params, runs, got_p, ref_p
+
+    # 2. the run: Xavier init from the seed, 5 SGD-momentum + 3 Adam steps
+    on_card = device is None or torch.device(device).type == "cuda"
+    b, t = train["batch"], train["seq"]
+    exe, names = lm_train_executor(cfg, b, t, device)
+    init = initializer.Xavier(factor_type="in", magnitude=2,
+                              rng=np.random.RandomState(seed))
+    for n in names:
+        init(initializer.InitDesc(n), exe.arg_dict[n])
+    x, y = _batch(cfg, b, t, seed + 4)
+    exe.arg_dict["data"][:] = x
+    exe.arg_dict["softmax_label"][:] = y
+    idx2name = dict(enumerate(names))
+    counters = _counters()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses, secs = _train_steps(
+        torch, exe, names, optimizer.Updater(optimizer.SGD(
+            param_idx2name=idx2name, **sgd)),
+        train["sgd_steps"], on_card)
+    more, more_s = _train_steps(
+        torch, exe, names, optimizer.Updater(optimizer.Adam(
+            learning_rate=train["adam_lr"], wd=train["wd"],
+            param_idx2name=idx2name)),
+        train["adam_steps"], on_card)
+    launches = {k: c.launches for k, c in counters.items()}
+    losses += more
+    secs += more_s
+    steps = train["sgd_steps"] + train["adam_steps"]
+    want = {"flash_attention_fwd": cfg["layers"] * steps,
+            "flash_attention_bwd": cfg["layers"] * steps,
+            "sgd_mom_update": len(names) * train["sgd_steps"],
+            "adam_update": len(names) * train["adam_steps"]}
+    if launches != want:
+        raise RuntimeError("train phase launched %s, want %s"
+                           % (launches, want))
+    if not all(np.isfinite(losses)):
+        raise RuntimeError("train phase: non-finite loss in %s" % losses)
+    step_s = float(np.median(secs))
+    result = {"phase": "train", "batch": b, "seq": t, "dtype": "float32",
+              "parameters": len(names),
+              "elements": int(sum(exe.arg_dict[n].size for n in names)),
+              "check": {"batch": cb, "seq": cs, "sgd_steps":
+                        train["check_steps"], "losses": got_l,
+                        "ref_losses": ref_l, "loss_rel_err": loss_err,
+                        "param_max_abs_err": param_err,
+                        "loss_rtol": TRAIN_LOSS_RTOL,
+                        "param_atol": TRAIN_PARAM_ATOL},
+              "losses": losses, "step_ms": [x * 1e3 for x in secs],
+              "median_step_ms": step_s * 1e3,
+              "tokens_per_s": b * t / step_s, "launches": launches}
+    if on_card:
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit(result)
+    return launches
+
+
 def main():
     import torch
 
@@ -283,16 +631,44 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     worst, timings = phase_kernel(torch)
-    launches = phase_serve()
+    bwd_worst, bwd_timings = phase_kernel_bwd(torch)
+    upd_worst, upd_timings = phase_kernel_update(torch)
+    serve_launches = phase_serve()
+    train = phase_train()
     t = timings["bfloat16"]
-    emit({"kernels": [{
+    rows = [{
         "name": "flash_attention_fwd", "route": "cuda", "source": FA_SRC,
-        "replaces": FA_REPLACES, "launches": launches,
+        "replaces": FA_REPLACES,
+        "launches": serve_launches + train["flash_attention_fwd"],
+        "launches_by_phase": {"serve": serve_launches,
+                              "train": train["flash_attention_fwd"]},
         "max_abs_err": max(worst.values()), "max_err": worst,
         "dtype": "bfloat16", "shape": t["shape"], "ms": t["ms"],
-        "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"], "float32": timings["float32"]}]})
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "float32": timings["float32"]}]
+    t = bwd_timings["float32"]
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SRC,
+        "replaces": FA_BWD_REPLACES,
+        "launches": train["flash_attention_bwd"],
+        "max_abs_err": max(bwd_worst.values()), "max_err": bwd_worst,
+        "dtype": "float32", "shape": t["shape"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "bfloat16": bwd_timings["bfloat16"]})
+    for kind in ("sgd_mom_update", "adam_update"):
+        t = upd_timings[kind]
+        rows.append({
+            "name": kind, "route": "cuda", "source": UPDATE_SRC,
+            "replaces": UPDATE_REPLACES[kind], "launches": train[kind],
+            "max_abs_err": upd_worst[kind], "dtype": "float32",
+            "shape": "%d LM parameters, %d elements" % (t["parameters"],
+                                                        t["elements"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "library_note": t["library_note"]})
+    emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -11,13 +11,21 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that request they raise (``context.py``).
 
 Ported so far: the continuous-batching generate path
-(``serving.generate``) with its flash-attention forward kernel.
+(``serving.generate``) with its flash-attention forward kernel, and the
+training path ``models.get_symbol`` -> ``Symbol.simple_bind`` ->
+``initializer`` / ``Executor.copy_params_from`` -> ``Executor.forward`` /
+``backward`` -> ``optimizer.Updater`` (SGD momentum, Adam), with the
+flash-attention backward and the fused update kernels.
 """
-from . import base, context, engine
+from . import (base, context, engine, executor, initializer, models,
+               ndarray, optimizer, symbol)
+from . import ndarray as nd
+from . import symbol as sym
 from .base import MXNetError
 from .context import cpu, default_device, gpu
 
-__version__ = "0.9.5-torch.1"
+__version__ = "0.9.5-torch.2"
 
 __all__ = ["MXNetError", "base", "context", "cpu", "default_device",
-           "engine", "gpu"]
+           "engine", "executor", "gpu", "initializer", "models", "nd",
+           "ndarray", "optimizer", "sym", "symbol"]

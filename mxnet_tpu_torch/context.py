@@ -31,7 +31,12 @@ def default_device() -> torch.device:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device; None means :func:`default_device`."""
+    """``device`` as a torch.device; None means :func:`default_device`.
+    A bare "cuda" names card 0, so devices compare equal to the tensors'
+    own."""
     if device is None:
         return default_device()
-    return torch.device(device)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return gpu(0)
+    return device

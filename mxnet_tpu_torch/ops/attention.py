@@ -1,16 +1,63 @@
 """Attention and normalization math in plain PyTorch.
 
-Counterpart of ``mxnet_tpu/ops/attention.py``: rotary embedding, the
-reference attention math (f32 logits and softmax whatever the input
-type), the grouped-query form that never repeats K/V, and the decode
-step's length-masked attention over a KV cache. Masked logits take
+Counterpart of ``mxnet_tpu/ops/attention.py``: the ``LayerNorm`` and
+``MultiHeadAttention`` operators, rotary embedding, the reference
+attention math (f32 logits and softmax whatever the input type), the
+grouped-query form that never repeats K/V, and the decode step's
+length-masked attention over a KV cache. Masked logits take
 ``finfo(float32).min`` as in the reference, not ``-inf``.
 """
 from __future__ import annotations
 
 import torch
 
+from .registry import defop
+
 _NEG = torch.finfo(torch.float32).min
+
+
+@defop("LayerNorm", arg_names=("data", "gamma", "beta"),
+       param_spec={"axis": -1, "eps": 1e-5})
+def _layer_norm_op(attrs, data, gamma, beta):
+    """Layer normalization over ``axis`` (:func:`layer_norm`)."""
+    ax = int(attrs["axis"]) % data.dim()
+    x = data.movedim(ax, -1)
+    return layer_norm(x, gamma, beta, attrs["eps"]).movedim(-1, ax)
+
+
+@defop("MultiHeadAttention", arg_names=("query", "key", "value"),
+       param_spec={"num_heads": 1, "num_kv_heads": 0, "causal": False,
+                   "use_rope": False})
+def _multi_head_attention(attrs, query, key, value):
+    """Multi-head attention on (B, T, H*D) projected inputs: split heads,
+    RoPE on q/k if asked, grouped-query attention (``num_kv_heads`` < heads;
+    0 means MHA), merge heads. Attention always goes through the
+    flash-attention function, whose backward is the flash backward; the
+    port has no einsum path to select."""
+    from .kernels import flash_attention as _fa
+
+    h = int(attrs["num_heads"])
+    hkv = int(attrs["num_kv_heads"]) or h
+    if h % hkv:
+        raise ValueError("num_heads %d not divisible by num_kv_heads %d"
+                         % (h, hkv))
+    if query.device.type == "meta":
+        # shape inference (symbol.infer_shape): nothing to compute
+        return torch.empty_like(query)
+    b, tq, dm = query.shape
+    tk = key.shape[1]
+    d = dm // h
+
+    def split(x, t, heads):
+        # (B, T, H*D) -> a (B, H, T, D) view of (B, T, H, D) storage
+        return x.reshape(b, t, heads, d).transpose(1, 2)
+
+    q = split(query, tq, h)
+    k, v = split(key, tk, hkv), split(value, tk, hkv)
+    if attrs["use_rope"]:
+        q, k = rope(q), rope(k)
+    out = _fa.FlashAttention.apply(q, k, v, bool(attrs["causal"]), None)
+    return out.transpose(1, 2).reshape(b, tq, dm)
 
 
 def layer_norm(x, gamma, beta, eps=1e-5):

@@ -33,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, object] = {}
 #: name -> nvcc/ptxas output of the build made by this process (registers,
 #: shared memory and spills per kernel), for the record
 build_log: Dict[str, str] = {}
@@ -113,3 +114,16 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(path)
         return _libs[name]
+
+
+def kernel(name: str, symbol: str, argtypes) -> object:
+    """The C entry point ``symbol`` of kernel ``name``'s library, typed
+    with ``argtypes`` and returning an int (a cudaError_t); built and
+    loaded at first use."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return fn

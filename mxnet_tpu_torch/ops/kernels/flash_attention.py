@@ -1,9 +1,12 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers, their plain versions, and
+the autograd function that joins them.
 
 Replaces ``mxnet_tpu/ops/pallas/flash_attention.py``'s ``_fa_forward``
-(the Pallas kernels ``_fa_kernel_res`` and ``_fa_kernel_stream``); the
-kernel is ``csrc/flash_attention_fwd.cu``, whose header says what bounds
-it and what its design does about that.
+(the Pallas kernels ``_fa_kernel_res`` and ``_fa_kernel_stream``), now
+``csrc/flash_attention_fwd.cu``, and its ``_fa_backward`` (the dQ and dK/dV
+Pallas kernels), now ``csrc/flash_attention_bwd.cu``; each file's header
+says what bounds it and what its design does about that. The reference's
+``custom_vjp`` around the pair is :class:`FlashAttention`.
 
 :func:`flash_attention` takes q (B, H, Tq, D) and k/v (B, Hkv, Tk, D) with
 Hkv dividing H. For CPU tensors it runs :func:`flash_attention_plain`; for
@@ -24,7 +27,8 @@ from ..attention import grouped_logits
 HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NAME = "flash_attention_fwd"
-_fn = None
+_BWD_NAME = "flash_attention_bwd"
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 
 def _check(q, k, v, causal):
@@ -84,17 +88,11 @@ def flash_attention_plain(q, k, v, causal=False, scale=None,
 
 
 def _kernel():
-    global _fn
-    if _fn is None:
-        from . import _build
+    from . import _build
 
-        fn = _build.load(_NAME).mxtt_flash_attention_fwd
-        i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-        fn.argtypes = ([ptr] * 5 + [i32] * 7 + [i64] * 9
-                       + [ctypes.c_float, i32, ptr])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+    return _build.kernel(_NAME, "mxtt_flash_attention_fwd",
+                         [_PTR] * 5 + [_I32] * 7 + [_I64] * 9
+                         + [ctypes.c_float, _I32, _PTR])
 
 
 def _launch(q, k, v, causal, scale, return_lse):
@@ -145,3 +143,127 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False):
 
 
 flash_attention.launches = 0
+
+
+# --- backward ----------------------------------------------------------------
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None):
+    """Plain PyTorch version of the reference's Pallas backward, all in f32:
+    rebuild p = exp(scale * q.k - lse) from the forward's logsumexp,
+    D = rowsum(dO * O), dV = p^T dO, dS = p * (dO v^T - D),
+    dQ = scale * dS K, dK = scale * dS^T Q, with dK/dV summed over each
+    GQA group. Returns (dq, dk, dv) of the input types."""
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    g = h // hkv
+    if scale is None:
+        scale = 1.0 / d ** 0.5
+    logits = grouped_logits(q, k, hkv, causal, scale)     # (b, hkv, g, tq, tk)
+    p = torch.exp(logits - lse.float().reshape(b, hkv, g, tq, 1))
+    do5 = do.float().reshape(b, hkv, g, tq, d)
+    dvec = (do5 * o.float().reshape(b, hkv, g, tq, d)).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgql,bkgqd->bkld", p, do5)
+    dp = torch.einsum("bkgqd,bkld->bkgql", do5, v.float())
+    ds = p * (dp - dvec)
+    dq = torch.einsum("bkgql,bkld->bkgqd", ds, k.float()) * scale
+    dk = torch.einsum("bkgql,bkgqd->bkld",
+                      ds, q.float().reshape(b, hkv, g, tq, d)) * scale
+    return (dq.reshape(b, h, tq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _bwd_kernel():
+    from . import _build
+
+    return _build.kernel(_BWD_NAME, "mxtt_flash_attention_bwd",
+                         [_PTR] * 9 + [_I32] * 7 + [_I64] * 12
+                         + [ctypes.c_float, _I32, _PTR])
+
+
+def _unit_inner(t):
+    """``t`` itself when its head dim has unit stride (the (B, T, H, D)
+    storage views attention passes), else a contiguous copy."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal, scale):
+    q, k, v, do = (_unit_inner(t) for t in (q, k, v, do))
+    _check_kernel(q, k, v)
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    # D = rowsum(dO * O) outside the kernels, as the reference computes it
+    dvec = (do.float() * o.float()).sum(-1).contiguous()
+    lse = lse.float().contiguous()
+    dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, hkv, tk, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, hkv, tk, d), dtype=v.dtype, device=q.device)
+    fn = _bwd_kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(),
+                 _DTYPE_CODE[q.dtype], b, h, hkv, tq, tk, d,
+                 q.stride(0), q.stride(1), q.stride(2),
+                 k.stride(0), k.stride(1), k.stride(2),
+                 v.stride(0), v.stride(1), v.stride(2),
+                 do.stride(0), do.stride(1), do.stride(2),
+                 float(scale), int(bool(causal)), stream)
+    if err != 0:
+        raise RuntimeError("flash_attention_bwd launch failed: cudaError %d"
+                           % err)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` from its inputs,
+    its output ``o``, its logsumexp ``lse`` (B, H, Tq) f32 and the output
+    gradient ``do``; dk/dv at the narrow (B, Hkv, Tk, D) width. CPU tensors
+    take the plain version; CUDA tensors launch the dQ and dK/dV kernels,
+    counted once per call in ``flash_attention_bwd.launches``."""
+    _check(q, k, v, causal)
+    b, h, tq, d = q.shape
+    if o.shape != q.shape or do.shape != q.shape \
+            or tuple(lse.shape) != (b, h, tq):
+        raise ValueError("flash_attention_bwd: o/do must be shaped like q "
+                         "%s and lse (B, H, Tq); got %s %s %s"
+                         % (tuple(q.shape), tuple(o.shape), tuple(do.shape),
+                            tuple(lse.shape)))
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError("flash_attention_bwd: o/do dtypes %s %s differ from "
+                        "q's %s" % (o.dtype, do.dtype, q.dtype))
+    if not (o.device == lse.device == do.device == q.device):
+        raise ValueError("flash_attention_bwd: o/lse/do not on q's device")
+    if scale is None:
+        scale = 1.0 / d ** 0.5
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_bwd: no path for device %s"
+                         % q.device)
+    return _launch_bwd(q, k, v, o, lse, do, causal, scale)
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the reference's ``custom_vjp``
+    ``_flash``): the forward runs :func:`flash_attention` and saves its
+    output and logsumexp; the backward runs :func:`flash_attention_bwd`.
+    ``FlashAttention.apply(q, k, v, causal, scale)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None

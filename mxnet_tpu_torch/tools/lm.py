@@ -1,10 +1,12 @@
-"""The full-width serving LM the card scripts drive.
+"""The full-width LM the card scripts drive.
 
 ``chip_smoke.py`` and :mod:`mxnet_tpu_torch.tools.profile_generate` serve
 the GQA decoder LM of ``bench.py`` (d 2048, 16 heads, 4 kv heads,
 ffn 8192, vocab 10000, bench.py's own 4 layers) from seeded random weights
-in ``models/transformer.py`` checkpoint naming. Both take the
-configuration, the weights and the card's identity line from here.
+in ``models/transformer.py`` checkpoint naming, and ``chip_smoke.py``
+trains it (``TRAIN``: bench.py's SGD hyperparameters, batch cut from 32 to
+4 x 2048 to fit the script's time). All take the configuration, the
+weights and the card's identity line from here.
 """
 from __future__ import annotations
 
@@ -18,40 +20,70 @@ SERVE = {"slots": 4, "prefill_buckets": (128, 512, 2048),
          "max_context": 2304, "max_new_tokens": 32,
          "prompt_lens": (100, 300, 500, 900, 1500, 2000),
          "check_lens": (500, 2000)}
+# bench.py:334's SGD hyperparameters; batch cut from bench's 32; the
+# card-vs-CPU check runs 1 x 256 so its CPU side finishes in seconds
+TRAIN = {"batch": 4, "seq": 2048, "sgd_steps": 5, "adam_steps": 3,
+         "lr": 0.05, "momentum": 0.9, "wd": 1e-4, "adam_lr": 1e-4,
+         "check_batch": 1, "check_seq": 256, "check_steps": 2}
 SEED = 0
+
+
+def lm_symbol(cfg):
+    """The LM's training symbol (MakeLoss mean-NLL head, as bench.py)."""
+    from .. import models
+
+    return models.get_symbol(
+        "transformer-lm", num_classes=cfg["vocab"], num_layers=cfg["layers"],
+        num_heads=cfg["heads"], model_dim=cfg["d_model"],
+        ffn_dim=cfg["ffn"], num_kv_heads=cfg["kv_heads"], scalar_loss=True)
+
+
+def lm_train_executor(cfg, batch, seq, device=None):
+    """The LM bound for training at (batch, seq) on ``device`` (None = the
+    card): (executor, names of the trained arguments in bind order)."""
+    sym = lm_symbol(cfg)
+    reqs = {n: ("null" if n in ("data", "softmax_label") else "write")
+            for n in sym.list_arguments()}
+    exe = sym.simple_bind(device, grad_req=reqs, data=(batch, seq),
+                         softmax_label=(batch, seq))
+    return exe, [n for n in sym.list_arguments() if reqs[n] != "null"]
+
+
+def lm_param_shapes(cfg):
+    """name -> shape of every trained parameter, in checkpoint naming."""
+    d, f, v = cfg["d_model"], cfg["ffn"], cfg["vocab"]
+    dkv = d // cfg["heads"] * cfg["kv_heads"]
+    shapes = {"embed_weight": (v, d)}
+    for i in range(cfg["layers"]):
+        pre = "layer%d" % i
+        shapes.update({
+            pre + "_ln1_gamma": (d,), pre + "_ln1_beta": (d,),
+            pre + "_q_weight": (d, d), pre + "_k_weight": (dkv, d),
+            pre + "_v_weight": (dkv, d), pre + "_o_weight": (d, d),
+            pre + "_ln2_gamma": (d,), pre + "_ln2_beta": (d,),
+            pre + "_ffn1_weight": (f, d), pre + "_ffn1_bias": (f,),
+            pre + "_ffn2_weight": (d, f), pre + "_ffn2_bias": (d,)})
+    shapes.update({"lnf_gamma": (d,), "lnf_beta": (d,),
+                   "pred_weight": (v, d), "pred_bias": (v,)})
+    return shapes
 
 
 def lm_arg_params(cfg, seed):
     """Seeded random weights in models/transformer.py checkpoint naming;
     matrices scaled 1/sqrt(fan_in) so the greedy argmax is well
-    separated."""
+    separated, gammas 1, betas and biases 0."""
     rng = np.random.default_rng(seed)
-    d, f, v = cfg["d_model"], cfg["ffn"], cfg["vocab"]
-    dkv = d // cfg["heads"] * cfg["kv_heads"]
-
-    def mat(rows, cols):
-        return rng.standard_normal((rows, cols), dtype=np.float32) \
-            / np.float32(np.sqrt(cols))
-
-    p = {"embed_weight": rng.standard_normal((v, d), dtype=np.float32)}
-    for i in range(cfg["layers"]):
-        pre = "layer%d" % i
-        p[pre + "_ln1_gamma"] = np.ones(d, np.float32)
-        p[pre + "_ln1_beta"] = np.zeros(d, np.float32)
-        p[pre + "_q_weight"] = mat(d, d)
-        p[pre + "_k_weight"] = mat(dkv, d)
-        p[pre + "_v_weight"] = mat(dkv, d)
-        p[pre + "_o_weight"] = mat(d, d)
-        p[pre + "_ln2_gamma"] = np.ones(d, np.float32)
-        p[pre + "_ln2_beta"] = np.zeros(d, np.float32)
-        p[pre + "_ffn1_weight"] = mat(f, d)
-        p[pre + "_ffn1_bias"] = np.zeros(f, np.float32)
-        p[pre + "_ffn2_weight"] = mat(d, f)
-        p[pre + "_ffn2_bias"] = np.zeros(d, np.float32)
-    p["lnf_gamma"] = np.ones(d, np.float32)
-    p["lnf_beta"] = np.zeros(d, np.float32)
-    p["pred_weight"] = mat(v, d)
-    p["pred_bias"] = np.zeros(v, np.float32)
+    p = {}
+    for name, shape in lm_param_shapes(cfg).items():
+        if name == "embed_weight":
+            p[name] = rng.standard_normal(shape, dtype=np.float32)
+        elif name.endswith("_weight"):
+            p[name] = rng.standard_normal(shape, dtype=np.float32) \
+                / np.float32(np.sqrt(shape[1]))
+        elif name.endswith("_gamma"):
+            p[name] = np.ones(shape, np.float32)
+        else:
+            p[name] = np.zeros(shape, np.float32)
     return p
 
 

@@ -28,9 +28,18 @@ def _emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+# the port's kernels by the name of their __global__ function
+KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
+           "flash_bwd_dq_kernel": "flash_attention_bwd",
+           "flash_bwd_dkv_kernel": "flash_attention_bwd",
+           "sgd_mom_kernel": "sgd_mom_update",
+           "adam_kernel": "adam_update"}
+
+
 def _kind(name: str) -> str:
-    if "flash_fwd_kernel" in name:
-        return "flash_attention_fwd"
+    for fn, kind in KERNELS.items():
+        if fn in name:
+            return kind
     low = name.lower()
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "cublas")):
         return "matmul"

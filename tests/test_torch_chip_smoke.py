@@ -1,8 +1,8 @@
 """chip_smoke.py's logic on the CPU at a tiny size.
 
-The script itself needs a CUDA card; here its serve phase runs on the host
-(the flash wrapper takes its plain version, counted in place of kernel
-launches) so a broken phase shows before a card run, and its bound
+The script itself needs a CUDA card; here its serve and train phases run
+on the host (each wrapper takes its plain version, counted in place of
+kernel launches) so a broken phase shows before a card run, and its bound
 arithmetic is checked against closed forms.
 """
 import numpy as np
@@ -10,22 +10,38 @@ import pytest
 
 import chip_smoke as cs
 from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+from mxnet_tpu_torch.ops.kernels import fused_update as fu
 
 TINY = {"vocab": 97, "d_model": 32, "heads": 4, "kv_heads": 2, "ffn": 64,
         "layers": 2}
 TINY_SERVE = {"slots": 2, "prefill_buckets": (8, 16), "max_context": 24,
               "max_new_tokens": 4, "prompt_lens": (3, 9, 14),
               "check_lens": (9, 14)}
+TINY_TRAIN = {"batch": 2, "seq": 16, "sgd_steps": 2, "adam_steps": 1,
+              "lr": 0.05, "momentum": 0.9, "wd": 1e-4, "adam_lr": 1e-3,
+              "check_batch": 1, "check_seq": 8, "check_steps": 2}
+# plain version -> the wrapper whose launch count it stands in for
+PLAINS = {"flash_attention_plain": "flash_attention",
+          "flash_attention_bwd_plain": "flash_attention_bwd",
+          "sgd_mom_update_plain": "sgd_mom_update",
+          "adam_update_plain": "adam_update"}
+
+
+def _count_plain_calls(monkeypatch):
+    """Count each plain call on the host as its kernel's launch."""
+    for plain_name, wrapper_name in PLAINS.items():
+        mod = fa if hasattr(fa, plain_name) else fu
+        plain, wrapper = getattr(mod, plain_name), getattr(mod, wrapper_name)
+
+        def counted(*args, _plain=plain, _wrapper=wrapper, **kw):
+            _wrapper.launches += 1
+            return _plain(*args, **kw)
+
+        monkeypatch.setattr(mod, plain_name, counted)
 
 
 def test_serve_phase_on_cpu(monkeypatch, capsys):
-    plain = fa.flash_attention_plain
-
-    def counted(*args, **kw):
-        fa.flash_attention.launches += 1
-        return plain(*args, **kw)
-
-    monkeypatch.setattr(fa, "flash_attention_plain", counted)
+    _count_plain_calls(monkeypatch)
     launches = cs.phase_serve(TINY, TINY_SERVE, device="cpu")
     assert launches == len(TINY_SERVE["prompt_lens"]) * TINY["layers"]
     line = capsys.readouterr().out.strip().splitlines()[-1]
@@ -50,3 +66,45 @@ def test_attention_bound_counts_visible_pairs(tq, tk):
     assert by == ("operations" if t_ops >= t_bytes else "bytes")
     full_ms, _ = cs.attention_bound(b, h, hkv, tq, tk, d, False, "float32")
     assert full_ms >= ms
+
+
+def test_train_phase_on_cpu(monkeypatch, capsys):
+    _count_plain_calls(monkeypatch)
+    launches = cs.phase_train(TINY, TINY_TRAIN, device="cpu")
+    steps = TINY_TRAIN["sgd_steps"] + TINY_TRAIN["adam_steps"]
+    n_params = len(cs.lm_param_shapes(TINY))
+    assert launches == {
+        "flash_attention_fwd": TINY["layers"] * steps,
+        "flash_attention_bwd": TINY["layers"] * steps,
+        "sgd_mom_update": n_params * TINY_TRAIN["sgd_steps"],
+        "adam_update": n_params * TINY_TRAIN["adam_steps"]}
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert '"phase": "train"' in line and '"losses"' in line
+
+
+def test_train_phase_fails_when_the_kernels_are_not_reached():
+    """On the host nothing counts a launch: the phase must refuse."""
+    with pytest.raises(RuntimeError, match="train phase launched"):
+        cs.phase_train(TINY, TINY_TRAIN, device="cpu")
+
+
+@pytest.mark.parametrize("tq,tk,causal", [(2048, 2048, True),
+                                          (300, 1000, True),
+                                          (512, 512, False)])
+def test_attention_bwd_bound_is_ten_d_flops_per_pair(tq, tk, causal):
+    b, h, hkv, d = 4, 16, 4, 128
+    pairs = (sum(min(tk, i + tk - tq + 1) for i in range(tq)) if causal
+             else tq * tk)
+    ms, by = cs.attention_bwd_bound(b, h, hkv, tq, tk, d, causal,
+                                    "float32")
+    assert by == "operations"
+    assert np.isclose(ms, 10 * b * h * d * pairs / 67e12 * 1e3)
+
+
+def test_update_bound_counts_each_buffer_once():
+    n = sum(int(np.prod(s)) for s in cs.lm_param_shapes(cs.LM).values())
+    assert 217.0e6 < n < 217.5e6
+    ms, by = cs.update_bound("sgd_mom_update", n)
+    assert by == "bytes" and np.isclose(ms, 20 * n / 3.35e12 * 1e3)
+    assert np.isclose(cs.update_bound("adam_update", n)[0],
+                      28 * n / 3.35e12 * 1e3)

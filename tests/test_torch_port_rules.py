@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
-from mxnet_tpu_torch import context
+from mxnet_tpu_torch import context, models
+from mxnet_tpu_torch import ndarray as nd
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.executor import Executor
 from mxnet_tpu_torch.serving import generate as tgen
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,12 +55,29 @@ def test_package_never_imports_a_root_script():
     assert not bad, bad
 
 
+def _port_modules():
+    """Dotted names of every module of the package."""
+    pkg = os.path.join(ROOT, "mxnet_tpu_torch")
+    mods = []
+    for path in _port_files():
+        if not path.startswith(pkg + os.sep):
+            continue
+        rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
+        mods.append(rel[:-len(".__init__")] if rel.endswith(".__init__")
+                    else rel)
+    return mods
+
+
 def test_import_leaves_jax_unloaded():
-    code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving.generate, "
-            "mxnet_tpu_torch.ops.kernels.flash_attention; "
+    mods = _port_modules()
+    assert {"mxnet_tpu_torch.symbol", "mxnet_tpu_torch.executor",
+            "mxnet_tpu_torch.optimizer",
+            "mxnet_tpu_torch.ops.kernels.fused_update"} <= set(mods)
+    code = ("import importlib, sys; "
+            "[importlib.import_module(m) for m in %r]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
-            "sys.exit(1 if bad else 0)")
+            "sys.exit(1 if bad else 0)" % (mods,))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -74,6 +93,16 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(
         tgen.params_from_numpy(params)
     with pytest.raises(MXNetError, match="no CUDA device"):
         tgen.DecodeModel.from_arg_params(params, tgen.DecodeSpec(2))
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        nd.array([1.0, 2.0])
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        nd.zeros((2, 2))
+    mlp = models.get_symbol("mlp", num_classes=3, hidden=(4,))
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        mlp.simple_bind(data=(2, 5))
+    exe = mlp.simple_bind("cpu", data=(2, 5))
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        Executor(mlp, None, exe.arg_dict)
     # asking for the host explicitly is the way onto the CPU
     assert context.resolve_device("cpu") == torch.device("cpu")
     assert context.gpu(1) == torch.device("cuda", 1)
