@@ -25,7 +25,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    port's CPU path from the same weights (losses and parameters must
    agree), then Xavier-initialized 5 SGD-momentum + 3 Adam steps at
    4 x 2048 (batch cut from bench.py's 32), with exact launch counts of
-   all four kernels.
+   every kernel (flash forward, backward dQ and dK/dV, both updates).
 5. ``kernels`` — one line per the port's kernel table.
 
 Then the card's ``nvidia-smi`` name/power-limit line and, last, the
@@ -40,7 +40,8 @@ import time
 import numpy as np
 
 from mxnet_tpu_torch.tools.lm import LM, SERVE, SEED, TRAIN, \
-    lm_arg_params, lm_param_shapes, lm_train_executor, nvidia_smi
+    lm_arg_params, lm_feed, lm_param_shapes, lm_train_executor, \
+    lm_train_setup, lm_update, lm_updater, nvidia_smi
 
 H100 = {"bf16_flops": 989e12, "f32_flops": 67e12, "bytes_per_s": 3.35e12}
 CSRC = "mxnet_tpu_torch/ops/kernels/csrc/"
@@ -73,6 +74,23 @@ UPDATE_TOL = {"float32": (1e-6, 1e-5), "bfloat16": (1e-2, 2e-2)}
 # lr 0.05 and momentum into the weights
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
+
+
+def flash_cases():
+    """Cases (b, h, hkv, tq, tk, d, causal, dtype, heads_major) of both
+    flash kernels: the serve and train shapes (T up to 2048 at batch 1, and
+    the training shape at batch 4), each as (B, T, H, D)-storage views like
+    those ``MultiHeadAttention`` passes; MHA; tq < tk; head_dim 64."""
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        cases += [(1, 16, 4, t, t, 128, True, dtype, True)
+                  for t in (128, 512, 1000, 2048)]
+        cases += [(1, 16, 4, 2048, 2048, 128, True, dtype, False),
+                  (4, 16, 4, 2048, 2048, 128, True, dtype, False),
+                  (1, 16, 16, 512, 512, 128, False, dtype, True),
+                  (1, 16, 4, 300, 1000, 128, True, dtype, True),
+                  (2, 8, 2, 777, 777, 64, True, dtype, True)]
+    return cases
 
 
 def emit(obj):
@@ -153,53 +171,52 @@ def phase_build():
           "gpu": nvidia_smi()})
 
 
-def _qkv(torch, b, h, hkv, tq, tk, d, dtype, gen, heads_major=True):
-    """Seeded q/k/v; ``heads_major=False`` gives (B, T, H, D) storage seen
-    through ``transpose(1, 2)``, the strided views prefill passes."""
+def _randn(torch, b, heads, t, d, dtype, gen, heads_major=True):
+    """A seeded (b, heads, t, d) tensor; ``heads_major=False`` gives
+    (B, T, H, D) storage seen through ``transpose(1, 2)``, the strided
+    views prefill and ``MultiHeadAttention`` pass."""
     dt = getattr(torch, dtype)
+    if heads_major:
+        return torch.randn(b, heads, t, d, generator=gen, device="cuda").to(dt)
+    return torch.randn(b, t, heads, d, generator=gen,
+                       device="cuda").to(dt).transpose(1, 2)
 
-    def mk(heads, t):
-        if heads_major:
-            return torch.randn(b, heads, t, d, generator=gen,
-                               device="cuda").to(dt)
-        return torch.randn(b, t, heads, d, generator=gen,
-                           device="cuda").to(dt).transpose(1, 2)
 
-    return mk(h, tq), mk(hkv, tk), mk(hkv, tk)
+def _qkv(torch, b, h, hkv, tq, tk, d, dtype, gen, heads_major=True):
+    """Seeded q/k/v in the layout ``heads_major`` picks (see _randn)."""
+    return (_randn(torch, b, h, tq, d, dtype, gen, heads_major),
+            _randn(torch, b, hkv, tk, d, dtype, gen, heads_major),
+            _randn(torch, b, hkv, tk, d, dtype, gen, heads_major))
 
 
 def phase_kernel(torch):
-    """Flash forward: kernel vs plain on the card, then timings."""
+    """Flash forward: kernel vs plain on the card, without the lse (the
+    serve path's call) and with it (the train path's), then timings."""
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = []     # (b, h, hkv, tq, tk, d, causal, dtype, lse, heads_major)
-    for dtype in ("float32", "bfloat16"):
-        for t in (128, 512, 1000, 2048):
-            cases.append((1, 16, 4, t, t, 128, True, dtype, t == 1000, True))
-        cases.append((1, 16, 4, 2048, 2048, 128, True, dtype, False, False))
-        cases.append((1, 16, 16, 512, 512, 128, False, dtype, True, True))
-        cases.append((1, 16, 4, 300, 1000, 128, True, dtype, True, True))
-        cases.append((2, 8, 2, 777, 777, 64, True, dtype, True, True))
     results, worst = [], {}
-    for b, h, hkv, tq, tk, d, causal, dtype, with_lse, major in cases:
+    for b, h, hkv, tq, tk, d, causal, dtype, major in flash_cases():
         q, k, v = _qkv(torch, b, h, hkv, tq, tk, d, dtype, gen, major)
-        got = fa.flash_attention(q, k, v, causal=causal, return_lse=with_lse)
-        want = fa.flash_attention_plain(q, k, v, causal=causal,
-                                        return_lse=with_lse)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        want, want_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                  return_lse=True)
         torch.cuda.synchronize()
-        pairs = zip(got, want) if with_lse else [(got, want)]
         errs = []
         atol, rtol = TOL[dtype]
-        for g, w in pairs:
+        for g, w in ((got, want), (o, want), (lse, want_lse)):
             torch.testing.assert_close(g.float(), w.float(),
                                        atol=atol, rtol=rtol)
             errs.append(float((g.float() - w.float()).abs().max()))
         results.append({"shape": [b, h, hkv, tq, tk, d], "causal": causal,
-                        "dtype": dtype, "lse": with_lse,
+                        "dtype": dtype,
                         "layout": "bhtd" if major else "bthd view",
-                        "atol": atol, "rtol": rtol, "max_abs_err": errs})
-        worst[dtype] = max(worst.get(dtype, 0.0), max(errs))
+                        "atol": atol, "rtol": rtol,
+                        "max_abs_err": {"o": errs[0], "o_with_lse": errs[1],
+                                        "lse": errs[2]}})
+        worst[dtype] = max([worst.get(dtype, 0.0)] + errs)
+        del q, k, v, got, o, lse, want, want_lse
 
     timings = {}
     for dtype in ("bfloat16", "float32"):
@@ -244,26 +261,18 @@ def _sdpa_bwd(torch, q, k, v, do):
 
 def phase_kernel_bwd(torch):
     """Flash backward: kernels vs plain on the card (same q/k/v/o/lse/dO
-    into both), then timings at the training shape."""
+    into both), then timings at the training shape in the training
+    layout."""
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    cases = []     # (b, h, hkv, tq, tk, d, causal, dtype, heads_major)
-    for dtype in ("float32", "bfloat16"):
-        for t in (128, 512, 1000, 2048):
-            cases.append((1, 16, 4, t, t, 128, True, dtype, True))
-        cases.append((1, 16, 4, 2048, 2048, 128, True, dtype, False))
-        cases.append((1, 16, 16, 512, 512, 128, False, dtype, True))
-        cases.append((1, 16, 4, 300, 1000, 128, True, dtype, True))
-        cases.append((2, 8, 2, 777, 777, 64, True, dtype, True))
     results, worst = [], {}
-    for b, h, hkv, tq, tk, d, causal, dtype, major in cases:
+    for b, h, hkv, tq, tk, d, causal, dtype, major in flash_cases():
         q, k, v = _qkv(torch, b, h, hkv, tq, tk, d, dtype, gen, major)
         o, lse = fa.flash_attention_plain(q, k, v, causal=causal,
                                           return_lse=True)
-        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
-        if not major:
-            do = do.transpose(1, 2).contiguous().transpose(1, 2)
+        # dO in q's layout, as autograd hands it back through the views
+        do = _randn(torch, b, h, tq, d, dtype, gen, major)
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
         want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
         torch.cuda.synchronize()
@@ -281,17 +290,19 @@ def phase_kernel_bwd(torch):
                         "tol": BWD_TOL[dtype], "max_abs_err": errs,
                         "median_abs": typical})
         worst[dtype] = max([worst.get(dtype, 0.0)] + list(errs.values()))
+        del q, k, v, o, lse, do, got, want
 
     timings = {}
     b, h, hkv, t, d = 4, 16, 4, 2048, 128
     for dtype in ("float32", "bfloat16"):
-        q, k, v = _qkv(torch, b, h, hkv, t, t, d, dtype, gen)
+        q, k, v = _qkv(torch, b, h, hkv, t, t, d, dtype, gen, False)
         o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        do = _randn(torch, b, h, t, d, dtype, gen, False)
         bound_ms, bound_by = attention_bwd_bound(b, h, hkv, t, t, d, True,
                                                  dtype)
         timings[dtype] = {
             "shape": [b, h, hkv, t, t, d], "causal": True,
+            "layout": "bthd view",
             "ms": time_ms(torch, lambda: fa.flash_attention_bwd(
                 q, k, v, o, lse, do, True), reps=10),
             "plain_ms": time_ms(torch, lambda: fa.flash_attention_bwd_plain(
@@ -495,7 +506,8 @@ def _counters():
     from mxnet_tpu_torch.ops.kernels import fused_update as fu
 
     return {"flash_attention_fwd": fa.flash_attention,
-            "flash_attention_bwd": fa.flash_attention_bwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
             "sgd_mom_update": fu.sgd_mom_update,
             "adam_update": fu.adam_update}
 
@@ -507,20 +519,13 @@ def _train_steps(torch, exe, names, updater, steps, sync):
         t0 = time.perf_counter()
         exe.forward(is_train=True)
         exe.backward()
-        for i, n in enumerate(names):
-            updater(i, exe.grad_dict[n], exe.arg_dict[n])
+        lm_update(exe, names, updater)
         loss = float(exe.outputs[0].asnumpy())
         if sync:
             torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         losses.append(loss)
     return losses, secs
-
-
-def _batch(cfg, batch, seq, seed):
-    rng = np.random.RandomState(seed)
-    return (rng.randint(0, cfg["vocab"], (batch, seq)).astype(np.float32),
-            rng.randint(0, cfg["vocab"], (batch, seq)).astype(np.float32))
 
 
 def phase_train(cfg=LM, train=TRAIN, device=None, ref_device="cpu",
@@ -530,26 +535,19 @@ def phase_train(cfg=LM, train=TRAIN, device=None, ref_device="cpu",
     every wrapper takes its plain version."""
     import torch
 
-    from mxnet_tpu_torch import initializer, optimizer
-
-    sgd = dict(learning_rate=train["lr"], momentum=train["momentum"],
-               wd=train["wd"])
     # 1. card vs the port's CPU path: same weights, same batch, 2 SGD steps
     params = lm_arg_params(cfg, seed)
     cb, cs = train["check_batch"], train["check_seq"]
-    x, y = _batch(cfg, cb, cs, seed + 3)
     runs = []
     for dev in (device, ref_device):
         exe, names = lm_train_executor(cfg, cb, cs, dev)
         exe.copy_params_from(params)
-        exe.arg_dict["data"][:] = x
-        exe.arg_dict["softmax_label"][:] = y
-        upd = optimizer.Updater(optimizer.SGD(
-            param_idx2name=dict(enumerate(names)), **sgd))
-        losses, _ = _train_steps(torch, exe, names, upd,
+        lm_feed(exe, cfg, seed + 3)
+        losses, _ = _train_steps(torch, exe, names,
+                                 lm_updater("sgd", train, names),
                                  train["check_steps"], sync=False)
         runs.append((losses, {n: exe.arg_dict[n].asnumpy() for n in names}))
-        del exe, upd
+        del exe
     (got_l, got_p), (ref_l, ref_p) = runs
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(got_l, ref_l))
     param_err = max(float(np.abs(got_p[n] - ref_p[n]).max()) for n in ref_p)
@@ -564,36 +562,26 @@ def phase_train(cfg=LM, train=TRAIN, device=None, ref_device="cpu",
     # 2. the run: Xavier init from the seed, 5 SGD-momentum + 3 Adam steps
     on_card = device is None or torch.device(device).type == "cuda"
     b, t = train["batch"], train["seq"]
-    exe, names = lm_train_executor(cfg, b, t, device)
-    init = initializer.Xavier(factor_type="in", magnitude=2,
-                              rng=np.random.RandomState(seed))
-    for n in names:
-        init(initializer.InitDesc(n), exe.arg_dict[n])
-    x, y = _batch(cfg, b, t, seed + 4)
-    exe.arg_dict["data"][:] = x
-    exe.arg_dict["softmax_label"][:] = y
-    idx2name = dict(enumerate(names))
+    exe, names = lm_train_setup(cfg, train, device, seed)
     counters = _counters()
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
-    losses, secs = _train_steps(
-        torch, exe, names, optimizer.Updater(optimizer.SGD(
-            param_idx2name=idx2name, **sgd)),
-        train["sgd_steps"], on_card)
-    more, more_s = _train_steps(
-        torch, exe, names, optimizer.Updater(optimizer.Adam(
-            learning_rate=train["adam_lr"], wd=train["wd"],
-            param_idx2name=idx2name)),
-        train["adam_steps"], on_card)
+    losses, secs = _train_steps(torch, exe, names,
+                                lm_updater("sgd", train, names),
+                                train["sgd_steps"], on_card)
+    more, more_s = _train_steps(torch, exe, names,
+                                lm_updater("adam", train, names),
+                                train["adam_steps"], on_card)
     launches = {k: c.launches for k, c in counters.items()}
     losses += more
     secs += more_s
     steps = train["sgd_steps"] + train["adam_steps"]
     want = {"flash_attention_fwd": cfg["layers"] * steps,
-            "flash_attention_bwd": cfg["layers"] * steps,
+            "flash_attention_bwd_dq": cfg["layers"] * steps,
+            "flash_attention_bwd_dkv": cfg["layers"] * steps,
             "sgd_mom_update": len(names) * train["sgd_steps"],
             "adam_update": len(names) * train["adam_steps"]}
     if launches != want:
@@ -651,7 +639,10 @@ def main():
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SRC,
         "replaces": FA_BWD_REPLACES,
-        "launches": train["flash_attention_bwd"],
+        "launches": train["flash_attention_bwd_dq"]
+        + train["flash_attention_bwd_dkv"],
+        "launches_by_kernel": {"dq": train["flash_attention_bwd_dq"],
+                               "dkv": train["flash_attention_bwd_dkv"]},
         "max_abs_err": max(bwd_worst.values()), "max_err": bwd_worst,
         "dtype": "float32", "shape": t["shape"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

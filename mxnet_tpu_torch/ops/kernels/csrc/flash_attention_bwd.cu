@@ -308,9 +308,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const float* dvec, void* dq, void* dk, void* dv,
-           int B, int H, int Hkv, int Tq, int Tk,
+int launch(int which, const void* q, const void* k, const void* v,
+           const void* dout, const float* lse, const float* dvec, void* dq,
+           void* dk, void* dv, int B, int H, int Hkv, int Tq, int Tk,
            int64_t q_sb, int64_t q_sh, int64_t q_st,
            int64_t k_sb, int64_t k_sh, int64_t k_st,
            int64_t v_sb, int64_t v_sh, int64_t v_st,
@@ -320,20 +320,20 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* ot = static_cast<const T*>(dout);
-
-  const size_t dq_smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<T, D>
-      <<<dim3((Tq + BQ - 1) / BQ, B * H), THREADS, dq_smem, stream>>>(
-          qt, kt, vt, ot, lse, dvec, static_cast<T*>(dq), H, H / Hkv, Tq,
-          Tk, q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb,
-          o_sh, o_st, scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
+  cudaError_t err;
+  if (which == 0) {
+    const size_t dq_smem = dq_smem_bytes<D>();
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)dq_smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_kernel<T, D>
+        <<<dim3((Tq + BQ - 1) / BQ, B * H), THREADS, dq_smem, stream>>>(
+            qt, kt, vt, ot, lse, dvec, static_cast<T*>(dq), H, H / Hkv, Tq,
+            Tk, q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb,
+            o_sh, o_st, scale, causal);
+    return (int)cudaGetLastError();
+  }
   const size_t dkv_smem = dkv_smem_bytes<D>();
   err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -351,29 +351,31 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
+// which: 0 launches the dQ kernel (writes dq), 1 the dK/dV kernel (writes
+// dk, dv), each on `stream`; the caller launches both and counts each.
 // q/dout: (B, H, Tq, D), k/v: (B, Hkv, Tk, D), each with unit stride on D
 // and the given element strides for batch, head and sequence. lse/dvec:
 // contiguous (B, H, Tq) f32. dq: contiguous (B, H, Tq, D), dk/dv:
 // contiguous (B, Hkv, Tk, D), all of the input type. dtype: 0 float32,
-// 1 bfloat16. D: 64 or 128. Launches the dQ kernel, then the dK/dV kernel,
-// on `stream`. Returns a cudaError_t.
-int mxtt_flash_attention_bwd(const void* q, const void* k, const void* v,
-                             const void* dout, const float* lse,
-                             const float* dvec, void* dq, void* dk, void* dv,
-                             int dtype, int B, int H, int Hkv, int Tq, int Tk,
-                             int D, int64_t q_sb, int64_t q_sh, int64_t q_st,
-                             int64_t k_sb, int64_t k_sh, int64_t k_st,
-                             int64_t v_sb, int64_t v_sh, int64_t v_st,
-                             int64_t o_sb, int64_t o_sh, int64_t o_st,
-                             float scale, int causal, void* stream) {
-  if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || Tq < 1 || Tk < 1 ||
-      B * H > 65535)
+// 1 bfloat16. D: 64 or 128. Returns a cudaError_t.
+int mxtt_flash_attention_bwd(int which, const void* q, const void* k,
+                             const void* v, const void* dout,
+                             const float* lse, const float* dvec, void* dq,
+                             void* dk, void* dv, int dtype, int B, int H,
+                             int Hkv, int Tq, int Tk, int D, int64_t q_sb,
+                             int64_t q_sh, int64_t q_st, int64_t k_sb,
+                             int64_t k_sh, int64_t k_st, int64_t v_sb,
+                             int64_t v_sh, int64_t v_st, int64_t o_sb,
+                             int64_t o_sh, int64_t o_st, float scale,
+                             int causal, void* stream) {
+  if ((which != 0 && which != 1) || B < 1 || H < 1 || Hkv < 1 || H % Hkv ||
+      Tq < 1 || Tk < 1 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MXTT_FA_BWD_LAUNCH(T, DD)                                          \
-  return launch<T, DD>(q, k, v, dout, lse, dvec, dq, dk, dv, B, H, Hkv,    \
-                       Tq, Tk, q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb,   \
-                       v_sh, v_st, o_sb, o_sh, o_st, scale, causal, s)
+  return launch<T, DD>(which, q, k, v, dout, lse, dvec, dq, dk, dv, B, H,  \
+                       Hkv, Tq, Tk, q_sb, q_sh, q_st, k_sb, k_sh, k_st,    \
+                       v_sb, v_sh, v_st, o_sb, o_sh, o_st, scale, causal, s)
   if (dtype == 0 && D == 64) MXTT_FA_BWD_LAUNCH(float, 64);
   if (dtype == 0 && D == 128) MXTT_FA_BWD_LAUNCH(float, 128);
   if (dtype == 1 && D == 64) MXTT_FA_BWD_LAUNCH(__nv_bfloat16, 64);

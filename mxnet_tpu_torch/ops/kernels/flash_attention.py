@@ -175,7 +175,7 @@ def _bwd_kernel():
     from . import _build
 
     return _build.kernel(_BWD_NAME, "mxtt_flash_attention_bwd",
-                         [_PTR] * 9 + [_I32] * 7 + [_I64] * 12
+                         [_I32] + [_PTR] * 9 + [_I32] * 7 + [_I64] * 12
                          + [ctypes.c_float, _I32, _PTR])
 
 
@@ -185,33 +185,63 @@ def _unit_inner(t):
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _bwd_launch(which, name, q, k, v, do, lse, dvec, dq, dk, dv, causal,
+                scale):
+    """Launch backward kernel ``which`` (0 dQ, 1 dK/dV) of the C entry."""
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    ptr = (lambda t: t.data_ptr() if t is not None else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_kernel()(
+            which, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dvec.data_ptr(), ptr(dq), ptr(dk), ptr(dv),
+            _DTYPE_CODE[q.dtype], b, h, hkv, tq, tk, d,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            do.stride(0), do.stride(1), do.stride(2),
+            float(scale), int(bool(causal)), stream)
+    if err != 0:
+        raise RuntimeError("%s launch failed: cudaError %d" % (name, err))
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, dvec, causal, scale):
+    """Launch the dQ kernel on the inputs :func:`flash_attention_bwd`
+    prepares (CUDA, unit-stride head dims, contiguous f32 lse and
+    D = rowsum(dO * O)); returns dq and counts the launch in
+    ``flash_attention_bwd_dq.launches``."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch(0, "flash_attention_bwd dQ", q, k, v, do, lse, dvec, dq,
+                None, None, causal, scale)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, dvec, causal, scale):
+    """Launch the dK/dV kernel on the same inputs as
+    :func:`flash_attention_bwd_dq`; returns (dk, dv) and counts the launch
+    in ``flash_attention_bwd_dkv.launches``."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    _bwd_launch(1, "flash_attention_bwd dK/dV", q, k, v, do, lse, dvec,
+                None, dk, dv, causal, scale)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
 def _launch_bwd(q, k, v, o, lse, do, causal, scale):
     q, k, v, do = (_unit_inner(t) for t in (q, k, v, do))
     _check_kernel(q, k, v)
-    b, h, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
     # D = rowsum(dO * O) outside the kernels, as the reference computes it
     dvec = (do.float() * o.float()).sum(-1).contiguous()
     lse = lse.float().contiguous()
-    dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, hkv, tk, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, hkv, tk, d), dtype=v.dtype, device=q.device)
-    fn = _bwd_kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(),
-                 _DTYPE_CODE[q.dtype], b, h, hkv, tq, tk, d,
-                 q.stride(0), q.stride(1), q.stride(2),
-                 k.stride(0), k.stride(1), k.stride(2),
-                 v.stride(0), v.stride(1), v.stride(2),
-                 do.stride(0), do.stride(1), do.stride(2),
-                 float(scale), int(bool(causal)), stream)
-    if err != 0:
-        raise RuntimeError("flash_attention_bwd launch failed: cudaError %d"
-                           % err)
-    flash_attention_bwd.launches += 1
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, dvec, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, dvec, causal, scale)
     return dq, dk, dv
 
 
@@ -219,8 +249,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
     """Gradients (dq, dk, dv) of :func:`flash_attention` from its inputs,
     its output ``o``, its logsumexp ``lse`` (B, H, Tq) f32 and the output
     gradient ``do``; dk/dv at the narrow (B, Hkv, Tk, D) width. CPU tensors
-    take the plain version; CUDA tensors launch the dQ and dK/dV kernels,
-    counted once per call in ``flash_attention_bwd.launches``."""
+    take the plain version; CUDA tensors launch the dQ kernel, then the
+    dK/dV kernel (:func:`flash_attention_bwd_dq`,
+    :func:`flash_attention_bwd_dkv`), each counting its own launches."""
     _check(q, k, v, causal)
     b, h, tq, d = q.shape
     if o.shape != q.shape or do.shape != q.shape \
@@ -243,8 +274,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
                          % q.device)
     return _launch_bwd(q, k, v, o, lse, do, causal, scale)
 
-
-flash_attention_bwd.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -49,6 +49,54 @@ def lm_train_executor(cfg, batch, seq, device=None):
     return exe, [n for n in sym.list_arguments() if reqs[n] != "null"]
 
 
+def lm_feed(exe, cfg, seed):
+    """Put one seeded batch of token ids into ``exe``'s data and label
+    (f32, as MXNet feeds them)."""
+    rng = np.random.RandomState(seed)
+    for n in ("data", "softmax_label"):
+        exe.arg_dict[n][:] = rng.randint(
+            0, cfg["vocab"], exe.arg_dict[n].shape).astype(np.float32)
+
+
+def lm_updater(kind, train, names):
+    """An ``optimizer.Updater`` with ``train``'s hyperparameters: ``kind``
+    "sgd" (momentum) or "adam"."""
+    from .. import optimizer
+
+    idx2name = dict(enumerate(names))
+    if kind == "sgd":
+        opt = optimizer.SGD(learning_rate=train["lr"],
+                            momentum=train["momentum"], wd=train["wd"],
+                            param_idx2name=idx2name)
+    else:
+        opt = optimizer.Adam(learning_rate=train["adam_lr"], wd=train["wd"],
+                             param_idx2name=idx2name)
+    return optimizer.Updater(opt)
+
+
+def lm_update(exe, names, updater):
+    """A step's updates: one ``updater`` call per trained argument."""
+    updater.update_all((i, exe.grad_dict[n], exe.arg_dict[n])
+                       for i, n in enumerate(names))
+
+
+def lm_train_setup(cfg, train, device=None, seed=SEED):
+    """The start of the train run that ``chip_smoke.py`` and
+    :mod:`mxnet_tpu_torch.tools.profile_train` drive: the LM bound at
+    ``train``'s batch x seq on ``device`` (None = the card),
+    ``Xavier(factor_type="in", magnitude=2)`` from ``seed``, one fixed
+    batch from ``seed + 4``. Returns (executor, trained names)."""
+    from .. import initializer
+
+    exe, names = lm_train_executor(cfg, train["batch"], train["seq"], device)
+    init = initializer.Xavier(factor_type="in", magnitude=2,
+                              rng=np.random.RandomState(seed))
+    for n in names:
+        init(initializer.InitDesc(n), exe.arg_dict[n])
+    lm_feed(exe, cfg, seed + 4)
+    return exe, names
+
+
 def lm_param_shapes(cfg):
     """name -> shape of every trained parameter, in checkpoint naming."""
     d, f, v = cfg["d_model"], cfg["ffn"], cfg["vocab"]

@@ -2,9 +2,10 @@
 
     python3 -m mxnet_tpu_torch.tools.profile_train        # from the repo root
 
-Binds the full-width LM that ``chip_smoke.py`` trains (``tools/lm.py``:
-``TRAIN`` batch 4 x 2048, f32, no TF32), Xavier-initializes it from the
-seed, warms two SGD-momentum steps, then measures on the card:
+Sets up the train run that ``chip_smoke.py`` drives
+(``tools/lm.py:lm_train_setup``: the full-width LM at ``TRAIN``'s batch
+4 x 2048, f32, no TF32, Xavier-initialized from the seed, one fixed
+batch), warms two SGD-momentum steps, then measures on the card:
 
 - host-clock time of the step's three stages — forward (is_train),
   backward, the 53 parameter updates — each ending in
@@ -36,28 +37,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device available", file=sys.stderr)
         return 2
-    from mxnet_tpu_torch import initializer, optimizer
     from mxnet_tpu_torch.tools import lm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, train = lm.LM, lm.TRAIN
-    exe, names = lm.lm_train_executor(cfg, train["batch"], train["seq"])
-    init = initializer.Xavier(factor_type="in", magnitude=2,
-                              rng=np.random.RandomState(lm.SEED))
-    for n in names:
-        init(initializer.InitDesc(n), exe.arg_dict[n])
-    rng = np.random.RandomState(lm.SEED + 4)
-    for n in ("data", "softmax_label"):
-        exe.arg_dict[n][:] = rng.randint(0, cfg["vocab"], exe.arg_dict[n]
-                                         .shape).astype(np.float32)
-    updater = optimizer.Updater(optimizer.SGD(
-        learning_rate=train["lr"], momentum=train["momentum"],
-        wd=train["wd"], param_idx2name=dict(enumerate(names))))
+    train = lm.TRAIN
+    exe, names = lm.lm_train_setup(lm.LM, train)
+    updater = lm.lm_updater("sgd", train, names)
 
     def update():
-        for i, n in enumerate(names):
-            updater(i, exe.grad_dict[n], exe.arg_dict[n])
+        lm.lm_update(exe, names, updater)
 
     stages = (("forward", lambda: exe.forward(is_train=True)),
               ("backward", exe.backward), ("update", update))

@@ -20,21 +20,24 @@ TINY_SERVE = {"slots": 2, "prefill_buckets": (8, 16), "max_context": 24,
 TINY_TRAIN = {"batch": 2, "seq": 16, "sgd_steps": 2, "adam_steps": 1,
               "lr": 0.05, "momentum": 0.9, "wd": 1e-4, "adam_lr": 1e-3,
               "check_batch": 1, "check_seq": 8, "check_steps": 2}
-# plain version -> the wrapper whose launch count it stands in for
-PLAINS = {"flash_attention_plain": "flash_attention",
-          "flash_attention_bwd_plain": "flash_attention_bwd",
-          "sgd_mom_update_plain": "sgd_mom_update",
-          "adam_update_plain": "adam_update"}
+# plain version -> the launchers whose kernel launches it stands in for
+PLAINS = {"flash_attention_plain": ("flash_attention",),
+          "flash_attention_bwd_plain": ("flash_attention_bwd_dq",
+                                        "flash_attention_bwd_dkv"),
+          "sgd_mom_update_plain": ("sgd_mom_update",),
+          "adam_update_plain": ("adam_update",)}
 
 
 def _count_plain_calls(monkeypatch):
-    """Count each plain call on the host as its kernel's launch."""
-    for plain_name, wrapper_name in PLAINS.items():
+    """Count each plain call on the host as its kernels' launches."""
+    for plain_name, launcher_names in PLAINS.items():
         mod = fa if hasattr(fa, plain_name) else fu
-        plain, wrapper = getattr(mod, plain_name), getattr(mod, wrapper_name)
+        plain = getattr(mod, plain_name)
+        launchers = [getattr(mod, n) for n in launcher_names]
 
-        def counted(*args, _plain=plain, _wrapper=wrapper, **kw):
-            _wrapper.launches += 1
+        def counted(*args, _plain=plain, _launchers=launchers, **kw):
+            for launcher in _launchers:
+                launcher.launches += 1
             return _plain(*args, **kw)
 
         monkeypatch.setattr(mod, plain_name, counted)
@@ -75,7 +78,8 @@ def test_train_phase_on_cpu(monkeypatch, capsys):
     n_params = len(cs.lm_param_shapes(TINY))
     assert launches == {
         "flash_attention_fwd": TINY["layers"] * steps,
-        "flash_attention_bwd": TINY["layers"] * steps,
+        "flash_attention_bwd_dq": TINY["layers"] * steps,
+        "flash_attention_bwd_dkv": TINY["layers"] * steps,
         "sgd_mom_update": n_params * TINY_TRAIN["sgd_steps"],
         "adam_update": n_params * TINY_TRAIN["adam_steps"]}
     line = capsys.readouterr().out.strip().splitlines()[-1]
