@@ -11,7 +11,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    at the main paths' shapes, then timed (CUDA events, median) beside the
    plain version, one PyTorch library call where there is one, and the
    card's bound: the flash-attention forward, the flash-attention backward
-   (dQ and dK/dV kernels), and the fused sgd_mom / adam updates.
+   (dQ and dK/dV kernels), the fused sgd_mom / adam updates, and the
+   convolution weight gradient (conv_wgrad: partial-sum and reduction
+   kernels) at ResNet-50's seven 3x3 shapes and the reference oracle's odd
+   cases, beside cuDNN's wgrad.
 3. ``serve``   — the continuous-batching generate path at full width (the
    GQA decoder LM of ``bench.py``: d 2048, 16 heads, 4 kv heads, ffn 8192,
    vocab 10000, bench.py's own 4 layers (not cut), seeded random weights,
@@ -26,7 +29,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    agree), then Xavier-initialized 5 SGD-momentum + 3 Adam steps at
    4 x 2048 (batch cut from bench.py's 32), with exact launch counts of
    every kernel (flash forward, backward dQ and dK/dV, both updates).
-5. ``kernels`` — one line per the port's kernel table.
+5. ``resnet``  — ResNet-50 (bench.py's headline model, full width, 1000
+   classes, 3 x 224 x 224, f32, no TF32; ``mxnet_tpu_torch/tools/
+   resnet.py``) trained through ``Module.fit``: first 2 batches of 2 on the
+   card and on the port's CPU path from the same Xavier weights (updates,
+   aux states and metrics must agree), then one epoch of 8 seeded batches
+   of 32 with exact launch counts (conv_wgrad, sgd_mom), finite
+   cross-entropy, step times, images/s and peak memory.
+6. ``kernels`` — one line per the port's kernel table.
 
 Then the card's ``nvidia-smi`` name/power-limit line and, last, the
 ``{"ok": true, "device": ...}`` line. Exits non-zero without a CUDA card.
@@ -42,6 +52,8 @@ import numpy as np
 from mxnet_tpu_torch.tools.lm import LM, SERVE, SEED, TRAIN, \
     lm_arg_params, lm_feed, lm_param_shapes, lm_train_executor, \
     lm_train_setup, lm_update, lm_updater, nvidia_smi
+from mxnet_tpu_torch.tools.resnet import RESNET, change_err, fit_args, \
+    resnet_setup, wgrad_convs
 
 H100 = {"bf16_flops": 989e12, "f32_flops": 67e12, "bytes_per_s": 3.35e12}
 CSRC = "mxnet_tpu_torch/ops/kernels/csrc/"
@@ -52,6 +64,8 @@ FA_BWD_REPLACES = "mxnet_tpu/ops/pallas/flash_attention.py:618"
 UPDATE_SRC = CSRC + "fused_update.cu"
 UPDATE_REPLACES = {"sgd_mom_update": "mxnet_tpu/ops/pallas/fused_update.py:31",
                    "adam_update": "mxnet_tpu/ops/pallas/fused_update.py:60"}
+WGRAD_SRC = CSRC + "conv_wgrad.cu"
+WGRAD_REPLACES = "mxnet_tpu/ops/pallas/conv_bwd.py:89"
 # (atol, rtol); bf16 outputs differ by an ulp of |O| (rtol), while atol
 # stays below |O| ~ sqrt(e / T) of the long rows
 TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-3, 2e-2)}
@@ -74,6 +88,30 @@ UPDATE_TOL = {"float32": (1e-6, 1e-5), "bfloat16": (1e-2, 2e-2)}
 # lr 0.05 and momentum into the weights
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
+# conv_wgrad, kernel vs plain: max |error| / max |plain dW|. Both sum the
+# same f32 products (bf16 operands widen exactly) over L = N*OH*OW, up to
+# 100,352 terms, in other orders: a few f32 ulps of the largest sums
+WGRAD_RTOL = 2e-5
+# (input H, C = K, stride) of ResNet-50's 3x3 convolutions -> how many of
+# each one step runs (3 + 1 + 3 + 1 + 5 + 1 + 2 = 16)
+RESNET_WGRAD = {(56, 64, 1): 3, (56, 128, 2): 1, (28, 128, 1): 3,
+                (28, 256, 2): 1, (14, 256, 1): 5, (14, 512, 2): 1,
+                (7, 512, 1): 2}
+# resnet phase, card vs the port's CPU path (ResNet-50, 2 batches of 2).
+# A randomly initialized ResNet-50 at batch 2 is chaotic under rounding:
+# a ReLU input within rounding of 0 takes the other branch, and batch
+# norm's backward spreads that element over its channel, so the first
+# update already differs by percents between any two f32 orders of
+# summation, and the second starts from those different weights
+# (tools/resnet_spread.py measures f32 against f64 on the CPU). So the
+# gates are: after batch 1, each parameter's update within RESNET_UPDATE
+# of the CPU's (L2 norm of the difference over the norm of the update), each
+# aux state's change within RESNET_AUX, the cross-entropy within
+# RESNET_CE[0] (relative) and the accuracy equal; after batch 2 the
+# cross-entropy within RESNET_CE[1]. The batch-2 updates are printed.
+RESNET_UPDATE = 0.15
+RESNET_AUX = 2e-3
+RESNET_CE = (1e-4, 1e-2)
 
 
 def flash_cases():
@@ -138,6 +176,20 @@ def update_bound(kind, elements, item=4):
     w, g and the state(s) once and writes w and the state(s) once."""
     per = {"sgd_mom_update": 5, "adam_update": 7}[kind] * item
     return elements * per / H100["bytes_per_s"] * 1e3, "bytes"
+
+
+def wgrad_bound(n, h, c, k, ksz, stride, dtype):
+    """Least time (ms) for one dW of a (ksz, stride, SAME pad) conv: 2 flops
+    per (output position, c, k, tap), and x and dy read plus dW (f32)
+    written once."""
+    oh = (h + 2 * ((ksz - 1) // 2) - ksz) // stride + 1
+    flops = 2 * n * oh * oh * c * k * ksz * ksz
+    item = 4 if dtype == "float32" else 2
+    nbytes = item * (n * h * h * c + n * oh * oh * k) + 4 * ksz * ksz * c * k
+    peak = H100["f32_flops"] if dtype == "float32" else H100["bf16_flops"]
+    t_ops, t_bytes = flops / peak, nbytes / H100["bytes_per_s"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def time_ms(torch, fn, reps=30, warmup=3):
@@ -405,6 +457,70 @@ def phase_kernel_update(torch):
     return worst, timings
 
 
+def wgrad_cases():
+    """Cases (n, h, c, k, ksz, stride, dtype) of conv_wgrad: ResNet-50's
+    seven 3x3 shapes at batch 32, and tests/test_consistency.py:370-374's
+    odd cases (odd size, stride 2, 1x1, C 4 to 16), in f32 and bf16."""
+    odd = [(2, 8, 8, 16, 3, 1), (2, 9, 8, 16, 3, 1), (2, 8, 8, 16, 3, 2),
+           (1, 5, 4, 8, 1, 1), (4, 7, 16, 32, 3, 1)]
+    return [case + (dtype,) for dtype in ("float32", "bfloat16")
+            for case in [(32, h, c, c, 3, s) for h, c, s in RESNET_WGRAD]
+            + odd]
+
+
+def phase_kernel_wgrad(torch):
+    """conv_wgrad: kernel vs plain on the card, on the NCHW tensors' NHWC
+    views the Convolution op passes (f32 through ``wgrad``, bf16 through
+    the reference's ``conv_wgrad``), then each ResNet-50 shape timed
+    beside the plain version and cuDNN's wgrad."""
+    from mxnet_tpu_torch.ops.kernels import conv_wgrad as cw
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    results, worst, timings = [], {}, {"float32": [], "bfloat16": []}
+    for n, h, c, k, ksz, stride, dtype in wgrad_cases():
+        pad = (ksz - 1) // 2
+        oh = cw.out_size(h, ksz, stride, pad)
+        dt = getattr(torch, dtype)
+        x = torch.randn(n, c, h, h, generator=gen, device="cuda").to(dt)
+        dy = torch.randn(n, k, oh, oh, generator=gen, device="cuda").to(dt)
+        xv, dv = x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1)
+        fn = cw.wgrad if dtype == "float32" else cw.conv_wgrad
+        got = fn(xv, dv, ksz, stride, pad)
+        want = cw.conv_wgrad_plain(xv, dv, ksz, stride, pad)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        if not rel <= WGRAD_RTOL:
+            raise RuntimeError("conv_wgrad %s: error %g of max |dW| (tol %g)"
+                               % ((n, h, c, k, ksz, stride, dtype), rel,
+                                  WGRAD_RTOL))
+        results.append({"shape": [n, h, c, k, ksz, stride], "dtype": dtype,
+                        "layout": "nchw view", "max_abs_err": err,
+                        "err_of_max": rel})
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
+        if (h, c, stride) in RESNET_WGRAD and n == 32:
+            bound_ms, bound_by = wgrad_bound(n, h, c, k, ksz, stride, dtype)
+            timings[dtype].append({
+                "shape": [n, h, c, k, ksz, stride],
+                "per_step": RESNET_WGRAD[(h, c, stride)],
+                "ms": time_ms(torch, lambda: fn(xv, dv, ksz, stride, pad)),
+                "plain_ms": time_ms(torch, lambda: cw.conv_wgrad_plain(
+                    xv, dv, ksz, stride, pad)),
+                "library_ms": time_ms(torch, lambda: torch.nn.grad.
+                                      conv2d_weight(x, (k, c, ksz, ksz), dy,
+                                                    stride=stride,
+                                                    padding=pad)),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+        del x, dy, xv, dv, got, want
+    step = {dtype: {key: sum(t[key] * t["per_step"] for t in ts)
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for dtype, ts in timings.items()}
+    emit({"phase": "kernel", "kernel": "conv_wgrad", "cases": results,
+          "tol_of_max": WGRAD_RTOL, "max_abs_err": worst,
+          "timings": timings, "per_step": step})
+    return worst, timings, step
+
+
 def phase_serve(cfg=LM, serve=SERVE, device=None, ref_device="cpu",
                 seed=SEED):
     """The generate path end to end. ``device`` None = the card (the
@@ -608,6 +724,156 @@ def phase_train(cfg=LM, train=TRAIN, device=None, ref_device="cpu",
     return launches
 
 
+def _resnet_counters():
+    from mxnet_tpu_torch.ops.kernels import conv_wgrad as cw
+    from mxnet_tpu_torch.ops.kernels import fused_update as fu
+
+    return {"conv_wgrad_partial": cw.conv_wgrad_partial,
+            "conv_wgrad_reduce": cw.conv_wgrad_reduce,
+            "sgd_mom_update": fu.sgd_mom_update}
+
+
+def _host_state(mod):
+    """Copies of a module's parameters and aux states, by name."""
+    args, aux = mod.get_params()
+    return ({n: np.array(a.asnumpy()) for n, a in args.items()},
+            {n: np.array(a.asnumpy()) for n, a in aux.items()})
+
+
+def _fit_recorded(mod, it, init, cfg):
+    """``mod.fit`` one epoch over ``it`` from ``init``; returns the
+    parameters and aux states before the first step and after each batch,
+    and the metric after each batch."""
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(init)
+    states, metrics = [_host_state(mod)], []
+
+    def record(param):
+        states.append(_host_state(mod))
+        metrics.append({k: float(v) for k, v in
+                        param.eval_metric.get_name_value()})
+
+    mod.fit(it, batch_end_callback=record, **fit_args(cfg, init))
+    return states, metrics
+
+
+def _change_errs(before, after, ref_before, ref_after):
+    """name -> tools/resnet.py change_err of each array's change."""
+    return {n: change_err(after[n] - before[n].astype(np.float64),
+                          ref_after[n] - ref_before[n].astype(np.float64))
+            for n in ref_after}
+
+
+def phase_resnet(cfg=RESNET, device=None, ref_device="cpu", seed=SEED):
+    """ResNet-50 through ``Module.fit``. ``device`` None = the card; the
+    card-vs-reference check runs the same weights and batches on
+    ``ref_device``, where every wrapper takes its plain version."""
+    import torch
+
+    # 1. card vs the port's CPU path: same init, same 2 batches of 2
+    cb, cs = cfg["check_batch"], cfg["check_steps"]
+    runs = [_fit_recorded(*resnet_setup(cfg, cb, cs, dev, seed), cfg)
+            for dev in (device, ref_device)]
+    (got_s, got_m), (ref_s, ref_m) = runs
+    init_err = max(float(np.abs(got_s[0][0][n] - ref_s[0][0][n]).max())
+                   for n in ref_s[0][0])
+    upd = [_change_errs(got_s[0][0], got_s[b][0], ref_s[0][0], ref_s[b][0])
+           for b in (1, 2)]
+    aux = [_change_errs(got_s[0][1], got_s[b][1], ref_s[0][1], ref_s[b][1])
+           for b in (1, 2)]
+    ce = [abs(g["cross-entropy"] - r["cross-entropy"]) / r["cross-entropy"]
+          for g, r in zip(got_m, ref_m)]
+    failures = []
+    if init_err != 0.0:
+        failures.append("initial weights differ by %g" % init_err)
+    worst_upd = max(upd[0], key=upd[0].get)
+    if not upd[0][worst_upd] <= RESNET_UPDATE:
+        failures.append("batch-1 update of %s off by %g (tol %g)"
+                        % (worst_upd, upd[0][worst_upd], RESNET_UPDATE))
+    worst_aux = max(aux[0], key=aux[0].get)
+    if not aux[0][worst_aux] <= RESNET_AUX:
+        failures.append("batch-1 change of %s off by %g (tol %g)"
+                        % (worst_aux, aux[0][worst_aux], RESNET_AUX))
+    if got_m[0]["accuracy"] != ref_m[0]["accuracy"]:
+        failures.append("batch-1 accuracy %s vs %s" % (
+            got_m[0]["accuracy"], ref_m[0]["accuracy"]))
+    for b, (err, tol) in enumerate(zip(ce, RESNET_CE)):
+        if not err <= tol:
+            failures.append("batch-%d cross-entropy off by %g (tol %g)"
+                            % (b + 1, err, tol))
+    if failures:
+        raise RuntimeError("resnet check: " + "; ".join(failures))
+    wgrad_names = [n for n in upd[0] if ref_s[0][0][n].shape[-2:] == (3, 3)]
+    check = {"batch": cb, "batches": cs, "metrics": got_m,
+             "ref_metrics": ref_m, "ce_rel_err": ce,
+             "update_err": [{"worst": max(u.values()),
+                             "worst_name": max(u, key=u.get),
+                             "median": float(np.median(list(u.values()))),
+                             "worst_3x3_weight": max(
+                                 u[n] for n in wgrad_names)} for u in upd],
+             "aux_err": [{"worst": max(a.values()),
+                          "median": float(np.median(list(a.values())))}
+                         for a in aux],
+             "tol": {"update": RESNET_UPDATE, "aux": RESNET_AUX,
+                     "ce": RESNET_CE}}
+    del runs, got_s, ref_s
+
+    # 2. the run: one epoch of `batches` batches of `batch`
+    on_card = device is None or torch.device(device).type == "cuda"
+    mod, it, init = resnet_setup(cfg, cfg["batch"], cfg["batches"], device,
+                                 seed)
+    times, metrics = [], []
+
+    def record(param):
+        if on_card:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        metrics.append({k: float(v) for k, v in
+                        param.eval_metric.get_name_value()})
+
+    counters = _resnet_counters()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    mod.fit(it, batch_end_callback=record, **fit_args(cfg, init))
+    launches = {k: c.launches for k, c in counters.items()}
+    steps = cfg["batches"]
+    args, aux = mod.get_params()
+    n_params = len(args)
+    per_step = wgrad_convs(mod.symbol)
+    want = {"conv_wgrad_partial": per_step * steps,
+            "conv_wgrad_reduce": per_step * steps,
+            "sgd_mom_update": n_params * steps}
+    if launches != want:
+        raise RuntimeError("resnet phase launched %s, want %s"
+                           % (launches, want))
+    ce_run = [m["cross-entropy"] for m in metrics]
+    if len(metrics) != steps or not all(np.isfinite(ce_run)):
+        raise RuntimeError("resnet phase: %d batches, cross-entropy %s"
+                           % (len(metrics), ce_run))
+    step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    median_ms = float(np.median(step_ms))
+    result = {"phase": "resnet", "depth": cfg["depth"],
+              "classes": cfg["classes"], "image": list(cfg["image"]),
+              "batch": cfg["batch"], "batches": steps, "dtype": "float32",
+              "parameters": n_params,
+              "elements": int(sum(a.size for a in args.values())),
+              "aux_states": len(aux),
+              "wgrad_convs_per_step": per_step, "check": check,
+              "metrics": metrics,
+              "first_batch_ms": (times[0] - t0) * 1e3,
+              "step_ms": step_ms, "median_step_ms": median_ms,
+              "images_per_s": cfg["batch"] / median_ms * 1e3,
+              "launches": launches}
+    if on_card:
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit(result)
+    return launches
+
+
 def main():
     import torch
 
@@ -621,8 +887,10 @@ def main():
     worst, timings = phase_kernel(torch)
     bwd_worst, bwd_timings = phase_kernel_bwd(torch)
     upd_worst, upd_timings = phase_kernel_update(torch)
+    wgrad_worst, wgrad_timings, wgrad_step = phase_kernel_wgrad(torch)
     serve_launches = phase_serve()
     train = phase_train()
+    resnet = phase_resnet()
     t = timings["bfloat16"]
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda", "source": FA_SRC,
@@ -650,15 +918,38 @@ def main():
         "bfloat16": bwd_timings["bfloat16"]})
     for kind in ("sgd_mom_update", "adam_update"):
         t = upd_timings[kind]
+        by_phase = {"train": train[kind]}
+        if kind in resnet:
+            by_phase["resnet"] = resnet[kind]
         rows.append({
             "name": kind, "route": "cuda", "source": UPDATE_SRC,
-            "replaces": UPDATE_REPLACES[kind], "launches": train[kind],
+            "replaces": UPDATE_REPLACES[kind],
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
             "max_abs_err": upd_worst[kind], "dtype": "float32",
             "shape": "%d LM parameters, %d elements" % (t["parameters"],
                                                         t["elements"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "library_note": t["library_note"]})
+    t = wgrad_step["float32"]
+    rows.append({
+        "name": "conv_wgrad", "route": "cuda", "source": WGRAD_SRC,
+        "replaces": WGRAD_REPLACES,
+        "launches": resnet["conv_wgrad_partial"]
+        + resnet["conv_wgrad_reduce"],
+        "launches_by_kernel": {"partial": resnet["conv_wgrad_partial"],
+                               "reduce": resnet["conv_wgrad_reduce"]},
+        "max_abs_err": max(wgrad_worst.values()), "max_err": wgrad_worst,
+        "dtype": "float32",
+        "shape": "the 16 3x3 convolutions of one ResNet-50 step at batch 32",
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": ("operations" if all(
+            x["bound_by"] == "operations" for x in wgrad_timings["float32"])
+            else "bytes"), "library_ms": t["library_ms"],
+        "library": "torch.nn.grad.conv2d_weight (cuDNN wgrad, no TF32)",
+        "bfloat16": wgrad_step["bfloat16"],
+        "per_shape": wgrad_timings})
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,17 +15,22 @@ Ported so far: the continuous-batching generate path
 training path ``models.get_symbol`` -> ``Symbol.simple_bind`` ->
 ``initializer`` / ``Executor.copy_params_from`` -> ``Executor.forward`` /
 ``backward`` -> ``optimizer.Updater`` (SGD momentum, Adam), with the
-flash-attention backward and the fused update kernels.
+flash-attention backward and the fused update kernels; and
+``module.Module.fit`` over ``io.NDArrayIter`` with ``metric`` and
+``callback`` on ResNet / LeNet / MLP (Convolution, Pooling, BatchNorm),
+with the ``conv_wgrad`` kernel for the 3x3 weight gradients.
 """
-from . import (base, context, engine, executor, initializer, models,
-               ndarray, optimizer, symbol)
+from . import (base, callback, context, engine, executor, initializer, io,
+               metric, model, models, module, ndarray, optimizer, symbol)
+from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
 from .base import MXNetError
 from .context import cpu, default_device, gpu
 
-__version__ = "0.9.5-torch.2"
+__version__ = "0.9.5-torch.3"
 
-__all__ = ["MXNetError", "base", "context", "cpu", "default_device",
-           "engine", "executor", "gpu", "initializer", "models", "nd",
+__all__ = ["MXNetError", "base", "callback", "context", "cpu",
+           "default_device", "engine", "executor", "gpu", "initializer",
+           "io", "metric", "mod", "model", "models", "module", "nd",
            "ndarray", "optimizer", "sym", "symbol"]

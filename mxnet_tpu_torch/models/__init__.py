@@ -3,10 +3,17 @@
 
 Factory: ``get_symbol(name, num_classes=..., **kwargs)``.
 """
-from . import mlp, transformer
+from . import lenet, mlp, resnet, transformer
 
 _BUILDERS = {
     "mlp": mlp.get_symbol,
+    "lenet": lenet.get_symbol,
+    "resnet": resnet.get_symbol,
+    "resnet-18": lambda **kw: resnet.get_symbol(num_layers=18, **kw),
+    "resnet-34": lambda **kw: resnet.get_symbol(num_layers=34, **kw),
+    "resnet-50": lambda **kw: resnet.get_symbol(num_layers=50, **kw),
+    "resnet-101": lambda **kw: resnet.get_symbol(num_layers=101, **kw),
+    "resnet-152": lambda **kw: resnet.get_symbol(num_layers=152, **kw),
     "transformer-lm": transformer.get_symbol,
 }
 

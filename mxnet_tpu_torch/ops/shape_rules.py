@@ -25,6 +25,29 @@ def _fc_infer(attrs, shapes):
     return shapes
 
 
+def _conv_infer(attrs, shapes):
+    data = shapes[0]
+    if data is None:
+        return shapes
+    kernel = tuple(int(k) for k in attrs["kernel"])
+    nf = int(attrs["num_filter"])
+    shapes[1] = shapes[1] or (nf, data[1] // int(attrs["num_group"])) + kernel
+    if not attrs["no_bias"] and len(shapes) > 2:
+        shapes[2] = shapes[2] or (nf,)
+    return shapes
+
+
+def _bn_infer(attrs, shapes):
+    """gamma, beta and both aux states are (C,), C on ``axis``."""
+    data = shapes[0]
+    if data is None:
+        return shapes
+    c = (data[int(attrs["axis"]) % len(data)],)
+    for i in range(1, len(shapes)):
+        shapes[i] = shapes[i] or c
+    return shapes
+
+
 def _embedding_infer(attrs, shapes):
     shapes[1] = shapes[1] or (int(attrs["input_dim"]),
                               int(attrs["output_dim"]))
@@ -47,5 +70,7 @@ def _softmax_output_infer(attrs, shapes):
 
 def install():
     get_op("FullyConnected").infer_params = _fc_infer
+    get_op("Convolution").infer_params = _conv_infer
+    get_op("BatchNorm").infer_params = _bn_infer
     get_op("Embedding").infer_params = _embedding_infer
     get_op("SoftmaxOutput").infer_params = _softmax_output_infer

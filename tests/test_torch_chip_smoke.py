@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 import chip_smoke as cs
+from mxnet_tpu_torch.ops.kernels import conv_wgrad as cw
 from mxnet_tpu_torch.ops.kernels import flash_attention as fa
 from mxnet_tpu_torch.ops.kernels import fused_update as fu
 
@@ -25,13 +26,19 @@ PLAINS = {"flash_attention_plain": ("flash_attention",),
           "flash_attention_bwd_plain": ("flash_attention_bwd_dq",
                                         "flash_attention_bwd_dkv"),
           "sgd_mom_update_plain": ("sgd_mom_update",),
-          "adam_update_plain": ("adam_update",)}
+          "adam_update_plain": ("adam_update",),
+          "conv_wgrad_plain": ("conv_wgrad_partial", "conv_wgrad_reduce")}
+# ResNet-18 with the CIFAR stem at batch 2: every convolution but the 1x1
+# shortcuts is 3x3 (17 per step)
+TINY_RESNET = {"depth": 18, "classes": 10, "image": (3, 16, 16), "batch": 2,
+               "batches": 2, "lr": 0.05, "momentum": 0.9, "wd": 1e-4,
+               "check_batch": 2, "check_steps": 2}
 
 
 def _count_plain_calls(monkeypatch):
     """Count each plain call on the host as its kernels' launches."""
     for plain_name, launcher_names in PLAINS.items():
-        mod = fa if hasattr(fa, plain_name) else fu
+        mod = next(m for m in (fa, fu, cw) if hasattr(m, plain_name))
         plain = getattr(mod, plain_name)
         launchers = [getattr(mod, n) for n in launcher_names]
 
@@ -112,3 +119,64 @@ def test_update_bound_counts_each_buffer_once():
     assert by == "bytes" and np.isclose(ms, 20 * n / 3.35e12 * 1e3)
     assert np.isclose(cs.update_bound("adam_update", n)[0],
                       28 * n / 3.35e12 * 1e3)
+
+
+def test_resnet_phase_on_cpu(monkeypatch, capsys):
+    _count_plain_calls(monkeypatch)
+    launches = cs.phase_resnet(TINY_RESNET, device="cpu")
+    steps = TINY_RESNET["batches"]
+    assert launches == {"conv_wgrad_partial": 17 * steps,
+                        "conv_wgrad_reduce": 17 * steps,
+                        "sgd_mom_update": 59 * steps}
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert '"phase": "resnet"' in line and '"images_per_s"' in line
+
+
+def test_resnet_phase_fails_when_conv_wgrad_is_not_reached(monkeypatch):
+    """Only the update launches are counted here: the phase must refuse."""
+    plain = fu.sgd_mom_update_plain
+
+    def counted(*args, **kwargs):
+        fu.sgd_mom_update.launches += 1
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(fu, "sgd_mom_update_plain", counted)
+    with pytest.raises(RuntimeError, match="resnet phase launched"):
+        cs.phase_resnet(TINY_RESNET, device="cpu")
+
+
+def test_resnet_wgrad_shapes_are_the_16_of_a_resnet50_step():
+    from mxnet_tpu_torch.tools.resnet import RESNET, resnet_symbol, \
+        wgrad_convs
+
+    assert sum(cs.RESNET_WGRAD.values()) == 16
+    assert wgrad_convs(resnet_symbol(RESNET)) == 16
+    cases = cs.wgrad_cases()
+    assert len(cases) == 2 * (7 + 5)
+    assert {(h, c, s) for n, h, c, k, ksz, s, _ in cases if n == 32} \
+        == set(cs.RESNET_WGRAD)
+
+
+@pytest.mark.parametrize("h,c,s", sorted(cs.RESNET_WGRAD))
+def test_wgrad_bound_is_7_4_gflop_per_resnet50_conv(h, c, s):
+    ms, by = cs.wgrad_bound(32, h, c, c, 3, s, "float32")
+    oh = h // s
+    assert by == "operations"
+    assert np.isclose(ms, 2 * 32 * oh * oh * c * c * 9 / 67e12 * 1e3)
+    assert abs(2 * 32 * oh * oh * c * c * 9 - 7.399e9) < 1e6
+    bf_ms, _ = cs.wgrad_bound(32, h, c, c, 3, s, "bfloat16")
+    nbytes = 2 * (32 * h * h * c + 32 * oh * oh * c) + 4 * 9 * c * c
+    assert np.isclose(bf_ms, max(7.399e9 / 989e12, nbytes / 3.35e12) * 1e3,
+                      rtol=1e-3)
+
+
+def test_resnet_spread_of_f32_against_f64_is_within_the_check():
+    """tools/resnet_spread.py on a tiny ResNet: after one batch, f32
+    rounding alone stays inside the resnet check's gates."""
+    from mxnet_tpu_torch.tools.resnet_spread import spread
+
+    (line,) = spread(dict(TINY_RESNET, check_steps=1))
+    assert line["batch"] == 1
+    assert line["update_err_worst"] <= cs.RESNET_UPDATE
+    assert line["aux_err_worst"] <= cs.RESNET_AUX
+    assert line["ce_rel_err"] <= cs.RESNET_CE[0]
