@@ -14,7 +14,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    (dQ and dK/dV kernels), the fused sgd_mom / adam updates, and the
    convolution weight gradient (conv_wgrad: partial-sum and reduction
    kernels) at ResNet-50's seven 3x3 shapes and the reference oracle's odd
-   cases, beside cuDNN's wgrad.
+   cases, beside cuDNN's wgrad; and the LSTM step (lstm_step) at the
+   LSTM LM's shape and odd ones, on the views the RNN op passes, beside
+   cuBLAS + PyTorch's fused LSTM cell and, for a whole layer, cuDNN's LSTM.
 3. ``serve``   — the continuous-batching generate path at full width (the
    GQA decoder LM of ``bench.py``: d 2048, 16 heads, 4 kv heads, ffn 8192,
    vocab 10000, bench.py's own 4 layers (not cut), seeded random weights,
@@ -36,12 +38,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    aux states and metrics must agree), then one epoch of 8 seeded batches
    of 32 with exact launch counts (conv_wgrad, sgd_mom), finite
    cross-entropy, step times, images/s and peak memory.
-6. ``kernels`` — one line per the port's kernel table.
+6. ``lstm``    — the fused 2-layer LSTM LM (the repo's widest LSTM record:
+   vocab 10000, embed = hidden = 512, seq 35, f32, no TF32;
+   ``mxnet_tpu_torch/tools/lstm_lm.py``) trained through ``Module.fit``:
+   first 2 batches of 8 on the card and on the port's CPU path from the same
+   Xavier weights (each parameter's update and the perplexity must agree),
+   then one epoch of 8 seeded batches of 128 and ``Module.score`` over the
+   same batches, with exact ``lstm_step`` launch counts in each (2 layers x
+   35 steps x 8), finite perplexity, step times, tokens/s and peak memory.
+7. ``kernels`` — one line per the port's kernel table.
 
 Then the card's ``nvidia-smi`` name/power-limit line and, last, the
 ``{"ok": true, "device": ...}`` line. Exits non-zero without a CUDA card.
 """
 import json
+import math
 import os
 import sys
 import threading
@@ -52,6 +63,8 @@ import numpy as np
 from mxnet_tpu_torch.tools.lm import LM, SERVE, SEED, TRAIN, \
     lm_arg_params, lm_feed, lm_param_shapes, lm_train_executor, \
     lm_train_setup, lm_update, lm_updater, nvidia_smi
+from mxnet_tpu_torch.tools.lstm_lm import LSTM_LM, lstm_setup, lstm_steps
+from mxnet_tpu_torch.tools.lstm_lm import fit_args as lstm_fit_args
 from mxnet_tpu_torch.tools.resnet import RESNET, change_err, fit_args, \
     resnet_setup, wgrad_convs
 
@@ -66,6 +79,8 @@ UPDATE_REPLACES = {"sgd_mom_update": "mxnet_tpu/ops/pallas/fused_update.py:31",
                    "adam_update": "mxnet_tpu/ops/pallas/fused_update.py:60"}
 WGRAD_SRC = CSRC + "conv_wgrad.cu"
 WGRAD_REPLACES = "mxnet_tpu/ops/pallas/conv_bwd.py:89"
+LSTM_SRC = CSRC + "lstm_step.cu"
+LSTM_REPLACES = "mxnet_tpu/ops/pallas/lstm.py:35"
 # (atol, rtol); bf16 outputs differ by an ulp of |O| (rtol), while atol
 # stays below |O| ~ sqrt(e / T) of the long rows
 TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-3, 2e-2)}
@@ -112,6 +127,30 @@ RESNET_WGRAD = {(56, 64, 1): 3, (56, 128, 2): 1, (28, 128, 1): 3,
 RESNET_UPDATE = 0.15
 RESNET_AUX = 2e-3
 RESNET_CE = (1e-4, 1e-2)
+# lstm_step, kernel vs plain (atol, rtol). f32: an H-long dot product (H up
+# to 512, |gates| of order 1) summed in another order than the plain
+# version's GEMM differs in the last f32 bits, and sigmoid / tanh have slope
+# <= 1. bf16: both round the same f32 maths to bf16, so a value whose f32
+# forms straddle a rounding point differs by one bf16 ulp, at most 2^-7 =
+# 7.8e-3 of |x| (rtol 1e-2 leaves a margin)
+LSTM_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (1e-5, 1e-2)}
+# the 35-step scan through the kernel vs the plain scan, f32: the step's
+# last-bit differences carried through 35 recurrences
+LSTM_SCAN_TOL = (1e-4, 1e-4)
+# (N, H) of lstm_step: the LSTM LM's batch 128 and its check's batch 8 at
+# H 512, bench_lstm.py's default (32, 256), and two shapes the reference's
+# use_for refuses (H not a multiple of 128, N not of 8); 200 is lstm-lm's
+# default width
+LSTM_CASES = ((128, 512), (8, 512), (32, 256), (4, 8), (3, 200))
+# lstm phase, card vs the port's CPU path (the LSTM LM, 2 batches of 8):
+# after each batch, each parameter's update within LSTM_UPDATE (L2 norm of
+# the difference over the norm of the CPU's update) and the perplexity
+# within LSTM_PPL (relative). The LSTM has no ReLU ties: f32 against f64 on
+# the CPU (tools/lstm_spread.py) moves the updates by at most 6.5e-6 and
+# the perplexity by 7e-9, so the gates leave 15x and 100x of room for two
+# f32 orders of summation while a wrong kernel moves updates by order 1
+LSTM_UPDATE = 1e-4
+LSTM_PPL = 1e-6
 
 
 def flash_cases():
@@ -192,6 +231,32 @@ def wgrad_bound(n, h, c, k, ksz, stride, dtype):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def lstm_step_bound(n, h, dtype):
+    """Least time (ms) for one LSTM step, and what bounds it: 2 flops per
+    (row, gate row, k) of h . Wh^T, and ib, h, c, Wh read plus h', c'
+    written once."""
+    flops = 2 * n * 4 * h * h
+    item = 4 if dtype == "float32" else 2
+    nbytes = item * (n * 4 * h + 2 * n * h + 4 * h * h + 2 * n * h)
+    peak = H100["f32_flops"] if dtype == "float32" else H100["bf16_flops"]
+    t_ops, t_bytes = flops / peak, nbytes / H100["bytes_per_s"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def lstm_layer_bound(t, n, i, h):
+    """Least time (ms) for one f32 LSTM layer over t steps: the input
+    projection and the t recurrent products, x, the weights and biases
+    and h0 / c0 read and the outputs and final states written once."""
+    flops = 2 * t * n * 4 * h * (i + h)
+    nbytes = 4 * (t * n * i + 4 * h * (i + h) + 8 * h + 2 * n * h
+                  + t * n * h + 2 * n * h)
+    t_ops, t_bytes = (flops / H100["f32_flops"],
+                      nbytes / H100["bytes_per_s"])
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def time_ms(torch, fn, reps=30, warmup=3):
     """Median of ``reps`` single-call CUDA-event timings."""
     for _ in range(warmup):
@@ -206,6 +271,52 @@ def time_ms(torch, fn, reps=30, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(torch, fn, reps=20, warmup=3):
+    """Device time (ms) of one ``fn()`` call: the summed time of the
+    kernels it launches, from a ``torch.profiler`` trace of ``reps`` calls.
+    Unlike :func:`time_ms` it leaves out the gaps while the host enqueues,
+    which dominate a call whose kernels take microseconds."""
+    prof_mod = torch.profiler
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with prof_mod.profile(activities=[prof_mod.ProfilerActivity.CPU,
+                                      prof_mod.ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in p.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not total > 0:
+        raise RuntimeError("the profiler saw no device time")
+    return total / reps / 1e3
+
+
+def graph_ms(torch, fn, calls=35, reps=20):
+    """Median CUDA-event time (ms) of one ``fn()`` call, from replays of a
+    CUDA graph of ``calls`` calls (a scan's 35 steps): the host's enqueue
+    stays out of the timed region, the device's gaps between kernels stay
+    in."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(torch, graph.replay, reps) / calls
+
+
+def _times(torch, fns, reps=20):
+    """{name: device ms} of each (name, fn), and {name: CUDA-event ms}
+    of single calls, the host's enqueue included."""
+    return ({k: device_ms(torch, f, reps) for k, f in fns},
+            {k: time_ms(torch, f, reps) for k, f in fns})
 
 
 # --- phases ------------------------------------------------------------------
@@ -521,6 +632,142 @@ def phase_kernel_wgrad(torch):
     return worst, timings, step
 
 
+def _lstm_inputs(torch, n, h, dtype, gen, views=True):
+    """Seeded lstm_step inputs as the fused RNN op hands them over: ``wh``
+    a (4H, H) view into a parameter blob at an odd element offset (in bf16
+    not 16-byte aligned); ``h`` / ``c`` broadcast views (stride 0 along the
+    hidden and the batch axis) where ``views``, else contiguous."""
+    dt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    ib = randn(n, 4 * h).to(dt)
+    blob = (randn(3 + 4 * h * h + 5) / math.sqrt(h)).to(dt)
+    wh = blob[3:3 + 4 * h * h].view(4 * h, h)
+    hs = (0.5 * randn(n, 1)).to(dt).expand(n, h)
+    cs = randn(1, h).to(dt).expand(n, h)
+    if not views:
+        hs, cs = hs.contiguous(), cs.contiguous()
+    return ib, hs, cs, wh
+
+
+def _fused_lstm_cell(torch, ib, h, c, wh):
+    """The step's library yardstick: cuBLAS's h . Wh^T, then PyTorch's
+    fused LSTM pointwise kernel (CUDA only). No single PyTorch call
+    computes the step. Timed only; the port never calls it."""
+    cell = torch.ops.aten._thnn_fused_lstm_cell
+    return lambda: cell(ib, torch.mm(h, wh.t()), c)
+
+
+def phase_kernel_lstm(torch):
+    """lstm_step: kernel vs plain on the card at LSTM_CASES, f32 and bf16,
+    on the views the RNN op passes and on contiguous state; the 35-step
+    fused scan vs the plain scan; then the step timed at (128, 512) beside
+    the plain version and cuBLAS + the fused LSTM cell, and one whole
+    layer (input projection + 35 steps) beside cuDNN's LSTM. A step's
+    ``ms``, ``plain_ms`` and ``library_ms`` are CUDA-event medians over
+    graph replays of 35 calls (:func:`graph_ms`), with the profiler's
+    device times under ``device_ms``; the layer's are the profiler's
+    device times. Single-call CUDA-event times, the host's enqueue
+    included, are under ``event_ms``."""
+    from mxnet_tpu_torch.ops import rnn_fused as rf
+    from mxnet_tpu_torch.ops.kernels import lstm as kl
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    results, worst = [], {}
+    for dtype in ("float32", "bfloat16"):
+        atol, rtol = LSTM_TOL[dtype]
+        for n, h in LSTM_CASES:
+            for views in (True, False):
+                ib, hs, cs, wh = _lstm_inputs(torch, n, h, dtype, gen, views)
+                got = kl.lstm_step(ib, hs, cs, wh)
+                want = kl.lstm_step_plain(ib, hs, cs, wh)
+                torch.cuda.synchronize()
+                errs = []
+                for name, g, w in zip(("h", "c"), got, want):
+                    torch.testing.assert_close(
+                        g.float(), w.float(), atol=atol, rtol=rtol,
+                        msg=lambda m, k=name: "lstm_step %s %s: %s" % (
+                            (n, h, dtype), k, m))
+                    errs.append(float((g.float() - w.float()).abs().max()))
+                results.append({"shape": [n, h], "dtype": dtype,
+                                "layout": "blob view, broadcast state"
+                                if views else "blob view, contiguous state",
+                                "tiles": list(kl.tiles_for(n, h)),
+                                "atol": atol, "rtol": rtol,
+                                "max_abs_err": {"h": errs[0],
+                                                "c": errs[1]}})
+                worst[dtype] = max([worst.get(dtype, 0.0)] + errs)
+
+    # the 35-step scan at the LM's shape: kernel scan vs plain scan, f32
+    cfg = LSTM_LM
+    t, n, h = cfg["seq"], cfg["batch"], cfg["hidden"]
+    _, h0, c0, wh = _lstm_inputs(torch, n, h, "float32", gen)
+    ib = torch.randn(t, n, 4 * h, generator=gen, device="cuda")
+    with torch.no_grad():
+        got = rf.LSTMScan.apply(ib, h0, c0, wh)
+        want = rf._lstm_scan_plain(ib, h0, c0, wh, h)
+    torch.cuda.synchronize()
+    scan_err = {}
+    for name, g, w in zip(("ys", "h", "c"), got, want):
+        torch.testing.assert_close(g, w, atol=LSTM_SCAN_TOL[0],
+                                   rtol=LSTM_SCAN_TOL[1])
+        scan_err[name] = float((g - w).abs().max())
+    del ib, got, want
+
+    timings = {}
+    for dtype in ("float32", "bfloat16"):
+        ib, hs, cs, wh = _lstm_inputs(torch, n, h, dtype, gen, views=False)
+        h_out, c_out = torch.empty_like(hs), torch.empty_like(cs)
+        bound_ms, bound_by = lstm_step_bound(n, h, dtype)
+        fns = (("ms", lambda: kl.lstm_step(ib, hs, cs, wh, h_out, c_out)),
+               ("plain_ms", lambda: kl.lstm_step_plain(ib, hs, cs, wh)),
+               ("library_ms", _fused_lstm_cell(torch, ib, hs, cs, wh)))
+        dev, event = _times(torch, fns)
+        timings[dtype] = dict({k: graph_ms(torch, f) for k, f in fns},
+                              shape=[n, h], tiles=list(kl.tiles_for(n, h)),
+                              device_ms=dev, event_ms=event,
+                              bound_ms=bound_ms, bound_by=bound_by)
+
+    # one whole layer at the LM's shape, f32: the port's scan (input
+    # projection + 35 kernel steps) vs the plain scan vs cuDNN's LSTM with
+    # the same weights (gate order i, f, g, o in both)
+    i = cfg["embed"]
+    x = torch.randn(t, n, i, generator=gen, device="cuda")
+    wi = torch.randn(4 * h, i, generator=gen, device="cuda") / math.sqrt(i)
+    wh = torch.randn(4 * h, h, generator=gen, device="cuda") / math.sqrt(h)
+    bi, bh = (0.1 * torch.randn(4 * h, generator=gen, device="cuda")
+              for _ in range(2))
+    h0, c0 = (torch.zeros(n, h, device="cuda") for _ in range(2))
+    cudnn = torch.nn.LSTM(i, h).cuda()
+    with torch.no_grad():
+        for name, w in (("weight_ih_l0", wi), ("weight_hh_l0", wh),
+                        ("bias_ih_l0", bi), ("bias_hh_l0", bh)):
+            getattr(cudnn, name).copy_(w)
+        port = lambda: rf._lstm_scan(x, h0, c0, wi, wh, bi, bh)
+        plain = lambda: rf._lstm_scan_plain(
+            torch.matmul(x, wi.t()) + (bi + bh), h0, c0, wh, h)
+        library = lambda: cudnn(x, (h0[None], c0[None]))
+        ys = port()[0]
+        ys_lib = library()[0]
+        torch.cuda.synchronize()
+        torch.testing.assert_close(ys, ys_lib, atol=LSTM_SCAN_TOL[0],
+                                   rtol=LSTM_SCAN_TOL[1])
+        bound_ms, bound_by = lstm_layer_bound(t, n, i, h)
+        dev, event = _times(torch, (("ms", port), ("plain_ms", plain),
+                                    ("library_ms", library)), reps=10)
+        layer = dict(dev, shape=[t, n, i, h], dtype="float32",
+                     max_abs_err_vs_cudnn=float((ys - ys_lib).abs().max()),
+                     event_ms=event,
+                     library="torch.nn.LSTM (cuDNN, no TF32)",
+                     bound_ms=bound_ms, bound_by=bound_by)
+    emit({"phase": "kernel", "kernel": "lstm_step", "cases": results,
+          "max_abs_err": worst, "scan_max_abs_err": scan_err,
+          "scan_tol": LSTM_SCAN_TOL, "timings": timings, "layer": layer})
+    return worst, timings, layer
+
+
 def phase_serve(cfg=LM, serve=SERVE, device=None, ref_device="cpu",
                 seed=SEED):
     """The generate path end to end. ``device`` None = the card (the
@@ -740,11 +987,13 @@ def _host_state(mod):
             {n: np.array(a.asnumpy()) for n, a in aux.items()})
 
 
-def _fit_recorded(mod, it, init, cfg):
-    """``mod.fit`` one epoch over ``it`` from ``init``; returns the
-    parameters and aux states before the first step and after each batch,
-    and the metric after each batch."""
-    mod.bind(it.provide_data, it.provide_label)
+def _fit_recorded(mod, it, init, kwargs):
+    """``mod.fit(it, **kwargs)`` (one epoch) from ``init`` (binding and
+    initializing first if the set-up has not); returns the parameters and
+    aux states before the first step and after each batch, and the metric
+    after each batch."""
+    if not mod.binded:
+        mod.bind(it.provide_data, it.provide_label)
     mod.init_params(init)
     states, metrics = [_host_state(mod)], []
 
@@ -753,7 +1002,7 @@ def _fit_recorded(mod, it, init, cfg):
         metrics.append({k: float(v) for k, v in
                         param.eval_metric.get_name_value()})
 
-    mod.fit(it, batch_end_callback=record, **fit_args(cfg, init))
+    mod.fit(it, batch_end_callback=record, **kwargs)
     return states, metrics
 
 
@@ -772,8 +1021,10 @@ def phase_resnet(cfg=RESNET, device=None, ref_device="cpu", seed=SEED):
 
     # 1. card vs the port's CPU path: same init, same 2 batches of 2
     cb, cs = cfg["check_batch"], cfg["check_steps"]
-    runs = [_fit_recorded(*resnet_setup(cfg, cb, cs, dev, seed), cfg)
-            for dev in (device, ref_device)]
+    runs = []
+    for dev in (device, ref_device):
+        mod, it, init = resnet_setup(cfg, cb, cs, dev, seed)
+        runs.append(_fit_recorded(mod, it, init, fit_args(cfg, init)))
     (got_s, got_m), (ref_s, ref_m) = runs
     init_err = max(float(np.abs(got_s[0][0][n] - ref_s[0][0][n]).max())
                    for n in ref_s[0][0])
@@ -874,6 +1125,111 @@ def phase_resnet(cfg=RESNET, device=None, ref_device="cpu", seed=SEED):
     return launches
 
 
+def phase_lstm(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
+    """The LSTM LM through ``Module.fit`` and ``Module.score``. ``device``
+    None = the card; the card-vs-reference check runs the same weights and
+    batches on ``ref_device``, where lstm_step takes its plain version."""
+    import torch
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.ops.kernels import lstm as kl
+
+    # 1. card vs the port's CPU path: same init, same 2 batches of 8
+    cb, cs = cfg["check_batch"], cfg["check_steps"]
+    runs = []
+    for dev in (device, ref_device):
+        mod, it, init = lstm_setup(cfg, cb, cs, dev, seed)
+        runs.append(_fit_recorded(mod, it, init, lstm_fit_args(cfg, init)))
+        del mod
+    (got_s, got_m), (ref_s, ref_m) = runs
+    init_err = max(float(np.abs(got_s[0][0][n] - ref_s[0][0][n]).max())
+                   for n in ref_s[0][0])
+    upd = [_change_errs(got_s[0][0], got_s[b][0], ref_s[0][0], ref_s[b][0])
+           for b in range(1, cs + 1)]
+    ppl = [abs(g["Perplexity"] - r["Perplexity"]) / r["Perplexity"]
+           for g, r in zip(got_m, ref_m)]
+    failures = []
+    if init_err != 0.0:
+        failures.append("initial weights differ by %g" % init_err)
+    for b, (u, p) in enumerate(zip(upd, ppl)):
+        worst = max(u, key=u.get)
+        if not u[worst] <= LSTM_UPDATE:
+            failures.append("batch-%d update of %s off by %g (tol %g)"
+                            % (b + 1, worst, u[worst], LSTM_UPDATE))
+        if not p <= LSTM_PPL:
+            failures.append("batch-%d perplexity off by %g (tol %g)"
+                            % (b + 1, p, LSTM_PPL))
+    if len(got_m) != cs or len(ref_m) != cs:
+        failures.append("%d / %d batches recorded, want %d"
+                        % (len(got_m), len(ref_m), cs))
+    if failures:
+        raise RuntimeError("lstm check: " + "; ".join(failures))
+    check = {"batch": cb, "batches": cs, "metrics": got_m,
+             "ref_metrics": ref_m, "perplexity_rel_err": ppl,
+             "update_err": upd,
+             "tol": {"update": LSTM_UPDATE, "perplexity": LSTM_PPL}}
+    del runs, got_s, ref_s
+
+    # 2. the run: one epoch of `batches` batches of `batch`, then score
+    on_card = device is None or torch.device(device).type == "cuda"
+    mod, it, init = lstm_setup(cfg, cfg["batch"], cfg["batches"], device,
+                               seed)
+    times, metrics = [], []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def record(param):
+        sync()
+        times.append(time.perf_counter())
+        metrics.append({k: float(v) for k, v in
+                        param.eval_metric.get_name_value()})
+
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    kl.lstm_step.launches = 0
+    t0 = time.perf_counter()
+    mod.fit(it, batch_end_callback=record, **lstm_fit_args(cfg, init))
+    fit_launches = kl.lstm_step.launches
+    kl.lstm_step.launches = 0
+    t1 = time.perf_counter()
+    score = dict(mod.score(it, metric.Perplexity(ignore_label=None)))
+    sync()
+    score_s = time.perf_counter() - t1
+    score_launches = kl.lstm_step.launches
+    steps = cfg["batches"]
+    want = lstm_steps(cfg, steps)
+    if fit_launches != want or score_launches != want:
+        raise RuntimeError("lstm phase launched lstm_step %d times in fit "
+                           "and %d in score, want %d each"
+                           % (fit_launches, score_launches, want))
+    ppl_run = [m["Perplexity"] for m in metrics]
+    if len(metrics) != steps or not all(np.isfinite(ppl_run)) \
+            or not np.isfinite(score["Perplexity"]):
+        raise RuntimeError("lstm phase: %d batches, perplexity %s, score %s"
+                           % (len(metrics), ppl_run, score))
+    step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    median_ms = float(np.median(step_ms))
+    args, _ = mod.get_params()
+    tokens = cfg["batch"] * cfg["seq"]
+    result = {"phase": "lstm", "vocab": cfg["vocab"], "embed": cfg["embed"],
+              "hidden": cfg["hidden"], "layers": cfg["layers"],
+              "seq": cfg["seq"], "batch": cfg["batch"], "batches": steps,
+              "dtype": "float32", "parameters": len(args),
+              "elements": int(sum(a.size for a in args.values())),
+              "check": check, "metrics": metrics,
+              "score": score, "score_ms_per_batch": score_s * 1e3 / steps,
+              "first_batch_ms": (times[0] - t0) * 1e3,
+              "step_ms": step_ms, "median_step_ms": median_ms,
+              "tokens_per_s": tokens / median_ms * 1e3,
+              "launches": {"fit": fit_launches, "score": score_launches}}
+    if on_card:
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit(result)
+    return {"fit": fit_launches, "score": score_launches}
+
+
 def main():
     import torch
 
@@ -888,9 +1244,11 @@ def main():
     bwd_worst, bwd_timings = phase_kernel_bwd(torch)
     upd_worst, upd_timings = phase_kernel_update(torch)
     wgrad_worst, wgrad_timings, wgrad_step = phase_kernel_wgrad(torch)
+    lstm_worst, lstm_timings, lstm_layer = phase_kernel_lstm(torch)
     serve_launches = phase_serve()
     train = phase_train()
     resnet = phase_resnet()
+    lstm = phase_lstm()
     t = timings["bfloat16"]
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda", "source": FA_SRC,
@@ -950,6 +1308,19 @@ def main():
         "library": "torch.nn.grad.conv2d_weight (cuDNN wgrad, no TF32)",
         "bfloat16": wgrad_step["bfloat16"],
         "per_shape": wgrad_timings})
+    t = lstm_timings["float32"]
+    rows.append({
+        "name": "lstm_step", "route": "cuda", "source": LSTM_SRC,
+        "replaces": LSTM_REPLACES, "launches": lstm["fit"] + lstm["score"],
+        "launches_by_phase": {"lstm_fit": lstm["fit"],
+                              "lstm_score": lstm["score"]},
+        "max_abs_err": max(lstm_worst.values()), "max_err": lstm_worst,
+        "dtype": "float32", "shape": "one step at (N, H) = (128, 512)",
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library": "torch.mm(h, wh.t()) + aten._thnn_fused_lstm_cell (no "
+                   "single PyTorch call computes the step)",
+        "bfloat16": lstm_timings["bfloat16"], "layer": lstm_layer})
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -18,19 +18,22 @@ training path ``models.get_symbol`` -> ``Symbol.simple_bind`` ->
 flash-attention backward and the fused update kernels; and
 ``module.Module.fit`` over ``io.NDArrayIter`` with ``metric`` and
 ``callback`` on ResNet / LeNet / MLP (Convolution, Pooling, BatchNorm),
-with the ``conv_wgrad`` kernel for the 3x3 weight gradients.
+with the ``conv_wgrad`` kernel for the 3x3 weight gradients; and the
+recurrent cells (``rnn``) with the fused ``RNN`` op, whose LSTM steps run
+the ``lstm_step`` kernel (the LSTM language model through ``Module.fit``).
 """
 from . import (base, callback, context, engine, executor, initializer, io,
-               metric, model, models, module, ndarray, optimizer, symbol)
+               metric, model, models, module, ndarray, optimizer, rnn,
+               symbol)
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
 from .base import MXNetError
 from .context import cpu, default_device, gpu
 
-__version__ = "0.9.5-torch.3"
+__version__ = "0.9.5-torch.4"
 
 __all__ = ["MXNetError", "base", "callback", "context", "cpu",
            "default_device", "engine", "executor", "gpu", "initializer",
            "io", "metric", "mod", "model", "models", "module", "nd",
-           "ndarray", "optimizer", "sym", "symbol"]
+           "ndarray", "optimizer", "rnn", "sym", "symbol"]

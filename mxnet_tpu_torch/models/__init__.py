@@ -3,7 +3,7 @@
 
 Factory: ``get_symbol(name, num_classes=..., **kwargs)``.
 """
-from . import lenet, mlp, resnet, transformer
+from . import lenet, lstm_lm, mlp, resnet, transformer
 
 _BUILDERS = {
     "mlp": mlp.get_symbol,
@@ -15,6 +15,7 @@ _BUILDERS = {
     "resnet-101": lambda **kw: resnet.get_symbol(num_layers=101, **kw),
     "resnet-152": lambda **kw: resnet.get_symbol(num_layers=152, **kw),
     "transformer-lm": transformer.get_symbol,
+    "lstm-lm": lstm_lm.get_symbol,
 }
 
 

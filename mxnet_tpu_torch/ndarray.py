@@ -399,6 +399,13 @@ def empty(shape, ctx=None, dtype=None) -> NDArray:
     return zeros(shape, ctx, dtype)
 
 
+def concatenate(arrays: Sequence[NDArray], axis=0,
+                always_copy=True) -> NDArray:
+    """The arrays joined along ``axis``, as a new array on their device."""
+    del always_copy  # torch.cat always copies
+    return NDArray(torch.cat([a._data for a in arrays], dim=axis))
+
+
 def waitall():
     """Block on all outstanding work on the card (reference WaitForAll)."""
     if torch.cuda.is_available():

@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/ops/broadcast_reduce.py`` (reference
 broadcast_reduce_op*.cc): ``sum`` / ``mean`` / ``prod`` / ``max`` / ``min``
 over ``axis`` (None = all, ``exclude`` inverts the set), and the
-``broadcast_*`` binary family that symbol and NDArray arithmetic compose to.
+``broadcast_*`` binary family that symbol and NDArray arithmetic compose to,
+and ``broadcast_to``.
 """
 from __future__ import annotations
 
@@ -85,3 +86,13 @@ _broadcast_binary("broadcast_lesser", _cmp(torch.lt))
 _broadcast_binary("broadcast_lesser_equal", _cmp(torch.le))
 alias("broadcast_add", "broadcast_plus")
 alias("broadcast_sub", "broadcast_minus")
+
+
+@defop("broadcast_to", arg_names=("data",), param_spec={"shape": ()})
+def _broadcast_to(attrs, data):
+    """Broadcast to ``shape``, where 0 keeps the input's dim (reference
+    broadcast_reduce_op_value.cc). An ``expand`` view: the broadcast axes
+    have stride 0."""
+    shape = tuple(int(s) for s in attrs["shape"])
+    return data.expand(tuple(d if s == 0 else s
+                             for s, d in zip(shape, data.shape)))

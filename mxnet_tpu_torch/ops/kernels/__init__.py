@@ -8,4 +8,5 @@ its plain PyTorch version and its launch counter.
 | ``fused_update.sgd_mom_update`` | ``fused_update.cu`` | ``mxnet_tpu/ops/pallas/fused_update.py`` ``sgd_mom_update`` |
 | ``fused_update.adam_update`` | ``fused_update.cu`` | ``fused_update.py`` ``adam_update`` |
 | ``conv_wgrad.conv_wgrad`` / ``conv_wgrad.wgrad`` | ``conv_wgrad.cu`` | ``mxnet_tpu/ops/pallas/conv_bwd.py`` ``conv_wgrad`` |
+| ``lstm.lstm_step`` | ``lstm_step.cu`` | ``mxnet_tpu/ops/pallas/lstm.py`` ``lstm_step`` |
 """

@@ -1,0 +1,158 @@
+"""One LSTM time step: the CUDA kernel's wrapper and its plain version.
+
+Replaces ``mxnet_tpu/ops/pallas/lstm.py``'s ``lstm_step`` (the Pallas
+kernel ``_step_kernel``); the kernel is ``csrc/lstm_step.cu``, whose header
+says what bounds it and what its design does about that.
+
+:func:`lstm_step` keeps the reference's signature and result: ``ib``
+(N, 4H) the input projection plus both biases, ``h`` / ``c`` (N, H) the
+state and ``wh`` (4H, H) the recurrent weight, gate order i, f, g, o; it
+returns (h', c') in h's and c's type, the product and the gate maths in
+f32. For CPU tensors the plain version runs; for CUDA tensors the kernel
+launches, counting its launches in ``lstm_step.launches``, or the call
+raises — it never falls back. Unlike the reference there is no selection
+gate (``use_for``): a CUDA tensor always takes the kernel, at any N and H.
+
+The kernel reads every input through its strides (``wh`` may be a view
+into a packed parameter blob at any offset, ``h`` / ``c`` broadcast views
+with stride 0) and writes h' and c' into ``h_out`` / ``c_out`` where given
+(rows of any stride, columns contiguous, not overlapping an input): the
+fused RNN op's scan writes h' straight into its output sequence.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_NAME = "lstm_step"
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# the kernel's batch rows per block (csrc/lstm_step.cu ROWS)
+ROWS = 32
+# (units per warp, warps per block) the kernel is built for, in the order
+# the wrapper tries them
+TILES = ((4, 4), (2, 4), (1, 4), (1, 2), (1, 1))
+# blocks a launch aims for: one per SM of the H100's 132
+TARGET_BLOCKS = 132
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def tiles_for(n, hidden):
+    """(units per warp, warps) of the first tile in :data:`TILES` that
+    puts at least ``TARGET_BLOCKS`` blocks in flight, else the last."""
+    for upw, warps in TILES:
+        if _cdiv(hidden, upw * warps) * _cdiv(n, ROWS) >= TARGET_BLOCKS:
+            return upw, warps
+    return TILES[-1]
+
+
+def lstm_step_plain(ib, h, c, wh):
+    """Plain PyTorch version of the reference's Pallas kernel: the product
+    and the gate maths in f32 (f64 for f64 inputs), h' and c' cast to h's
+    and c's type."""
+    hidden = h.shape[-1]
+    acc = torch.promote_types(h.dtype, torch.float32)
+    gates = ib.to(acc) + torch.matmul(h.to(acc), wh.to(acc).t())
+    i, f, g, o = torch.split(gates, hidden, dim=-1)
+    c_new = torch.sigmoid(f) * c.to(acc) + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new.to(h.dtype), c_new.to(c.dtype)
+
+
+def _check(ib, h, c, wh):
+    """Shape/type/device checks shared by both paths."""
+    if h.dim() != 2 or c.shape != h.shape or ib.dim() != 2:
+        raise ValueError("lstm_step wants ib (N, 4H) and h, c (N, H); got "
+                         "ib %s, h %s, c %s" % (tuple(ib.shape),
+                                                tuple(h.shape),
+                                                tuple(c.shape)))
+    n, hidden = h.shape
+    if tuple(ib.shape) != (n, 4 * hidden) or tuple(wh.shape) != (
+            4 * hidden, hidden):
+        raise ValueError("lstm_step: ib %s and wh %s do not match h %s "
+                         "(want (N, 4H) and (4H, H))"
+                         % (tuple(ib.shape), tuple(wh.shape),
+                            tuple(h.shape)))
+    if len({t.device for t in (ib, h, c, wh)}) != 1:
+        raise ValueError("lstm_step: inputs on different devices")
+
+
+def _span(t):
+    """[first, last) byte addresses a tensor's elements occupy."""
+    start = t.data_ptr()
+    extent = sum((s - 1) * abs(st) for s, st in zip(t.shape, t.stride()))
+    return start, start + (extent + 1) * t.element_size()
+
+
+def _overlap(a, b):
+    (a0, a1), (b0, b1) = _span(a), _span(b)
+    return a0 < b1 and b0 < a1
+
+
+def _output(out, n, hidden, like, inputs, name):
+    """``out`` checked (or allocated) as a kernel output."""
+    if out is None:
+        return torch.empty((n, hidden), dtype=like.dtype, device=like.device)
+    if tuple(out.shape) != (n, hidden) or out.dtype != like.dtype \
+            or out.device != like.device or out.stride(1) != 1:
+        raise ValueError("lstm_step: %s must be (%d, %d) %s on %s with "
+                         "contiguous rows, got %s %s stride %s"
+                         % (name, n, hidden, like.dtype, like.device,
+                            tuple(out.shape), out.dtype, out.stride()))
+    if any(_overlap(out, t) for t in inputs):
+        raise ValueError("lstm_step: %s overlaps an input" % name)
+    return out
+
+
+def _kernel():
+    from . import _build
+
+    return _build.kernel(_NAME, "mxtt_lstm_step",
+                         [_PTR] * 6 + [_I32] * 3 + [_I64] * 10
+                         + [_I32] * 2 + [_PTR])
+
+
+def lstm_step(ib, h, c, wh, h_out=None, c_out=None):
+    """One fused LSTM step; returns (h', c'). CPU tensors take the plain
+    version (copied into ``h_out`` / ``c_out`` where given); CUDA tensors
+    launch the kernel, which writes them."""
+    _check(ib, h, c, wh)
+    if h.device.type == "cpu":
+        h_new, c_new = lstm_step_plain(ib, h, c, wh)
+        if h_out is not None:
+            h_new = h_out.copy_(h_new)
+        if c_out is not None:
+            c_new = c_out.copy_(c_new)
+        return h_new, c_new
+    if h.device.type != "cuda":
+        raise ValueError("lstm_step: no path for device %s" % h.device)
+    if not all(t.dtype == h.dtype for t in (ib, c, wh)) \
+            or h.dtype not in _DTYPE_CODE:
+        raise TypeError("lstm_step kernel takes ib, h, c, wh all float32 or "
+                        "all bfloat16, not %s"
+                        % [str(t.dtype) for t in (ib, h, c, wh)])
+    n, hidden = h.shape
+    if n == 0 or hidden == 0:
+        raise ValueError("lstm_step: empty state %s" % (tuple(h.shape),))
+    inputs = (ib, h, c, wh)
+    h_out = _output(h_out, n, hidden, h, inputs, "h_out")
+    c_out = _output(c_out, n, hidden, c, inputs + (h_out,), "c_out")
+    upw, warps = tiles_for(n, hidden)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = _kernel()(
+            ib.data_ptr(), h.data_ptr(), c.data_ptr(), wh.data_ptr(),
+            h_out.data_ptr(), c_out.data_ptr(), _DTYPE_CODE[h.dtype], n,
+            hidden, *ib.stride(), *h.stride(), *c.stride(), *wh.stride(),
+            h_out.stride(0), c_out.stride(0), upw, warps, stream)
+    if err != 0:
+        raise RuntimeError("lstm_step launch failed: cudaError %d" % err)
+    lstm_step.launches += 1
+    return h_out, c_out
+
+
+lstm_step.launches = 0

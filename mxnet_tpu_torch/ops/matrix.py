@@ -1,9 +1,11 @@
 """Shape and indexing operators.
 
 Counterpart of the parts of ``mxnet_tpu/ops/matrix.py`` the ported paths
-use (reference src/operator/tensor/matrix_op.cc, indexing_op.cc):
-``Reshape`` with the reference's special codes, ``Flatten``, ``Embedding``
-and ``one_hot``.
+use (reference src/operator/tensor/matrix_op.cc, indexing_op.cc,
+swapaxis.cc, concat.cc, slice_channel.cc): ``Reshape`` with the
+reference's special codes, ``Flatten``, ``SwapAxis``, ``expand_dims``,
+``slice_axis``, ``Concat``, ``SliceChannel``, ``Embedding`` and
+``one_hot``. The shape ops return views where torch can.
 """
 from __future__ import annotations
 
@@ -82,6 +84,64 @@ def _flatten(attrs, data):
 
 
 alias("Flatten", "flatten")
+
+
+@defop("SwapAxis", arg_names=("data",), param_spec={"dim1": 0, "dim2": 0})
+def _swapaxis(attrs, data):
+    """Swap two axes (a view)."""
+    return data.transpose(int(attrs["dim1"]), int(attrs["dim2"]))
+
+
+alias("SwapAxis", "swapaxes")
+
+
+@defop("expand_dims", arg_names=("data",), param_spec={"axis": 0})
+def _expand_dims(attrs, data):
+    """A new axis of size 1 at ``axis`` (negative counts from the end of
+    the result, as ``jnp.expand_dims``)."""
+    return data.unsqueeze(int(attrs["axis"]))
+
+
+@defop("slice_axis", arg_names=("data",),
+       param_spec={"axis": 0, "begin": 0, "end": None})
+def _slice_axis(attrs, data):
+    """``data[begin:end]`` along ``axis``; ``end`` None is the axis' size
+    and a negative ``end`` counts from it."""
+    ax = int(attrs["axis"]) % data.dim()
+    end = attrs["end"]
+    end = data.shape[ax] if end is None else int(end)
+    if end < 0:
+        end += data.shape[ax]
+    return data.narrow(ax, int(attrs["begin"]), end - int(attrs["begin"]))
+
+
+@defop("Concat", arg_names=(), variadic=True,
+       param_spec={"num_args": 0, "dim": 1}, py_name="concat")
+def _concat(attrs, *inputs):
+    """Concatenate the inputs along ``dim``."""
+    return torch.cat(inputs, dim=int(attrs["dim"]))
+
+
+alias("Concat", "concat")
+
+
+@defop("SliceChannel", arg_names=("data",),
+       param_spec={"num_outputs": 1, "axis": 1, "squeeze_axis": False},
+       num_outputs=lambda attrs: int(attrs["num_outputs"]), py_name="split")
+def _slice_channel(attrs, data):
+    """Split ``axis`` into ``num_outputs`` equal parts (views), each
+    without that axis if ``squeeze_axis``."""
+    n, ax = int(attrs["num_outputs"]), int(attrs["axis"])
+    if data.shape[ax] % n:
+        raise ValueError("SliceChannel: axis %d of size %d does not split "
+                         "into %d equal parts" % (ax, data.shape[ax], n))
+    parts = torch.split(data, data.shape[ax] // n, dim=ax)
+    if attrs["squeeze_axis"]:
+        parts = [p.squeeze(ax) for p in parts]
+    return tuple(parts)
+
+
+alias("SliceChannel", "split")
 
 
 @defop("Embedding", arg_names=("data", "weight"),

@@ -273,7 +273,8 @@ class Symbol:
             args, aux = node.split_inputs(ins)
             try:
                 with torch.no_grad():
-                    outs, _ = op.impl(attrs, args, aux, OpContext(False))
+                    outs, _ = op.impl(attrs, args, aux, OpContext(
+                        False, torch.device("meta")))
             except Exception as e:  # surface with the node's context
                 raise MXNetError("shape inference failed at node %s (%s): %s"
                                  % (node.name, op.name, e)) from e
@@ -336,7 +337,9 @@ class Symbol:
         def eval_fn(arg_values, aux_values, is_train):
             env: Dict[Tuple[int, int], Any] = {}
             aux_updates: Dict[str, Any] = {}
-            ctx = OpContext(is_train)
+            first = next(iter(arg_values.values()), None)
+            ctx = OpContext(is_train,
+                            None if first is None else first.device)
             for node in nodes:
                 if node.is_var:
                     src = aux_values if node.is_aux else arg_values
@@ -380,8 +383,10 @@ def _grad_reqs(grad_req, arg_names):
 
 
 def Variable(name: str, attr=None, shape=None, lr_mult=None, wd_mult=None,
-             dtype=None, **kwargs) -> Symbol:
-    """A variable symbol (reference symbol.py Variable)."""
+             dtype=None, init=None, **kwargs) -> Symbol:
+    """A variable symbol (reference symbol.py Variable). ``init`` (an
+    initializer or its JSON) becomes the ``__init__`` attribute, which
+    ``Module.init_params`` hands the initializer."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
     misc = attribute.current().get(attr or {})
@@ -393,12 +398,29 @@ def Variable(name: str, attr=None, shape=None, lr_mult=None, wd_mult=None,
         misc["__lr_mult__"] = str(lr_mult)
     if wd_mult is not None:
         misc["__wd_mult__"] = str(wd_mult)
+    if init is not None:
+        misc["__init__"] = init if isinstance(init, str) else init.dumps()
     for k, v in kwargs.items():
         misc[k] = str(v)
     return Symbol([(_Node(None, name, {}, [], False, misc), 0)])
 
 
 var = Variable
+
+
+def zeros(shape, dtype="float32", **kwargs) -> Symbol:
+    """A symbol of zeros (the ``_zeros`` op), made on the device of the
+    graph that runs it."""
+    return _create_symbol(get_op("_zeros"), [], {"shape": shape,
+                                                  "dtype": dtype},
+                          kwargs.get("name"))
+
+
+def ones(shape, dtype="float32", **kwargs) -> Symbol:
+    """A symbol of ones (the ``_ones`` op)."""
+    return _create_symbol(get_op("_ones"), [], {"shape": shape,
+                                                 "dtype": dtype},
+                          kwargs.get("name"))
 
 
 def Group(symbols: Sequence[Symbol]) -> Symbol:

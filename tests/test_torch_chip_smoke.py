@@ -1,9 +1,9 @@
 """chip_smoke.py's logic on the CPU at a tiny size.
 
-The script itself needs a CUDA card; here its serve and train phases run
-on the host (each wrapper takes its plain version, counted in place of
-kernel launches) so a broken phase shows before a card run, and its bound
-arithmetic is checked against closed forms.
+The script itself needs a CUDA card; here its serve, train, resnet and
+lstm phases run on the host (each wrapper takes its plain version, counted
+in place of kernel launches) so a broken phase shows before a card run,
+and its bound arithmetic is checked against closed forms.
 """
 import numpy as np
 import pytest
@@ -12,6 +12,7 @@ import chip_smoke as cs
 from mxnet_tpu_torch.ops.kernels import conv_wgrad as cw
 from mxnet_tpu_torch.ops.kernels import flash_attention as fa
 from mxnet_tpu_torch.ops.kernels import fused_update as fu
+from mxnet_tpu_torch.ops.kernels import lstm as kl
 
 TINY = {"vocab": 97, "d_model": 32, "heads": 4, "kv_heads": 2, "ffn": 64,
         "layers": 2}
@@ -27,18 +28,23 @@ PLAINS = {"flash_attention_plain": ("flash_attention",),
                                         "flash_attention_bwd_dkv"),
           "sgd_mom_update_plain": ("sgd_mom_update",),
           "adam_update_plain": ("adam_update",),
-          "conv_wgrad_plain": ("conv_wgrad_partial", "conv_wgrad_reduce")}
+          "conv_wgrad_plain": ("conv_wgrad_partial", "conv_wgrad_reduce"),
+          "lstm_step_plain": ("lstm_step",)}
 # ResNet-18 with the CIFAR stem at batch 2: every convolution but the 1x1
 # shortcuts is 3x3 (17 per step)
 TINY_RESNET = {"depth": 18, "classes": 10, "image": (3, 16, 16), "batch": 2,
                "batches": 2, "lr": 0.05, "momentum": 0.9, "wd": 1e-4,
                "check_batch": 2, "check_steps": 2}
+# the fused LSTM LM, 2 layers, narrow
+TINY_LSTM = {"vocab": 50, "embed": 16, "hidden": 16, "layers": 2, "seq": 5,
+             "batch": 4, "batches": 2, "lr": 0.5, "check_batch": 2,
+             "check_steps": 2}
 
 
 def _count_plain_calls(monkeypatch):
     """Count each plain call on the host as its kernels' launches."""
     for plain_name, launcher_names in PLAINS.items():
-        mod = next(m for m in (fa, fu, cw) if hasattr(m, plain_name))
+        mod = next(m for m in (fa, fu, cw, kl) if hasattr(m, plain_name))
         plain = getattr(mod, plain_name)
         launchers = [getattr(mod, n) for n in launcher_names]
 
@@ -180,3 +186,56 @@ def test_resnet_spread_of_f32_against_f64_is_within_the_check():
     assert line["update_err_worst"] <= cs.RESNET_UPDATE
     assert line["aux_err_worst"] <= cs.RESNET_AUX
     assert line["ce_rel_err"] <= cs.RESNET_CE[0]
+
+
+def test_lstm_phase_on_cpu(monkeypatch, capsys):
+    _count_plain_calls(monkeypatch)
+    launches = cs.phase_lstm(TINY_LSTM, device="cpu")
+    per = TINY_LSTM["layers"] * TINY_LSTM["seq"] * TINY_LSTM["batches"]
+    assert launches == {"fit": per, "score": per}
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert '"phase": "lstm"' in line and '"tokens_per_s"' in line
+
+
+def test_lstm_phase_fails_when_lstm_step_is_not_reached():
+    """On the host nothing counts a launch: the phase must refuse."""
+    with pytest.raises(RuntimeError, match="lstm phase launched"):
+        cs.phase_lstm(TINY_LSTM, device="cpu")
+
+
+def test_lstm_phase_launch_arithmetic_is_560_per_pass():
+    assert cs.lstm_steps(cs.LSTM_LM, cs.LSTM_LM["batches"]) == 560
+
+
+@pytest.mark.parametrize("n,h,dtype,want,by", [
+    (128, 512, "float32", 4.006e-3, "operations"),
+    (128, 512, "bfloat16", 0.939e-3, "bytes"),
+    (8, 512, "float32", 1.291e-3, "bytes")])
+def test_lstm_step_bound(n, h, dtype, want, by):
+    ms, got_by = cs.lstm_step_bound(n, h, dtype)
+    assert got_by == by and abs(ms - want) < 1e-6
+    flops = 2 * n * 4 * h * h
+    item = 4 if dtype == "float32" else 2
+    nbytes = item * (4 * n * h + 4 * h * h + 4 * n * h)
+    peak = 67e12 if dtype == "float32" else 989e12
+    assert np.isclose(ms, max(flops / peak, nbytes / 3.35e12) * 1e3)
+
+
+def test_lstm_layer_bound_is_the_products_over_f32_peak():
+    t, n, i, h = 35, 128, 512, 512
+    ms, by = cs.lstm_layer_bound(t, n, i, h)
+    assert by == "operations"
+    assert np.isclose(ms, 2 * t * n * 4 * h * (i + h) / 67e12 * 1e3)
+
+
+def test_lstm_spread_of_f32_against_f64_is_within_the_check():
+    """tools/lstm_spread.py on the check's own configuration (the
+    full-width LSTM LM at batch 8, 2 batches): f32 rounding alone stays
+    inside the lstm check's gates after each batch."""
+    from mxnet_tpu_torch.tools.lstm_spread import spread
+
+    lines = list(spread(cs.LSTM_LM))
+    assert [ln["batch"] for ln in lines] == [1, 2]
+    for ln in lines:
+        assert ln["update_err_worst"] <= cs.LSTM_UPDATE
+        assert ln["perplexity_rel_err"] <= cs.LSTM_PPL
