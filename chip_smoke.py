@@ -46,11 +46,26 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    then one epoch of 8 seeded batches of 128 and ``Module.score`` over the
    same batches, with exact ``lstm_step`` launch counts in each (2 layers x
    35 steps x 8), finite perplexity, step times, tokens/s and peak memory.
-7. ``kernels`` — one line per the port's kernel table.
+7. ``kernel`` rtc — ``mx.rtc``: the JAX package's rtc test kernels (axpy,
+   inc, relu, axpy in bf16) as CUDA C compiled by NVRTC, each against its
+   mode="torch" twin; the source cache; a syntax error and a refused
+   launch raising; the ``rtc_softmax`` forward and backward kernels
+   (``mxnet_tpu_torch/tools/rtc_softmax.py``) against their twins at the
+   LSTM LM's (4480, 10000) and odd shapes, timed beside the twins and
+   ``torch.softmax``, with the NVRTC compile ms.
+8. ``custom``  — the LSTM LM of phase 6 with a Custom ``rtc_softmax`` head
+   (forward and backward rtc kernels) through ``Module.fit``: (a) card
+   vs the port's CPU path (2 batches of 8), (b) the rtc head vs the
+   built-in ``SoftmaxOutput`` head on the card (2 batches of 128), both
+   at the lstm phase's gates; (c) 8 batches of 128 and ``Module.score``
+   with exact launch counts (rtc fwd 8 + 8, bwd 8 + 0, lstm_step 560 +
+   560), finite perplexity, step times, tokens/s and peak memory.
+9. ``kernels`` — one line per the port's kernel table.
 
 Then the card's ``nvidia-smi`` name/power-limit line and, last, the
 ``{"ok": true, "device": ...}`` line. Exits non-zero without a CUDA card.
 """
+import gc
 import json
 import math
 import os
@@ -151,6 +166,45 @@ LSTM_CASES = ((128, 512), (8, 512), (32, 256), (4, 8), (3, 200))
 # f32 orders of summation while a wrong kernel moves updates by order 1
 LSTM_UPDATE = 1e-4
 LSTM_PPL = 1e-6
+RTC_SRC = "mxnet_tpu_torch/tools/rtc_softmax.py"
+RTC_REPLACES = "mxnet_tpu/rtc.py:77"
+# mx.rtc test kernels (the JAX package's tests' axpy, inc and relu, and axpy
+# in bf16) in CUDA C: the kernel body of each and its mode="torch" twin.
+# Each body runs with ``N`` (the element count) and ``i`` (the thread's
+# element) defined; see rtc_elementwise_src
+RTC_ELEMENTWISE = {
+    "axpy": (("x", "y"), "out[i] = x[i] * 2.0f + y[i];",
+             "def fn(x, y):\n    return x * 2.0 + y\n", "float32"),
+    "inc": (("x",), "out[i] = x[i] + 1.0f;",
+            "def fn(x):\n    return x + 1.0\n", "float32"),
+    "relu": (("x",), "out[i] = fmaxf(x[i], 0.0f);",
+             "def fn(x):\n    return torch.clamp(x, min=0.0)\n", "float32"),
+    "axpy_bf16": (("x", "y"), "out[i] = __float2bfloat16("
+                  "__bfloat162float(x[i]) * 2.0f + __bfloat162float(y[i]));",
+                  "def fn(x, y):\n"
+                  "    return (x.float() * 2.0 + y.float()).to(torch.bfloat16)"
+                  "\n", "bfloat16")}
+# the shapes each test kernel runs at: the JAX tests' (8, 16), and one of
+# many blocks
+RTC_ELEMENTWISE_SHAPES = ((8, 16), (1024, 1000))
+# test kernels vs their twins (rtol): f32 the same one-rounding arithmetic
+# (x * 2 is exact), so within 1e-6 relative; bf16 within one bf16 ulp,
+# which is at most 2^-7 of |x|
+RTC_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
+# rtc_softmax kernels vs their twins on probabilities and gradients in
+# [-1, 1]: a sum of up to 10000 exps in another order differs by a few f32
+# ulps of the sum, so each value within 1e-6 absolute and, since most of
+# the LM's probabilities are near 1e-6 themselves, within 1e-5 relative
+# (above a 1e-9 floor); and each row of probabilities sums to 1 within 1e-5
+# (summed in f64). The backward copies p and subtracts 1 in f32 on both
+# sides, so it agrees exactly
+RTC_SOFTMAX_ATOL = 1e-6
+RTC_SOFTMAX_RTOL = 1e-5
+RTC_SOFTMAX_FLOOR = 1e-9
+RTC_SOFTMAX_ROW_SUM = 1e-5
+# (rows, classes) of rtc_softmax: the LSTM LM's 128 x 35 rows over its
+# 10000 classes, a narrower head, one row, and a row narrower than a warp
+RTC_SOFTMAX_CASES = ((4480, 10000), (128, 1000), (1, 10000), (3, 7))
 
 
 def flash_cases():
@@ -257,6 +311,20 @@ def lstm_layer_bound(t, n, i, h):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def rtc_softmax_bound(rows, cols):
+    """Least time (ms) of one rtc_softmax forward (or backward) at (rows,
+    cols) f32: the logits (probabilities) read and the probabilities
+    (gradients) written once; the backward's labels add rows * 4 bytes."""
+    return 2 * 4 * rows * cols / H100["bytes_per_s"] * 1e3, "bytes"
+
+
+def rtc_elementwise_src(body, n):
+    """A test kernel's CUDA body over ``n`` elements: one thread each."""
+    return ("const int N = %d;\n"
+            "const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+            "if (i < N) { %s }\n" % (n, body))
+
+
 def time_ms(torch, fn, reps=30, warmup=3):
     """Median of ``reps`` single-call CUDA-event timings."""
     for _ in range(warmup):
@@ -292,6 +360,25 @@ def device_ms(torch, fn, reps=20, warmup=3):
     if not total > 0:
         raise RuntimeError("the profiler saw no device time")
     return total / reps / 1e3
+
+
+def loop_ms(torch, fn, calls=20, reps=10, warmup=2):
+    """Median CUDA-event time (ms) of one ``fn()`` call, from runs of
+    ``calls`` calls back to back: for kernels longer than the host's
+    enqueue the queue stays full, so the host's time per call drops out."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
 
 
 def graph_ms(torch, fn, calls=35, reps=20):
@@ -768,6 +855,185 @@ def phase_kernel_lstm(torch):
     return worst, timings, layer
 
 
+def phase_kernel_rtc(torch):
+    """mx.rtc on the card: the JAX tests' kernels (axpy, inc, relu; axpy in
+    bf16) as CUDA C, each against its mode="torch" twin; the source cache
+    (a second create is the same object, a second push compiles nothing);
+    a syntax error raising NVRTC's log and a refused launch raising; then
+    the rtc_softmax kernels against their twins at RTC_SOFTMAX_CASES, and
+    at (4480, 10000) timed (CUDA events over back-to-back calls, median, and
+    the profiler's device time) beside the twins and torch.softmax."""
+    from mxnet_tpu_torch import nd, rtc
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops.kernels import rtc_driver
+    from mxnet_tpu_torch.tools import rtc_softmax as rs
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    tests, compile_ms = [], {}
+    for name, (ins, body, twin_src, dtype) in RTC_ELEMENTWISE.items():
+        dt = getattr(torch, dtype)
+        for shape in RTC_ELEMENTWISE_SHAPES:
+            n = int(np.prod(shape))
+            src = rtc_elementwise_src(body, n)
+            kern = rtc.create(name, list(ins), ["out"], src)
+            twin = rtc.create(name, list(ins), ["out"], twin_src,
+                              mode="torch")
+            xs = [nd.NDArray(randn(*shape, dtype=dt)) for _ in ins]
+            got = nd.NDArray(torch.zeros(shape, dtype=dt, device="cuda"))
+            want = nd.NDArray(torch.zeros(shape, dtype=dt, device="cuda"))
+            block = 256
+            kern.push(xs, [got], grid_dims=(-(-n // block),),
+                      block_dims=(block,))
+            twin.push(xs, [want])
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                got._data.float(), want._data.float(), rtol=RTC_TOL[dtype],
+                atol=0.0, msg=lambda m, k=(name, shape): "rtc %s %s: %s"
+                % (k[0], k[1], m))
+            tests.append({"kernel": name, "shape": list(shape),
+                          "dtype": dtype, "rtol": RTC_TOL[dtype],
+                          "max_abs_err": float((got._data.float()
+                                                - want._data.float())
+                                               .abs().max())})
+            compile_ms["%s %s" % (name, list(shape))] = list(
+                kern.compile_ms.values())
+
+    # the cache: the same source is the same object, compiled once
+    name, (ins, body, _, _) = "inc", RTC_ELEMENTWISE["inc"]
+    src = rtc_elementwise_src(body, 128)
+    first = rtc.create(name, list(ins), ["out"], src)
+    before = rtc_driver.compiles
+    again = rtc.create(name, list(ins), ["out"], src)
+    x = nd.NDArray(randn(8, 16))
+    out = nd.NDArray(torch.zeros(8, 16, device="cuda"))
+    again.push([x], [out], grid_dims=(1,), block_dims=(128,))
+    torch.cuda.synchronize()
+    if again is not first or rtc_driver.compiles != before \
+            or len(first.compile_ms) != 1:
+        raise RuntimeError("rtc cache: a second create or push compiled "
+                           "again (%d compiles before, %d after)"
+                           % (before, rtc_driver.compiles))
+
+    # a syntax error raises NVRTC's log; a launch the card refuses raises
+    bad = rtc.create("bad_syntax", ["x"], ["out"], "out[0] = x[0] +;")
+    try:
+        bad.push([x], [out], grid_dims=(1,), block_dims=(1,))
+    except MXNetError as e:
+        syntax_error = str(e).splitlines()
+    else:
+        raise RuntimeError("rtc: a syntax error compiled")
+    if not any("bad_syntax.cu(" in ln and "error" in ln
+               for ln in syntax_error):
+        raise RuntimeError("rtc: the compile error lacks NVRTC's log: %s"
+                           % syntax_error)
+    try:
+        first.push([x], [out], grid_dims=(1,), block_dims=(2048,))
+    except MXNetError as e:
+        refused = str(e)
+    else:
+        raise RuntimeError("rtc: a launch of 2048 threads a block ran")
+    torch.cuda.synchronize()
+
+    # rtc_softmax: kernels vs twins at each case
+    cases, worst = [], 0.0
+    for rows, cols in RTC_SOFTMAX_CASES:
+        kern, twin = rs.kernels(cols), rs.twins()
+        x = nd.NDArray(3.0 * randn(rows, cols))
+        label = nd.NDArray(torch.randint(0, cols, (rows,), generator=gen,
+                                         device="cuda").float())
+        prob, prob_t, grad, grad_t = (
+            nd.NDArray(torch.zeros(rows, cols, device="cuda"))
+            for _ in range(4))
+        block, per = rs.launch_dims(cols)
+        kern["fwd"].push([x], [prob], grid_dims=(rows,), block_dims=(block,))
+        twin["fwd"].push([x], [prob_t])
+        kern["bwd"].push([prob, label], [grad], grid_dims=(rows,),
+                         block_dims=(block,))
+        twin["bwd"].push([prob, label], [grad_t])
+        torch.cuda.synchronize()
+        errs, rel_errs = {}, {}
+        for what, g, w in (("fwd", prob, prob_t), ("bwd", grad, grad_t)):
+            for atol, rtol in ((RTC_SOFTMAX_ATOL, 0.0),
+                               (RTC_SOFTMAX_FLOOR, RTC_SOFTMAX_RTOL)):
+                torch.testing.assert_close(
+                    g._data, w._data, atol=atol, rtol=rtol,
+                    msg=lambda m, k=(what, rows, cols): "rtc_softmax %s %s: "
+                    "%s" % (k[0], k[1:], m))
+            diff = (g._data - w._data).abs()
+            errs[what] = float(diff.max())
+            rel_errs[what] = float((diff / (w._data.abs()
+                                            + RTC_SOFTMAX_FLOOR)).max())
+        row_sum = float((prob._data.double().sum(1) - 1.0).abs().max())
+        if not row_sum <= RTC_SOFTMAX_ROW_SUM:
+            raise RuntimeError("rtc_softmax %s: a row of probabilities sums "
+                               "to 1 within %g, not %g"
+                               % ((rows, cols), row_sum, RTC_SOFTMAX_ROW_SUM))
+        cases.append({"shape": [rows, cols], "block": block,
+                      "per_thread": per, "max_abs_err": errs,
+                      "max_rel_err": rel_errs, "max_row_sum_err": row_sum,
+                      "compile_ms": {k: list(v.compile_ms.values())
+                                     for k, v in kern.items()}})
+        worst = max([worst] + list(errs.values()))
+
+    # timing at the LM's shape
+    rows, cols = RTC_SOFTMAX_CASES[0]
+    kern, twin = rs.kernels(cols), rs.twins()
+    block, _ = rs.launch_dims(cols)
+    x = nd.NDArray(3.0 * randn(rows, cols))
+    label = nd.NDArray(torch.randint(0, cols, (rows,), generator=gen,
+                                     device="cuda").float())
+    prob, out = (nd.NDArray(torch.zeros(rows, cols, device="cuda"))
+                 for _ in range(2))
+    kern["fwd"].push([x], [prob], grid_dims=(rows,), block_dims=(block,))
+    bound_ms, bound_by = rtc_softmax_bound(rows, cols)
+    # the backward's library yardstick: one out-of-place scatter_add of -1
+    # at each row's label is p - onehot(label); held against the kernel
+    idx = label._data.long()[:, None]
+    minus_one = torch.full((rows, 1), -1.0, device="cuda")
+    kern["bwd"].push([prob, label], [out], grid_dims=(rows,),
+                     block_dims=(block,))
+    torch.testing.assert_close(torch.scatter_add(prob._data, 1, idx,
+                                                 minus_one),
+                               out._data, atol=0.0, rtol=0.0)
+    fns = {"fwd": (("ms", lambda: kern["fwd"].push(
+                        [x], [out], grid_dims=(rows,), block_dims=(block,))),
+                   ("plain_ms", lambda: twin["fwd"].push([x], [out])),
+                   ("library_ms", lambda: torch.softmax(x._data, dim=1))),
+           "bwd": (("ms", lambda: kern["bwd"].push(
+                        [prob, label], [out], grid_dims=(rows,),
+                        block_dims=(block,))),
+                   ("plain_ms", lambda: twin["bwd"].push([prob, label],
+                                                          [out])),
+                   ("library_ms", lambda: torch.scatter_add(
+                       prob._data, 1, idx, minus_one)))}
+    timings = {}
+    for kind, pairs in fns.items():
+        timings[kind] = dict({k: loop_ms(torch, f) for k, f in pairs},
+                             device_ms={k: device_ms(torch, f, reps=10)
+                                        for k, f in pairs},
+                             shape=[rows, cols], block=block,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             compile_ms=list(kern[kind].compile_ms.values()))
+    timings["fwd"]["library"] = "torch.softmax(x, dim=1)"
+    timings["bwd"]["library"] = ("torch.scatter_add(p, 1, label[:, None], "
+                                 "-1), out of place")
+    emit({"phase": "kernel", "kernel": "rtc", "nvrtc": list(
+        rtc_driver.nvrtc_version()), "options": rtc_driver.compile_options(),
+          "tests": tests, "test_compile_ms": compile_ms,
+          "cache": {"same_object": True, "compiles": rtc_driver.compiles},
+          "syntax_error": syntax_error[:4], "refused_launch": refused,
+          "softmax_cases": cases, "max_abs_err": worst,
+          "softmax_tol": {"atol": RTC_SOFTMAX_ATOL, "rtol": RTC_SOFTMAX_RTOL,
+                          "floor": RTC_SOFTMAX_FLOOR,
+                          "row_sum": RTC_SOFTMAX_ROW_SUM},
+          "timings": timings})
+    return worst, timings
+
+
 def phase_serve(cfg=LM, serve=SERVE, device=None, ref_device="cpu",
                 seed=SEED):
     """The generate path end to end. ``device`` None = the card (the
@@ -1125,19 +1391,25 @@ def phase_resnet(cfg=RESNET, device=None, ref_device="cpu", seed=SEED):
     return launches
 
 
-def phase_lstm(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
-    """The LSTM LM through ``Module.fit`` and ``Module.score``. ``device``
-    None = the card; the card-vs-reference check runs the same weights and
-    batches on ``ref_device``, where lstm_step takes its plain version."""
-    import torch
-    from mxnet_tpu_torch import metric
-    from mxnet_tpu_torch.ops.kernels import lstm as kl
+def _reset_peak(torch):
+    """Collect the modules an earlier check left in reference cycles (a
+    fit's BatchEndParam holds its locals), then reset the card's peak
+    memory; returns the bytes still allocated, the run's starting point."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
 
-    # 1. card vs the port's CPU path: same init, same 2 batches of 8
-    cb, cs = cfg["check_batch"], cfg["check_steps"]
+
+def _lstm_check(what, cfg, cs, setups):
+    """Fit the LSTM LM of each of the two ``setups`` (each returns a fresh
+    (module, iterator, initializer)) for its ``cs`` batches, and hold the
+    first run against the second: after each batch, each parameter's
+    update within LSTM_UPDATE and the perplexity within LSTM_PPL; the
+    initial weights equal. Raises naming ``what``; returns the record."""
     runs = []
-    for dev in (device, ref_device):
-        mod, it, init = lstm_setup(cfg, cb, cs, dev, seed)
+    for setup in setups:
+        mod, it, init = setup()
+        batch = it.batch_size
         runs.append(_fit_recorded(mod, it, init, lstm_fit_args(cfg, init)))
         del mod
     (got_s, got_m), (ref_s, ref_m) = runs
@@ -1162,12 +1434,27 @@ def phase_lstm(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
         failures.append("%d / %d batches recorded, want %d"
                         % (len(got_m), len(ref_m), cs))
     if failures:
-        raise RuntimeError("lstm check: " + "; ".join(failures))
-    check = {"batch": cb, "batches": cs, "metrics": got_m,
-             "ref_metrics": ref_m, "perplexity_rel_err": ppl,
-             "update_err": upd,
-             "tol": {"update": LSTM_UPDATE, "perplexity": LSTM_PPL}}
-    del runs, got_s, ref_s
+        raise RuntimeError(what + ": " + "; ".join(failures))
+    return {"batch": batch, "batches": cs, "metrics": got_m,
+            "ref_metrics": ref_m, "perplexity_rel_err": ppl,
+            "update_err": upd,
+            "tol": {"update": LSTM_UPDATE, "perplexity": LSTM_PPL}}
+
+
+def phase_lstm(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
+    """The LSTM LM through ``Module.fit`` and ``Module.score``. ``device``
+    None = the card; the card-vs-reference check runs the same weights and
+    batches on ``ref_device``, where lstm_step takes its plain version."""
+    import torch
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.ops.kernels import lstm as kl
+
+    # 1. card vs the port's CPU path: same init, same 2 batches of 8
+    cb, cs = cfg["check_batch"], cfg["check_steps"]
+    check = _lstm_check(
+        "lstm check", cfg, cs,
+        [lambda dev=dev: lstm_setup(cfg, cb, cs, dev, seed)
+         for dev in (device, ref_device)])
 
     # 2. the run: one epoch of `batches` batches of `batch`, then score
     on_card = device is None or torch.device(device).type == "cuda"
@@ -1186,8 +1473,7 @@ def phase_lstm(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
                         param.eval_metric.get_name_value()})
 
     sync()
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
+    start_memory = _reset_peak(torch) if on_card else None
     kl.lstm_step.launches = 0
     t0 = time.perf_counter()
     mod.fit(it, batch_end_callback=record, **lstm_fit_args(cfg, init))
@@ -1226,6 +1512,104 @@ def phase_lstm(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
               "launches": {"fit": fit_launches, "score": score_launches}}
     if on_card:
         result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        result["start_memory_allocated"] = start_memory
+    emit(result)
+    return {"fit": fit_launches, "score": score_launches}
+
+
+def phase_custom(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
+    """The LSTM LM with its SoftmaxOutput head replaced by the Custom
+    ``rtc_softmax`` head (forward and backward rtc kernels) through
+    ``Module.fit`` and ``Module.score``: (a) card against the port's CPU
+    path (the twins) at the lstm check's size; (b) the rtc head against the
+    built-in SoftmaxOutput head on ``device``, same weights and batches, at
+    the run's batch; (c) the run, with exact launch counts of both rtc
+    kernels and lstm_step. ``device`` None = the card."""
+    import torch
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.ops.kernels import lstm as kl
+    from mxnet_tpu_torch.tools import rtc_softmax as rs
+
+    cb, cs = cfg["check_batch"], cfg["check_steps"]
+    b = cfg["batch"]
+
+    def rtc_setup(dev, batch, batches):
+        return lambda: lstm_setup(cfg, batch, batches, dev, seed,
+                                  symbol=rs.lstm_rtc_symbol(cfg))
+
+    # (a) card vs the port's CPU path: same init, same 2 batches of 8
+    check_cpu = _lstm_check("custom check (a), card vs CPU", cfg, cs,
+                            [rtc_setup(device, cb, cs),
+                             rtc_setup(ref_device, cb, cs)])
+    # (b) the rtc head vs SoftmaxOutput on the card: 2 batches of 128
+    check_head = _lstm_check(
+        "custom check (b), rtc head vs SoftmaxOutput", cfg, cs,
+        [rtc_setup(device, b, cs),
+         lambda: lstm_setup(cfg, b, cs, device, seed)])
+
+    # (c) the run: one epoch of `batches` batches of `batch`, then score
+    on_card = device is None or torch.device(device).type == "cuda"
+    mod, it, init = rtc_setup(device, b, cfg["batches"])()
+    counters = dict(rs.kernels(cfg["vocab"]), lstm_step=kl.lstm_step)
+    times, metrics = [], []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def record(param):
+        sync()
+        times.append(time.perf_counter())
+        metrics.append({k: float(v) for k, v in
+                        param.eval_metric.get_name_value()})
+
+    def counts():
+        return {k: c.launches for k, c in counters.items()}
+
+    sync()
+    start_memory = _reset_peak(torch) if on_card else None
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    mod.fit(it, batch_end_callback=record, **lstm_fit_args(cfg, init))
+    fit_launches = counts()
+    for c in counters.values():
+        c.launches = 0
+    t1 = time.perf_counter()
+    score = dict(mod.score(it, metric.Perplexity(ignore_label=None)))
+    sync()
+    score_s = time.perf_counter() - t1
+    score_launches = counts()
+    steps = cfg["batches"]
+    want_fit = {"fwd": steps, "bwd": steps,
+                "lstm_step": lstm_steps(cfg, steps)}
+    want_score = dict(want_fit, bwd=0)
+    if fit_launches != want_fit or score_launches != want_score:
+        raise RuntimeError("custom phase launched %s in fit and %s in "
+                           "score, want %s and %s"
+                           % (fit_launches, score_launches, want_fit,
+                              want_score))
+    ppl_run = [m["Perplexity"] for m in metrics]
+    if len(metrics) != steps or not all(np.isfinite(ppl_run)) \
+            or not np.isfinite(score["Perplexity"]):
+        raise RuntimeError("custom phase: %d batches, perplexity %s, score "
+                           "%s" % (len(metrics), ppl_run, score))
+    step_ms = [(y - x) * 1e3 for x, y in zip(times, times[1:])]
+    median_ms = float(np.median(step_ms))
+    result = {"phase": "custom", "head": "Custom(op_type=rtc_softmax)",
+              "vocab": cfg["vocab"], "embed": cfg["embed"],
+              "hidden": cfg["hidden"], "layers": cfg["layers"],
+              "seq": cfg["seq"], "batch": b, "batches": steps,
+              "dtype": "float32", "check_vs_cpu": check_cpu,
+              "check_vs_softmax_output": check_head, "metrics": metrics,
+              "score": score, "score_ms_per_batch": score_s * 1e3 / steps,
+              "first_batch_ms": (times[0] - t0) * 1e3,
+              "step_ms": step_ms, "median_step_ms": median_ms,
+              "tokens_per_s": b * cfg["seq"] / median_ms * 1e3,
+              "launches": {"fit": fit_launches, "score": score_launches}}
+    if on_card:
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        result["start_memory_allocated"] = start_memory
     emit(result)
     return {"fit": fit_launches, "score": score_launches}
 
@@ -1245,10 +1629,12 @@ def main():
     upd_worst, upd_timings = phase_kernel_update(torch)
     wgrad_worst, wgrad_timings, wgrad_step = phase_kernel_wgrad(torch)
     lstm_worst, lstm_timings, lstm_layer = phase_kernel_lstm(torch)
+    rtc_worst, rtc_timings = phase_kernel_rtc(torch)
     serve_launches = phase_serve()
     train = phase_train()
     resnet = phase_resnet()
     lstm = phase_lstm()
+    custom = phase_custom()
     t = timings["bfloat16"]
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda", "source": FA_SRC,
@@ -1321,6 +1707,17 @@ def main():
         "library": "torch.mm(h, wh.t()) + aten._thnn_fused_lstm_cell (no "
                    "single PyTorch call computes the step)",
         "bfloat16": lstm_timings["bfloat16"], "layer": lstm_layer})
+    for kind in ("fwd", "bwd"):
+        t = rtc_timings[kind]
+        rows.append(dict(t, **{
+            "name": "rtc_softmax_" + kind, "route": "cuda",
+            "source": RTC_SRC, "replaces": RTC_REPLACES,
+            "compiler": "NVRTC at run time (mxnet_tpu_torch/rtc.py, "
+                        "ops/kernels/rtc_driver.py)",
+            "launches": custom["fit"][kind] + custom["score"][kind],
+            "launches_by_phase": {"custom_fit": custom["fit"][kind],
+                                  "custom_score": custom["score"][kind]},
+            "max_abs_err": rtc_worst, "dtype": "float32"}))
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -20,20 +20,25 @@ flash-attention backward and the fused update kernels; and
 ``callback`` on ResNet / LeNet / MLP (Convolution, Pooling, BatchNorm),
 with the ``conv_wgrad`` kernel for the 3x3 weight gradients; and the
 recurrent cells (``rnn``) with the fused ``RNN`` op, whose LSTM steps run
-the ``lstm_step`` kernel (the LSTM language model through ``Module.fit``).
+the ``lstm_step`` kernel (the LSTM language model through ``Module.fit``);
+and the user-extension surface: imperative ``autograd`` over PyTorch's
+graph, Python custom operators (``operator``, the ``Custom`` op) and
+``rtc``, user CUDA C compiled at run time by NVRTC and launched with the
+caller's grid and block.
 """
-from . import (base, callback, context, engine, executor, initializer, io,
-               metric, model, models, module, ndarray, optimizer, rnn,
-               symbol)
+from . import (autograd, base, callback, context, engine, executor,
+               initializer, io, metric, model, models, module, ndarray,
+               operator, optimizer, rnn, rtc, symbol)
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
 from .base import MXNetError
 from .context import cpu, default_device, gpu
 
-__version__ = "0.9.5-torch.4"
+__version__ = "0.9.5-torch.5"
 
-__all__ = ["MXNetError", "base", "callback", "context", "cpu",
+__all__ = ["MXNetError", "autograd", "base", "callback", "context", "cpu",
            "default_device", "engine", "executor", "gpu", "initializer",
            "io", "metric", "mod", "model", "models", "module", "nd",
-           "ndarray", "optimizer", "rnn", "sym", "symbol"]
+           "ndarray", "operator", "optimizer", "rnn", "rtc", "sym",
+           "symbol"]

@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import autograd as _autograd
 from .base import MXNetError
 from .context import resolve_device
 from .ops import OP_REGISTRY, OpContext, OpDef, get_op
@@ -45,12 +46,13 @@ def _as_torch_dtype(dtype):
 class NDArray:
     """Mutable handle over a torch.Tensor."""
 
-    __slots__ = ("_data", "__weakref__")
+    __slots__ = ("_data", "_grad", "__weakref__")
 
     def __init__(self, data):
         if isinstance(data, NDArray):
             data = data._data
         self._data = data
+        self._grad = None
 
     # --- metadata --------------------------------------------------------
     @property
@@ -77,6 +79,11 @@ class NDArray:
 
     ctx = context
 
+    @property
+    def grad(self):
+        """The gradient buffer :meth:`attach_grad` attached, else None."""
+        return self._grad
+
     # --- sync / transfer --------------------------------------------------
     def wait_to_read(self):
         """Block until the value is computed (reference WaitToRead)."""
@@ -87,11 +94,12 @@ class NDArray:
     wait_to_write = wait_to_read
 
     def asnumpy(self) -> np.ndarray:
-        """A host copy; bf16 widens to float32 (numpy has no bf16)."""
+        """A host copy, never a view of the array's memory (a host tensor's
+        too); bf16 widens to float32 (numpy has no bf16)."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
+        return t.to("cpu", copy=True).numpy()
 
     def asscalar(self):
         if self.size != 1:
@@ -263,6 +271,18 @@ class NDArray:
 
     __hash__ = object.__hash__
 
+    # --- autograd (reference ndarray.py attach_grad / backward) -----------
+    def attach_grad(self, grad_req="write"):
+        """Attach a zeroed gradient buffer (``.grad``) and mark this array
+        as a variable of :func:`autograd.backward`."""
+        grad = NDArray(torch.zeros_like(self._data.detach()))
+        _autograd.mark_variables([self], [grad], grad_req)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        """Gradients of this array into the marked variables' buffers."""
+        _autograd.backward([self], None if out_grad is None else [out_grad],
+                           retain_graph=retain_graph, train_mode=train_mode)
+
     # reductions mirroring the reference's methods
     def sum(self, axis=None, keepdims=False):
         return invoke(get_op("sum"), [self],
@@ -287,14 +307,21 @@ def invoke(op: OpDef, inputs: Sequence[NDArray], attrs: Dict[str, Any],
     """Run one operator eagerly (reference MXImperativeInvoke). ``inputs``
     is ordered arg_names + aux_names; aux handles are updated in place.
     With ``out``, results are written into those handles (skipped where
-    the op already updated them in place) and the handles returned."""
+    the op already updated them in place) and the handles returned.
+
+    Inside ``autograd.record()`` the op runs with grad enabled, so its
+    outputs join the graph ``autograd.backward`` differentiates; the op
+    sees ``is_train`` from the training flag (reference
+    ndarray.py:360-366)."""
     attrs = op.parse_attrs(attrs)
     n_aux = 0 if op.variadic else len(op.get_aux_names(attrs))
     n_in = len(inputs) - n_aux
-    with torch.no_grad():
+    with torch.set_grad_enabled(_autograd.is_recording()):
         outs, aux_out = op.impl(
             attrs, tuple(x._data for x in inputs[:n_in]),
-            tuple(x._data for x in inputs[n_in:]), OpContext(False))
+            tuple(x._data for x in inputs[n_in:]),
+            OpContext(is_train=_autograd.is_training()))
+    with torch.no_grad():
         for handle, new in zip(inputs[n_in:], aux_out):
             handle._data.copy_(new)
         if out is None:

@@ -3,8 +3,9 @@
 Counterpart of ``mxnet_tpu/ops/elemwise.py``'s ``_binary`` and
 ``_binary_scalar`` families (reference elemwise_binary_op_basic.cc,
 elemwise_binary_scalar_op*.cc), plus the few unary ops the ported paths
-use. Gradients come from autograd over the composed graph. Comparison ops
-return 0/1 in the input's type, like the reference.
+and the imperative autograd examples use. Gradients come from autograd
+over the composed graph. Comparison ops return 0/1 in the input's type,
+like the reference.
 """
 from __future__ import annotations
 
@@ -78,6 +79,10 @@ _binary_scalar("_lesser_equal_scalar", _cmp(torch.le))
 _unary("negative", torch.neg)
 _unary("abs", torch.abs)
 _unary("relu", torch.relu)
+_unary("exp", torch.exp)
+_unary("log", torch.log)
+_unary("square", torch.square)
+_unary("sqrt", torch.sqrt)
 _unary("_copy", lambda x: x.clone())
 _unary("BlockGrad", lambda x: x.detach())
 

@@ -2,10 +2,10 @@
 
 Counterpart of the parts of ``mxnet_tpu/ops/matrix.py`` the ported paths
 use (reference src/operator/tensor/matrix_op.cc, indexing_op.cc,
-swapaxis.cc, concat.cc, slice_channel.cc): ``Reshape`` with the
-reference's special codes, ``Flatten``, ``SwapAxis``, ``expand_dims``,
-``slice_axis``, ``Concat``, ``SliceChannel``, ``Embedding`` and
-``one_hot``. The shape ops return views where torch can.
+swapaxis.cc, concat.cc, slice_channel.cc, dot.cc): ``Reshape`` with the
+reference's special codes, ``dot``, ``Flatten``, ``SwapAxis``,
+``expand_dims``, ``slice_axis``, ``Concat``, ``SliceChannel``,
+``Embedding`` and ``one_hot``. The shape ops return views where torch can.
 """
 from __future__ import annotations
 
@@ -75,6 +75,21 @@ def _reshape(attrs, data):
 
 
 alias("Reshape", "reshape")
+
+
+@defop("dot", arg_names=("lhs", "rhs"),
+       param_spec={"transpose_a": False, "transpose_b": False})
+def _dot(attrs, lhs, rhs):
+    """Matrix product (reference dot.cc): the last axis of lhs contracts
+    with the first of rhs; ``transpose_a`` / ``transpose_b`` move the
+    contracted axis first (last) beforehand."""
+    if attrs["transpose_a"]:
+        lhs = lhs.movedim(0, -1) if lhs.dim() > 2 else lhs.t()
+    if attrs["transpose_b"]:
+        rhs = rhs.movedim(-1, 0) if rhs.dim() > 2 else rhs.t()
+    if lhs.dim() == 1 and rhs.dim() == 1:
+        return torch.dot(lhs, rhs)
+    return torch.tensordot(lhs, rhs, dims=([lhs.dim() - 1], [0]))
 
 
 @defop("Flatten", arg_names=("data",), param_spec={})

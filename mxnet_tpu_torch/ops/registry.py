@@ -32,6 +32,12 @@ class OpContext:
 
     is_train: bool = False
     device: Optional[torch.device] = None
+    # a dict that lives as long as the bound graph node the call runs
+    # (one per node of Symbol.build_eval; None in an imperative call): an
+    # op keeps state there across the graph's calls (the Custom op's
+    # operator, created once per bound node as the reference creates it
+    # at bind)
+    memo: Optional[Dict[Any, Any]] = None
 
 
 @dataclasses.dataclass

@@ -333,13 +333,14 @@ class Symbol:
         enabled."""
         nodes = self._nodes()
         entries = self._entries
+        # per-node state that lives as long as this evaluator (OpContext.memo)
+        memos = {id(node): {} for node in nodes if not node.is_var}
 
         def eval_fn(arg_values, aux_values, is_train):
             env: Dict[Tuple[int, int], Any] = {}
             aux_updates: Dict[str, Any] = {}
             first = next(iter(arg_values.values()), None)
-            ctx = OpContext(is_train,
-                            None if first is None else first.device)
+            device = None if first is None else first.device
             for node in nodes:
                 if node.is_var:
                     src = aux_values if node.is_aux else arg_values
@@ -349,7 +350,9 @@ class Symbol:
                     continue
                 args, aux = node.split_inputs(
                     [env[(id(c), i)] for c, i in node.inputs])
-                outs, aux_out = node.op.impl(node.attrs, args, aux, ctx)
+                outs, aux_out = node.op.impl(
+                    node.attrs, args, aux,
+                    OpContext(is_train, device, memos[id(node)]))
                 for i, o in enumerate(outs):
                     env[(id(node), i)] = o
                 n_args = len(args)

@@ -43,14 +43,16 @@ def lstm_data(cfg, batch, batches, seed):
     return x, y
 
 
-def lstm_setup(cfg, batch, batches, device=None, seed=SEED):
-    """(Module on ``device`` (None = the card), bound for ``batch`` and
-    initialized by Xavier drawing from ``seed``; an NDArrayIter over
-    :func:`lstm_data` from ``seed + 1``; that initializer)."""
+def lstm_setup(cfg, batch, batches, device=None, seed=SEED, symbol=None):
+    """(Module of ``symbol`` (default :func:`lstm_symbol`) on ``device``
+    (None = the card), bound for ``batch`` and initialized by Xavier
+    drawing from ``seed``; an NDArrayIter over :func:`lstm_data` from
+    ``seed + 1``; that initializer)."""
     from .. import initializer, io
     from ..module import Module
 
-    mod = Module(lstm_symbol(cfg), context=device)
+    mod = Module(lstm_symbol(cfg) if symbol is None else symbol,
+                 context=device)
     x, y = lstm_data(cfg, batch, batches, seed + 1)
     it = io.NDArrayIter(x, y, batch_size=batch)
     init = initializer.Xavier(rng=np.random.RandomState(seed))

@@ -5,7 +5,9 @@
 Sets up the run of ``chip_smoke.py``'s lstm phase
 (``tools/lstm_lm.py:lstm_setup``: the fused 2-layer LSTM LM, vocab 10000,
 embed = hidden = 512, seq 35, batch 128, f32, no TF32, Xavier from the
-seed, plain SGD lr 0.5), warms two steps, then measures on the card:
+seed, plain SGD lr 0.5), and then the same model with the custom phase's
+``rtc_softmax`` head (``tools/rtc_softmax.py``); for each head it warms two
+steps, then measures on the card:
 
 - host-clock time of the step's stages — forward (is_train, with the
   batch's copy to the card), backward, the 4 parameter updates, the
@@ -34,6 +36,7 @@ import torch
 # (kind, substrings of the lower-cased kernel name), first match wins
 KINDS = (
     ("lstm_step", ("lstm_step",)),
+    ("rtc_softmax", ("rtc_softmax",)),
     ("matmul", ("gemm", "gemv", "cublas", "cutlass", "xmma", "splitk")),
     ("softmax", ("softmax",)),
     ("embedding", ("embedding", "index", "scatter", "gather")),
@@ -60,13 +63,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_lstm: no CUDA device available", file=sys.stderr)
         return 2
-    from mxnet_tpu_torch.ops.kernels import lstm as kl
-    from mxnet_tpu_torch.tools import lm, lstm_lm
+    from mxnet_tpu_torch.tools import lstm_lm, rtc_softmax
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = lstm_lm.LSTM_LM
-    mod, it, init = lstm_lm.lstm_setup(cfg, cfg["batch"], 1)
+    profile(cfg, "SoftmaxOutput", None)
+    profile(cfg, "rtc_softmax", rtc_softmax.lstm_rtc_symbol(cfg))
+    return 0
+
+
+def profile(cfg, head, symbol):
+    """Stage times and a profiled step of the LSTM LM with ``symbol``
+    (None: the model's own SoftmaxOutput head), each line tagged
+    ``head``."""
+    from mxnet_tpu_torch.ops.kernels import lstm as kl
+    from mxnet_tpu_torch.tools import lm, lstm_lm
+
+    mod, it, init = lstm_lm.lstm_setup(cfg, cfg["batch"], 1, symbol=symbol)
     args = lstm_lm.fit_args(cfg, init)
     mod.init_optimizer(optimizer=args["optimizer"],
                        optimizer_params=args["optimizer_params"])
@@ -87,7 +101,8 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
             times[name].append((time.perf_counter() - t0) * 1e3)
-    _emit({"measure": "host_ms", "batch": cfg["batch"], "seq": cfg["seq"],
+    _emit({"measure": "host_ms", "head": head, "batch": cfg["batch"],
+           "seq": cfg["seq"],
            "stage_ms": {k: float(np.median(v)) for k, v in times.items()},
            "gpu": lm.nvidia_smi()})
 
@@ -110,7 +125,8 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + e.count
     busy = sum(by_kind.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
-    _emit({"measure": "profile", "window": "fit_step", "wall_ms": wall_ms,
+    _emit({"measure": "profile", "head": head, "window": "fit_step",
+           "wall_ms": wall_ms,
            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall_ms,
            "device_ms_by_kind": by_kind, "kernel_launches": launches,
            "lstm_step_launches": kl.lstm_step.launches,
@@ -118,7 +134,6 @@ def main() -> int:
                             "count": e.count,
                             "ms": e.self_device_time_total / 1e3}
                            for e in top]})
-    return 0
 
 
 if __name__ == "__main__":

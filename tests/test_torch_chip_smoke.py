@@ -1,9 +1,9 @@
 """chip_smoke.py's logic on the CPU at a tiny size.
 
-The script itself needs a CUDA card; here its serve, train, resnet and
-lstm phases run on the host (each wrapper takes its plain version, counted
-in place of kernel launches) so a broken phase shows before a card run,
-and its bound arithmetic is checked against closed forms.
+The script itself needs a CUDA card; here its serve, train, resnet, lstm
+and custom phases run on the host (each wrapper takes its plain version,
+counted in place of kernel launches) so a broken phase shows before a card
+run, and its bound arithmetic is checked against closed forms.
 """
 import numpy as np
 import pytest
@@ -13,6 +13,7 @@ from mxnet_tpu_torch.ops.kernels import conv_wgrad as cw
 from mxnet_tpu_torch.ops.kernels import flash_attention as fa
 from mxnet_tpu_torch.ops.kernels import fused_update as fu
 from mxnet_tpu_torch.ops.kernels import lstm as kl
+from mxnet_tpu_torch.tools import rtc_softmax as rs
 
 TINY = {"vocab": 97, "d_model": 32, "heads": 4, "kv_heads": 2, "ffn": 64,
         "layers": 2}
@@ -239,3 +240,65 @@ def test_lstm_spread_of_f32_against_f64_is_within_the_check():
     for ln in lines:
         assert ln["update_err_worst"] <= cs.LSTM_UPDATE
         assert ln["perplexity_rel_err"] <= cs.LSTM_PPL
+
+
+def _count_twin_pushes(monkeypatch):
+    """Count each rtc_softmax twin push on the host as a launch of its
+    CUDA kernel."""
+    twins = rs.twins
+
+    class Counted:
+        def __init__(self, kind, twin):
+            self.kind, self.twin = kind, twin
+
+        def push(self, ins, outs):
+            rs.kernels(ins[0].shape[1])[self.kind].launches += 1
+            return self.twin.push(ins, outs)
+
+    monkeypatch.setattr(rs, "twins", lambda: {k: Counted(k, v)
+                                              for k, v in twins().items()})
+
+
+def test_custom_phase_on_cpu(monkeypatch, capsys):
+    _count_plain_calls(monkeypatch)
+    _count_twin_pushes(monkeypatch)
+    launches = cs.phase_custom(TINY_LSTM, device="cpu")
+    b = TINY_LSTM["batches"]
+    per = TINY_LSTM["layers"] * TINY_LSTM["seq"] * b
+    assert launches == {"fit": {"fwd": b, "bwd": b, "lstm_step": per},
+                        "score": {"fwd": b, "bwd": 0, "lstm_step": per}}
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert '"phase": "custom"' in line and '"check_vs_softmax_output"' in line
+
+
+def test_custom_phase_fails_when_the_rtc_kernels_are_not_reached(
+        monkeypatch):
+    """Only lstm_step is counted here: the phase must refuse."""
+    _count_plain_calls(monkeypatch)
+    with pytest.raises(RuntimeError, match="custom phase launched"):
+        cs.phase_custom(TINY_LSTM, device="cpu")
+
+
+def test_custom_phase_check_refuses_a_wrong_head(monkeypatch):
+    """A head whose gradient is off (p - 0.9 onehot) fails check (b)
+    against SoftmaxOutput."""
+    _count_plain_calls(monkeypatch)
+    _count_twin_pushes(monkeypatch)
+    monkeypatch.setattr(rs, "BWD_TWIN", rs.BWD_TWIN.replace("1.0", "0.9"))
+    with pytest.raises(RuntimeError, match="custom check"):
+        cs.phase_custom(TINY_LSTM, device="cpu")
+
+
+def test_rtc_softmax_bound_is_0_107_ms_at_the_lms_head():
+    ms, by = cs.rtc_softmax_bound(128 * 35, 10000)
+    assert by == "bytes" and abs(ms - 0.10699) < 1e-5
+    assert np.isclose(ms, 358.4e6 / 3.35e12 * 1e3)
+    assert cs.RTC_SOFTMAX_CASES[0] == (128 * 35, 10000)
+
+
+@pytest.mark.parametrize("name", sorted(cs.RTC_ELEMENTWISE))
+def test_rtc_test_kernels_wrap_their_bodies(name):
+    ins, body, twin, dtype = cs.RTC_ELEMENTWISE[name]
+    src = cs.rtc_elementwise_src(body, 128)
+    assert "const int N = 128;" in src and body in src
+    assert "def fn(" in twin and dtype in cs.RTC_TOL
