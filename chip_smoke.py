@@ -10,7 +10,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 2. ``kernel``  — each kernel against its plain PyTorch version on the card
    at the main paths' shapes, then timed (CUDA events, median) beside the
    plain version, one PyTorch library call where there is one, and the
-   card's bound: the flash-attention forward, the flash-attention backward
+   card's bound: the flash-attention forward (bf16 on wgmma + TMA, f32 on
+   register tiles + cp.async: each instantiation's registers, shared memory
+   and spills from ptxas, HGMMA / UTMALDG counts from its SASS, the tile
+   edges, both types timed at the serve and train shapes with device times
+   beside), the flash-attention backward
    (dQ and dK/dV kernels), the fused sgd_mom / adam updates, and the
    convolution weight gradient (conv_wgrad: partial-sum and reduction
    kernels) at ResNet-50's seven 3x3 shapes and the reference oracle's odd
@@ -65,10 +69,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 Then the card's ``nvidia-smi`` name/power-limit line and, last, the
 ``{"ok": true, "device": ...}`` line. Exits non-zero without a CUDA card.
 """
+import functools
 import gc
 import json
 import math
 import os
+import re
+import shutil
+import subprocess
 import sys
 import threading
 import time
@@ -87,6 +95,11 @@ H100 = {"bf16_flops": 989e12, "f32_flops": 67e12, "bytes_per_s": 3.35e12}
 CSRC = "mxnet_tpu_torch/ops/kernels/csrc/"
 FA_SRC = CSRC + "flash_attention_fwd.cu"
 FA_REPLACES = "mxnet_tpu/ops/pallas/flash_attention.py:259"
+# the forward's instantiations: __global__ name -> the type it runs
+FA_KERNELS = {"flash_fwd_wgmma_kernel": "bfloat16",
+              "flash_fwd_f32_kernel": "float32"}
+# SASS opcodes a bf16 instantiation must contain: wgmma and TMA loads
+FA_BF16_OPCODES = ("HGMMA", "UTMALDG")
 FA_BWD_SRC = CSRC + "flash_attention_bwd.cu"
 FA_BWD_REPLACES = "mxnet_tpu/ops/pallas/flash_attention.py:618"
 UPDATE_SRC = CSRC + "fused_update.cu"
@@ -208,10 +221,15 @@ RTC_SOFTMAX_CASES = ((4480, 10000), (128, 1000), (1, 10000), (3, 7))
 
 
 def flash_cases():
-    """Cases (b, h, hkv, tq, tk, d, causal, dtype, heads_major) of both
-    flash kernels: the serve and train shapes (T up to 2048 at batch 1, and
-    the training shape at batch 4), each as (B, T, H, D)-storage views like
-    those ``MultiHeadAttention`` passes; MHA; tq < tk; head_dim 64."""
+    """Cases (b, h, hkv, tq, tk, d, causal, dtype, layout) of both flash
+    kernels (layouts: see :func:`_randn`): the serve and train shapes (T up
+    to 2048 at batch 1, and the training shape at batch 4), each as
+    (B, T, H, D)-storage views like those ``MultiHeadAttention`` passes;
+    MHA; tq < tk; head_dim 64. Then the edges of the forward's tiles (128
+    query rows; 128 bf16 or 64 f32 keys): lengths of 1, 63, 65, 129 and
+    2047, a ragged causal tq < tk, head_dim 64 at a length no multiple of
+    128, B * H = 64, and rows whose T stride is no multiple of 16 bytes
+    (the forward wrapper copies them)."""
     cases = []
     for dtype in ("float32", "bfloat16"):
         cases += [(1, 16, 4, t, t, 128, True, dtype, True)
@@ -221,6 +239,12 @@ def flash_cases():
                   (1, 16, 16, 512, 512, 128, False, dtype, True),
                   (1, 16, 4, 300, 1000, 128, True, dtype, True),
                   (2, 8, 2, 777, 777, 64, True, dtype, True)]
+        cases += [(1, 16, 4, t, t, 128, True, dtype, True)
+                  for t in (1, 63, 65, 129, 2047)]
+        cases += [(2, 16, 4, 129, 515, 128, True, dtype, False),
+                  (1, 16, 4, 1000, 1000, 64, True, dtype, False),
+                  (4, 16, 4, 256, 256, 128, True, dtype, True),
+                  (1, 16, 4, 300, 300, 128, True, dtype, "padded")]
     return cases
 
 
@@ -421,33 +445,151 @@ def phase_build():
           "gpu": nvidia_smi()})
 
 
-def _randn(torch, b, heads, t, d, dtype, gen, heads_major=True):
-    """A seeded (b, heads, t, d) tensor; ``heads_major=False`` gives
-    (B, T, H, D) storage seen through ``transpose(1, 2)``, the strided
-    views prefill and ``MultiHeadAttention`` pass."""
+# the layouts of _randn, by name
+LAYOUTS = {True: "bhtd", False: "bthd view",
+           "padded": "bhtd view, rows padded to D + 1"}
+
+
+def _randn(torch, b, heads, t, d, dtype, gen, layout=True):
+    """A seeded (b, heads, t, d) tensor. ``layout`` True: contiguous;
+    False: (B, T, H, D) storage seen through ``transpose(1, 2)``, the
+    strided views prefill and ``MultiHeadAttention`` pass; "padded":
+    (b, heads, t, d + 1) storage cut to d, whose T stride is no multiple
+    of 16 bytes."""
     dt = getattr(torch, dtype)
-    if heads_major:
+    if layout == "padded":
+        return torch.randn(b, heads, t, d + 1, generator=gen,
+                           device="cuda").to(dt)[..., :d]
+    if layout:
         return torch.randn(b, heads, t, d, generator=gen, device="cuda").to(dt)
     return torch.randn(b, t, heads, d, generator=gen,
                        device="cuda").to(dt).transpose(1, 2)
 
 
-def _qkv(torch, b, h, hkv, tq, tk, d, dtype, gen, heads_major=True):
-    """Seeded q/k/v in the layout ``heads_major`` picks (see _randn)."""
-    return (_randn(torch, b, h, tq, d, dtype, gen, heads_major),
-            _randn(torch, b, hkv, tk, d, dtype, gen, heads_major),
-            _randn(torch, b, hkv, tk, d, dtype, gen, heads_major))
+def _qkv(torch, b, h, hkv, tq, tk, d, dtype, gen, layout=True):
+    """Seeded q/k/v in ``layout`` (see _randn)."""
+    return (_randn(torch, b, h, tq, d, dtype, gen, layout),
+            _randn(torch, b, hkv, tk, d, dtype, gen, layout),
+            _randn(torch, b, hkv, tk, d, dtype, gen, layout))
+
+
+def ptxas_report(log, names):
+    """{"<name><D>": {"registers", "smem_static", "stack", "spill_stores",
+    "spill_loads"}} of each instantiation of the ``__global__`` functions
+    ``names`` (templated on one int), parsed from ``nvcc -Xptxas -v``
+    output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            cur = kernel_label(m.group(1), names)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(cur, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(cur, {}).update(
+                registers=int(m.group(1)),
+                smem_static=int(smem.group(1)) if smem else 0)
+    return out
+
+
+def kernel_label(mangled, names):
+    """``name<D>`` for a mangled instantiation of one of ``names``, else
+    None."""
+    for name in names:
+        m = re.search(name + r"ILi(\d+)E", mangled)
+        if m:
+            return "%s<%s>" % (name, m.group(1))
+    return None
+
+
+def sass_counts(lib, names, opcodes):
+    """{"<name><D>": {opcode: count}} in the SASS of library ``lib``
+    (``cuobjdump -sass``, from PATH or ``$CUDA_HOME/bin``)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    return sass_opcode_counts(sass, names, opcodes)
+
+
+def sass_opcode_counts(sass, names, opcodes):
+    """The counting of :func:`sass_counts` over cuobjdump's text."""
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = kernel_label(m.group(1), names)
+            if cur is not None:
+                out[cur] = dict.fromkeys(opcodes, 0)
+            continue
+        if cur is not None:
+            for op in opcodes:
+                if re.search(r"\b%s\b" % op, line):
+                    out[cur][op] += 1
+    return out
+
+
+def flash_fwd_report(torch):
+    """Each forward instantiation's registers, shared memory (static from
+    ptxas, dynamic from the library) and spills, and its HGMMA / UTMALDG
+    counts. Fails when a bf16 instantiation lacks wgmma or TMA loads, or an
+    f32 one spills."""
+    import ctypes
+
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    names = tuple(FA_KERNELS)
+    ptxas = ptxas_report(_build.log_of(fa._NAME), names)
+    sass = sass_counts(_build.lib_path(fa._NAME), names, FA_BF16_OPCODES)
+    smem = _build.kernel(fa._NAME, "mxtt_flash_attention_fwd_smem",
+                         [ctypes.c_int, ctypes.c_int])
+    report = {}
+    for name, dtype in FA_KERNELS.items():
+        for d in fa.HEAD_DIMS:
+            label = "%s<%d>" % (name, d)
+            code = fa._DTYPE_CODE[getattr(torch, dtype)]
+            row = dict(ptxas.get(label, {}), dtype=dtype,
+                       smem_dynamic=smem(code, d), sass=sass.get(label, {}))
+            if "registers" not in row:
+                raise RuntimeError("no ptxas report for %s" % label)
+            if dtype == "bfloat16" and not all(
+                    row["sass"].get(op, 0) > 0 for op in FA_BF16_OPCODES):
+                raise RuntimeError("%s lacks %s in its SASS: %s"
+                                   % (label, FA_BF16_OPCODES, row["sass"]))
+            if dtype == "float32" and (row["spill_stores"]
+                                       or row["spill_loads"]):
+                raise RuntimeError("%s spills: %s" % (label, row))
+            report[label] = row
+    return report
 
 
 def phase_kernel(torch):
-    """Flash forward: kernel vs plain on the card, without the lse (the
-    serve path's call) and with it (the train path's), then timings."""
+    """Flash forward: its instantiations' build and SASS report; kernel vs
+    plain on the card, without the lse (the serve path's call) and with it
+    (the train path's); then timings of both types at the serve and the
+    train shape, in the (B, T, H, D) views those paths pass."""
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
 
+    instantiations = flash_fwd_report(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results, worst = [], {}
-    for b, h, hkv, tq, tk, d, causal, dtype, major in flash_cases():
-        q, k, v = _qkv(torch, b, h, hkv, tq, tk, d, dtype, gen, major)
+    for b, h, hkv, tq, tk, d, causal, dtype, layout in flash_cases():
+        q, k, v = _qkv(torch, b, h, hkv, tq, tk, d, dtype, gen, layout)
+        copied = any(fa.tensor_map_plan(t)[1] for t in (q, k, v))
+        if copied != (layout == "padded"):
+            raise RuntimeError("layout %s: the wrapper would%s copy"
+                               % (LAYOUTS[layout], "" if copied else " not"))
         got = fa.flash_attention(q, k, v, causal=causal)
         o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
         want, want_lse = fa.flash_attention_plain(q, k, v, causal=causal,
@@ -460,29 +602,40 @@ def phase_kernel(torch):
                                        atol=atol, rtol=rtol)
             errs.append(float((g.float() - w.float()).abs().max()))
         results.append({"shape": [b, h, hkv, tq, tk, d], "causal": causal,
-                        "dtype": dtype,
-                        "layout": "bhtd" if major else "bthd view",
-                        "atol": atol, "rtol": rtol,
+                        "dtype": dtype, "layout": LAYOUTS[layout],
+                        "copied": copied, "atol": atol, "rtol": rtol,
                         "max_abs_err": {"o": errs[0], "o_with_lse": errs[1],
                                         "lse": errs[2]}})
         worst[dtype] = max([worst.get(dtype, 0.0)] + errs)
         del q, k, v, got, o, lse, want, want_lse
 
     timings = {}
-    for dtype in ("bfloat16", "float32"):
-        b, h, hkv, t, d = 1, 16, 4, 2048, 128
-        q, k, v = _qkv(torch, b, h, hkv, t, t, d, dtype, gen)
-        bound_ms, bound_by = attention_bound(b, h, hkv, t, t, d, True, dtype)
-        timings[dtype] = {
-            "shape": [b, h, hkv, t, t, d], "causal": True,
-            "ms": time_ms(torch, lambda: fa.flash_attention(
-                q, k, v, causal=True)),
-            "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
-                q, k, v, causal=True)),
-            "library_ms": time_ms(torch, _sdpa(torch, q, k, v)),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    for where, b in (("serve", 1), ("train", 4)):
+        timings[where] = {}
+        for dtype in ("float32", "bfloat16"):
+            h, hkv, t, d = 16, 4, 2048, 128
+            q, k, v = _qkv(torch, b, h, hkv, t, t, d, dtype, gen, False)
+            bound_ms, bound_by = attention_bound(b, h, hkv, t, t, d, True,
+                                                 dtype)
+            kernel = functools.partial(fa.flash_attention, q, k, v,
+                                       causal=True)
+            library = _sdpa(torch, q, k, v)
+            timings[where][dtype] = {
+                "shape": [b, h, hkv, t, t, d], "causal": True,
+                "layout": LAYOUTS[False],
+                "ms": time_ms(torch, kernel),
+                "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+                    q, k, v, causal=True), reps=10),
+                "library_ms": time_ms(torch, library),
+                # the kernels alone, without the host's enqueue
+                "device_ms": device_ms(torch, kernel),
+                "library_device_ms": device_ms(torch, library),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            del q, k, v
+            torch.cuda.empty_cache()
     emit({"phase": "kernel", "kernel": "flash_attention_fwd",
-          "cases": results, "max_abs_err": worst, "timings": timings})
+          "instantiations": instantiations, "cases": results,
+          "max_abs_err": worst, "timings": timings})
     return worst, timings
 
 
@@ -517,12 +670,12 @@ def phase_kernel_bwd(torch):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     results, worst = [], {}
-    for b, h, hkv, tq, tk, d, causal, dtype, major in flash_cases():
-        q, k, v = _qkv(torch, b, h, hkv, tq, tk, d, dtype, gen, major)
+    for b, h, hkv, tq, tk, d, causal, dtype, layout in flash_cases():
+        q, k, v = _qkv(torch, b, h, hkv, tq, tk, d, dtype, gen, layout)
         o, lse = fa.flash_attention_plain(q, k, v, causal=causal,
                                           return_lse=True)
         # dO in q's layout, as autograd hands it back through the views
-        do = _randn(torch, b, h, tq, d, dtype, gen, major)
+        do = _randn(torch, b, h, tq, d, dtype, gen, layout)
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
         want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
         torch.cuda.synchronize()
@@ -535,8 +688,7 @@ def phase_kernel_bwd(torch):
             errs[name] = float((g.float() - w.float()).abs().max())
             typical[name] = float(w.float().abs().median())
         results.append({"shape": [b, h, hkv, tq, tk, d], "causal": causal,
-                        "dtype": dtype,
-                        "layout": "bhtd" if major else "bthd view",
+                        "dtype": dtype, "layout": LAYOUTS[layout],
                         "tol": BWD_TOL[dtype], "max_abs_err": errs,
                         "median_abs": typical})
         worst[dtype] = max([worst.get(dtype, 0.0)] + list(errs.values()))
@@ -1635,7 +1787,7 @@ def main():
     resnet = phase_resnet()
     lstm = phase_lstm()
     custom = phase_custom()
-    t = timings["bfloat16"]
+    t = timings["serve"]["float32"]
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda", "source": FA_SRC,
         "replaces": FA_REPLACES,
@@ -1643,10 +1795,10 @@ def main():
         "launches_by_phase": {"serve": serve_launches,
                               "train": train["flash_attention_fwd"]},
         "max_abs_err": max(worst.values()), "max_err": worst,
-        "dtype": "bfloat16", "shape": t["shape"], "ms": t["ms"],
+        "dtype": "float32", "shape": t["shape"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "float32": timings["float32"]}]
+        "bfloat16": timings["serve"]["bfloat16"], "train": timings["train"]}]
     t = bwd_timings["float32"]
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SRC,

@@ -7,8 +7,8 @@ interface (no PyTorch headers, so a build takes seconds, not minutes):
          -Xcompiler -fPIC -Xptxas -v -o <name>-<hash>.so csrc/<name>.cu
 
 Libraries land in ``mxnet_tpu_torch/_build/`` at first use, keyed by a hash
-of the sources and the flags, so an edited source rebuilds and an unchanged
-one is reused. :func:`build_all` starts one ``nvcc`` per source at once.
+of the flags, the source and the ``csrc`` headers it includes, so an edited
+source or header rebuilds the libraries that read it and no others. :func:`build_all` starts one ``nvcc`` per source at once.
 A missing ``nvcc`` or a failed build raises; nothing falls back.
 """
 from __future__ import annotations
@@ -17,6 +17,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -56,14 +57,31 @@ def sources() -> List[str]:
                   for p in glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def inputs(name: str) -> List[str]:
+    """``name``'s source and the ``csrc`` headers it includes, directly or
+    through another header, sorted."""
+    todo, seen = [name + ".cu"], set()
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.add(f)
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            todo += [i.decode() for i in _INCLUDE.findall(fh.read())
+                     if os.path.exists(os.path.join(CSRC, i.decode()))]
+    return sorted(seen)
+
+
 def lib_path(name: str) -> str:
-    """Where ``name``'s library lives for the current sources and flags."""
+    """Where ``name``'s library lives for the current inputs and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    # every header in csrc feeds every source's key
-    for p in sorted(glob.glob(os.path.join(CSRC, "*.cuh"))) + [
-            os.path.join(CSRC, name + ".cu")]:
-        with open(p, "rb") as f:
-            h.update(f.read())
+    for f in inputs(name):
+        h.update(f.encode())
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
     return os.path.join(BUILD_DIR, "%s-%s.so" % (name, h.hexdigest()[:16]))
 
 
@@ -82,7 +100,18 @@ def _finish(name: str, out: str, proc: subprocess.Popen):
     if proc.returncode != 0:
         raise MXNetError("nvcc failed for %s.cu (exit %d):\n%s"
                          % (name, proc.returncode, log))
+    with open(out + ".log", "w") as f:
+        f.write(log)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+
+
+def log_of(name: str) -> str:
+    """The nvcc/ptxas output of the build of ``name``'s current library,
+    kept beside it (this process's build, or an earlier one's)."""
+    if name in build_log:
+        return build_log[name]
+    with open(lib_path(name) + ".log") as f:
+        return f.read()
 
 
 def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:

@@ -3,10 +3,11 @@ the autograd function that joins them.
 
 Replaces ``mxnet_tpu/ops/pallas/flash_attention.py``'s ``_fa_forward``
 (the Pallas kernels ``_fa_kernel_res`` and ``_fa_kernel_stream``), now
-``csrc/flash_attention_fwd.cu``, and its ``_fa_backward`` (the dQ and dK/dV
-Pallas kernels), now ``csrc/flash_attention_bwd.cu``; each file's header
-says what bounds it and what its design does about that. The reference's
-``custom_vjp`` around the pair is :class:`FlashAttention`.
+``csrc/flash_attention_fwd.cu`` (bf16 on ``wgmma`` fed by TMA, f32 on
+register tiles fed by ``cp.async``), and its ``_fa_backward`` (the dQ and
+dK/dV Pallas kernels), now ``csrc/flash_attention_bwd.cu``; each file's
+header says what bounds it and what its design does about that. The
+reference's ``custom_vjp`` around the pair is :class:`FlashAttention`.
 
 :func:`flash_attention` takes q (B, H, Tq, D) and k/v (B, Hkv, Tk, D) with
 Hkv dividing H. For CPU tensors it runs :func:`flash_attention_plain`; for
@@ -27,6 +28,7 @@ from ..attention import grouped_logits
 HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NAME = "flash_attention_fwd"
+_FWD_ROWS = 128  # query rows of one forward block: grid y counts them
 _BWD_NAME = "flash_attention_bwd"
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -54,8 +56,10 @@ def _check(q, k, v, causal):
         raise ValueError("q/k/v on different devices")
 
 
-def _check_kernel(q, k, v):
-    """What the CUDA kernel takes, beyond :func:`_check`."""
+def _check_kernel(q, k, v, backward=False):
+    """What the CUDA kernels take, beyond :func:`_check`: the type, the
+    head dim, a unit-stride head dim, and the grid of the forward (q-tiles
+    of 128 rows on grid y) or of the backward (B * H on grid y)."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError("flash kernel takes float32 or bfloat16, not %s"
                         % q.dtype)
@@ -66,8 +70,33 @@ def _check_kernel(q, k, v):
         if t.stride(-1) != 1:
             raise ValueError("flash kernel needs unit stride on the head "
                              "dim of %s" % name)
-    if q.shape[0] * q.shape[1] > 65535:
-        raise ValueError("flash kernel grid: B*H must be <= 65535")
+    if backward and q.shape[0] * q.shape[1] > 65535:
+        raise ValueError("flash backward grid: B*H must be <= 65535")
+    if not backward and -(-q.shape[2] // _FWD_ROWS) > 65535:
+        raise ValueError("flash forward grid: ceil(Tq / %d) must be <= 65535"
+                         " (Tq %d)" % (_FWD_ROWS, q.shape[2]))
+
+
+def tensor_map_plan(t):
+    """How the forward kernel reads one of q/k/v (B, heads, T, D) in place.
+
+    Returns ``(strides, copy)``: ``strides`` = the byte strides of B, heads
+    and T, as the C entry takes them (its tensor maps run over (D, T,
+    heads, B) with these strides; a singleton dim gets the stride it would
+    have if the dims inside it were packed, since it is never stepped);
+    ``copy`` = True when the kernel's 16-byte loads (TMA for bf16,
+    ``cp.async`` for f32) cannot read ``t`` where it lies: the head dim is
+    not unit-stride, or the base address or a stride is not a positive
+    multiple of 16 bytes.
+    """
+    b, heads, seq, d = t.shape
+    strides, packed = [], d * t.element_size()
+    for size, stride in zip((seq, heads, b), t.stride()[2::-1]):
+        strides.append(stride * t.element_size() if size > 1 else packed)
+        packed = strides[-1] * size
+    copy = t.stride(3) != 1 or t.data_ptr() % 16 != 0 \
+        or any(s <= 0 or s % 16 for s in strides)
+    return tuple(strides[::-1]), bool(copy)
 
 
 def flash_attention_plain(q, k, v, causal=False, scale=None,
@@ -95,7 +124,20 @@ def _kernel():
                          + [ctypes.c_float, _I32, _PTR])
 
 
+def _in_place(t):
+    """``t`` and its byte strides (B, heads, T) as the kernel reads it:
+    ``t`` itself where :func:`tensor_map_plan` allows, else a contiguous
+    copy in fresh (aligned) memory; ``contiguous()`` would hand back a
+    contiguous ``t`` whose base is off a 16-byte boundary."""
+    strides, copy = tensor_map_plan(t)
+    if copy:
+        t = t.clone(memory_format=torch.contiguous_format)
+        strides = tensor_map_plan(t)[0]
+    return t, strides
+
+
 def _launch(q, k, v, causal, scale, return_lse):
+    (q, qs), (k, ks), (v, vs) = (_in_place(t) for t in (q, k, v))
     _check_kernel(q, k, v)
     b, h, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
@@ -107,10 +149,7 @@ def _launch(q, k, v, causal, scale, return_lse):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr() if lse is not None else None,
-                 _DTYPE_CODE[q.dtype], b, h, hkv, tq, tk, d,
-                 q.stride(0), q.stride(1), q.stride(2),
-                 k.stride(0), k.stride(1), k.stride(2),
-                 v.stride(0), v.stride(1), v.stride(2),
+                 _DTYPE_CODE[q.dtype], b, h, hkv, tq, tk, d, *qs, *ks, *vs,
                  float(scale), int(bool(causal)), stream)
     if err != 0:
         raise RuntimeError("flash_attention_fwd launch failed: cudaError %d"
@@ -236,7 +275,7 @@ flash_attention_bwd_dkv.launches = 0
 
 def _launch_bwd(q, k, v, o, lse, do, causal, scale):
     q, k, v, do = (_unit_inner(t) for t in (q, k, v, do))
-    _check_kernel(q, k, v)
+    _check_kernel(q, k, v, backward=True)
     # D = rowsum(dO * O) outside the kernels, as the reference computes it
     dvec = (do.float() * o.float()).sum(-1).contiguous()
     lse = lse.float().contiguous()

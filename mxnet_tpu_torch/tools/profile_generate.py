@@ -28,8 +28,10 @@ def _emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-# the port's kernels by the name of their __global__ function
-KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
+# the port's kernels by the name of their __global__ function (the flash
+# forward: one per type, csrc/flash_attention_fwd.cu)
+KERNELS = {"flash_fwd_wgmma_kernel": "flash_attention_fwd",
+           "flash_fwd_f32_kernel": "flash_attention_fwd",
            "flash_bwd_dq_kernel": "flash_attention_bwd",
            "flash_bwd_dkv_kernel": "flash_attention_bwd",
            "sgd_mom_kernel": "sgd_mom_update",

@@ -5,6 +5,8 @@ and custom phases run on the host (each wrapper takes its plain version,
 counted in place of kernel launches) so a broken phase shows before a card
 run, and its bound arithmetic is checked against closed forms.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -302,3 +304,75 @@ def test_rtc_test_kernels_wrap_their_bodies(name):
     src = cs.rtc_elementwise_src(body, 128)
     assert "const int N = 128;" in src and body in src
     assert "def fn(" in twin and dtype in cs.RTC_TOL
+
+
+# --- the flash forward's build and SASS report --------------------------------
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_12rt20flash_fwd_f32_kernelILi128EEEvPKfS3_S3_PfS4_iiiilllllllllfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_12rt20flash_fwd_f32_kernelILi128EEEvPKfS3_S3_PfS4_iiiilllllllllfi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 200 registers, used 1 barriers, 464 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_12wg22flash_fwd_wgmma_kernelILi64EEEv14CUtensorMap_stS2_S2_P13__nv_bfloat16Pfiiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_12wg22flash_fwd_wgmma_kernelILi64EEEv14CUtensorMap_stS2_S2_P13__nv_bfloat16Pfiiiifi
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, 16 bytes smem, 400 bytes cmem[0]
+"""
+SASS = """\
+\t\tFunction : _ZN12_GLOBAL__N_12wg22flash_fwd_wgmma_kernelILi64EEEv14CUtensorMap_stS2_S2_P13__nv_bfloat16Pfiiiifi
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0110*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0120*/                   HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR8], R88 ;
+\t\tFunction : _ZN12_GLOBAL__N_12rt20flash_fwd_f32_kernelILi64EEEvPKfS3_S3_PfS4_iiiilllllllllfi
+        /*0100*/                   FFMA R1, R2, R3, R1 ;
+\t\tFunction : _Z5otherv
+        /*0100*/                   HGMMA.64x64x16.F32.BF16 R8, gdesc[UR4], RZ ;
+"""
+
+
+def test_ptxas_report_reads_each_instantiation():
+    got = cs.ptxas_report(PTXAS_LOG, tuple(cs.FA_KERNELS))
+    assert got == {
+        "flash_fwd_f32_kernel<128>": {
+            "stack": 0, "spill_stores": 0, "spill_loads": 0,
+            "registers": 200, "smem_static": 0},
+        "flash_fwd_wgmma_kernel<64>": {
+            "stack": 8, "spill_stores": 4, "spill_loads": 12,
+            "registers": 168, "smem_static": 16}}
+
+
+def test_sass_counts_wgmma_and_tma_loads_per_instantiation():
+    got = cs.sass_opcode_counts(SASS, tuple(cs.FA_KERNELS),
+                                cs.FA_BF16_OPCODES)
+    assert got == {"flash_fwd_wgmma_kernel<64>": {"HGMMA": 2, "UTMALDG": 1},
+                   "flash_fwd_f32_kernel<64>": {"HGMMA": 0, "UTMALDG": 0}}
+
+
+def test_flash_cases_cover_the_forward_tile_edges():
+    """Both types get lengths 1, 63, 65, 129 and 2047, a ragged causal
+    tq < tk, D = 64 off a multiple of 128, B * H = 64 and a padded-row
+    layout, beside every earlier case."""
+    cases = cs.flash_cases()
+    for dtype in ("float32", "bfloat16"):
+        mine = [c for c in cases if c[7] == dtype]
+        lengths = {c[3] for c in mine if c[3] == c[4]}
+        assert {1, 63, 65, 129, 2047, 128, 512, 1000, 2048} <= lengths
+        assert any(c[6] and c[3] < c[4] and c[3] % 128 and c[4] % 128
+                   for c in mine)
+        assert any(c[5] == 64 and c[3] % 128 for c in mine)
+        assert any(c[0] * c[1] == 64 for c in mine)
+        assert any(c[8] == "padded" for c in mine)
+        assert (4, 16, 4, 2048, 2048, 128, True, dtype, False) in mine
+    assert set(c[8] for c in cases) <= set(cs.LAYOUTS)
+
+
+def test_generate_profile_attributes_both_forward_kernels():
+    """The prefill profile counts each forward instantiation's device time
+    as flash_attention_fwd (mangled names as the profiler shows them)."""
+    from mxnet_tpu_torch.tools import profile_generate as pg
+
+    names = re.findall(r"Compiling entry function '(\w+)'", PTXAS_LOG)
+    assert len(names) == 2
+    for name in names:
+        assert pg._kind(name) == "flash_attention_fwd"
+    assert pg._kind("void cutlass::Kernel2<cutlass_80_gemm>") == "matmul"

@@ -5,6 +5,8 @@ CUDA kernel is held against on the card) is compared with the reference's
 Pallas kernel run in interpret mode, as tests/test_consistency.py does.
 Tolerance 2e-4 (f32, summation order differs), as there.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -146,6 +148,23 @@ def test_build_key_follows_sources():
     p = _build.lib_path("flash_attention_fwd")
     assert p == _build.lib_path("flash_attention_fwd")
     assert p.startswith(_build.BUILD_DIR) and p.endswith(".so")
+    assert _build.inputs("flash_attention_fwd") == ["flash_attention_fwd.cu",
+                                                    "hopper.cuh"]
+    assert _build.inputs("fused_update") == ["fused_update.cu"]
+
+
+def test_build_key_reads_only_included_headers(tmp_path, monkeypatch):
+    """A header edit rebuilds the sources that include it, directly or
+    through another header, and no other."""
+    (tmp_path / "a.cu").write_text('#include "outer.cuh"\n#include <math.h>\n')
+    (tmp_path / "outer.cuh").write_text('  #  include "inner.cuh"\n')
+    (tmp_path / "inner.cuh").write_text("// v1\n")
+    (tmp_path / "b.cu").write_text("// no headers\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    assert _build.inputs("a") == ["a.cu", "inner.cuh", "outer.cuh"]
+    a, b = _build.lib_path("a"), _build.lib_path("b")
+    (tmp_path / "inner.cuh").write_text("// v2\n")
+    assert _build.lib_path("a") != a and _build.lib_path("b") == b
 
 
 # --- backward -----------------------------------------------------------------
@@ -245,3 +264,152 @@ def test_unit_inner_keeps_views_and_copies_strided_head_dims():
     assert tfa._unit_inner(view) is view
     strided = torch.zeros(1, 2, 16, 16)[..., ::2]
     assert tfa._unit_inner(strided).is_contiguous()
+
+
+# --- the forward kernel's host-side plan -------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tensor_map_plan_of_contiguous_bhtd(dtype):
+    """(B, H, T, D) contiguous: packed byte strides of B, H and T, read in
+    place."""
+    t = torch.zeros(2, 4, 10, 64, dtype=dtype)
+    item = t.element_size()
+    strides, copy = tfa.tensor_map_plan(t)
+    assert strides == (4 * 10 * 64 * item, 10 * 64 * item, 64 * item)
+    assert not copy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tensor_map_plan_of_bthd_views(dtype):
+    """The (B, T, H, D)-storage views MultiHeadAttention and prefill pass:
+    the T stride spans all heads, the H stride one head; no copy."""
+    t = torch.zeros(3, 10, 4, 128, dtype=dtype).transpose(1, 2)
+    item = t.element_size()
+    strides, copy = tfa.tensor_map_plan(t)
+    assert strides == (10 * 4 * 128 * item, 128 * item, 4 * 128 * item)
+    assert not copy
+    got, byte_strides = tfa._in_place(t)
+    assert got is t and byte_strides == strides
+
+
+def test_tensor_map_plan_gives_singleton_dims_packed_strides():
+    """A dim of size 1 is never stepped: its stride is the packed one, so
+    an odd stride there forces no copy."""
+    t = torch.zeros(1, 4, 7, 64)[:, :, 3:4]          # T = 1 inside T = 7
+    strides, copy = tfa.tensor_map_plan(t)
+    assert strides == (4 * 7 * 256, 7 * 256, 256) and not copy
+    odd = torch.zeros(1, 1, 5, 64).as_strided((1, 1, 5, 64), (3, 3, 64, 1))
+    assert tfa.tensor_map_plan(odd) == ((5 * 256, 5 * 256, 256), False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_misaligned_layouts_are_copied_with_equal_values(dtype):
+    """Rows whose T stride is no multiple of 16 bytes, a base off a
+    16-byte boundary, and a strided head dim each take a contiguous copy,
+    whose plan is aligned and whose values are the view's."""
+    base = torch.from_numpy(
+        np.random.RandomState(5).randn(2, 4, 9, 65).astype(np.float32))
+    flat = torch.from_numpy(
+        np.random.RandomState(6).randn(2 * 4 * 9 * 64 + 1).astype(np.float32))
+    views = {
+        "padded_rows": base.to(dtype)[..., :64],
+        "shifted_base": flat.to(dtype)[1:].view(2, 4, 9, 64),
+        "strided_head_dim": base[..., :64].to(dtype)
+        .repeat_interleave(2, -1)[..., ::2],
+    }
+    for name, view in views.items():
+        assert tfa.tensor_map_plan(view)[1], name
+        got, byte_strides = tfa._in_place(view)
+        assert got is not view and got.is_contiguous(), name
+        assert torch.equal(got, view), name
+        assert tfa.tensor_map_plan(got) == (byte_strides, False), name
+        assert got.data_ptr() % 16 == 0 and all(s % 16 == 0
+                                                for s in byte_strides), name
+
+
+def test_check_kernel_rejects_what_the_kernel_does_not_take():
+    """After the plan's copies, the kernels still take only f32 / bf16,
+    head dims 64 and 128 and a unit-stride head dim; the forward's grid
+    takes ceil(Tq / 128) <= 65535 q-tiles, the backward's B * H <= 65535."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 4, 2, 16, 16, 64))
+    tfa._check_kernel(q, k, v)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa._check_kernel(q.double(), k.double(), v.double())
+    q32, k32, v32 = (torch.from_numpy(a) for a in _inputs(1, 4, 2, 16, 16, 32))
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa._check_kernel(q32, k32, v32)
+    with pytest.raises(ValueError, match="unit stride"):
+        tfa._check_kernel(q, k, torch.zeros(1, 2, 16, 128)[..., ::2])
+    wide = torch.zeros(1, 1, 1, 64).expand(1, 65536, 1, 64)
+    tfa._check_kernel(wide, wide, wide)
+    with pytest.raises(ValueError, match="backward grid"):
+        tfa._check_kernel(wide, wide, wide, backward=True)
+    tfa._check_kernel(q, k, v, backward=True)
+    most = torch.zeros(1, 1, 1, 64).expand(1, 1, 65535 * 128, 64)
+    tfa._check_kernel(most, most, most)
+    long = torch.zeros(1, 1, 1, 64).expand(1, 1, 65535 * 128 + 1, 64)
+    with pytest.raises(ValueError, match="forward grid"):
+        tfa._check_kernel(long, long, long)
+    tfa._check_kernel(long, long, long, backward=True)
+
+
+# --- the forward's ablation variants --------------------------------------------
+def test_ablation_variants_edit_the_current_source(monkeypatch):
+    """Every variant's edits still find their text exactly once in the
+    kernel source, and each edited variant differs from it."""
+    from mxnet_tpu_torch.tools import flash_fwd_ablate as ab
+
+    with open(os.path.join(_build.CSRC, "flash_attention_fwd.cu")) as f:
+        source = f.read()
+    for name, (dtype, edits) in ab.VARIANTS.items():
+        assert dtype in ("bfloat16", "float32")
+        assert (ab.variant_source(name) == source) == (not edits), name
+    monkeypatch.setitem(ab.VARIANTS, "gone", ("float32", [("no such", "")]))
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        ab.variant_source("gone")
+
+
+# --- why the bf16 kernel splits P ---------------------------------------------
+def test_p_split_reconstructs_p_to_two_to_the_minus_16():
+    from mxnet_tpu_torch.tools import flash_p_spread as fps
+
+    p = torch.from_numpy(np.random.RandomState(7).rand(4096)
+                         .astype(np.float32))
+    hi, lo = fps.split_bf16(p)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    rel = ((hi.float() + lo.float() - p).abs() / p).max()
+    assert rel <= 2.0 ** -16
+
+
+@pytest.mark.parametrize("case", ["mha_causal", "gqa_causal_tq_lt_tk",
+                                  "gqa"])
+def test_kernel_arithmetic_with_split_p_matches_pallas_interpret(case):
+    """The bf16 kernel's arithmetic (128-key tiles, exp2 domain, P split
+    into hi + lo bf16) against the reference's Pallas kernel in interpret
+    mode on the same bf16 inputs, at chip_smoke.py's bf16 gate."""
+    from mxnet_tpu_torch.tools import flash_p_spread as fps
+
+    b, h, hkv, tq, tk, d, causal = CASES[case]
+    q, k, v = (a.astype(jnp.bfloat16) for a in _inputs(b, h, hkv, tq, tk, d))
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal, interpret=True)
+    q, k, v = (torch.from_numpy(a.astype(np.float32)).bfloat16()
+               for a in (q, k, v))
+    got = fps.kernel_arithmetic(q, k, v, causal, split=True, block=8)
+    want = torch.from_numpy(np.asarray(want, np.float32))
+    assert fps.gate_ratio(got, want) <= 1.0
+
+
+def test_split_p_stays_well_inside_the_gate_where_single_p_nears_it():
+    """At a causal shape with short rows, one bf16 P comes near the gate
+    against the plain version; the split P stays below half of it."""
+    from mxnet_tpu_torch.tools import flash_p_spread as fps
+
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 4, 64, 128),
+                                                    dtype=np.float32))
+               .bfloat16() for _ in range(3))
+    want = tfa.flash_attention_plain(q, k, v, causal=True)
+    split = fps.gate_ratio(fps.kernel_arithmetic(q, k, v, True, True), want)
+    single = fps.gate_ratio(fps.kernel_arithmetic(q, k, v, True, False),
+                            want)
+    assert split < 0.5 and split < single
