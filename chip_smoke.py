@@ -14,8 +14,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    register tiles + cp.async: each instantiation's registers, shared memory
    and spills from ptxas, HGMMA / UTMALDG counts from its SASS, the tile
    edges, both types timed at the serve and train shapes with device times
-   beside), the flash-attention backward
-   (dQ and dK/dV kernels), the fused sgd_mom / adam updates, and the
+   beside), the flash-attention backward (dQ and dK/dV kernels, the same
+   two designs and report, both types timed at the train shape with device
+   times beside SDPA autograd's), the fused sgd_mom / adam updates, and the
    convolution weight gradient (conv_wgrad: partial-sum and reduction
    kernels) at ResNet-50's seven 3x3 shapes and the reference oracle's odd
    cases, beside cuDNN's wgrad; and the LSTM step (lstm_step) at the
@@ -102,6 +103,16 @@ FA_KERNELS = {"flash_fwd_wgmma_kernel": "bfloat16",
 FA_BF16_OPCODES = ("HGMMA", "UTMALDG")
 FA_BWD_SRC = CSRC + "flash_attention_bwd.cu"
 FA_BWD_REPLACES = "mxnet_tpu/ops/pallas/flash_attention.py:618"
+# the backward's instantiations: a dQ and a dK/dV kernel per type
+FA_BWD_KERNELS = {"flash_bwd_dq_wgmma_kernel": "bfloat16",
+                  "flash_bwd_dkv_wgmma_kernel": "bfloat16",
+                  "flash_bwd_dq_f32_kernel": "float32",
+                  "flash_bwd_dkv_f32_kernel": "float32"}
+# flops per visible (query, key) pair, head and head-dim element of one
+# backward: the bound's (q.k, dO.v and the three products), and what the
+# two kernels do (S and dP again in the dQ kernel; in bf16 also the lo
+# parts of P and dS)
+FA_BWD_WORK = {"bound": 10, "float32": 14, "bfloat16": 20}
 UPDATE_SRC = CSRC + "fused_update.cu"
 UPDATE_REPLACES = {"sgd_mom_update": "mxnet_tpu/ops/pallas/fused_update.py:31",
                    "adam_update": "mxnet_tpu/ops/pallas/fused_update.py:60"}
@@ -273,12 +284,13 @@ def visible_pairs(tq, tk, causal):
     return int(np.minimum(tk, np.arange(tq) + (tk - tq) + 1).sum())
 
 
-def attention_bwd_bound(b, h, hkv, tq, tk, d, causal, dtype):
+def attention_bwd_bound(b, h, hkv, tq, tk, d, causal, dtype, per_pair=10):
     """Least time (ms) for one flash backward, and what bounds it: 10*D
     flops per visible pair and head (q.k recomputed, dO.v, and the
     products into dQ, dK, dV), and q/k/v/o/dO read, dQ/dK/dV written
-    once, plus the f32 lse read."""
-    flops = 10 * b * h * d * visible_pairs(tq, tk, causal)
+    once, plus the f32 lse read. ``per_pair`` = 14 or 20 gives the least
+    time of the work the kernels do (``FA_BWD_WORK``)."""
+    flops = per_pair * b * h * d * visible_pairs(tq, tk, causal)
     item = 4 if dtype == "float32" else 2
     nbytes = item * (4 * b * h * tq * d + 4 * b * hkv * tk * d) \
         + 4 * b * h * tq
@@ -365,11 +377,9 @@ def time_ms(torch, fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
-def device_ms(torch, fn, reps=20, warmup=3):
-    """Device time (ms) of one ``fn()`` call: the summed time of the
-    kernels it launches, from a ``torch.profiler`` trace of ``reps`` calls.
-    Unlike :func:`time_ms` it leaves out the gaps while the host enqueues,
-    which dominate a call whose kernels take microseconds."""
+def _device_events(torch, fn, reps, warmup):
+    """The CUDA events of a ``torch.profiler`` trace of ``reps`` calls of
+    ``fn()``, after ``warmup`` untraced ones."""
     prof_mod = torch.profiler
     for _ in range(warmup):
         fn()
@@ -379,11 +389,30 @@ def device_ms(torch, fn, reps=20, warmup=3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in p.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not total > 0:
+    events = [e for e in p.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not sum(e.self_device_time_total for e in events) > 0:
         raise RuntimeError("the profiler saw no device time")
-    return total / reps / 1e3
+    return events
+
+
+def device_ms(torch, fn, reps=20, warmup=3):
+    """Device time (ms) of one ``fn()`` call: the summed time of every
+    kernel it launches, from a ``torch.profiler`` trace of ``reps`` calls.
+    Unlike :func:`time_ms` it leaves out the gaps while the host enqueues,
+    which dominate a call whose kernels take microseconds."""
+    events = _device_events(torch, fn, reps, warmup)
+    return sum(e.self_device_time_total for e in events) / reps / 1e3
+
+
+def device_ms_by(torch, fn, by, reps=20, warmup=3):
+    """:func:`device_ms` of one ``fn()`` call, and {label: ms} of the
+    kernels whose names hold ``by[label]``."""
+    events = _device_events(torch, fn, reps, warmup)
+    return (sum(e.self_device_time_total for e in events) / reps / 1e3, {
+        label: sum(e.self_device_time_total for e in events
+                   if part in e.key) / reps / 1e3
+        for label, part in by.items()})
 
 
 def loop_ms(torch, fn, calls=20, reps=10, warmup=2):
@@ -539,28 +568,39 @@ def sass_opcode_counts(sass, names, opcodes):
     return out
 
 
-def flash_fwd_report(torch):
-    """Each forward instantiation's registers, shared memory (static from
-    ptxas, dynamic from the library) and spills, and its HGMMA / UTMALDG
-    counts. Fails when a bf16 instantiation lacks wgmma or TMA loads, or an
-    f32 one spills."""
-    import ctypes
+def wgmma_serialized(log, names):
+    """{"<name><D>": count} of ptxas's C7515 / C7520 notes ("wgmma ...
+    serialized") naming each instantiation of ``names`` in ``log``."""
+    out = {}
+    for line in log.splitlines():
+        if "wgmma" not in line or not re.search(r"C75(15|20)", line):
+            continue
+        m = re.search(r"'(_Z\w+)'", line)
+        label = kernel_label(m.group(1), names) if m else None
+        if label is not None:
+            out[label] = out.get(label, 0) + 1
+    return out
 
-    from mxnet_tpu_torch.ops.kernels import _build
-    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
 
-    names = tuple(FA_KERNELS)
-    ptxas = ptxas_report(_build.log_of(fa._NAME), names)
-    sass = sass_counts(_build.lib_path(fa._NAME), names, FA_BF16_OPCODES)
-    smem = _build.kernel(fa._NAME, "mxtt_flash_attention_fwd_smem",
-                         [ctypes.c_int, ctypes.c_int])
+def instantiation_report(log, sass, kernels, head_dims, smem_of):
+    """Each instantiation of ``kernels`` ({__global__ name: dtype}) at each
+    head dim: its registers, shared memory (static from the ptxas ``log``,
+    dynamic from ``smem_of(name, dtype, d)``), spills, ptxas's wgmma
+    serialization notes and its HGMMA / UTMALDG counts (``sass``, from
+    :func:`sass_opcode_counts`). Fails when an instantiation is missing
+    from the log, a bf16 one lacks wgmma or TMA loads, or an f32 one
+    spills."""
+    names = tuple(kernels)
+    ptxas = ptxas_report(log, names)
+    serial = wgmma_serialized(log, names)
     report = {}
-    for name, dtype in FA_KERNELS.items():
-        for d in fa.HEAD_DIMS:
+    for name, dtype in kernels.items():
+        for d in head_dims:
             label = "%s<%d>" % (name, d)
-            code = fa._DTYPE_CODE[getattr(torch, dtype)]
             row = dict(ptxas.get(label, {}), dtype=dtype,
-                       smem_dynamic=smem(code, d), sass=sass.get(label, {}))
+                       smem_dynamic=smem_of(name, dtype, d),
+                       sass=sass.get(label, {}),
+                       wgmma_serialized=serial.get(label, 0))
             if "registers" not in row:
                 raise RuntimeError("no ptxas report for %s" % label)
             if dtype == "bfloat16" and not all(
@@ -572,6 +612,46 @@ def flash_fwd_report(torch):
                 raise RuntimeError("%s spills: %s" % (label, row))
             report[label] = row
     return report
+
+
+def flash_report(lib, kernels, smem_of):
+    """:func:`instantiation_report` of library ``lib``'s build log and
+    SASS (``cuobjdump``)."""
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    sass = sass_counts(_build.lib_path(lib), tuple(kernels), FA_BF16_OPCODES)
+    return instantiation_report(_build.log_of(lib), sass, kernels,
+                                fa.HEAD_DIMS, smem_of)
+
+
+def flash_fwd_report(torch):
+    """The forward's instantiations (:func:`instantiation_report`)."""
+    import ctypes
+
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    smem = _build.kernel(fa._NAME, "mxtt_flash_attention_fwd_smem",
+                         [ctypes.c_int, ctypes.c_int])
+    return flash_report(fa._NAME, FA_KERNELS, lambda name, dtype, d:
+                        smem(fa._DTYPE_CODE[getattr(torch, dtype)], d))
+
+
+def flash_bwd_report(torch):
+    """The backward's instantiations, dQ and dK/dV per type
+    (:func:`instantiation_report`)."""
+    import ctypes
+
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    smem = _build.kernel(fa._BWD_NAME, "mxtt_flash_attention_bwd_smem",
+                         [ctypes.c_int] * 3)
+    return flash_report(fa._BWD_NAME, FA_BWD_KERNELS,
+                        lambda name, dtype, d: smem(
+                            0 if "_dq_" in name else 1,
+                            fa._DTYPE_CODE[getattr(torch, dtype)], d))
 
 
 def phase_kernel(torch):
@@ -662,12 +742,43 @@ def _sdpa_bwd(torch, q, k, v, do):
     return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
 
+def bwd_timing(torch, shape, dtype, kernel, plain, library,
+               timers=(time_ms, device_ms, device_ms_by)):
+    """One timing row of the backward at ``shape`` (b, h, hkv, t, d,
+    causal): single calls of the kernel pair (``kernel``), of the plain
+    version and of the library yardstick (CUDA events, the host's enqueue
+    included), the device times of the whole call (the torch pass for D
+    included; the dQ and dK/dV kernels apart) and of the library's, beside
+    the bound. ``work`` holds the least time of the work the kernels do
+    (``FA_BWD_WORK``): this phase's line shows it, the kernels line not."""
+    single, device, device_by = timers
+    b, h, hkv, t, d, causal = shape
+    bound_ms, bound_by = attention_bwd_bound(b, h, hkv, t, t, d, causal,
+                                             dtype)
+    work_ms, _ = attention_bwd_bound(b, h, hkv, t, t, d, causal, dtype,
+                                     FA_BWD_WORK[dtype])
+    dev, parts = device_by(torch, kernel, {"dq": "flash_bwd_dq",
+                                           "dkv": "flash_bwd_dkv"})
+    return {"shape": [b, h, hkv, t, t, d], "causal": causal,
+            "layout": LAYOUTS[False],
+            "ms": single(torch, kernel, reps=10),
+            "plain_ms": single(torch, plain, reps=10),
+            "library_ms": single(torch, library, reps=10),
+            "device_ms": dev, "device_ms_by_kernel": parts,
+            "library_device_ms": device(torch, library),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "work": {"flops_per_pair": {"bound": FA_BWD_WORK["bound"] * d,
+                                        "kernels": FA_BWD_WORK[dtype] * d},
+                     "ms": work_ms}}
+
+
 def phase_kernel_bwd(torch):
-    """Flash backward: kernels vs plain on the card (same q/k/v/o/lse/dO
-    into both), then timings at the training shape in the training
-    layout."""
+    """Flash backward: its instantiations' build and SASS report; kernels
+    vs plain on the card (same q/k/v/o/lse/dO into both), then timings at
+    the training shape in the training layout."""
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
 
+    instantiations = flash_bwd_report(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     results, worst = [], {}
     for b, h, hkv, tq, tk, d, causal, dtype, layout in flash_cases():
@@ -700,22 +811,16 @@ def phase_kernel_bwd(torch):
         q, k, v = _qkv(torch, b, h, hkv, t, t, d, dtype, gen, False)
         o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
         do = _randn(torch, b, h, t, d, dtype, gen, False)
-        bound_ms, bound_by = attention_bwd_bound(b, h, hkv, t, t, d, True,
-                                                 dtype)
-        timings[dtype] = {
-            "shape": [b, h, hkv, t, t, d], "causal": True,
-            "layout": "bthd view",
-            "ms": time_ms(torch, lambda: fa.flash_attention_bwd(
-                q, k, v, o, lse, do, True), reps=10),
-            "plain_ms": time_ms(torch, lambda: fa.flash_attention_bwd_plain(
-                q, k, v, o, lse, do, True), reps=10),
-            "library_ms": time_ms(torch, _sdpa_bwd(torch, q, k, v, do),
-                                  reps=10),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+        timings[dtype] = bwd_timing(
+            torch, (b, h, hkv, t, d, True), dtype,
+            lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True),
+            lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True),
+            _sdpa_bwd(torch, q, k, v, do))
         del q, k, v, o, lse, do
         torch.cuda.empty_cache()
     emit({"phase": "kernel", "kernel": "flash_attention_bwd",
-          "cases": results, "max_abs_err": worst, "timings": timings})
+          "instantiations": instantiations, "cases": results,
+          "max_abs_err": worst, "timings": timings})
     return worst, timings
 
 
@@ -1811,7 +1916,10 @@ def main():
         "dtype": "float32", "shape": t["shape"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "bfloat16": bwd_timings["bfloat16"]})
+        "device_ms": t["device_ms"],
+        "library_device_ms": t["library_device_ms"],
+        "bfloat16": {k: v for k, v in bwd_timings["bfloat16"].items()
+                     if k != "work"}})
     for kind in ("sgd_mom_update", "adam_update"):
         t = upd_timings[kind]
         by_phase = {"train": train[kind]}

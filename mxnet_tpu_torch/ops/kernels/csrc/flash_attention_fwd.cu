@@ -106,13 +106,6 @@ struct Layout {
   static constexpr int BYTES = BAR_OFF + 9 * 8 + 1024;
 };
 
-// 2^x on the special-function unit; ex2(-inf) = 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The online-softmax step of one tile on the S accumulator of m64n128k16:
 // scales S into the exp2 domain, masks keys >= Tk and (causal) keys right
 // of each row's diagonal when `mask`, updates the running max m and sum l
@@ -147,18 +140,18 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], int k0,
   // a row with no visible key yet keeps 0 weights, not NaN
   const float mu0 = mx0 == -INFINITY ? 0.f : mx0;
   const float mu1 = mx1 == -INFINITY ? 0.f : mx1;
-  a0 = ex2(m0 - mu0);
-  a1 = ex2(m1 - mu1);
+  a0 = hopper::ex2(m0 - mu0);
+  a1 = hopper::ex2(m1 - mu1);
   m0 = mx0;
   m1 = mx1;
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) {
     if (i & 2) {
-      s[i] = ex2(s[i] - mu1);
+      s[i] = hopper::ex2(s[i] - mu1);
       sum1 += s[i];
     } else {
-      s[i] = ex2(s[i] - mu0);
+      s[i] = hopper::ex2(s[i] - mu0);
       sum0 += s[i];
     }
   }
@@ -169,25 +162,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], int k0,
   }
   l0 = l0 * a0 + sum0;
   l1 = l1 * a1 + sum1;
-}
-
-// P (f32, the S accumulator's layout) -> the A fragments of its 16-key
-// chunks, as hi = bf16(p) and lo = bf16(p - hi)
-__device__ __forceinline__ void p_fragments(const float (&p)[BK / 2],
-                                            uint32_t (&hi)[BK / 16][4],
-                                            uint32_t (&lo)[BK / 16][4]) {
-#pragma unroll
-  for (int kc = 0; kc < BK / 16; ++kc) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float x = p[8 * kc + 2 * r], y = p[8 * kc + 2 * r + 1];
-      const __nv_bfloat162 h2 = __floats2bfloat162_rn(x, y);
-      const __nv_bfloat162 l2 =
-          __floats2bfloat162_rn(x - __low2float(h2), y - __high2float(h2));
-      hi[kc][r] = *reinterpret_cast<const uint32_t*>(&h2);
-      lo[kc][r] = *reinterpret_cast<const uint32_t*>(&l2);
-    }
-  }
 }
 
 // S = Q K^T for one consumer warpgroup: the depth D in steps of 16
@@ -224,18 +198,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
       hopper::wgmma_rs_m64n64k16_tb(o, lo[kc], dv);
     }
   }
-}
-
-template <int N>
-__device__ __forceinline__ void fence_all(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) hopper::fence_reg(r[i]);
-}
-__device__ __forceinline__ void fence_all(uint32_t (&r)[BK / 16][4]) {
-#pragma unroll
-  for (int i = 0; i < BK / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) hopper::fence_reg(r[i][j]);
 }
 
 template <int D>
@@ -361,7 +323,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (lane == 0) mbar_arrive(bar_ek);
   softmax_tile(sacc, 0, needs_mask(0), Tk, causal, qpos0, cq, scale_log2, m0,
                m1, l0, l1, a0, a1);
-  p_fragments(sacc, phi, plo);
+  split_fragments(sacc, phi, plo);
   refill(0);
 
   for (int j = 1; j < n_tiles; ++j) {
@@ -396,7 +358,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(bar_ev + 8 * sp);  // and V_{j-1}
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) oacc[i] *= (i & 2) ? a1 : a0;
-    p_fragments(sacc, phi, plo);
+    split_fragments(sacc, phi, plo);
     refill(j);
   }
   {

@@ -131,6 +131,49 @@ __device__ __forceinline__ void fence_reg(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
 
+// Fences every register of an accumulator or of A fragments (see fence_reg).
+template <int N>
+__device__ __forceinline__ void fence_all(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_reg(r[i]);
+}
+template <int M, int N>
+__device__ __forceinline__ void fence_all(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) fence_reg(r[i][j]);
+}
+
+// X (f32, the layout of an m64nN accumulator, N = 16 KC) -> the A
+// fragments of its KC 16-column chunks, as hi = bf16(x) and
+// lo = bf16(x - hi): hi + lo keeps x to about 2^-16 where one bf16 keeps
+// 2^-8 (see the layout note at the top)
+template <int KC>
+__device__ __forceinline__ void split_fragments(const float (&x)[8 * KC],
+                                                uint32_t (&hi)[KC][4],
+                                                uint32_t (&lo)[KC][4]) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = x[8 * kc + 2 * r], b = x[8 * kc + 2 * r + 1];
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
+      const __nv_bfloat162 l2 =
+          __floats2bfloat162_rn(a - __low2float(h2), b - __high2float(h2));
+      hi[kc][r] = *reinterpret_cast<const uint32_t*>(&h2);
+      lo[kc][r] = *reinterpret_cast<const uint32_t*>(&l2);
+    }
+  }
+}
+
+// 2^x on the special-function unit; ex2(-inf) = 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // --- wgmma instructions (bf16 in, f32 accumulate) ------------------------------
 // D (64 x 128, f32) = A (64 x 16) * B (16 x 128) + (scale_d ? D : 0); A and B
 // are bf16 in shared memory, both K-major, through their descriptors.
@@ -166,6 +209,31 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 64, f32) = A (64 x 16) * B (16 x 64) + (scale_d ? D : 0); A and B
+// are bf16 in shared memory, both K-major, through their descriptors.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -227,6 +295,14 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// --- named barriers --------------------------------------------------------------
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads, e.g. the
+// 128 of one warpgroup; the non-aligned form, so a warp may reach it
+// diverged (thread 0 returning from its TMA issue).
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("barrier.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // --- cp.async -----------------------------------------------------------------

@@ -3,11 +3,12 @@ the autograd function that joins them.
 
 Replaces ``mxnet_tpu/ops/pallas/flash_attention.py``'s ``_fa_forward``
 (the Pallas kernels ``_fa_kernel_res`` and ``_fa_kernel_stream``), now
-``csrc/flash_attention_fwd.cu`` (bf16 on ``wgmma`` fed by TMA, f32 on
-register tiles fed by ``cp.async``), and its ``_fa_backward`` (the dQ and
-dK/dV Pallas kernels), now ``csrc/flash_attention_bwd.cu``; each file's
-header says what bounds it and what its design does about that. The
-reference's ``custom_vjp`` around the pair is :class:`FlashAttention`.
+``csrc/flash_attention_fwd.cu``, and its ``_fa_backward`` (the dQ and
+dK/dV Pallas kernels), now ``csrc/flash_attention_bwd.cu`` (a dQ and a
+dK/dV kernel per type); both are bf16 on ``wgmma`` fed by TMA and f32 on
+register tiles fed by ``cp.async``. Each file's header says what bounds it
+and what its design does about that. The reference's ``custom_vjp``
+around the pair is :class:`FlashAttention`.
 
 :func:`flash_attention` takes q (B, H, Tq, D) and k/v (B, Hkv, Tk, D) with
 Hkv dividing H. For CPU tensors it runs :func:`flash_attention_plain`; for
@@ -29,6 +30,7 @@ HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NAME = "flash_attention_fwd"
 _FWD_ROWS = 128  # query rows of one forward block: grid y counts them
+_BWD_ROWS = 64   # rows of the smallest backward block (f32): grid y
 _BWD_NAME = "flash_attention_bwd"
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -58,8 +60,8 @@ def _check(q, k, v, causal):
 
 def _check_kernel(q, k, v, backward=False):
     """What the CUDA kernels take, beyond :func:`_check`: the type, the
-    head dim, a unit-stride head dim, and the grid of the forward (q-tiles
-    of 128 rows on grid y) or of the backward (B * H on grid y)."""
+    head dim, a unit-stride head dim, and the grid: the forward's q-tiles
+    of 128 rows, the backward's q- or k-tiles of 64 rows on grid y."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError("flash kernel takes float32 or bfloat16, not %s"
                         % q.dtype)
@@ -70,24 +72,26 @@ def _check_kernel(q, k, v, backward=False):
         if t.stride(-1) != 1:
             raise ValueError("flash kernel needs unit stride on the head "
                              "dim of %s" % name)
-    if backward and q.shape[0] * q.shape[1] > 65535:
-        raise ValueError("flash backward grid: B*H must be <= 65535")
+    longest = max(q.shape[2], k.shape[2])
+    if backward and -(-longest // _BWD_ROWS) > 65535:
+        raise ValueError("flash backward grid: ceil(max(Tq, Tk) / %d) must "
+                         "be <= 65535 (T %d)" % (_BWD_ROWS, longest))
     if not backward and -(-q.shape[2] // _FWD_ROWS) > 65535:
         raise ValueError("flash forward grid: ceil(Tq / %d) must be <= 65535"
                          " (Tq %d)" % (_FWD_ROWS, q.shape[2]))
 
 
 def tensor_map_plan(t):
-    """How the forward kernel reads one of q/k/v (B, heads, T, D) in place.
+    """How the kernels read one of q/k/v/dO (B, heads, T, D) in place.
 
     Returns ``(strides, copy)``: ``strides`` = the byte strides of B, heads
-    and T, as the C entry takes them (its tensor maps run over (D, T,
-    heads, B) with these strides; a singleton dim gets the stride it would
-    have if the dims inside it were packed, since it is never stepped);
-    ``copy`` = True when the kernel's 16-byte loads (TMA for bf16,
-    ``cp.async`` for f32) cannot read ``t`` where it lies: the head dim is
-    not unit-stride, or the base address or a stride is not a positive
-    multiple of 16 bytes.
+    and T, as the C entries take them (the bf16 kernels' tensor maps run
+    over (D, T, heads, B) with these strides; a singleton dim gets the
+    stride it would have if the dims inside it were packed, since it is
+    never stepped); ``copy`` = True when the kernels' 16-byte loads (TMA
+    for bf16, ``cp.async`` for f32) cannot read ``t`` where it lies: the
+    head dim is not unit-stride, or the base address or a stride is not a
+    positive multiple of 16 bytes.
     """
     b, heads, seq, d = t.shape
     strides, packed = [], d * t.element_size()
@@ -218,15 +222,10 @@ def _bwd_kernel():
                          + [ctypes.c_float, _I32, _PTR])
 
 
-def _unit_inner(t):
-    """``t`` itself when its head dim has unit stride (the (B, T, H, D)
-    storage views attention passes), else a contiguous copy."""
-    return t if t.stride(-1) == 1 else t.contiguous()
-
-
-def _bwd_launch(which, name, q, k, v, do, lse, dvec, dq, dk, dv, causal,
-                scale):
-    """Launch backward kernel ``which`` (0 dQ, 1 dK/dV) of the C entry."""
+def _bwd_launch(which, name, q, k, v, do, strides, lse, dvec, dq, dk, dv,
+                causal, scale):
+    """Launch backward kernel ``which`` (0 dQ, 1 dK/dV) of the C entry on
+    the operands and byte strides :func:`bwd_operands` gives."""
     b, h, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     ptr = (lambda t: t.data_ptr() if t is not None else None)
@@ -235,36 +234,32 @@ def _bwd_launch(which, name, q, k, v, do, lse, dvec, dq, dk, dv, causal,
         err = _bwd_kernel()(
             which, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dvec.data_ptr(), ptr(dq), ptr(dk), ptr(dv),
-            _DTYPE_CODE[q.dtype], b, h, hkv, tq, tk, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            do.stride(0), do.stride(1), do.stride(2),
+            _DTYPE_CODE[q.dtype], b, h, hkv, tq, tk, d, *strides,
             float(scale), int(bool(causal)), stream)
     if err != 0:
         raise RuntimeError("%s launch failed: cudaError %d" % (name, err))
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, dvec, causal, scale):
+def flash_attention_bwd_dq(q, k, v, do, strides, lse, dvec, causal, scale):
     """Launch the dQ kernel on the inputs :func:`flash_attention_bwd`
-    prepares (CUDA, unit-stride head dims, contiguous f32 lse and
-    D = rowsum(dO * O)); returns dq and counts the launch in
-    ``flash_attention_bwd_dq.launches``."""
+    prepares (CUDA, :func:`bwd_operands` and their 12 byte strides,
+    contiguous f32 lse and D = rowsum(dO * O)); returns dq and counts the
+    launch in ``flash_attention_bwd_dq.launches``."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch(0, "flash_attention_bwd dQ", q, k, v, do, lse, dvec, dq,
-                None, None, causal, scale)
+    _bwd_launch(0, "flash_attention_bwd dQ", q, k, v, do, strides, lse, dvec,
+                dq, None, None, causal, scale)
     flash_attention_bwd_dq.launches += 1
     return dq
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, dvec, causal, scale):
+def flash_attention_bwd_dkv(q, k, v, do, strides, lse, dvec, causal, scale):
     """Launch the dK/dV kernel on the same inputs as
     :func:`flash_attention_bwd_dq`; returns (dk, dv) and counts the launch
     in ``flash_attention_bwd_dkv.launches``."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    _bwd_launch(1, "flash_attention_bwd dK/dV", q, k, v, do, lse, dvec,
-                None, dk, dv, causal, scale)
+    _bwd_launch(1, "flash_attention_bwd dK/dV", q, k, v, do, strides, lse,
+                dvec, None, dk, dv, causal, scale)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -273,14 +268,28 @@ flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 
 
+def bwd_operands(q, k, v, do):
+    """(q, k, v, dO) as the backward kernels read them, and their 12 byte
+    strides (B, heads, T of each): each itself where
+    :func:`tensor_map_plan` allows (the (B, T, H, D) views attention
+    passes), else an aligned contiguous copy (:func:`_in_place`). dO comes
+    from autograd in whatever layout the graph gives it."""
+    planned = [_in_place(t) for t in (q, k, v, do)]
+    return (tuple(t for t, _ in planned),
+            tuple(s for _, plan in planned for s in plan))
+
+
 def _launch_bwd(q, k, v, o, lse, do, causal, scale):
-    q, k, v, do = (_unit_inner(t) for t in (q, k, v, do))
+    (q, k, v, do), strides = bwd_operands(q, k, v, do)
     _check_kernel(q, k, v, backward=True)
-    # D = rowsum(dO * O) outside the kernels, as the reference computes it
-    dvec = (do.float() * o.float()).sum(-1).contiguous()
+    # D = rowsum(dO * O) outside the kernels, as the reference computes it;
+    # in f32 (o is widened inside the product, not copied)
+    dvec = (do.float() * o).sum(-1).contiguous()
     lse = lse.float().contiguous()
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, dvec, causal, scale)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, dvec, causal, scale)
+    dq = flash_attention_bwd_dq(q, k, v, do, strides, lse, dvec, causal,
+                                scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, strides, lse, dvec, causal,
+                                     scale)
     return dq, dk, dv
 
 

@@ -29,11 +29,14 @@ def _emit(obj):
 
 
 # the port's kernels by the name of their __global__ function (the flash
-# forward: one per type, csrc/flash_attention_fwd.cu)
+# forward: one per type, csrc/flash_attention_fwd.cu; the backward: a dQ
+# and a dK/dV kernel per type, csrc/flash_attention_bwd.cu)
 KERNELS = {"flash_fwd_wgmma_kernel": "flash_attention_fwd",
            "flash_fwd_f32_kernel": "flash_attention_fwd",
-           "flash_bwd_dq_kernel": "flash_attention_bwd",
-           "flash_bwd_dkv_kernel": "flash_attention_bwd",
+           "flash_bwd_dq_wgmma_kernel": "flash_attention_bwd",
+           "flash_bwd_dkv_wgmma_kernel": "flash_attention_bwd",
+           "flash_bwd_dq_f32_kernel": "flash_attention_bwd",
+           "flash_bwd_dkv_f32_kernel": "flash_attention_bwd",
            "sgd_mom_kernel": "sgd_mom_update",
            "adam_kernel": "adam_update"}
 

@@ -376,3 +376,133 @@ def test_generate_profile_attributes_both_forward_kernels():
     for name in names:
         assert pg._kind(name) == "flash_attention_fwd"
     assert pg._kind("void cutlass::Kernel2<cutlass_80_gemm>") == "matmul"
+
+
+# --- the flash backward's build report and timing row -------------------------
+BWD_MANGLED = {
+    "flash_bwd_dq_wgmma_kernel": "_ZN12_GLOBAL__N_12wg25flash_bwd_dq_wgmma_kernelILi128EEEv14CUtensorMap_stS2_S2_S2_PKfS4_P13__nv_bfloat16iiiifi",
+    "flash_bwd_dkv_wgmma_kernel": "_ZN12_GLOBAL__N_12wg26flash_bwd_dkv_wgmma_kernelILi128EEEv14CUtensorMap_stS2_S2_S2_PKfS4_P13__nv_bfloat16S6_iiiifi",
+    "flash_bwd_dq_f32_kernel": "_ZN12_GLOBAL__N_12rt23flash_bwd_dq_f32_kernelILi128EEEvPKfS3_S3_S3_S3_S3_Pfiiiillllllllllllfi",
+    "flash_bwd_dkv_f32_kernel": "_ZN12_GLOBAL__N_12rt24flash_bwd_dkv_f32_kernelILi128EEEvPKfS3_S3_S3_S3_S3_PfS4_iiiillllllllllllfi",
+}
+
+
+def _bwd_log(spill_f32=0, serialized=False):
+    lines = ["ptxas info    : 0 bytes gmem"]
+    for name, mangled in BWD_MANGLED.items():
+        lines += [
+            "ptxas info    : Compiling entry function '%s' for 'sm_90a'"
+            % mangled,
+            "ptxas info    : Function properties for %s" % mangled,
+            "    0 bytes stack frame, %d bytes spill stores, %d bytes spill "
+            "loads" % ((spill_f32,) * 2 if "f32" in name else (0, 0)),
+            "ptxas info    : Used 200 registers, used 1 barriers"]
+        if serialized and "wgmma" in name:
+            lines.append(
+                "ptxas info    : (C7515) Potential Performance Loss: "
+                "wgmma.mma_async instructions are serialized due to the "
+                "presence of Extern calls in the function '%s'" % mangled)
+    return "\n".join(lines)
+
+
+def _bwd_sass(wgmma=True):
+    out = {}
+    for name, dtype in cs.FA_BWD_KERNELS.items():
+        for d in (64, 128):
+            ops = {"HGMMA": 4 if wgmma and dtype == "bfloat16" else 0,
+                   "UTMALDG": 2 if dtype == "bfloat16" else 0}
+            out["%s<%d>" % (name, d)] = ops
+    return out
+
+
+def _bwd_report(log, sass):
+    return cs.instantiation_report(log, sass, cs.FA_BWD_KERNELS, (128,),
+                                   lambda name, dtype, d: 1000)
+
+
+def test_bwd_report_reads_every_instantiation_and_serialization_notes():
+    report = _bwd_report(_bwd_log(serialized=True), _bwd_sass())
+    assert set(report) == {"%s<128>" % n for n in cs.FA_BWD_KERNELS}
+    for label, row in report.items():
+        assert row["registers"] == 200 and row["smem_dynamic"] == 1000
+        assert row["wgmma_serialized"] == (1 if "wgmma" in label else 0)
+    clean = _bwd_report(_bwd_log(), _bwd_sass())
+    assert all(r["wgmma_serialized"] == 0 for r in clean.values())
+
+
+@pytest.mark.parametrize("fault,match", [("no_wgmma", "lacks"),
+                                         ("f32_spill", "spills"),
+                                         ("missing", "no ptxas report")])
+def test_bwd_report_fails_without_wgmma_with_f32_spills_or_a_missing_kernel(
+        fault, match):
+    log, sass = _bwd_log(), _bwd_sass()
+    if fault == "no_wgmma":
+        sass = _bwd_sass(wgmma=False)
+    elif fault == "f32_spill":
+        log = _bwd_log(spill_f32=8)
+    else:
+        log = "\n".join(ln for ln in log.splitlines()
+                        if "dkv_f32" not in ln)
+    with pytest.raises(RuntimeError, match=match):
+        _bwd_report(log, sass)
+
+
+def test_generate_profile_attributes_the_backward_kernels():
+    """profile_train's breakdown counts each backward instantiation's device
+    time as flash_attention_bwd, not as other."""
+    from mxnet_tpu_torch.tools import profile_generate as pg
+
+    assert set(cs.FA_BWD_KERNELS) <= set(pg.KERNELS)
+    for mangled in BWD_MANGLED.values():
+        assert pg._kind(mangled) == "flash_attention_bwd"
+
+
+@pytest.mark.parametrize("dtype,factor", [("float32", 1.4),
+                                          ("bfloat16", 2.0)])
+def test_attention_bwd_work_is_14_or_20_d_per_pair(dtype, factor):
+    args = (4, 16, 4, 2048, 2048, 128, True, dtype)
+    bound, by = cs.attention_bwd_bound(*args)
+    work, _ = cs.attention_bwd_bound(*args, cs.FA_BWD_WORK[dtype])
+    assert by == "operations" and np.isclose(work, factor * bound)
+
+
+def test_bwd_timing_row_has_device_times_beside_the_bound(monkeypatch):
+    """The backward phase's timing row on the host: fake timers stand in
+    for the card's clocks; every field chip_smoke.py's kernels line reads
+    is there, the kernel pair's device time split by kernel."""
+    import torch
+
+    def single(torch_, fn, reps=30, warmup=3):
+        fn()
+        return 2.0
+
+    def device(torch_, fn, reps=20, warmup=3):
+        fn()
+        return 1.0
+
+    def device_by(torch_, fn, by, reps=20, warmup=3):
+        fn()
+        return 1.5, {k: 0.75 for k in by}
+
+    q, k, v = (torch.randn(1, 2, 8, 64) for _ in range(3))
+    o, lse = fa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    row = cs.bwd_timing(
+        torch, (1, 2, 2, 8, 64, True), "float32",
+        lambda: fa.flash_attention_bwd(q, k, v, o, lse, o, True),
+        lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, o, True),
+        lambda: None, timers=(single, device, device_by))
+    assert row["device_ms"] == 1.5 and row["library_device_ms"] == 1.0
+    assert row["device_ms_by_kernel"] == {"dq": 0.75, "dkv": 0.75}
+    assert row["ms"] == row["plain_ms"] == row["library_ms"] == 2.0
+    assert row["work"]["flops_per_pair"] == {"bound": 640, "kernels": 896}
+    assert np.isclose(row["work"]["ms"], 1.4 * row["bound_ms"]) or \
+        row["bound_by"] == "bytes"
+
+
+def test_bwd_spread_tool_follows_chip_smoke_gate_and_shapes():
+    from mxnet_tpu_torch.tools import flash_bwd_spread as fbs
+
+    assert fbs.GATE == {k: tuple(v) for k, v in
+                        cs.BWD_TOL["bfloat16"].items()}
+    want = {c[:7] for c in cs.flash_cases() if c[7] == "bfloat16"}
+    assert set(fbs.SHAPES) == want

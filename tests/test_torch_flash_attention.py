@@ -260,10 +260,16 @@ def test_bwd_wrapper_rejects_what_no_path_takes():
 
 
 def test_unit_inner_keeps_views_and_copies_strided_head_dims():
+    """The backward's operand plan (which replaced a unit-stride-only
+    check): the (B, T, H, D) views attention passes are read in place, a
+    strided head dim is copied contiguous with equal values."""
     view = torch.zeros(1, 16, 2, 8).transpose(1, 2)
-    assert tfa._unit_inner(view) is view
-    strided = torch.zeros(1, 2, 16, 16)[..., ::2]
-    assert tfa._unit_inner(strided).is_contiguous()
+    strided = torch.arange(2 * 16 * 16, dtype=torch.float32).reshape(
+        1, 2, 16, 16)[..., ::2]
+    got, strides = tfa.bwd_operands(view, view, view, strided)
+    assert all(t is view for t in got[:3])
+    assert got[3].is_contiguous() and torch.equal(got[3], strided)
+    assert strides == sum((tfa.tensor_map_plan(t)[0] for t in got), ())
 
 
 # --- the forward kernel's host-side plan -------------------------------------
@@ -329,7 +335,8 @@ def test_misaligned_layouts_are_copied_with_equal_values(dtype):
 def test_check_kernel_rejects_what_the_kernel_does_not_take():
     """After the plan's copies, the kernels still take only f32 / bf16,
     head dims 64 and 128 and a unit-stride head dim; the forward's grid
-    takes ceil(Tq / 128) <= 65535 q-tiles, the backward's B * H <= 65535."""
+    takes ceil(Tq / 128) <= 65535 q-tiles, the backward's
+    ceil(max(Tq, Tk) / 64) <= 65535 q- or k-tiles (B * H is on grid x)."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 4, 2, 16, 16, 64))
     tfa._check_kernel(q, k, v)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -341,15 +348,18 @@ def test_check_kernel_rejects_what_the_kernel_does_not_take():
         tfa._check_kernel(q, k, torch.zeros(1, 2, 16, 128)[..., ::2])
     wide = torch.zeros(1, 1, 1, 64).expand(1, 65536, 1, 64)
     tfa._check_kernel(wide, wide, wide)
-    with pytest.raises(ValueError, match="backward grid"):
-        tfa._check_kernel(wide, wide, wide, backward=True)
+    tfa._check_kernel(wide, wide, wide, backward=True)
     tfa._check_kernel(q, k, v, backward=True)
     most = torch.zeros(1, 1, 1, 64).expand(1, 1, 65535 * 128, 64)
     tfa._check_kernel(most, most, most)
     long = torch.zeros(1, 1, 1, 64).expand(1, 1, 65535 * 128 + 1, 64)
     with pytest.raises(ValueError, match="forward grid"):
         tfa._check_kernel(long, long, long)
-    tfa._check_kernel(long, long, long, backward=True)
+    most_bwd = torch.zeros(1, 1, 1, 64).expand(1, 1, 65535 * 64, 64)
+    tfa._check_kernel(most_bwd, most_bwd, most_bwd, backward=True)
+    long_k = torch.zeros(1, 1, 1, 64).expand(1, 1, 65535 * 64 + 1, 64)
+    with pytest.raises(ValueError, match="backward grid"):
+        tfa._check_kernel(q[:, :1], long_k, long_k, backward=True)
 
 
 # --- the forward's ablation variants --------------------------------------------
@@ -413,3 +423,92 @@ def test_split_p_stays_well_inside_the_gate_where_single_p_nears_it():
     single = fps.gate_ratio(fps.kernel_arithmetic(q, k, v, True, False),
                             want)
     assert split < 0.5 and split < single
+
+
+# --- why the bf16 backward splits P and dS ------------------------------------
+# (B, H, Hkv, Tq, Tk, D, causal): causal and full, GQA and MHA, ragged
+# Tq < Tk (neither a multiple of the kernels' 64-row tiles), D 64 and 128
+BWD_SPLIT_CASES = {
+    "gqa_causal_ragged_d64": (1, 4, 2, 80, 192, 64, True),
+    "mha_causal_d128": (1, 2, 2, 128, 128, 128, True),
+    "gqa_full_ragged_d128": (1, 4, 2, 40, 100, 128, False),
+    "mha_full_d64": (2, 2, 2, 64, 64, 64, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_SPLIT_CASES))
+def test_bwd_kernel_arithmetic_with_split_matches_pallas_fa_backward(case):
+    """The bf16 backward kernels' arithmetic (64-row tiles, P in the exp2
+    domain, P and dS split into hi + lo bf16) against the reference's
+    _fa_backward (its dQ and dK/dV kernels in interpret mode) on the same
+    bf16 q/k/v/dO and the reference forward's o and lse, within
+    chip_smoke.py's bf16 backward gate (flash_bwd_spread.GATE)."""
+    from mxnet_tpu_torch.tools import flash_bwd_spread as fbs
+
+    b, h, hkv, tq, tk, d, causal = BWD_SPLIT_CASES[case]
+    g = h // hkv
+    scale = 1.0 / d ** 0.5
+    q, k, v = (a.astype(jnp.bfloat16)
+               for a in _inputs(b, h, hkv, tq, tk, d, seed=8))
+    do = np.random.RandomState(9).randn(b, h, tq, d).astype(jnp.bfloat16)
+    q3, do3 = (jnp.asarray(a.reshape(b * hkv, g, tq, d)) for a in (q, do))
+    k3, v3 = (jnp.asarray(a.reshape(b * hkv, tk, d)) for a in (k, v))
+    o3, lse3 = jfa._fa_forward(q3, k3, v3, causal, scale, interpret=True,
+                               with_lse=True)
+    want = jfa._fa_backward(q3, k3, v3, o3, lse3, do3, causal, scale,
+                            interpret=True)
+    as_torch = (lambda a, shape: torch.from_numpy(
+        np.array(a, np.float32).reshape(shape)))
+    qt, dot = (as_torch(a, (b, h, tq, d)).bfloat16() for a in (q, do))
+    kt, vt = (as_torch(a, (b, hkv, tk, d)).bfloat16() for a in (k, v))
+    got = fbs.kernel_arithmetic(
+        qt, kt, vt, as_torch(o3, (b, h, tq, d)).bfloat16(),
+        as_torch(lse3, (b, h, tq)), dot, causal, True, True, scale)
+    shapes = ((b, h, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))
+    ratios = fbs.gate_ratios(
+        got, [as_torch(w, shape) for w, shape in zip(want, shapes)])
+    assert max(ratios.values()) <= 1.0, ratios
+
+
+def test_bwd_split_stays_well_inside_the_gate_where_single_bf16_fails():
+    """At a causal shape with short rows, one bf16 P (into dV) and one bf16
+    dS (into dQ, dK) fail the bf16 gate against the plain version; split
+    into hi + lo, every gradient stays below half of it."""
+    from mxnet_tpu_torch.tools import flash_bwd_spread as fbs
+
+    ratios = fbs.shape_ratios((1, 16, 4, 128, 128, 128, True),
+                              np.random.default_rng(0))
+    assert max(ratios["single"].values()) > 1.0, ratios
+    assert ratios["split_p"]["dv"] < 0.5 < ratios["single"]["dv"], ratios
+    assert max(ratios["split"].values()) < 0.5, ratios
+
+
+def test_bwd_split_operand_reconstructs_to_two_to_the_minus_16():
+    from mxnet_tpu_torch.tools import flash_bwd_spread as fbs
+
+    x = torch.from_numpy(np.random.RandomState(10).randn(4096)
+                         .astype(np.float32))
+    rel = ((fbs.bf16_operand(x, True) - x).abs() / x.abs()).max()
+    assert rel <= 2.0 ** -16
+    single = ((fbs.bf16_operand(x, False) - x).abs() / x.abs()).max()
+    assert 2.0 ** -10 < single <= 2.0 ** -8
+
+
+def test_bwd_operands_copy_a_misaligned_do_with_equal_values():
+    """dO from autograd may arrive in any layout: one whose base is off a
+    16-byte boundary or whose rows are padded is copied (aligned, equal
+    values) while q/k/v in the (B, T, H, D) views are read in place."""
+    rng = np.random.RandomState(11)
+    q, k, v = (torch.from_numpy(rng.randn(1, 8, 2, 64).astype(np.float32))
+               .bfloat16().transpose(1, 2) for _ in range(3))
+    flat = torch.from_numpy(rng.randn(1 * 2 * 8 * 64 + 1).astype(np.float32))
+    padded = torch.from_numpy(rng.randn(1, 2, 8, 65).astype(np.float32))
+    for do in (flat.bfloat16()[1:].view(1, 2, 8, 64),
+               padded.bfloat16()[..., :64]):
+        assert tfa.tensor_map_plan(do)[1]
+        got, strides = tfa.bwd_operands(q, k, v, do)
+        assert all(a is b for a, b in zip(got[:3], (q, k, v)))
+        assert got[3] is not do and torch.equal(got[3], do)
+        assert tfa.tensor_map_plan(got[3])[1] is False
+        assert got[3].data_ptr() % 16 == 0
+        assert strides[9:] == tfa.tensor_map_plan(got[3])[0]
