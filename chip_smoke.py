@@ -17,10 +17,13 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    beside), the flash-attention backward (dQ and dK/dV kernels, the same
    two designs and report, both types timed at the train shape with device
    times beside SDPA autograd's), the fused sgd_mom / adam updates, and the
-   convolution weight gradient (conv_wgrad: partial-sum and reduction
-   kernels) at ResNet-50's seven 3x3 shapes and the reference oracle's odd
-   cases, beside cuDNN's wgrad; and the LSTM step (lstm_step) at the
-   LSTM LM's shape and odd ones, on the views the RNN op passes, beside
+   convolution weight gradient (conv_wgrad: bf16 on wgmma + TMA after a
+   repack, f32 on register tiles + cp.async, a simt body for odd bf16
+   shapes, and the reduction kernel; the same instantiation report, each
+   case's route, the ResNet shapes held to the wgmma and f32 routes) at
+   ResNet-50's seven 3x3 shapes and the reference oracle's odd cases,
+   beside cuDNN's wgrad, with device times; and the LSTM step (lstm_step)
+   at the LSTM LM's shape and odd ones, on the views the RNN op passes, beside
    cuBLAS + PyTorch's fused LSTM cell and, for a whole layer, cuDNN's LSTM.
 3. ``serve``   — the continuous-batching generate path at full width (the
    GQA decoder LM of ``bench.py``: d 2048, 16 heads, 4 kv heads, ffn 8192,
@@ -118,6 +121,11 @@ UPDATE_REPLACES = {"sgd_mom_update": "mxnet_tpu/ops/pallas/fused_update.py:31",
                    "adam_update": "mxnet_tpu/ops/pallas/fused_update.py:60"}
 WGRAD_SRC = CSRC + "conv_wgrad.cu"
 WGRAD_REPLACES = "mxnet_tpu/ops/pallas/conv_bwd.py:89"
+# conv_wgrad's templated partial kernels (on bn, the columns of K a block)
+# and the type each runs; the simt and reduce kernels are not templated
+WGRAD_KERNELS = {"conv_wgrad_wgmma_kernel": "bfloat16",
+                 "conv_wgrad_f32_kernel": "float32",
+                 "conv_wgrad_f32tap_kernel": "float32"}
 LSTM_SRC = CSRC + "lstm_step.cu"
 LSTM_REPLACES = "mxnet_tpu/ops/pallas/lstm.py:35"
 # (atol, rtol); bf16 outputs differ by an ulp of |O| (rtol), while atol
@@ -377,23 +385,33 @@ def time_ms(torch, fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
-def _device_events(torch, fn, reps, warmup):
+def _device_events(torch, fn, reps, warmup, calls=None):
     """The CUDA events of a ``torch.profiler`` trace of ``reps`` calls of
-    ``fn()``, after ``warmup`` untraced ones."""
+    ``fn()``, after ``warmup`` untraced ones. A trace that shows no device
+    time, or (``calls``: {name part: launches a call}) fewer or more
+    launches of a kernel than ``fn`` makes, lost events: it is taken
+    again, three times at most."""
     prof_mod = torch.profiler
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with prof_mod.profile(activities=[prof_mod.ProfilerActivity.CPU,
-                                      prof_mod.ProfilerActivity.CUDA]) as p:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in p.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not sum(e.self_device_time_total for e in events) > 0:
-        raise RuntimeError("the profiler saw no device time")
-    return events
+    for _attempt in range(3):
+        with prof_mod.profile(activities=[prof_mod.ProfilerActivity.CPU,
+                                          prof_mod.ProfilerActivity.CUDA]) \
+                as p:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in p.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {part: sum(e.count for e in events if part in e.key)
+                for part in (calls or {})}
+        if sum(e.self_device_time_total for e in events) > 0 and \
+                all(seen[part] == n * reps for part, n in (calls or
+                                                           {}).items()):
+            return events
+    raise RuntimeError("the profiler saw no device time, or lost launches "
+                       "(%s of %s a call)" % (seen, calls))
 
 
 def device_ms(torch, fn, reps=20, warmup=3):
@@ -405,10 +423,11 @@ def device_ms(torch, fn, reps=20, warmup=3):
     return sum(e.self_device_time_total for e in events) / reps / 1e3
 
 
-def device_ms_by(torch, fn, by, reps=20, warmup=3):
+def device_ms_by(torch, fn, by, reps=20, warmup=3, calls=None):
     """:func:`device_ms` of one ``fn()`` call, and {label: ms} of the
-    kernels whose names hold ``by[label]``."""
-    events = _device_events(torch, fn, reps, warmup)
+    kernels whose names hold ``by[label]``; ``calls`` as for
+    :func:`_device_events`."""
+    events = _device_events(torch, fn, reps, warmup, calls)
     return (sum(e.self_device_time_total for e in events) / reps / 1e3, {
         label: sum(e.self_device_time_total for e in events
                    if part in e.key) / reps / 1e3
@@ -923,55 +942,155 @@ def wgrad_cases():
             + odd]
 
 
-def phase_kernel_wgrad(torch):
-    """conv_wgrad: kernel vs plain on the card, on the NCHW tensors' NHWC
-    views the Convolution op passes (f32 through ``wgrad``, bf16 through
-    the reference's ``conv_wgrad``), then each ResNet-50 shape timed
-    beside the plain version and cuDNN's wgrad."""
+def wgrad_report(torch):
+    """conv_wgrad's instantiations (:func:`instantiation_report`): the
+    wgmma and the two f32 partial kernels at bn = 64 and 128 (the simt,
+    repack and reduce kernels are not templated)."""
+    import ctypes
+
+    from mxnet_tpu_torch.ops.kernels import _build
     from mxnet_tpu_torch.ops.kernels import conv_wgrad as cw
 
+    smem = _build.kernel(cw._NAME, "mxtt_conv_wgrad_smem",
+                         [ctypes.c_int, ctypes.c_int])
+    sass = sass_counts(_build.lib_path(cw._NAME), tuple(WGRAD_KERNELS),
+                       FA_BF16_OPCODES)
+    return instantiation_report(
+        _build.log_of(cw._NAME), sass, WGRAD_KERNELS, cw.BLOCK_COLS,
+        lambda name, dtype, bn: smem(0 if dtype == "float32" else 1, bn))
+
+
+def wgrad_route_check(plans, report):
+    """Fails unless every ResNet-50 bf16 shape (``plans``: [(case, Plan)])
+    takes the wgmma route into an instantiation whose SASS holds HGMMA and
+    UTMALDG (``report`` of :func:`wgrad_report`), and every f32 one the
+    f32 route; returns {case: route}."""
+    routes = {}
+    for case, p in plans:
+        dtype = case[-1]
+        want = "wgmma" if dtype == "bfloat16" else "f32"
+        if p.route != want:
+            raise RuntimeError("conv_wgrad %s takes the %s route, want %s"
+                               % (case, p.route, want))
+        label = "%s<%d>" % (p.kernel, p.bn)
+        row = report.get(label)
+        if row is None:
+            raise RuntimeError("conv_wgrad %s: no report for %s"
+                               % (case, label))
+        if want == "wgmma" and not all(
+                row["sass"].get(op, 0) > 0 for op in FA_BF16_OPCODES):
+            raise RuntimeError("conv_wgrad %s runs %s, which lacks %s: %s"
+                               % (case, label, FA_BF16_OPCODES, row["sass"]))
+        routes[case] = label
+    return routes
+
+
+def wgrad_timing(torch, case, p, fn, plain, library,
+                 timers=(time_ms, device_ms, device_ms_by)):
+    """One timing row of conv_wgrad at ``case`` (n, h, c, k, ksz, stride,
+    dtype) with plan ``p``: single calls of the wrapper (``fn``: the
+    repack, partial and reduce kernels), of the plain version and of the
+    library yardstick (CUDA events, the host's enqueue included), and the
+    device times of the call (split into the partial kernel, the reduce
+    kernel, the wgmma route's two repacks of the NCHW views, and the rest)
+    and of the library's, beside the bound."""
+    single, device, device_by = timers
+    n, h, c, k, ksz, stride, dtype = case
+    bound_ms, bound_by = wgrad_bound(n, h, c, k, ksz, stride, dtype)
+    repacks = 2 if p.route == "wgmma" else 0
+    dev, parts = device_by(
+        torch, fn, {"partial": p.kernel, "reduce": "conv_wgrad_reduce",
+                    "repack": "conv_wgrad_repack"},
+        calls={p.kernel: 1, "conv_wgrad_reduce": 1,
+               "conv_wgrad_repack": repacks})
+    parts["other"] = dev - parts["partial"] - parts["reduce"] - \
+        parts["repack"]
+    return {"shape": [n, h, c, k, ksz, stride],
+            "per_step": RESNET_WGRAD[(h, c, stride)],
+            "route": p.route, "kernel": p.kernel, "bn": p.bn, "box": p.box,
+            "splits": p.splits,
+            "ms": single(torch, fn), "device_ms": dev,
+            "device_ms_by_kernel": parts,
+            "plain_ms": single(torch, plain),
+            "library_ms": single(torch, library),
+            "library_device_ms": device(torch, library),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# the keys of a wgrad_timing row that a step sums
+WGRAD_STEP_KEYS = ("ms", "device_ms", "plain_ms", "library_ms",
+                   "library_device_ms", "bound_ms")
+
+
+def wgrad_step(rows):
+    """Each of ``WGRAD_STEP_KEYS`` summed over a ResNet-50 step: each
+    shape's row times its ``per_step``; the device split likewise."""
+    step = {key: sum(t[key] * t["per_step"] for t in rows)
+            for key in WGRAD_STEP_KEYS}
+    step["device_ms_by_kernel"] = {
+        part: sum(t["device_ms_by_kernel"][part] * t["per_step"]
+                  for t in rows)
+        for part in ("partial", "reduce", "repack", "other")}
+    return step
+
+
+def phase_kernel_wgrad(torch):
+    """conv_wgrad: its instantiations' build and SASS report; kernel vs
+    plain on the card, on the NCHW tensors' NHWC views the Convolution op
+    passes (f32 through ``wgrad``, bf16 through the reference's
+    ``conv_wgrad``), each case's route named; the ResNet-50 shapes must
+    take the wgmma (bf16) and f32 routes; then each ResNet-50 shape timed
+    beside the plain version and cuDNN's wgrad, with device times."""
+    from mxnet_tpu_torch.ops.kernels import conv_wgrad as cw
+
+    instantiations = wgrad_report(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     results, worst, timings = [], {}, {"float32": [], "bfloat16": []}
-    for n, h, c, k, ksz, stride, dtype in wgrad_cases():
+    resnet_plans = []
+    for case in wgrad_cases():
+        n, h, c, k, ksz, stride, dtype = case
         pad = (ksz - 1) // 2
         oh = cw.out_size(h, ksz, stride, pad)
         dt = getattr(torch, dtype)
         x = torch.randn(n, c, h, h, generator=gen, device="cuda").to(dt)
         dy = torch.randn(n, k, oh, oh, generator=gen, device="cuda").to(dt)
         xv, dv = x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1)
+        p = cw.plan_of(xv, dv, ksz, stride, pad)
         fn = cw.wgrad if dtype == "float32" else cw.conv_wgrad
         got = fn(xv, dv, ksz, stride, pad)
+        again = fn(xv, dv, ksz, stride, pad)
         want = cw.conv_wgrad_plain(xv, dv, ksz, stride, pad)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
         if not rel <= WGRAD_RTOL:
-            raise RuntimeError("conv_wgrad %s: error %g of max |dW| (tol %g)"
-                               % ((n, h, c, k, ksz, stride, dtype), rel,
-                                  WGRAD_RTOL))
+            raise RuntimeError("conv_wgrad %s (%s route): error %g of max "
+                               "|dW| (tol %g)" % (case, p.route, rel,
+                                                  WGRAD_RTOL))
+        if not torch.equal(got, again):
+            raise RuntimeError("conv_wgrad %s (%s route): two calls differ"
+                               % (case, p.route))
         results.append({"shape": [n, h, c, k, ksz, stride], "dtype": dtype,
-                        "layout": "nchw view", "max_abs_err": err,
-                        "err_of_max": rel})
+                        "layout": "nchw view", "route": p.route,
+                        "kernel": p.kernel, "bn": p.bn, "box": p.box,
+                        "splits": p.splits,
+                        "max_abs_err": err, "err_of_max": rel})
         worst[dtype] = max(worst.get(dtype, 0.0), err)
         if (h, c, stride) in RESNET_WGRAD and n == 32:
-            bound_ms, bound_by = wgrad_bound(n, h, c, k, ksz, stride, dtype)
-            timings[dtype].append({
-                "shape": [n, h, c, k, ksz, stride],
-                "per_step": RESNET_WGRAD[(h, c, stride)],
-                "ms": time_ms(torch, lambda: fn(xv, dv, ksz, stride, pad)),
-                "plain_ms": time_ms(torch, lambda: cw.conv_wgrad_plain(
-                    xv, dv, ksz, stride, pad)),
-                "library_ms": time_ms(torch, lambda: torch.nn.grad.
-                                      conv2d_weight(x, (k, c, ksz, ksz), dy,
-                                                    stride=stride,
-                                                    padding=pad)),
-                "bound_ms": bound_ms, "bound_by": bound_by})
-        del x, dy, xv, dv, got, want
-    step = {dtype: {key: sum(t[key] * t["per_step"] for t in ts)
-                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-            for dtype, ts in timings.items()}
-    emit({"phase": "kernel", "kernel": "conv_wgrad", "cases": results,
-          "tol_of_max": WGRAD_RTOL, "max_abs_err": worst,
+            resnet_plans.append((case, p))
+            timings[dtype].append(wgrad_timing(
+                torch, case, p, lambda: fn(xv, dv, ksz, stride, pad),
+                lambda: cw.conv_wgrad_plain(xv, dv, ksz, stride, pad),
+                lambda: torch.nn.grad.conv2d_weight(
+                    x, (k, c, ksz, ksz), dy, stride=stride, padding=pad)))
+        del x, dy, xv, dv, got, again, want
+    routes = wgrad_route_check(resnet_plans, instantiations)
+    step = {dtype: wgrad_step(ts) for dtype, ts in timings.items()}
+    emit({"phase": "kernel", "kernel": "conv_wgrad",
+          "instantiations": instantiations,
+          "resnet_instantiations": {"%s/%s" % (c[-1], c[:-1]): label
+                                    for c, label in routes.items()},
+          "cases": results, "tol_of_max": WGRAD_RTOL, "max_abs_err": worst,
           "timings": timings, "per_step": step})
     return worst, timings, step
 
@@ -1503,6 +1622,15 @@ def _resnet_counters():
             "sgd_mom_update": fu.sgd_mom_update}
 
 
+def resnet_wgrad_launches(per_step, steps):
+    """conv_wgrad's launches over ``steps`` steps of a model with
+    ``per_step`` 3x3 convolutions: every call launches one partial kernel
+    (whatever its route) and one reduce kernel; the bf16 route's repack is
+    a PyTorch copy, not counted (the resnet path is f32)."""
+    return {"conv_wgrad_partial": per_step * steps,
+            "conv_wgrad_reduce": per_step * steps}
+
+
 def _host_state(mod):
     """Copies of a module's parameters and aux states, by name."""
     args, aux = mod.get_params()
@@ -1618,9 +1746,8 @@ def phase_resnet(cfg=RESNET, device=None, ref_device="cpu", seed=SEED):
     args, aux = mod.get_params()
     n_params = len(args)
     per_step = wgrad_convs(mod.symbol)
-    want = {"conv_wgrad_partial": per_step * steps,
-            "conv_wgrad_reduce": per_step * steps,
-            "sgd_mom_update": n_params * steps}
+    want = dict(resnet_wgrad_launches(per_step, steps),
+                sgd_mom_update=n_params * steps)
     if launches != want:
         raise RuntimeError("resnet phase launched %s, want %s"
                            % (launches, want))
@@ -1951,6 +2078,8 @@ def main():
         "bound_by": ("operations" if all(
             x["bound_by"] == "operations" for x in wgrad_timings["float32"])
             else "bytes"), "library_ms": t["library_ms"],
+        "device_ms": t["device_ms"],
+        "library_device_ms": t["library_device_ms"],
         "library": "torch.nn.grad.conv2d_weight (cuDNN wgrad, no TF32)",
         "bfloat16": wgrad_step["bfloat16"],
         "per_shape": wgrad_timings})

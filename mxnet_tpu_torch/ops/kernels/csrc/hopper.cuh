@@ -16,7 +16,10 @@
 //   between 8-row groups. MN-major operands (like V in P.V) are read with the
 //   transpose bit: SBO is again the 1024 bytes between 8-row groups of the
 //   depth dimension, and the leading byte offset (LBO) the distance between
-//   the 64-wide boxes of the output dimension.
+//   the 64-wide boxes of the output dimension. An MN-major A (rows of the
+//   depth dimension with the 64 output rows contiguous, like conv_wgrad's
+//   x tiles) is read the same way through the A transpose bit; its depth
+//   steps of 16 rows are 2048 bytes, whole swizzle atoms.
 // - The f32 accumulator of m64nNk16 gives thread t of the warpgroup rows
 //   16 * (t / 32) + (t % 32) / 4 and that + 8, and in each 8-column group
 //   g the columns 8g + 2 (t % 4) and + 1: d[4g + 0..1] on the first row,
@@ -297,6 +300,66 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D (64 x 128, f32) += A (64 x 16) * B (16 x 128); A and B are bf16 in
+// shared memory, both MN-major (both transpose bits set).
+__device__ __forceinline__ void wgmma_ss_m64n128k16_tt(float (&d)[64],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16) * B (16 x 64); A and B are bf16 in shared
+// memory, both MN-major (both transpose bits set).
+__device__ __forceinline__ void wgmma_ss_m64n64k16_tt(float (&d)[32],
+                                                      uint64_t desc_a,
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 // --- named barriers --------------------------------------------------------------
 // Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads, e.g. the
 // 128 of one warpgroup; the non-aligned form, so a warp may reach it
@@ -313,6 +376,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes from global to shared memory (both 4-byte aligned), or 4 zero
+// bytes when !valid (the source is then not read, but must still be a mapped
+// address); through L1 (.ca), the only form below 16 bytes.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -353,22 +426,32 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A 4-D bf16 map over (dims[0] innermost .. dims[3]) with byte strides of
-// dims 1..3, read in boxes of (64, box_rows, 1, 1) with the 128-byte swizzle;
-// rows past dims[1] read as zeros. Returns a cudaError_t.
-inline int encode_bf16_4d(CUtensorMap* map, const void* base,
-                          const uint64_t dims[4], const uint64_t strides[3],
-                          uint32_t box_rows) {
+// dims 1..3, read in boxes of box[0..3] elements (box[0] = 64: one 128-byte
+// row) with the 128-byte swizzle; elements outside the dims read as zeros.
+// Returns a cudaError_t.
+inline int encode_bf16_4d_box(CUtensorMap* map, const void* base,
+                              const uint64_t dims[4],
+                              const uint64_t strides[3],
+                              const uint32_t box[4]) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint32_t box[4] = {64, box_rows, 1, 1};
+  const cuuint32_t boxd[4] = {box[0], box[1], box[2], box[3]};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                   const_cast<void*>(base), (const cuuint64_t*)dims,
-                  (const cuuint64_t*)strides, box, step,
+                  (const cuuint64_t*)strides, boxd, step,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The map of encode_bf16_4d_box read in boxes of (64, box_rows, 1, 1).
+inline int encode_bf16_4d(CUtensorMap* map, const void* base,
+                          const uint64_t dims[4], const uint64_t strides[3],
+                          uint32_t box_rows) {
+  const uint32_t box[4] = {64, box_rows, 1, 1};
+  return encode_bf16_4d_box(map, base, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -506,3 +506,161 @@ def test_bwd_spread_tool_follows_chip_smoke_gate_and_shapes():
                         cs.BWD_TOL["bfloat16"].items()}
     want = {c[:7] for c in cs.flash_cases() if c[7] == "bfloat16"}
     assert set(fbs.SHAPES) == want
+
+
+# conv_wgrad's templated partial kernels as ptxas and cuobjdump name them
+WGRAD_MANGLED = {
+    "conv_wgrad_wgmma_kernel": "_ZN46_GLOBAL__N__9293b8d0_13_conv_wgrad_cu_a131c0472wg23conv_wgrad_wgmma_kernelILi%dEEEvNS0_4MapsEPfNS0_4GeomE",
+    "conv_wgrad_f32_kernel": "_ZN46_GLOBAL__N__9293b8d0_13_conv_wgrad_cu_a131c0472rt21conv_wgrad_f32_kernelILi%dEEEvPKfS3_PfNS0_4GeomE",
+    "conv_wgrad_f32tap_kernel": "_ZN46_GLOBAL__N__9293b8d0_13_conv_wgrad_cu_a131c0472rt24conv_wgrad_f32tap_kernelILi%dEEEvPKfS3_PfNS0_4GeomE",
+}
+
+
+def _wgrad_log(spill_f32=0):
+    lines = ["ptxas info    : 0 bytes gmem"]
+    for name, mangled in WGRAD_MANGLED.items():
+        for bn in cw.BLOCK_COLS:
+            m = mangled % bn
+            lines += [
+                "ptxas info    : Compiling entry function '%s' for 'sm_90a'"
+                % m, "ptxas info    : Function properties for %s" % m,
+                "    0 bytes stack frame, %d bytes spill stores, %d bytes "
+                "spill loads" % ((spill_f32,) * 2 if "f32" in name
+                                 else (0, 0)),
+                "ptxas info    : Used %d registers, used 1 barriers"
+                % (bn + 26)]
+    return "\n".join(lines)
+
+
+def _wgrad_sass(text=None, wgmma=True):
+    """cuobjdump's text of the partial kernels: HGMMA and UTMALDG in the
+    wgmma kernel's instantiations (HGMMA left out when not ``wgmma``)."""
+    lines = []
+    for name, mangled in WGRAD_MANGLED.items():
+        for bn in cw.BLOCK_COLS:
+            lines.append("\t\tFunction : %s" % (mangled % bn))
+            lines.append("        /*0010*/  LDGSTS [R1], [R2.64] ;")
+            if "wgmma" in name:
+                lines.append("        /*0020*/  UTMALDG.4D [UR8], [UR4] ;")
+                if wgmma:
+                    lines.append("        /*0030*/  HGMMA.64x128x16.F32.BF16 "
+                                 "R24, gdesc[UR8], R24 ;")
+    sass = "\n".join(lines)
+    return cs.sass_opcode_counts(sass, tuple(cs.WGRAD_KERNELS),
+                                 cs.FA_BF16_OPCODES)
+
+
+def _wgrad_report(log, sass):
+    return cs.instantiation_report(log, sass, cs.WGRAD_KERNELS,
+                                   cw.BLOCK_COLS,
+                                   lambda name, dtype, bn: 100 * bn)
+
+
+def _resnet_plans():
+    return [(case, cw.plan(n, h, h, c, k, ksz, s, 1, dtype))
+            for case in cs.wgrad_cases()
+            for n, h, c, k, ksz, s, dtype in [case] if n == 32]
+
+
+def test_wgrad_report_reads_every_instantiation():
+    report = _wgrad_report(_wgrad_log(), _wgrad_sass())
+    assert set(report) == {"%s<%d>" % (n, bn) for n in cs.WGRAD_KERNELS
+                           for bn in cw.BLOCK_COLS}
+    for label, row in report.items():
+        bn = int(label.split("<")[1][:-1])
+        assert row["registers"] == bn + 26 and row["smem_dynamic"] == 100 * bn
+        assert row["sass"]["HGMMA"] == (1 if "wgmma" in label else 0)
+        assert row["sass"]["UTMALDG"] == (1 if "wgmma" in label else 0)
+
+
+@pytest.mark.parametrize("fault,match", [("no_wgmma", "lacks"),
+                                         ("f32_spill", "spills")])
+def test_wgrad_report_fails_without_hgmma_or_with_f32_spills(fault, match):
+    log, sass = _wgrad_log(), _wgrad_sass()
+    if fault == "no_wgmma":
+        sass = _wgrad_sass(wgmma=False)
+    else:
+        log = _wgrad_log(spill_f32=4)
+    with pytest.raises(RuntimeError, match=match):
+        _wgrad_report(log, sass)
+
+
+def test_wgrad_routes_of_the_resnet_shapes():
+    """Each ResNet-50 shape runs the wgmma kernel (bf16) or an f32 kernel,
+    into an instantiation the report holds; the check fails when the bf16
+    instantiation a shape launches lacks HGMMA, or a bf16 shape would take
+    the simt body."""
+    report = _wgrad_report(_wgrad_log(), _wgrad_sass())
+    plans = _resnet_plans()
+    routes = cs.wgrad_route_check(plans, report)
+    assert len(routes) == 14
+    for (case, p), label in zip(plans, routes.values()):
+        n, h, c, k, ksz, s, dtype = case
+        if dtype == "bfloat16":
+            assert label == "conv_wgrad_wgmma_kernel<%d>" % p.bn
+        else:
+            assert label == "conv_wgrad_%s_kernel<%d>" % (
+                "f32tap" if c % cw.TILE_M == 0 else "f32", p.bn)
+    bare = dict(report)
+    for bn in cw.BLOCK_COLS:
+        label = "conv_wgrad_wgmma_kernel<%d>" % bn
+        bare[label] = dict(report[label], sass={"HGMMA": 0, "UTMALDG": 1})
+    with pytest.raises(RuntimeError, match="lacks"):
+        cs.wgrad_route_check(plans, bare)
+    case, p = next((c, p) for c, p in plans if c[-1] == "bfloat16")
+    with pytest.raises(RuntimeError, match="simt route"):
+        cs.wgrad_route_check([(case, p._replace(route="simt"))], report)
+
+
+def test_resnet_phase_launch_arithmetic():
+    """One partial and one reduce launch for each 3x3 convolution of a
+    step, whatever the route: ResNet-50's 16 over the phase's 8 batches,
+    the tiny ResNet-18's 17 over 2."""
+    assert cs.resnet_wgrad_launches(16, cs.RESNET["batches"]) == {
+        "conv_wgrad_partial": 128, "conv_wgrad_reduce": 128}
+    assert cs.resnet_wgrad_launches(17, TINY_RESNET["batches"]) == {
+        "conv_wgrad_partial": 34, "conv_wgrad_reduce": 34}
+    assert all(p.route == "f32" for c, p in _resnet_plans()
+               if c[-1] == "float32")
+
+
+def test_wgrad_timing_row_and_step_sums():
+    """The wgrad phase's timing row on the host with fake timers: the
+    device time split into the partial kernel, the reduce, the two
+    repacks and the rest, and a step's sums weight each shape by its
+    count."""
+    import torch
+
+    def single(torch_, fn, reps=30, warmup=3):
+        return 2.0
+
+    def device(torch_, fn, reps=20, warmup=3):
+        return 1.0
+
+    seen = []
+
+    def device_by(torch_, fn, by, reps=20, warmup=3, calls=None):
+        seen.append(dict(by))
+        assert calls == {by["partial"]: 1, "conv_wgrad_reduce": 1,
+                         "conv_wgrad_repack": 2}
+        return 1.5, {"partial": 1.0, "reduce": 0.25, "repack": 0.125}
+
+    rows = []
+    for case, p in _resnet_plans():
+        if case[-1] != "bfloat16":
+            continue
+        rows.append(cs.wgrad_timing(torch, case, p, None, None, None,
+                                    timers=(single, device, device_by)))
+    assert all(b == {"partial": "conv_wgrad_wgmma_kernel",
+                     "reduce": "conv_wgrad_reduce",
+                     "repack": "conv_wgrad_repack"} for b in seen)
+    row = rows[0]
+    assert row["device_ms_by_kernel"] == {"partial": 1.0, "reduce": 0.25,
+                                          "repack": 0.125, "other": 0.125}
+    assert row["route"] == "wgmma" and row["kernel"] == cw.WGMMA
+    assert row["ms"] == row["plain_ms"] == row["library_ms"] == 2.0
+    step = cs.wgrad_step(rows)
+    assert step["device_ms"] == 1.5 * 16 and step["ms"] == 2.0 * 16
+    assert step["device_ms_by_kernel"]["repack"] == 0.125 * 16
+    assert np.isclose(step["bound_ms"],
+                      sum(r["bound_ms"] * r["per_step"] for r in rows))

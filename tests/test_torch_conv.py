@@ -80,6 +80,190 @@ def test_splits_cover_the_reduction(m, k, l):
     assert 1 <= splits <= 65535
 
 
+# the chip_smoke cases (ResNet-50's seven 3x3 shapes at batch 32 and the
+# oracle's odd ones, f32 and bf16), without importing the script here
+RESNET_3X3 = [(56, 64, 1), (56, 128, 2), (28, 128, 1), (28, 256, 2),
+              (14, 256, 1), (14, 512, 2), (7, 512, 1)]
+ODD = [(2, 8, 8, 16, 3, 1), (2, 9, 8, 16, 3, 1), (2, 8, 8, 16, 3, 2),
+       (1, 5, 4, 8, 1, 1), (4, 7, 16, 32, 3, 1)]
+CASES = [case + (dtype,) for dtype in ("float32", "bfloat16")
+         for case in [(32, h, c, c, 3, s) for h, c, s in RESNET_3X3] + ODD]
+
+
+def test_cases_are_chip_smokes():
+    import chip_smoke as cs
+
+    assert CASES == cs.wgrad_cases()
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_plan_covers_l_exactly_and_repacked_strides_are_16_bytes(case):
+    n, h, c, k, ksz, s, dtype = case
+    pad = (ksz - 1) // 2
+    oh = cw.out_size(h, ksz, s, pad)
+    p = cw.plan(n, h, h, c, k, ksz, s, pad, dtype)
+    assert p.chunk % p.step == 0 and 1 <= p.splits <= 65535
+    assert (p.splits - 1) * p.chunk < p.units <= p.splits * p.chunk
+    if (h, c, s) in RESNET_3X3 and n == 32:
+        assert p.route == ("f32" if dtype == "float32" else "wgmma")
+    if p.route != "wgmma":
+        assert p.box is None and p.units == n * oh * oh
+        assert p.tiles == (cw._cdiv(ksz * ksz * c, p.bn if p.route == "simt"
+                                    else cw.TILE_M) * cw._cdiv(k, p.bn))
+        return
+    assert dtype == "bfloat16" and p.bn in cw.BLOCK_COLS
+    bw, bh, bi = p.box
+    assert bw * bh * bi == cw.WG_ROWS
+    assert all(v & (v - 1) == 0 for v in p.box)
+    # the L tiles' boxes cover every (n, oh, ow) exactly once
+    covered = np.zeros((cw._cdiv(n, bi) * bi, cw._cdiv(oh, bh) * bh,
+                        cw._cdiv(oh, bw) * bw), np.int32)
+    wb, hb = cw._cdiv(oh, bw), cw._cdiv(oh, bh)
+    assert p.units == cw._cdiv(n, bi) * hb * wb
+    for t in range(p.units):
+        ow0, oh0, n0 = (t % wb) * bw, (t // wb % hb) * bh, t // wb // hb * bi
+        covered[n0:n0 + bi, oh0:oh0 + bh, ow0:ow0 + bw] += 1
+    assert (covered == 1).all()
+    # TMA: every byte stride and plane base of the repacked bf16 x and dy
+    for stride_bytes in (2 * c, s * 2 * c, s * h * 2 * c, h * h * 2 * c,
+                         2 * k, oh * 2 * k, oh * oh * 2 * k):
+        assert stride_bytes % 16 == 0
+    for hp in range(s):
+        for wp in range(s):
+            assert (hp * h + wp) * c * 2 % 16 == 0
+
+
+@pytest.mark.parametrize("m,k,l", [(576, 64, 100352), (4608, 512, 1568),
+                                   (1152, 128, 25088)])
+def test_splits_fill_whole_rounds_of_resident_blocks(m, k, l):
+    """The f32 plan puts the most whole blocks of a round on the card, at
+    least, and the round model it minimizes is within 5% of every other
+    choice from that many up."""
+    splits, chunk = cw.splits_for(m, k, l)
+    bn = 64 if k <= 64 else 128
+    tiles = cw._cdiv(m, cw.TILE_M) * cw._cdiv(k, bn)
+    slots = cw.RESIDENT[(cw.F32, bn)] * cw.SMS
+    assert splits >= min(slots // tiles, l // cw.MIN_SPLIT_ROWS)
+    cost = cw._cdiv(tiles * splits, slots) / splits + splits * \
+        cw.reduce_cost(l, cw.RATE["f32"])
+    for other in range(1, 64):
+        ch = cw._cdiv(cw._cdiv(l, other), cw.TILE_L) * cw.TILE_L
+        if ch < cw.MIN_SPLIT_ROWS or other < slots // tiles:
+            continue
+        o = cw._cdiv(l, ch)
+        assert cost <= 1.05 * (cw._cdiv(tiles * o, slots) / o + o *
+                               cw.reduce_cost(l, cw.RATE["f32"])) + 1e-12
+
+
+def test_repack_then_plain_equals_plain_on_the_nchw_views():
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 16, 9, 9, generator=gen)             # NCHW, f32
+    dy = torch.randn(2, 24, 5, 5, generator=gen)
+    xv, dv = x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1)
+    xr, dr = cw.repack(xv), cw.repack(dv)
+    for r, v in ((xr, xv), (dr, dv)):
+        assert r.dtype == torch.bfloat16 and r.is_contiguous()
+        assert r.shape == v.shape and r.data_ptr() % 16 == 0
+        assert torch.equal(r, v.to(torch.bfloat16))
+    assert cw.repack(xr) is xr
+    got = cw.conv_wgrad_plain(xr, dr, 3, 2, 1)
+    want = cw.conv_wgrad_plain(xv.to(torch.bfloat16), dv.to(torch.bfloat16),
+                               3, 2, 1)
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-6 * scale)
+    # a misaligned contiguous bf16 view is copied to a 16-byte boundary
+    flat = torch.zeros(1 + 2 * 9 * 9 * 16, dtype=torch.bfloat16)
+    view = flat[1:].view(2, 9, 9, 16)
+    assert view.data_ptr() % 16 and cw.repack(view).data_ptr() % 16 == 0
+
+
+def _tap_shift(kh, kw, stride, pad):
+    """(plane, dw, dh) of tap (kh, kw), as csrc/conv_wgrad.cu's tap_of:
+    floor division and a remainder in [0, stride)."""
+    qh, qw = kh - pad, kw - pad
+    dh, dw = qh // stride, qw // stride
+    return (qh - dh * stride) * stride + (qw - dw * stride), dw, dh
+
+
+def _box(t, n0, h0, w0, bi, bh, bw):
+    """A TMA box of (N, H, W, C) ``t`` at (n0, h0, w0): zeros outside."""
+    out = torch.zeros((bi, bh, bw, t.shape[3]), dtype=t.dtype)
+    n, h, w = t.shape[:3]
+    ns, hs, ws = (slice(max(a, 0), min(a + e, lim))
+                  for a, e, lim in ((n0, bi, n), (h0, bh, h), (w0, bw, w)))
+    if ns.start < ns.stop and hs.start < hs.stop and ws.start < ws.stop:
+        out[ns.start - n0:ns.stop - n0, hs.start - h0:hs.stop - h0,
+            ws.start - w0:ws.stop - w0] = t[ns, hs, ws]
+    return out
+
+
+def _emulate_wgmma(x, dy, ksz, stride, pad, p):
+    """The wgmma route's arithmetic on the CPU: repacked operands, x as
+    stride * stride parity planes, each L tile one box of dy and each
+    tap's box of x shifted in its plane, per split, the splits summed in
+    order (f32 products of the bf16 values)."""
+    xr, dr = cw.repack(x).float(), cw.repack(dy).float()
+    n, h, w, c = x.shape
+    _, oh, ow, k = dy.shape
+    bw, bh, bi = p.box
+    wb, hb = cw._cdiv(ow, bw), cw._cdiv(oh, bh)
+    planes = [xr[:, hp::stride, wp::stride] for hp in range(stride)
+              for wp in range(stride)]
+    ws = torch.zeros((p.splits, ksz, ksz, c, k))
+    for z in range(p.splits):
+        for t in range(z * p.chunk, min((z + 1) * p.chunk, p.units)):
+            ow0, oh0, n0 = (t % wb) * bw, (t // wb % hb) * bh, \
+                t // wb // hb * bi
+            b = _box(dr, n0, oh0, ow0, bi, bh, bw).reshape(-1, k)
+            for kh in range(ksz):
+                for kw in range(ksz):
+                    plane, dw, dh = _tap_shift(kh, kw, stride, pad)
+                    a = _box(planes[plane], n0, oh0 + dh, ow0 + dw, bi, bh,
+                             bw).reshape(-1, c)
+                    ws[z, kh, kw] += a.t() @ b
+    out = ws[0].clone()
+    for z in range(1, p.splits):
+        out += ws[z]
+    return out
+
+
+@pytest.mark.parametrize("n,h,c,k,ksz,stride,splits", [
+    (2, 8, 8, 16, 3, 1, 1), (2, 9, 8, 16, 3, 1, 2), (2, 8, 8, 16, 3, 2, 1),
+    (4, 7, 16, 32, 3, 1, 3), (2, 8, 64, 64, 3, 2, 1), (3, 12, 8, 8, 1, 2, 2),
+    (2, 10, 16, 8, 3, 2, 2)])
+def test_wgmma_route_tiling_matches_plain(n, h, c, k, ksz, stride, splits):
+    """The parity planes, the box shifts by floor((k - pad) / stride), the
+    zero fill and the split plan reproduce the convolution's dW."""
+    pad = (ksz - 1) // 2
+    oh = cw.out_size(h, ksz, stride, pad)
+    gen = torch.Generator().manual_seed(n * h + c)
+    x = torch.randn(n, c, h, h, generator=gen).permute(0, 2, 3, 1)
+    dy = torch.randn(n, k, oh, oh, generator=gen).permute(0, 2, 3, 1)
+    p = cw.plan_of(x.to(torch.bfloat16), dy, ksz, stride, pad)
+    assert p.route == "wgmma"
+    chunk = cw._cdiv(p.units, splits)
+    p = p._replace(splits=cw._cdiv(p.units, chunk), chunk=chunk)
+    got = _emulate_wgmma(x, dy, ksz, stride, pad, p)
+    want = cw.conv_wgrad_plain(x.to(torch.bfloat16), dy.to(torch.bfloat16),
+                               ksz, stride, pad)
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * scale)
+
+
+def test_routes_of_the_odd_cases():
+    """bf16 with C or K off a multiple of 8, or a stride that does not
+    divide H, takes the simt route; f32 always the f32 route."""
+    assert cw.plan(1, 5, 5, 4, 8, 1, 1, 0, "bfloat16").route == "simt"
+    assert cw.plan(2, 9, 9, 8, 16, 3, 2, 1, "bfloat16").route == "simt"
+    assert cw.plan(2, 8, 8, 8, 16, 3, 3, 1, "bfloat16").route == "simt"
+    assert cw.plan(2, 8, 8, 8, 16, 3, 2, 1, "bfloat16").route == "wgmma"
+    assert cw.plan(1, 5, 5, 4, 8, 1, 1, 0, "float32").route == "f32"
+    with pytest.raises(TypeError):
+        cw.plan(1, 5, 5, 4, 8, 1, 1, 0, "float16")
+
+
 def _f(*shape):
     return lambda rng: rng.randn(*shape).astype(np.float32)
 
@@ -292,3 +476,28 @@ def test_convolution_weight_grad_routes_through_conv_wgrad(
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
                                    atol=1e-5)
+
+
+def test_wgrad_variants_edit_the_current_source(monkeypatch):
+    """tools/wgrad_variants.py: every variant's edits still find their
+    text exactly once in the kernel source, each edited variant differs
+    from it, and its shapes are chip_smoke.py's."""
+    import os
+
+    import chip_smoke as cs
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.tools import wgrad_variants as wv
+
+    with open(os.path.join(_build.CSRC, "conv_wgrad.cu")) as f:
+        source = f.read()
+    for name, (dtype, edits, resident, repack) in wv.VARIANTS.items():
+        assert dtype in ("bfloat16", "float32")
+        assert (wv.variant_source(name) == source) == (not edits), name
+        assert set(resident) <= set(cw.RESIDENT)
+    assert wv.RESNET_WGRAD == cs.RESNET_WGRAD
+    x = torch.randn(2, 8, 5, 5).permute(0, 2, 3, 1)
+    assert torch.equal(wv._torch_repack(x), cw.repack(x))
+    monkeypatch.setitem(wv.VARIANTS, "gone", ("float32", [("no such", "")],
+                                               {}, None))
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        wv.variant_source("gone")
