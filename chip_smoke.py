@@ -22,9 +22,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    shapes, and the reduction kernel; the same instantiation report, each
    case's route, the ResNet shapes held to the wgmma and f32 routes) at
    ResNet-50's seven 3x3 shapes and the reference oracle's odd cases,
-   beside cuDNN's wgrad, with device times; and the LSTM step (lstm_step)
-   at the LSTM LM's shape and odd ones, on the views the RNN op passes, beside
-   cuBLAS + PyTorch's fused LSTM cell and, for a whole layer, cuDNN's LSTM.
+   beside cuDNN's wgrad, with device times; and the LSTM step (lstm_step:
+   f32 on register tiles + cp.async, bf16 on wgmma + TMA, a simt body for
+   odd bf16 layouts; the same instantiation report, each case's route, the
+   scan's main-path shapes held to the f32 and wgmma bodies) at the LSTM
+   LM's shape and odd ones, on the views the RNN op passes, beside cuBLAS
+   + PyTorch's fused LSTM cell and, for a whole layer, cuDNN's LSTM.
 3. ``serve``   — the continuous-batching generate path at full width (the
    GQA decoder LM of ``bench.py``: d 2048, 16 heads, 4 kv heads, ffn 8192,
    vocab 10000, bench.py's own 4 layers (not cut), seeded random weights,
@@ -53,14 +56,16 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    Xavier weights (each parameter's update and the perplexity must agree),
    then one epoch of 8 seeded batches of 128 and ``Module.score`` over the
    same batches, with exact ``lstm_step`` launch counts in each (2 layers x
-   35 steps x 8), finite perplexity, step times, tokens/s and peak memory.
+   35 steps x 8), finite perplexity, step times, tokens/s and peak memory;
+   before it, a line naming what holds the card's memory.
 7. ``kernel`` rtc — ``mx.rtc``: the JAX package's rtc test kernels (axpy,
    inc, relu, axpy in bf16) as CUDA C compiled by NVRTC, each against its
    mode="torch" twin; the source cache; a syntax error and a refused
    launch raising; the ``rtc_softmax`` forward and backward kernels
-   (``mxnet_tpu_torch/tools/rtc_softmax.py``) against their twins at the
-   LSTM LM's (4480, 10000) and odd shapes, timed beside the twins and
-   ``torch.softmax``, with the NVRTC compile ms.
+   (``mxnet_tpu_torch/tools/rtc_softmax.py``; the backward's vector and
+   scalar sources) against their twins at the LSTM LM's (4480, 10000) and
+   odd shapes, each case's backward route named, timed beside the twins,
+   ``torch.softmax`` and ``torch.scatter_add``, with the NVRTC compile ms.
 8. ``custom``  — the LSTM LM of phase 6 with a Custom ``rtc_softmax`` head
    (forward and backward rtc kernels) through ``Module.fit``: (a) card
    vs the port's CPU path (2 batches of 8), (b) the rtc head vs the
@@ -90,7 +95,8 @@ import numpy as np
 from mxnet_tpu_torch.tools.lm import LM, SERVE, SEED, TRAIN, \
     lm_arg_params, lm_feed, lm_param_shapes, lm_train_executor, \
     lm_train_setup, lm_update, lm_updater, nvidia_smi
-from mxnet_tpu_torch.tools.lstm_lm import LSTM_LM, lstm_setup, lstm_steps
+from mxnet_tpu_torch.tools.lstm_lm import LSTM_LM, STEP_SHAPES, STEP_TOL, \
+    lstm_setup, lstm_steps
 from mxnet_tpu_torch.tools.lstm_lm import fit_args as lstm_fit_args
 from mxnet_tpu_torch.tools.resnet import RESNET, change_err, fit_args, \
     resnet_setup, wgrad_convs
@@ -128,6 +134,14 @@ WGRAD_KERNELS = {"conv_wgrad_wgmma_kernel": "bfloat16",
                  "conv_wgrad_f32tap_kernel": "float32"}
 LSTM_SRC = CSRC + "lstm_step.cu"
 LSTM_REPLACES = "mxnet_tpu/ops/pallas/lstm.py:35"
+# lstm_step's templated bodies: __global__ name -> (the type it runs, its
+# instantiations' template arguments); the simt body is reported only
+LSTM_KERNELS = {"lstm_f32_kernel": ("float32", (64, 16)),
+                "lstm_wgmma_kernel": ("bfloat16", (8,))}
+LSTM_SIMT = "lstm_simt_kernel"
+# the (N, H) the scan runs at in the lstm phases, and lstm_step's kernel vs
+# plain (atol, rtol): both with their reasons in tools/lstm_lm.py
+LSTM_MAIN, LSTM_TOL = STEP_SHAPES, STEP_TOL
 # (atol, rtol); bf16 outputs differ by an ulp of |O| (rtol), while atol
 # stays below |O| ~ sqrt(e / T) of the long rows
 TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-3, 2e-2)}
@@ -174,13 +188,6 @@ RESNET_WGRAD = {(56, 64, 1): 3, (56, 128, 2): 1, (28, 128, 1): 3,
 RESNET_UPDATE = 0.15
 RESNET_AUX = 2e-3
 RESNET_CE = (1e-4, 1e-2)
-# lstm_step, kernel vs plain (atol, rtol). f32: an H-long dot product (H up
-# to 512, |gates| of order 1) summed in another order than the plain
-# version's GEMM differs in the last f32 bits, and sigmoid / tanh have slope
-# <= 1. bf16: both round the same f32 maths to bf16, so a value whose f32
-# forms straddle a rounding point differs by one bf16 ulp, at most 2^-7 =
-# 7.8e-3 of |x| (rtol 1e-2 leaves a margin)
-LSTM_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (1e-5, 1e-2)}
 # the 35-step scan through the kernel vs the plain scan, f32: the step's
 # last-bit differences carried through 35 recurrences
 LSTM_SCAN_TOL = (1e-4, 1e-4)
@@ -237,6 +244,9 @@ RTC_SOFTMAX_ROW_SUM = 1e-5
 # (rows, classes) of rtc_softmax: the LSTM LM's 128 x 35 rows over its
 # 10000 classes, a narrower head, one row, and a row narrower than a warp
 RTC_SOFTMAX_CASES = ((4480, 10000), (128, 1000), (1, 10000), (3, 7))
+# the backward's route (rtc_softmax.bwd_plan) these cases must take: the
+# LM's head the vector source, a row of 7 the scalar one
+RTC_BWD_ROUTES = {(4480, 10000): "vector", (3, 7): "scalar"}
 
 
 def flash_cases():
@@ -551,12 +561,13 @@ def ptxas_report(log, names):
 
 
 def kernel_label(mangled, names):
-    """``name<D>`` for a mangled instantiation of one of ``names``, else
-    None."""
+    """``name<D>`` (``name<A,B>`` for several int template arguments) for
+    a mangled instantiation of one of ``names``, else None."""
     for name in names:
-        m = re.search(name + r"ILi(\d+)E", mangled)
+        m = re.search(name + r"I((?:Li\d+E)+)E", mangled)
         if m:
-            return "%s<%s>" % (name, m.group(1))
+            return "%s<%s>" % (name, ",".join(
+                re.findall(r"Li(\d+)E", m.group(1))))
     return None
 
 
@@ -615,7 +626,7 @@ def instantiation_report(log, sass, kernels, head_dims, smem_of):
     report = {}
     for name, dtype in kernels.items():
         for d in head_dims:
-            label = "%s<%d>" % (name, d)
+            label = "%s<%s>" % (name, d)
             row = dict(ptxas.get(label, {}), dtype=dtype,
                        smem_dynamic=smem_of(name, dtype, d),
                        sass=sass.get(label, {}),
@@ -1095,22 +1106,35 @@ def phase_kernel_wgrad(torch):
     return worst, timings, step
 
 
-def _lstm_inputs(torch, n, h, dtype, gen, views=True):
+# the layouts of _lstm_inputs, by name
+LSTM_LAYOUTS = {
+    "views": "blob view at an odd offset, broadcast state",
+    "contiguous": "blob view at an odd offset, contiguous state",
+    "scan": "blob view at the LM's offset 4H*I, contiguous state"}
+
+
+def _lstm_inputs(torch, n, h, dtype, gen, layout="views"):
     """Seeded lstm_step inputs as the fused RNN op hands them over: ``wh``
-    a (4H, H) view into a parameter blob at an odd element offset (in bf16
-    not 16-byte aligned); ``h`` / ``c`` broadcast views (stride 0 along the
-    hidden and the batch axis) where ``views``, else contiguous."""
+    a (4H, H) view into a parameter blob, at an odd element offset (in
+    bf16 not 16-byte aligned) or, in the ``"scan"`` layout, at the LM's
+    first layer's 4H * I (I = H); ``h`` / ``c`` broadcast views (stride 0
+    along the hidden and the batch axis) in the ``"views"`` layout, their
+    contiguous copies in ``"contiguous"``, and full (N, H) rows in
+    ``"scan"`` (ys[t - 1] and the c buffer of the scan)."""
     dt = getattr(torch, dtype)
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
     ib = randn(n, 4 * h).to(dt)
-    blob = (randn(3 + 4 * h * h + 5) / math.sqrt(h)).to(dt)
-    wh = blob[3:3 + 4 * h * h].view(4 * h, h)
+    off = 4 * h * h if layout == "scan" else 3
+    blob = (randn(off + 4 * h * h + 5) / math.sqrt(h)).to(dt)
+    wh = blob[off:off + 4 * h * h].view(4 * h, h)
+    if layout == "scan":
+        return ib, (0.5 * randn(n, h)).to(dt), randn(n, h).to(dt), wh
     hs = (0.5 * randn(n, 1)).to(dt).expand(n, h)
     cs = randn(1, h).to(dt).expand(n, h)
-    if not views:
+    if layout == "contiguous":
         hs, cs = hs.contiguous(), cs.contiguous()
     return ib, hs, cs, wh
 
@@ -1123,11 +1147,103 @@ def _fused_lstm_cell(torch, ib, h, c, wh):
     return lambda: cell(ib, torch.mm(h, wh.t()), c)
 
 
+def lstm_label(p):
+    """The instantiation label (:func:`kernel_label`) of lstm_step plan
+    ``p``."""
+    tile = p.tile if isinstance(p.tile, tuple) else (p.tile,)
+    return "%s<%s>" % (p.kernel, ",".join(str(t) for t in tile))
+
+
+def lstm_instantiations(log, sass, smem_of):
+    """lstm_step's instantiations: the f32 and wgmma bodies through
+    :func:`instantiation_report` (which fails on f32 spills and on a wgmma
+    body without HGMMA or UTMALDG), and the simt body's registers and
+    spills from the ptxas ``log``."""
+    report = {}
+    for name, (dtype, tiles) in LSTM_KERNELS.items():
+        report.update(instantiation_report(log, sass, {name: dtype}, tiles,
+                                           smem_of))
+    for label, row in ptxas_report(log, (LSTM_SIMT,)).items():
+        report[label] = dict(row, dtype="bfloat16",
+                             sass=sass.get(label, {}))
+    return report
+
+
+def lstm_report(torch):
+    """:func:`lstm_instantiations` of the built library's log and SASS."""
+    import ctypes
+
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.ops.kernels import lstm as kl
+
+    smem = _build.kernel(kl._NAME, "mxtt_lstm_step_smem", [ctypes.c_int] * 2)
+    sass = sass_counts(_build.lib_path(kl._NAME),
+                       tuple(LSTM_KERNELS) + (LSTM_SIMT,), FA_BF16_OPCODES)
+    return lstm_instantiations(
+        _build.log_of(kl._NAME), sass, lambda name, dtype, tile: smem(
+            kl.ROUTE_CODE["f32" if dtype == "float32" else "wgmma"], tile))
+
+
+def lstm_route_check(plans, report):
+    """Fails unless each main-path shape (LSTM_MAIN) in the scan's layout
+    (``plans``: [((n, h), dtype, layout, Plan)]) takes the f32 tile body
+    with 16-byte copies of h and Wh (f32) or the wgmma body (bf16), into an
+    instantiation of ``report`` (:func:`lstm_report`) whose SASS holds
+    HGMMA and UTMALDG and whose build has no C7515 / C7520 note (bf16);
+    returns {"dtype/[n, h]/layout": label} of every plan."""
+    routes = {}
+    for (n, h), dtype, layout, p in plans:
+        label = lstm_label(p)
+        routes["%s/%s/%s" % (dtype, [n, h], layout)] = label
+        if (n, h) not in LSTM_MAIN or layout != "scan":
+            continue
+        what = "lstm_step %s %s in the scan's layout" % (dtype, (n, h))
+        want = "f32" if dtype == "float32" else "wgmma"
+        if p.route != want:
+            raise RuntimeError("%s takes the %s route, want %s"
+                               % (what, p.route, want))
+        if want == "f32" and not (p.vec_h and p.vec_w):
+            raise RuntimeError("%s copies h / Wh 4 bytes a time (vec %s, "
+                               "%s)" % (what, p.vec_h, p.vec_w))
+        row = report.get(label)
+        if row is None:
+            raise RuntimeError("%s: no report for %s" % (what, label))
+        if want == "wgmma":
+            if not all(row["sass"].get(op, 0) > 0 for op in FA_BF16_OPCODES):
+                raise RuntimeError("%s runs %s, which lacks %s: %s"
+                                   % (what, label, FA_BF16_OPCODES,
+                                      row["sass"]))
+            if row["wgmma_serialized"]:
+                raise RuntimeError("%s runs %s, whose wgmma ptxas "
+                                   "serializes (C7515 / C7520)"
+                                   % (what, label))
+    return routes
+
+
+def lstm_timing(torch, n, h, dtype, p, fns,
+                timers=(graph_ms, device_ms, time_ms)):
+    """One timing row of lstm_step at (n, h) in ``dtype`` with plan ``p``:
+    each (name, fn) of ``fns`` (the kernel's "ms", the plain version's and
+    the library yardstick's) timed over graph replays of 35 calls, by the
+    profiler's device time and by single-call CUDA events, beside the
+    bound."""
+    replay, device, single = timers
+    bound_ms, bound_by = lstm_step_bound(n, h, dtype)
+    return dict({k: replay(torch, f) for k, f in fns},
+                shape=[n, h], layout=LSTM_LAYOUTS["scan"], route=p.route,
+                kernel=lstm_label(p),
+                device_ms={k: device(torch, f, reps=20) for k, f in fns},
+                event_ms={k: single(torch, f, reps=20) for k, f in fns},
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_kernel_lstm(torch):
-    """lstm_step: kernel vs plain on the card at LSTM_CASES, f32 and bf16,
-    on the views the RNN op passes and on contiguous state; the 35-step
-    fused scan vs the plain scan; then the step timed at (128, 512) beside
-    the plain version and cuBLAS + the fused LSTM cell, and one whole
+    """lstm_step: its instantiations' build and SASS report; kernel vs
+    plain on the card at LSTM_CASES, f32 and bf16, in each of LSTM_LAYOUTS,
+    each case's route named; the scan's main-path shapes must take the f32
+    tile body and the wgmma body; the 35-step fused scan vs the plain scan;
+    then the step timed at (128, 512) in the scan's layout beside the plain
+    version and cuBLAS + the fused LSTM cell in both types, and one whole
     layer (input projection + 35 steps) beside cuDNN's LSTM. A step's
     ``ms``, ``plain_ms`` and ``library_ms`` are CUDA-event medians over
     graph replays of 35 calls (:func:`graph_ms`), with the profiler's
@@ -1137,13 +1253,16 @@ def phase_kernel_lstm(torch):
     from mxnet_tpu_torch.ops import rnn_fused as rf
     from mxnet_tpu_torch.ops.kernels import lstm as kl
 
+    instantiations = lstm_report(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
-    results, worst = [], {}
+    results, worst, plans = [], {}, []
     for dtype in ("float32", "bfloat16"):
         atol, rtol = LSTM_TOL[dtype]
         for n, h in LSTM_CASES:
-            for views in (True, False):
-                ib, hs, cs, wh = _lstm_inputs(torch, n, h, dtype, gen, views)
+            for layout in LSTM_LAYOUTS:
+                ib, hs, cs, wh = _lstm_inputs(torch, n, h, dtype, gen,
+                                              layout)
+                p = kl.plan_of(hs, wh)
                 got = kl.lstm_step(ib, hs, cs, wh)
                 want = kl.lstm_step_plain(ib, hs, cs, wh)
                 torch.cuda.synchronize()
@@ -1152,16 +1271,18 @@ def phase_kernel_lstm(torch):
                     torch.testing.assert_close(
                         g.float(), w.float(), atol=atol, rtol=rtol,
                         msg=lambda m, k=name: "lstm_step %s %s: %s" % (
-                            (n, h, dtype), k, m))
+                            (n, h, dtype, layout, p.route), k, m))
                     errs.append(float((g.float() - w.float()).abs().max()))
                 results.append({"shape": [n, h], "dtype": dtype,
-                                "layout": "blob view, broadcast state"
-                                if views else "blob view, contiguous state",
-                                "tiles": list(kl.tiles_for(n, h)),
+                                "layout": LSTM_LAYOUTS[layout],
+                                "route": p.route, "kernel": lstm_label(p),
+                                "vec": [p.vec_h, p.vec_w],
                                 "atol": atol, "rtol": rtol,
                                 "max_abs_err": {"h": errs[0],
                                                 "c": errs[1]}})
+                plans.append(((n, h), dtype, layout, p))
                 worst[dtype] = max([worst.get(dtype, 0.0)] + errs)
+    routes = lstm_route_check(plans, instantiations)
 
     # the 35-step scan at the LM's shape: kernel scan vs plain scan, f32
     cfg = LSTM_LM
@@ -1181,17 +1302,13 @@ def phase_kernel_lstm(torch):
 
     timings = {}
     for dtype in ("float32", "bfloat16"):
-        ib, hs, cs, wh = _lstm_inputs(torch, n, h, dtype, gen, views=False)
+        ib, hs, cs, wh = _lstm_inputs(torch, n, h, dtype, gen, "scan")
         h_out, c_out = torch.empty_like(hs), torch.empty_like(cs)
-        bound_ms, bound_by = lstm_step_bound(n, h, dtype)
-        fns = (("ms", lambda: kl.lstm_step(ib, hs, cs, wh, h_out, c_out)),
-               ("plain_ms", lambda: kl.lstm_step_plain(ib, hs, cs, wh)),
-               ("library_ms", _fused_lstm_cell(torch, ib, hs, cs, wh)))
-        dev, event = _times(torch, fns)
-        timings[dtype] = dict({k: graph_ms(torch, f) for k, f in fns},
-                              shape=[n, h], tiles=list(kl.tiles_for(n, h)),
-                              device_ms=dev, event_ms=event,
-                              bound_ms=bound_ms, bound_by=bound_by)
+        timings[dtype] = lstm_timing(
+            torch, n, h, dtype, kl.plan_of(hs, wh),
+            (("ms", lambda: kl.lstm_step(ib, hs, cs, wh, h_out, c_out)),
+             ("plain_ms", lambda: kl.lstm_step_plain(ib, hs, cs, wh)),
+             ("library_ms", _fused_lstm_cell(torch, ib, hs, cs, wh))))
 
     # one whole layer at the LM's shape, f32: the port's scan (input
     # projection + 35 kernel steps) vs the plain scan vs cuDNN's LSTM with
@@ -1225,10 +1342,34 @@ def phase_kernel_lstm(torch):
                      event_ms=event,
                      library="torch.nn.LSTM (cuDNN, no TF32)",
                      bound_ms=bound_ms, bound_by=bound_by)
-    emit({"phase": "kernel", "kernel": "lstm_step", "cases": results,
+    emit({"phase": "kernel", "kernel": "lstm_step",
+          "instantiations": instantiations, "routes": routes,
+          "cases": results,
           "max_abs_err": worst, "scan_max_abs_err": scan_err,
           "scan_tol": LSTM_SCAN_TOL, "timings": timings, "layer": layer})
     return worst, timings, layer
+
+
+def rtc_bwd_route_check(rows, cols, bp):
+    """``bp`` (rtc_softmax's BwdPlan at (rows, cols)) if it takes the
+    route RTC_BWD_ROUTES names for that shape, else a failure."""
+    want = RTC_BWD_ROUTES.get((rows, cols), bp.route)
+    if bp.route != want:
+        raise RuntimeError("rtc_softmax bwd %s takes the %s route, want %s"
+                           % ((rows, cols), bp.route, want))
+    return bp
+
+
+def rtc_timing(torch, rows, cols, pairs, timers=(loop_ms, device_ms)):
+    """One timing row of an rtc_softmax kernel at (rows, cols): each
+    (name, fn) of ``pairs`` timed over runs of back-to-back calls (CUDA
+    events, median) and by the profiler's device time, beside the
+    bound."""
+    loop, device = timers
+    bound_ms, bound_by = rtc_softmax_bound(rows, cols)
+    return dict({k: loop(torch, f) for k, f in pairs},
+                device_ms={k: device(torch, f, reps=10) for k, f in pairs},
+                shape=[rows, cols], bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_kernel_rtc(torch):
@@ -1327,12 +1468,20 @@ def phase_kernel_rtc(torch):
         block, per = rs.launch_dims(cols)
         kern["fwd"].push([x], [prob], grid_dims=(rows,), block_dims=(block,))
         twin["fwd"].push([x], [prob_t])
-        kern["bwd"].push([prob, label], [grad], grid_dims=(rows,),
-                         block_dims=(block,))
+        bp = rtc_bwd_route_check(rows, cols, rs.bwd_plan(
+            cols, prob._data.data_ptr(), grad._data.data_ptr()))
+        rs.push("bwd", [prob, label], [grad])
         twin["bwd"].push([prob, label], [grad_t])
+        # the scalar source as well where the vector one ran
+        pairs = [("fwd", prob, prob_t), ("bwd", grad, grad_t)]
+        if bp.route == "vector":
+            scalar = nd.NDArray(torch.zeros(rows, cols, device="cuda"))
+            kern["bwd"].push([prob, label], [scalar], grid_dims=(rows,),
+                             block_dims=(block,))
+            pairs.append(("bwd_scalar", scalar, grad_t))
         torch.cuda.synchronize()
         errs, rel_errs = {}, {}
-        for what, g, w in (("fwd", prob, prob_t), ("bwd", grad, grad_t)):
+        for what, g, w in pairs:
             for atol, rtol in ((RTC_SOFTMAX_ATOL, 0.0),
                                (RTC_SOFTMAX_FLOOR, RTC_SOFTMAX_RTOL)):
                 torch.testing.assert_close(
@@ -1349,7 +1498,9 @@ def phase_kernel_rtc(torch):
                                "to 1 within %g, not %g"
                                % ((rows, cols), row_sum, RTC_SOFTMAX_ROW_SUM))
         cases.append({"shape": [rows, cols], "block": block,
-                      "per_thread": per, "max_abs_err": errs,
+                      "per_thread": per, "bwd_route": bp.route,
+                      "bwd_block": bp.block, "bwd_per_thread": bp.per,
+                      "max_abs_err": errs,
                       "max_rel_err": rel_errs, "max_row_sum_err": row_sum,
                       "compile_ms": {k: list(v.compile_ms.values())
                                      for k, v in kern.items()}})
@@ -1365,13 +1516,13 @@ def phase_kernel_rtc(torch):
     prob, out = (nd.NDArray(torch.zeros(rows, cols, device="cuda"))
                  for _ in range(2))
     kern["fwd"].push([x], [prob], grid_dims=(rows,), block_dims=(block,))
-    bound_ms, bound_by = rtc_softmax_bound(rows, cols)
     # the backward's library yardstick: one out-of-place scatter_add of -1
     # at each row's label is p - onehot(label); held against the kernel
     idx = label._data.long()[:, None]
     minus_one = torch.full((rows, 1), -1.0, device="cuda")
-    kern["bwd"].push([prob, label], [out], grid_dims=(rows,),
-                     block_dims=(block,))
+    bp = rtc_bwd_route_check(rows, cols, rs.bwd_plan(
+        cols, prob._data.data_ptr(), out._data.data_ptr()))
+    rs.push("bwd", [prob, label], [out])
     torch.testing.assert_close(torch.scatter_add(prob._data, 1, idx,
                                                  minus_one),
                                out._data, atol=0.0, rtol=0.0)
@@ -1379,22 +1530,23 @@ def phase_kernel_rtc(torch):
                         [x], [out], grid_dims=(rows,), block_dims=(block,))),
                    ("plain_ms", lambda: twin["fwd"].push([x], [out])),
                    ("library_ms", lambda: torch.softmax(x._data, dim=1))),
-           "bwd": (("ms", lambda: kern["bwd"].push(
-                        [prob, label], [out], grid_dims=(rows,),
-                        block_dims=(block,))),
+           "bwd": (("ms", lambda: rs.push("bwd", [prob, label], [out])),
+                   ("scalar_ms", lambda: kern["bwd"].push(
+                       [prob, label], [out], grid_dims=(rows,),
+                       block_dims=(block,))),
                    ("plain_ms", lambda: twin["bwd"].push([prob, label],
                                                           [out])),
                    ("library_ms", lambda: torch.scatter_add(
                        prob._data, 1, idx, minus_one)))}
-    timings = {}
-    for kind, pairs in fns.items():
-        timings[kind] = dict({k: loop_ms(torch, f) for k, f in pairs},
-                             device_ms={k: device_ms(torch, f, reps=10)
-                                        for k, f in pairs},
-                             shape=[rows, cols], block=block,
-                             bound_ms=bound_ms, bound_by=bound_by,
-                             compile_ms=list(kern[kind].compile_ms.values()))
-    timings["fwd"]["library"] = "torch.softmax(x, dim=1)"
+    timings = {kind: rtc_timing(torch, rows, cols, pairs)
+               for kind, pairs in fns.items()}
+    timings["fwd"].update(block=block, library="torch.softmax(x, dim=1)",
+                          compile_ms=list(kern["fwd"].compile_ms.values()))
+    timings["bwd"].update(
+        bwd_route=bp.route, block=bp.block, per_thread=bp.per,
+        scalar_block=block,
+        compile_ms={k: list(kern[k].compile_ms.values())
+                    for k in ("bwd", "bwd_vec")})
     timings["bwd"]["library"] = ("torch.scatter_add(p, 1, label[:, None], "
                                  "-1), out of place")
     emit({"phase": "kernel", "kernel": "rtc", "nvrtc": list(
@@ -1784,6 +1936,55 @@ def _reset_peak(torch):
     return torch.cuda.memory_allocated()
 
 
+def memory_holders(torch, top=8):
+    """What holds the card's memory: the ``top`` largest active blocks of
+    ``torch.cuda.memory_snapshot()``, the live CUDA tensors found by
+    ``gc`` grouped by shape and type, largest first, each with the types
+    of the objects that refer to it (a dict's owners named through it),
+    and the allocated bytes that no live tensor holds (PyTorch's cuBLAS
+    workspaces, one a stream that ran a product, are such bytes). It
+    reads and frees nothing."""
+    gc.collect()
+    blocks = sorted((b["size"] for seg in torch.cuda.memory_snapshot()
+                     for b in seg["blocks"]
+                     if b["state"] == "active_allocated"), reverse=True)
+    groups = {}
+    for obj in gc.get_objects():
+        if issubclass(type(obj), torch.Tensor) and obj.is_cuda:
+            key = "%s %s" % (tuple(obj.shape), str(obj.dtype)[6:])
+            g = groups.setdefault(key, [0, 0, []])
+            g[0] += obj.untyped_storage().nbytes()
+            g[1] += 1
+            if len(g[2]) < 2:
+                g[2].append(obj)
+    mine = {id(groups)} | {id(g) for g in groups.values()} | {
+        id(g[2]) for g in groups.values()}
+
+    def owners(obj, depth):
+        names = []
+        for r in gc.get_referrers(obj):
+            if id(r) in mine or type(r).__name__ == "frame":
+                continue
+            if isinstance(r, dict) and depth:
+                names += ["%s.__dict__" % o for o in owners(r, depth - 1)]
+            else:
+                names.append(type(r).__name__)
+        return names
+
+    largest = sorted(groups.items(), key=lambda kv: -kv[1][0])[:top]
+    tensors = [{"tensor": key, "bytes": nbytes, "count": count,
+                "referrers": sorted(set(sum((owners(t, 1) for t in ts),
+                                           [])))}
+               for key, (nbytes, count, ts) in largest]
+    allocated = torch.cuda.memory_allocated()
+    live = sum(g[0] for g in groups.values())
+    return {"allocated": allocated,
+            "largest_blocks": blocks[:top],
+            "live_cuda_tensor_bytes": live,
+            "largest_tensors": tensors,
+            "untracked_bytes": allocated - live}
+
+
 def _lstm_check(what, cfg, cs, setups):
     """Fit the LSTM LM of each of the two ``setups`` (each returns a fresh
     (module, iterator, initializer)) for its ``cs`` batches, and hold the
@@ -1857,6 +2058,9 @@ def phase_lstm(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
                         param.eval_metric.get_name_value()})
 
     sync()
+    if on_card:
+        emit({"phase": "lstm_memory", "when": "before the peak reset",
+              **memory_holders(torch)})
     start_memory = _reset_peak(torch) if on_card else None
     kl.lstm_step.launches = 0
     t0 = time.perf_counter()
@@ -1934,7 +2138,9 @@ def phase_custom(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
     # (c) the run: one epoch of `batches` batches of `batch`, then score
     on_card = device is None or torch.device(device).type == "cuda"
     mod, it, init = rtc_setup(device, b, cfg["batches"])()
-    counters = dict(rs.kernels(cfg["vocab"]), lstm_step=kl.lstm_step)
+    kern = rs.kernels(cfg["vocab"])
+    bwd = [kern[k] for k in ("bwd", "bwd_vec") if k in kern]
+    counters = [kern["fwd"], kl.lstm_step] + bwd
     times, metrics = [], []
 
     def sync():
@@ -1948,16 +2154,20 @@ def phase_custom(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
                         param.eval_metric.get_name_value()})
 
     def counts():
-        return {k: c.launches for k, c in counters.items()}
+        """Launches by kernel; "bwd" sums the backward's two sources."""
+        return {"fwd": kern["fwd"].launches,
+                "bwd": sum(c.launches for c in bwd),
+                "lstm_step": kl.lstm_step.launches}
 
     sync()
     start_memory = _reset_peak(torch) if on_card else None
-    for c in counters.values():
+    for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
     mod.fit(it, batch_end_callback=record, **lstm_fit_args(cfg, init))
     fit_launches = counts()
-    for c in counters.values():
+    fit_vector = kern["bwd_vec"].launches if "bwd_vec" in kern else 0
+    for c in counters:
         c.launches = 0
     t1 = time.perf_counter()
     score = dict(mod.score(it, metric.Perplexity(ignore_label=None)))
@@ -1973,6 +2183,9 @@ def phase_custom(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
                            "score, want %s and %s"
                            % (fit_launches, score_launches, want_fit,
                               want_score))
+    if on_card and "bwd_vec" in kern and fit_vector != steps:
+        raise RuntimeError("custom phase: %d of %d backward launches took "
+                           "the vector source" % (fit_vector, steps))
     ppl_run = [m["Perplexity"] for m in metrics]
     if len(metrics) != steps or not all(np.isfinite(ppl_run)) \
             or not np.isfinite(score["Perplexity"]):
@@ -1990,7 +2203,8 @@ def phase_custom(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
               "first_batch_ms": (times[0] - t0) * 1e3,
               "step_ms": step_ms, "median_step_ms": median_ms,
               "tokens_per_s": b * cfg["seq"] / median_ms * 1e3,
-              "launches": {"fit": fit_launches, "score": score_launches}}
+              "launches": {"fit": fit_launches, "score": score_launches},
+              "bwd_vector_launches": fit_vector}
     if on_card:
         result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         result["start_memory_allocated"] = start_memory
@@ -2091,6 +2305,7 @@ def main():
                               "lstm_score": lstm["score"]},
         "max_abs_err": max(lstm_worst.values()), "max_err": lstm_worst,
         "dtype": "float32", "shape": "one step at (N, H) = (128, 512)",
+        "kernel": t["kernel"], "layout": t["layout"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "library": "torch.mm(h, wh.t()) + aten._thnn_fused_lstm_cell (no "

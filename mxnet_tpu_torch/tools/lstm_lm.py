@@ -22,6 +22,18 @@ LSTM_LM = {"vocab": 10000, "embed": 512, "hidden": 512, "layers": 2,
            "seq": 35, "batch": 128, "batches": 8, "lr": 0.5,
            "check_batch": 8, "check_steps": 2}
 SEED = 0
+#: the (N, H) the scan's steps run at (the run's batch 128 and the check's
+#: 8): in the scan's layout they must take the f32 tile body (16-byte
+#: copies) and, in bf16, the wgmma body
+STEP_SHAPES = ((LSTM_LM["batch"], LSTM_LM["hidden"]),
+               (LSTM_LM["check_batch"], LSTM_LM["hidden"]))
+#: lstm_step, kernel vs plain (atol, rtol). f32: an H-long dot product (H
+#: up to 512, |gates| of order 1) summed in another order than the plain
+#: version's GEMM differs in the last f32 bits, and sigmoid / tanh have
+#: slope <= 1. bf16: both round the same f32 maths to bf16, so a value whose
+#: f32 forms straddle a rounding point differs by one bf16 ulp, at most
+#: 2^-7 = 7.8e-3 of |x| (rtol 1e-2 leaves a margin)
+STEP_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (1e-5, 1e-2)}
 
 
 def lstm_symbol(cfg):

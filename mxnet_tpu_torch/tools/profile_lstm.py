@@ -35,7 +35,8 @@ import torch
 
 # (kind, substrings of the lower-cased kernel name), first match wins
 KINDS = (
-    ("lstm_step", ("lstm_step",)),
+    ("lstm_step", ("lstm_step", "lstm_f32_kernel", "lstm_wgmma_kernel",
+                   "lstm_simt_kernel")),
     ("rtc_softmax", ("rtc_softmax",)),
     ("matmul", ("gemm", "gemv", "cublas", "cutlass", "xmma", "splitk")),
     ("softmax", ("softmax",)),

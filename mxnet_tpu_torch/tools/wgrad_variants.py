@@ -7,10 +7,9 @@ Each variant is the port's ``conv_wgrad`` with one choice undone
 (one block an SM at 128 columns, where the 3-stage ring fits two), the
 repack kernel moving one element at a time instead of pairs, the repack
 as PyTorch's strided copy instead of the repack kernel, and the
-f32 one-tap body held to one block an SM. Source edits are built with the
-port's nvcc flags into ``mxnet_tpu_torch/_build/variants/`` (one nvcc
-each, all started together) and launched through the wrappers' own C
-entries; the split plan takes the variant's blocks an SM. At ResNet-50's
+f32 one-tap body held to one block an SM. The variants are built, loaded
+and timed as :mod:`._variants` says; the split plan takes the variant's
+blocks an SM. At ResNet-50's
 seven 3x3 shapes at batch 32 (NCHW views, as the Convolution op passes
 them), each variant's profiler device time of one call, split into the
 partial, reduce and repack kernels, beside cuDNN's wgrad
@@ -20,16 +19,13 @@ partial, reduce and repack kernels, beside cuDNN's wgrad
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import json
-import os
-import shutil
-import subprocess
 
 import torch
 
-from ..ops.kernels import _build
 from ..ops.kernels import conv_wgrad as cw
+from . import _variants
+from ._variants import device_ms_by
 
 #: (input H, C = K, stride) of ResNet-50's 3x3 convolutions -> how many a
 #: step runs (chip_smoke.py's RESNET_WGRAD)
@@ -75,44 +71,13 @@ VARIANTS = {
 def variant_source(name: str) -> str:
     """conv_wgrad's source with variant ``name``'s edits; raises if an
     edit's text does not occur exactly once (the source moved on)."""
-    with open(os.path.join(_build.CSRC, cw._NAME + ".cu")) as f:
-        text = f.read()
-    for old, new in VARIANTS[name][1]:
-        if text.count(old) != 1:
-            raise ValueError("variant %s: %r occurs %d times in the source"
-                             % (name, old, text.count(old)))
-        text = text.replace(old, new)
-    return text
+    return _variants.edited(cw._NAME, name, VARIANTS[name][1])
 
 
 def build(names):
     """Build the variants ``names``; returns name -> library path."""
-    procs, out = [], {}
-    for name in names:
-        d = os.path.join(_build.BUILD_DIR, "variants", name)
-        os.makedirs(d, exist_ok=True)
-        for header in _build.inputs(cw._NAME)[1:]:
-            shutil.copy(os.path.join(_build.CSRC, header), d)
-        src = os.path.join(d, cw._NAME + ".cu")
-        with open(src, "w") as f:
-            f.write(variant_source(name))
-        lib = os.path.join(d, cw._NAME + ".so")
-        procs.append((name, lib, subprocess.Popen(
-            [_build.nvcc()] + _build.NVCC_FLAGS + ["-o", lib, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    for name, lib, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed for %s:\n%s" % (name, log))
-        out[name] = lib
-    return out
-
-
-def _forget():
-    _build._libs.pop(cw._NAME, None)
-    for symbol in [s for s in _build._fns if s.startswith("mxtt_conv_wgrad")]:
-        _build._fns.pop(symbol)
-    cw.plan.cache_clear()
+    libs = _variants.build(cw._NAME, {n: variant_source(n) for n in names})
+    return {n: lib for n, (lib, _log) in libs.items()}
 
 
 @contextlib.contextmanager
@@ -121,42 +86,18 @@ def loaded(name, path):
     plan and repack) inside the block."""
     _, _edits, resident, repack = VARIANTS[name]
     saved = dict(cw.RESIDENT), cw.repack
-    _forget()
-    _build._libs[cw._NAME] = ctypes.CDLL(path)
+    cw.plan.cache_clear()
     cw.RESIDENT.update(resident)
     if repack is not None:
         cw.repack = repack
     try:
-        yield
+        with _variants.loaded(cw._NAME, path):
+            yield
     finally:
         cw.RESIDENT.clear()
         cw.RESIDENT.update(saved[0])
         cw.repack = saved[1]
-        _forget()
-
-
-def device_ms_by(fn, parts, reps=20, warmup=3):
-    """Device time (ms) of one ``fn()`` call, and {part: ms} of the kernels
-    whose names hold each of ``parts``, from a profiler trace of ``reps``
-    calls; a trace with no device time is taken again (three at most)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for _attempt in range(3):
-        with torch.profiler.profile(activities=acts) as p:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in p.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        total = sum(e.self_device_time_total for e in events)
-        if total > 0:
-            return total / reps / 1e3, {
-                part: sum(e.self_device_time_total for e in events
-                          if part in e.key) / reps / 1e3 for part in parts}
-    raise RuntimeError("the profiler saw no device time")
+        cw.plan.cache_clear()
 
 
 def main():

@@ -664,3 +664,301 @@ def test_wgrad_timing_row_and_step_sums():
     assert step["device_ms_by_kernel"]["repack"] == 0.125 * 16
     assert np.isclose(step["bound_ms"],
                       sum(r["bound_ms"] * r["per_step"] for r in rows))
+
+
+# --- lstm_step: instantiation report, routes, timing rows ----------------------
+LSTM_MANGLED = {
+    "lstm_f32_kernel": "_ZN46_GLOBAL__N__1c2d3e4f_12_lstm_step_cu_0a1b2c3d2rt"
+                       "15lstm_f32_kernelILi%sEEEvNS_4ArgsE",
+    "lstm_wgmma_kernel": "_ZN46_GLOBAL__N__1c2d3e4f_12_lstm_step_cu_0a1b2c3d2"
+                         "wg17lstm_wgmma_kernelILi%sEEEvNS0_4MapsENS_4ArgsE",
+    "lstm_simt_kernel": "_ZN46_GLOBAL__N__1c2d3e4f_12_lstm_step_cu_0a1b2c3d4"
+                        "simt16lstm_simt_kernelILi%sELi%sEEEvNS_4ArgsE"}
+
+
+def _lstm_instantiations():
+    """(name, template arguments) of every lstm_step kernel the source
+    builds."""
+    out = [(name, (t,)) for name, (_, tiles) in cs.LSTM_KERNELS.items()
+           for t in tiles]
+    return out + [(cs.LSTM_SIMT, tile) for tile in kl.TILES]
+
+
+def _lstm_log(spill_f32=0, serialized=False):
+    lines = ["ptxas info    : 0 bytes gmem"]
+    for name, args in _lstm_instantiations():
+        m = LSTM_MANGLED[name] % args
+        lines += [
+            "ptxas info    : Compiling entry function '%s' for 'sm_90a'" % m,
+            "ptxas info    : Function properties for %s" % m,
+            "    0 bytes stack frame, %d bytes spill stores, %d bytes spill "
+            "loads" % ((spill_f32,) * 2 if "f32" in name else (0, 0)),
+            "ptxas info    : Used %d registers, 41472 bytes smem"
+            % (60 + args[0])]
+        if serialized and "wgmma" in name:
+            lines.append("ptxas info    : (C7515) Potential Performance Loss:"
+                         " wgmma.mma_async instructions are serialized due "
+                         "to ... in the function '%s'" % m)
+    return "\n".join(lines)
+
+
+def _lstm_sass(wgmma=True, tma=True):
+    lines = []
+    for name, args in _lstm_instantiations():
+        lines.append("\t\tFunction : %s" % (LSTM_MANGLED[name] % args))
+        lines.append("        /*0010*/  LDGSTS.E.BYPASS.128 [R1], [R2.64] ;")
+        if "wgmma" in name:
+            if tma:
+                lines.append("        /*0020*/  UTMALDG.4D [UR8], [UR4] ;")
+            if wgmma:
+                lines.append("        /*0030*/  HGMMA.64x32x16.F32.BF16 R24,"
+                             " gdesc[UR8], R24 ;")
+    return cs.sass_opcode_counts(
+        "\n".join(lines), tuple(cs.LSTM_KERNELS) + (cs.LSTM_SIMT,),
+        cs.FA_BF16_OPCODES)
+
+
+def _lstm_report(log=None, sass=None):
+    return cs.lstm_instantiations(
+        _lstm_log() if log is None else log,
+        _lstm_sass() if sass is None else sass,
+        lambda name, dtype, tile: 0 if dtype == "float32" else 50240)
+
+
+def test_kernel_label_reads_every_int_template_argument():
+    names = (cs.LSTM_SIMT, "lstm_f32_kernel")
+    assert cs.kernel_label(LSTM_MANGLED[cs.LSTM_SIMT] % (2, 4), names) == \
+        "lstm_simt_kernel<2,4>"
+    assert cs.kernel_label(LSTM_MANGLED["lstm_f32_kernel"] % 64, names) == \
+        "lstm_f32_kernel<64>"
+    assert cs.kernel_label("_Z5otherv", names) is None
+
+
+def test_lstm_report_reads_every_instantiation():
+    report = _lstm_report()
+    assert set(report) == {
+        "lstm_f32_kernel<64>", "lstm_f32_kernel<16>", "lstm_wgmma_kernel<8>",
+        "lstm_simt_kernel<4,4>", "lstm_simt_kernel<2,4>",
+        "lstm_simt_kernel<1,4>", "lstm_simt_kernel<1,2>",
+        "lstm_simt_kernel<1,1>"}
+    assert report["lstm_wgmma_kernel<8>"]["sass"] == {"HGMMA": 1,
+                                                      "UTMALDG": 1}
+    assert report["lstm_wgmma_kernel<8>"]["smem_dynamic"] == 50240
+    assert report["lstm_f32_kernel<64>"]["registers"] == 124
+    assert report["lstm_simt_kernel<2,4>"]["dtype"] == "bfloat16"
+
+
+@pytest.mark.parametrize("fault,match", [("no_wgmma", "lacks"),
+                                         ("no_tma", "lacks"),
+                                         ("f32_spill", "spills")])
+def test_lstm_report_fails_without_hgmma_or_tma_or_with_f32_spills(fault,
+                                                                   match):
+    log, sass = None, None
+    if fault == "f32_spill":
+        log = _lstm_log(spill_f32=8)
+    else:
+        sass = _lstm_sass(wgmma=fault != "no_wgmma", tma=fault != "no_tma")
+    with pytest.raises(RuntimeError, match=match):
+        _lstm_report(log, sass)
+
+
+def _lstm_plans():
+    """Plans of every lstm kernel-phase case as chip_smoke lays it out:
+    the odd blob offset (3 elements) with broadcast or contiguous state,
+    and the scan's layout (rows of the output, Wh at 4H*H)."""
+    plans = []
+    for dtype in ("float32", "bfloat16"):
+        item = 4 if dtype == "float32" else 2
+        for n, h in cs.LSTM_CASES:
+            for layout in cs.LSTM_LAYOUTS:
+                h_stride = {"views": (1, 0)}.get(layout, (h, 1))
+                wh_ptr = 0 if layout == "scan" else (3 * item) % 16
+                plans.append(((n, h), dtype, layout, kl.plan(
+                    n, h, dtype, h_stride, (h, 1), 0, wh_ptr)))
+    return plans
+
+
+def test_lstm_routes_of_the_main_path():
+    """The scan's (128, 512) and (8, 512) take the f32 tile body with
+    16-byte copies and, in bf16, the wgmma body with HGMMA; every f32 case
+    takes the f32 body; the check fails on a wrong route, 4-byte copies,
+    a missing HGMMA or a serialized wgmma."""
+    report = _lstm_report()
+    plans = _lstm_plans()
+    routes = cs.lstm_route_check(plans, report)
+    assert len(routes) == 2 * len(cs.LSTM_CASES) * len(cs.LSTM_LAYOUTS)
+    for n, h in cs.LSTM_MAIN:
+        assert routes["float32/%s/scan" % [n, h]] == "lstm_f32_kernel<%d>" \
+            % (64 if n > 32 else 16)
+        assert routes["bfloat16/%s/scan" % [n, h]] == "lstm_wgmma_kernel<8>"
+    assert all(label.startswith("lstm_f32_kernel")
+               for key, label in routes.items() if key.startswith("float32"))
+    assert routes["bfloat16/[128, 512]/views"] == "lstm_simt_kernel<2,4>"
+    main = [c for c in plans if c[0] == (128, 512) and c[2] == "scan"]
+    f32, bf16 = sorted(main, key=lambda c: c[1] != "float32")
+    with pytest.raises(RuntimeError, match="4 bytes"):
+        cs.lstm_route_check([f32[:3] + (f32[3]._replace(vec_w=False),)],
+                            report)
+    with pytest.raises(RuntimeError, match="simt route"):
+        cs.lstm_route_check([bf16[:3] + (bf16[3]._replace(
+            route="simt"),)], report)
+    bare = dict(report)
+    bare["lstm_wgmma_kernel<8>"] = dict(report["lstm_wgmma_kernel<8>"],
+                                        sass={"HGMMA": 0, "UTMALDG": 1})
+    with pytest.raises(RuntimeError, match="lacks"):
+        cs.lstm_route_check([bf16], bare)
+    serial = _lstm_report(log=_lstm_log(serialized=True))
+    assert serial["lstm_wgmma_kernel<8>"]["wgmma_serialized"] == 1
+    with pytest.raises(RuntimeError, match="serializes"):
+        cs.lstm_route_check([bf16], serial)
+
+
+def test_lstm_timing_row_has_replay_device_and_event_times():
+    import torch
+
+    seen = []
+
+    def replay(torch_, fn, calls=35, reps=20):
+        seen.append(fn)
+        return 0.01
+
+    def device(torch_, fn, reps=20, warmup=3):
+        return 0.008
+
+    def single(torch_, fn, reps=30, warmup=3):
+        return 0.05
+
+    p = kl.plan(128, 512, "float32", (512, 1), (512, 1))
+    fns = (("ms", "k"), ("plain_ms", "p"), ("library_ms", "l"))
+    row = cs.lstm_timing(torch, 128, 512, "float32", p, fns,
+                         timers=(replay, device, single))
+    assert seen == ["k", "p", "l"]
+    assert row["ms"] == row["plain_ms"] == row["library_ms"] == 0.01
+    assert row["device_ms"] == {"ms": 0.008, "plain_ms": 0.008,
+                                "library_ms": 0.008}
+    assert row["event_ms"]["ms"] == 0.05
+    assert (row["route"], row["kernel"]) == ("f32", "lstm_f32_kernel<64>")
+    assert (row["bound_ms"], row["bound_by"]) == cs.lstm_step_bound(
+        128, 512, "float32")
+
+
+def test_rtc_bwd_routes_and_timing_row():
+    import torch
+
+    vec = rs.bwd_plan(10000, 0, 0)
+    assert cs.rtc_bwd_route_check(4480, 10000, vec) is vec
+    with pytest.raises(RuntimeError, match="scalar route, want vector"):
+        cs.rtc_bwd_route_check(4480, 10000, rs.bwd_plan(10000, 4, 0))
+    with pytest.raises(RuntimeError, match="vector route, want scalar"):
+        cs.rtc_bwd_route_check(3, 7, vec)
+    assert cs.rtc_bwd_route_check(128, 1000, vec) is vec  # no route named
+
+    def loop(torch_, fn, calls=20, reps=10, warmup=2):
+        return {"k": 0.12, "s": 0.16}[fn]
+
+    def device(torch_, fn, reps=20, warmup=3):
+        return {"k": 0.115, "s": 0.155}[fn]
+
+    row = cs.rtc_timing(torch, 4480, 10000, (("ms", "k"), ("scalar_ms", "s")),
+                        timers=(loop, device))
+    assert (row["ms"], row["scalar_ms"]) == (0.12, 0.16)
+    assert row["device_ms"] == {"ms": 0.115, "scalar_ms": 0.155}
+    assert row["bound_by"] == "bytes" and abs(row["bound_ms"] - 0.10699) \
+        < 1e-5
+
+
+def test_memory_holders_names_the_largest_blocks_and_tensors():
+    """memory_holders on the host with a stand-in for torch.cuda: the
+    active blocks largest first, and a tensor that claims to lie on the
+    card grouped by shape and type with the object holding it."""
+    import types
+
+    import torch
+
+    class OnCard(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    class Holder:
+        pass
+
+    holder = Holder()
+    holder.weight = torch.Tensor._make_subclass(OnCard, torch.zeros(1000))
+    fake = types.SimpleNamespace(Tensor=torch.Tensor, cuda=types.SimpleNamespace(
+        memory_snapshot=lambda: [{"blocks": [
+            {"size": 4096, "state": "active_allocated"},
+            {"size": 8192, "state": "inactive"},
+            {"size": 512, "state": "active_allocated"}]}],
+        memory_allocated=lambda: 4608))
+    got = cs.memory_holders(fake)
+    assert got["allocated"] == 4608 and got["largest_blocks"] == [4096, 512]
+    (row,) = [t for t in got["largest_tensors"]
+              if t["tensor"] == "(1000,) float32"]
+    assert row["bytes"] == 4000 and row["count"] == 1
+    assert any("Holder" in r for r in row["referrers"])
+    assert got["untracked_bytes"] == 4608 - got["live_cuda_tensor_bytes"]
+    # read-only: a second call sees the same card
+    assert cs.memory_holders(fake)["allocated"] == 4608
+
+
+def test_lstm_variants_edit_the_current_source(monkeypatch):
+    """tools/lstm_variants.py: every variant's edits still find their text
+    exactly once in the kernel source, each edited variant differs from
+    it, and its shapes and tolerances are chip_smoke.py's."""
+    import os
+
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.tools import lstm_variants as lv
+
+    with open(os.path.join(_build.CSRC, "lstm_step.cu")) as f:
+        source = f.read()
+    for name, edits in {**lv.VARIANTS, **lv.ABLATIONS}.items():
+        assert (lv.variant_source(name) == source) == (not edits), name
+    assert not set(lv.VARIANTS) & set(lv.ABLATIONS)
+    # one definition of the main-path shapes and the gate, chip_smoke's too
+    assert lv.STEP_SHAPES is cs.LSTM_MAIN and lv.STEP_TOL is cs.LSTM_TOL
+    assert cs.LSTM_MAIN == ((128, 512), (8, 512))
+    assert cs.LSTM_TOL == {"float32": (2e-5, 1e-5), "bfloat16": (1e-5, 1e-2)}
+    log = ("ptxas info    : Function properties for _ZN45_GLOBAL__N__0_12_"
+           "lstm_step_cu_c2rt15lstm_f32_kernelILi64EEEvNS_4ArgsE\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used 114 registers, used 1 barriers\n")
+    assert lv.ptxas_lines(log) == {"lstm_f32_kernel<64>": (
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; "
+        "Used 114 registers, used 1 barriers")}
+    monkeypatch.setitem(lv.VARIANTS, "gone", [("no such text", "")])
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        lv.variant_source("gone")
+
+
+def test_lstm_variants_build_beside_the_headers(monkeypatch, tmp_path):
+    """Each variant's directory holds its edited source and the csrc
+    headers it includes (a compiler that does nothing stands in for
+    nvcc)."""
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.tools import lstm_variants as lv
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "nvcc", lambda: "true")
+    libs = lv.build(["this", "wgmma_ring8"])
+    for name, (lib, ptxas) in libs.items():
+        d = tmp_path / "variants" / "lstm_step" / name
+        assert lib == str(d / "lstm_step.so") and ptxas == {}
+        assert (d / "hopper.cuh").exists()
+        assert (d / "lstm_step.cu").read_text() == lv.variant_source(name)
+
+
+def test_variants_forget_drops_only_that_kernels_entries(monkeypatch):
+    """tools/_variants.forget: the kernel's library and its C entries leave
+    the wrappers' caches; another kernel's stay."""
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.tools import _variants
+
+    monkeypatch.setattr(_build, "_libs", {"lstm_step": 1, "conv_wgrad": 2})
+    monkeypatch.setattr(_build, "_fns", {"mxtt_lstm_step_f32": 1,
+                                         "mxtt_lstm_step_bf16": 2,
+                                         "mxtt_conv_wgrad_f32": 3})
+    _variants.forget("lstm_step")
+    assert _build._libs == {"conv_wgrad": 2}
+    assert _build._fns == {"mxtt_conv_wgrad_f32": 3}

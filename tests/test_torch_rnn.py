@@ -166,7 +166,7 @@ def _step_inputs(n, h, seed=0, steps=None):
     return ib, h0, c0, wh
 
 
-@pytest.mark.parametrize("n,h", [(8, 128), (4, 8)])
+@pytest.mark.parametrize("n,h", [(8, 128), (4, 8), (8, 512)])
 def test_plain_lstm_step_matches_pallas_interpret(n, h):
     ib, h0, c0, wh = _step_inputs(n, h)
     want = jlstm.lstm_step(*(jnp.asarray(a) for a in (ib, h0, c0, wh)),
@@ -192,7 +192,14 @@ def test_lstm_step_checks_shapes_and_writes_into_outputs():
 
 
 def test_tiles_put_enough_blocks_in_flight():
-    """The tile choice the kernel's header states for H = 512."""
+    """The tiles the kernel's header states for H = 512: the f32 body's
+    (the LM's type) fill the H100's 132 SMs to one block each but 4, and
+    the simt body's tiles_for keeps its choice."""
+    for n, bm in ((128, 64), (8, 16)):
+        p = tlstm.plan(n, 512, "float32", (512, 1), (512, 1))
+        assert p.tile == bm and p.grid[0] * p.grid[1] == 128
+    assert tlstm.plan(128, 512, "bfloat16", (512, 1), (512, 1)).grid \
+        == (64, 2)
     assert tlstm.tiles_for(128, 512) == (2, 4)
     assert tlstm.tiles_for(8, 512) == (1, 2)
     assert tlstm.tiles_for(32, 256) == (1, 1)
@@ -200,6 +207,94 @@ def test_tiles_put_enough_blocks_in_flight():
     for n, h in ((128, 512), (8, 512)):
         upw, warps = tlstm.tiles_for(n, h)
         assert -(-h // (upw * warps)) * -(-n // 32) >= 132
+
+
+# (n, h, dtype, h strides, wh strides, h ptr, wh ptr) -> (route, tile,
+# vec_h, vec_w): the scan's layouts (ys[t - 1] rows, Wh at the blob offsets
+# 4H*I and 3*4H*H), chip_smoke's odd-offset and broadcast views, and the
+# bf16 layouts TMA refuses
+PLAN_CASES = {
+    "f32-128-scan": ((128, 512, "float32", (512, 1), (512, 1), 0, 0),
+                     ("f32", 64, True, True)),
+    "f32-8-scan": ((8, 512, "float32", (512, 1), (512, 1), 0, 0),
+                   ("f32", 16, True, True)),
+    "f32-128-views": ((128, 512, "float32", (1, 0), (512, 1), 0, 12),
+                      ("f32", 64, False, False)),
+    "f32-8-odd-blob": ((8, 512, "float32", (512, 1), (512, 1), 0, 12),
+                       ("f32", 16, True, False)),
+    "f32-3-200": ((3, 200, "float32", (200, 1), (200, 1), 0, 0),
+                  ("f32", 16, True, True)),
+    "f32-4-8-rows-apart": ((4, 8, "float32", (9, 1), (8, 1), 0, 0),
+                           ("f32", 16, False, True)),
+    "bf16-128-scan": ((128, 512, "bfloat16", (512, 1), (512, 1), 0, 0),
+                      ("wgmma", 8, False, False)),
+    "bf16-8-scan": ((8, 512, "bfloat16", (512, 1), (512, 1), 0, 0),
+                    ("wgmma", 8, False, False)),
+    "bf16-odd-blob": ((128, 512, "bfloat16", (512, 1), (512, 1), 0, 6),
+                      ("simt", (2, 4), False, False)),
+    "bf16-broadcast-h": ((8, 512, "bfloat16", (1, 0), (512, 1), 0, 0),
+                         ("simt", (1, 2), False, False)),
+    "bf16-rows-overlap": ((8, 512, "bfloat16", (0, 1), (512, 1), 0, 0),
+                          ("simt", (1, 2), False, False)),
+    "bf16-h200": ((3, 200, "bfloat16", (200, 1), (200, 1), 0, 0),
+                  ("simt", (1, 1), False, False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_plan_routes(case):
+    args, (route, tile, vec_h, vec_w) = PLAN_CASES[case]
+    p = tlstm.plan(*args)
+    assert (p.route, p.tile, p.vec_h, p.vec_w) == (route, tile, vec_h,
+                                                    vec_w)
+    assert p.kernel == {"f32": tlstm.F32, "wgmma": tlstm.WGMMA,
+                        "simt": tlstm.SIMT}[route]
+    n, h = args[:2]
+    if route == "f32":
+        rows, units = tlstm.F32_TILES[tile]
+    elif route == "wgmma":
+        rows, units = tlstm.WG_ROWS, tlstm.WG_UNITS
+    else:
+        rows, units = tlstm.ROWS, tile[0] * tile[1]
+    assert p.grid == (-(-h // units), -(-n // rows))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plan_of_reads_the_views_offsets_and_strides(dtype):
+    """plan_of on CPU tensors laid out as the RNN op passes them: Wh in
+    the packed blob at the LM's offset 4H*I, or at an odd one; h as a
+    row of the scan's output, or a stride-0 broadcast."""
+    h, dt = 64, getattr(torch, dtype)
+    blob = torch.zeros(4 * h * h + 4 * h * h + 5, dtype=dt)
+    aligned = blob[4 * h * h:8 * h * h].view(4 * h, h)
+    odd = blob[3:3 + 4 * h * h].view(4 * h, h)
+    ys = torch.zeros(3, 8, h, dtype=dt)
+    broadcast = torch.zeros(8, 1, dtype=dt).expand(8, h)
+    scan = tlstm.plan_of(ys[1], aligned)
+    assert scan.route == ("f32" if dtype == "float32" else "wgmma")
+    if dtype == "float32":
+        assert scan.vec_h and scan.vec_w
+        assert not tlstm.plan_of(ys[1], odd).vec_w
+        assert not tlstm.plan_of(broadcast, aligned).vec_h
+    else:
+        assert tlstm.plan_of(ys[1], odd).route == "simt"
+        assert tlstm.plan_of(broadcast, aligned).route == "simt"
+
+
+def test_kernel_source_states_the_plans_tiles():
+    """The tiles plan() assumes are the ones csrc/lstm_step.cu builds."""
+    import os
+
+    src = open(os.path.join(os.path.dirname(tlstm.__file__), "csrc",
+                            "lstm_step.cu")).read()
+    assert "static constexpr bool WIDE = BM == 64;" in src
+    assert "static constexpr int BJ = WIDE ? %d : %d;" % (
+        tlstm.F32_TILES[64][1], tlstm.F32_TILES[16][1]) in src
+    assert "constexpr int BM = %d;" % tlstm.WG_ROWS in src
+    assert "return wg::launch<%d>(a, s);" % tlstm.WG_UNITS in src
+    assert "constexpr int ROWS = %d;" % tlstm.ROWS in src
+    for upw, warps in tlstm.TILES:
+        assert "return launch<%d, %d>(a, s);" % (upw, warps) in src
 
 
 def _jax_fused_scan(ib, h0, c0, wh, cots):

@@ -203,3 +203,38 @@ def test_rtc_softmax_launch_shape(cols, block, per):
 def test_rtc_softmax_refuses_rows_too_wide_for_registers():
     with pytest.raises(MXNetError, match="at most 32768 columns"):
         rs.launch_dims(32769)
+
+
+@pytest.mark.parametrize("cols,block,per4", [
+    (10000, 320, 8), (1000, 32, 8), (4096, 128, 8), (8, 32, 1),
+    (32768, 512, 16)])
+def test_rtc_softmax_bwd_launch_shape(cols, block, per4):
+    """The vector backward's own launch shape: at most 8 float4 a thread
+    up to 16 warps; its source carries the constants."""
+    assert rs.bwd_launch_dims(cols) == (block, per4)
+    src = rs.kernels(cols)["bwd_vec"].src
+    assert "COLS = %d, BLOCK = %d, PER4 = %d;" % (cols, block, per4) in src
+    # the inline PTX's operands survive the source's %-formatting
+    assert "{%0, %1, %2, %3}, [%4];" in src and "%%" not in src
+
+
+@pytest.mark.parametrize("cols,prob_ptr,grad_ptr,route", [
+    (10000, 0, 0, "vector"), (1000, 256, 4096, "vector"),
+    (7, 0, 0, "scalar"), (10000, 4, 0, "scalar"), (10000, 0, 8, "scalar")])
+def test_rtc_softmax_bwd_plan(cols, prob_ptr, grad_ptr, route):
+    p = rs.bwd_plan(cols, prob_ptr, grad_ptr)
+    assert p.route == route
+    if route == "vector":
+        assert (p.kernel, (p.block, p.per)) == ("bwd_vec",
+                                                rs.bwd_launch_dims(cols))
+    else:
+        assert (p.kernel, (p.block, p.per)) == ("bwd", rs.launch_dims(cols))
+
+
+def test_rtc_softmax_vector_backward_takes_rows_of_four():
+    with pytest.raises(MXNetError, match="multiple of 4"):
+        rs.bwd_launch_dims(7)
+    assert sorted(rs.kernels(7)) == ["bwd", "fwd"]
+    assert sorted(rs.kernels(10000)) == ["bwd", "bwd_vec", "fwd"]
+    # the scalar source still formats only the column count
+    assert "const int COLS = 7;" in rs.kernels(7)["bwd"].src
