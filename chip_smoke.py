@@ -16,7 +16,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    edges, both types timed at the serve and train shapes with device times
    beside), the flash-attention backward (dQ and dK/dV kernels, the same
    two designs and report, both types timed at the train shape with device
-   times beside SDPA autograd's), the fused sgd_mom / adam updates, and the
+   times beside SDPA autograd's; both also at the train phase's batch 32
+   in bf16), the fused sgd_mom / adam updates (the device-lr entry points
+   bit for bit the scalar ones and their plain versions), and the
    convolution weight gradient (conv_wgrad: bf16 on wgmma + TMA after a
    repack, f32 on register tiles + cp.async, a simt body for odd bf16
    shapes, and the reduction kernel; the same instantiation report, each
@@ -35,29 +37,46 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    prompts through ``DecodeScheduler`` with four slots, so admissions
    happen mid-flight. Checks every stream, the kernel's launch count, and
    first-token logits against the port's plain path on the CPU.
-4. ``train``   — the same LM trained through ``models.get_symbol`` ->
-   ``simple_bind`` -> ``forward``/``backward`` -> ``optimizer.Updater``,
-   f32, no TF32: first 2 SGD steps at 1 x 256 on the card and on the
-   port's CPU path from the same weights (losses and parameters must
-   agree), then Xavier-initialized 5 SGD-momentum + 3 Adam steps at
-   4 x 2048 (batch cut from bench.py's 32), with exact launch counts of
-   every kernel (flash forward, backward dQ and dK/dV, both updates).
+4. ``train``   — the same LM trained as bench.py trains it: first 2 SGD
+   steps at 1 x 256 through ``simple_bind`` -> ``forward``/``backward``
+   -> ``optimizer.Updater``, f32, no TF32, on the card and on the port's
+   CPU path from the same weights (losses and parameters must agree); the
+   same 2 steps in bf16 through the fused step (``simple_bind(...,
+   compute_dtype="bfloat16")`` -> ``make_train_step`` with the SGD
+   ``pure_rule``), card against CPU: the loss within TRAIN_BF16_LOSS and
+   the parameters within TRAIN_BF16_SPREAD times the CPU's bf16-to-f32
+   distance, while the same step with the card in f32 (the control) must
+   fail the loss gate; then the run: Xavier-initialized 5
+   SGD-momentum + 3 Adam steps at 32 x 2048 (bench.py's batch), bf16,
+   each optimizer's step one CUDA graph (two warm-up calls, a capture,
+   replays), with exact launch counts of every kernel (flash forward,
+   backward dQ and dK/dV, all in bf16; both updates' device-lr entries),
+   10 more timed
+   Adam steps; then the whole run again with the step eager, which must
+   land on the same parameters bit for bit.
 5. ``resnet``  — ResNet-50 (bench.py's headline model, full width, 1000
-   classes, 3 x 224 x 224, f32, no TF32; ``mxnet_tpu_torch/tools/
-   resnet.py``) trained through ``Module.fit``: first 2 batches of 2 on the
-   card and on the port's CPU path from the same Xavier weights (updates,
-   aux states and metrics must agree), then one epoch of 8 seeded batches
-   of 32 with exact launch counts (conv_wgrad, sgd_mom), finite
-   cross-entropy, step times, images/s and peak memory.
+   classes, 3 x 224 x 224, no TF32; ``mxnet_tpu_torch/tools/
+   resnet.py``) trained through ``Module.fit``: first 2 batches of 2 in
+   f32 on the card and on the port's CPU path from the same Xavier
+   weights (updates, aux states and metrics must agree), then one epoch
+   of 8 seeded batches of 32 in bf16 (bench.py's compute type) through
+   the captured fused ``fit_step``, with exact launch counts (conv_wgrad
+   partial (all bf16), reduce and repack, sgd_mom), finite cross-entropy,
+   step
+   times, images/s and peak memory; then the epoch again with the fused
+   step eager (``MXNET_CUDA_GRAPH=0``): parameters and aux states equal
+   bit for bit.
 6. ``lstm``    — the fused 2-layer LSTM LM (the repo's widest LSTM record:
    vocab 10000, embed = hidden = 512, seq 35, f32, no TF32;
    ``mxnet_tpu_torch/tools/lstm_lm.py``) trained through ``Module.fit``:
    first 2 batches of 8 on the card and on the port's CPU path from the same
    Xavier weights (each parameter's update and the perplexity must agree),
-   then one epoch of 8 seeded batches of 128 and ``Module.score`` over the
-   same batches, with exact ``lstm_step`` launch counts in each (2 layers x
-   35 steps x 8), finite perplexity, step times, tokens/s and peak memory;
-   before it, a line naming what holds the card's memory.
+   then one epoch of 8 seeded batches of 128 through the captured fused
+   ``fit_step`` and ``Module.score`` over the same batches, with exact
+   ``lstm_step`` launch counts in each (2 layers x 35 steps x 8), finite
+   perplexity, step times, tokens/s and peak memory; then the epoch again
+   with the step eager, equal bit for bit; before it, a line naming what
+   holds the card's memory.
 7. ``kernel`` rtc — ``mx.rtc``: the JAX package's rtc test kernels (axpy,
    inc, relu, axpy in bf16) as CUDA C compiled by NVRTC, each against its
    mode="torch" twin; the source cache; a syntax error and a refused
@@ -70,9 +89,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    (forward and backward rtc kernels) through ``Module.fit``: (a) card
    vs the port's CPU path (2 batches of 8), (b) the rtc head vs the
    built-in ``SoftmaxOutput`` head on the card (2 batches of 128), both
-   at the lstm phase's gates; (c) 8 batches of 128 and ``Module.score``
-   with exact launch counts (rtc fwd 8 + 8, bwd 8 + 0, lstm_step 560 +
-   560), finite perplexity, step times, tokens/s and peak memory.
+   at the lstm phase's gates; (c) 8 batches of 128 through the captured
+   fused ``fit_step`` (the rtc kernels inside the graph) and
+   ``Module.score`` with exact launch counts (rtc fwd 8 + 8, bwd 8 + 0,
+   lstm_step 560 + 560), finite perplexity, step times, tokens/s and peak
+   memory; then the 8 batches again with the step eager, equal bit for
+   bit.
 9. ``kernels`` — one line per the port's kernel table.
 
 Then the card's ``nvidia-smi`` name/power-limit line and, last, the
@@ -94,7 +116,8 @@ import numpy as np
 
 from mxnet_tpu_torch.tools.lm import LM, SERVE, SEED, TRAIN, \
     lm_arg_params, lm_feed, lm_param_shapes, lm_train_executor, \
-    lm_train_setup, lm_update, lm_updater, nvidia_smi
+    cuda_graph, lm_train_setup, lm_train_step, lm_update, lm_updater, \
+    nvidia_smi
 from mxnet_tpu_torch.tools.lstm_lm import LSTM_LM, STEP_SHAPES, STEP_TOL, \
     lstm_setup, lstm_steps
 from mxnet_tpu_torch.tools.lstm_lm import fit_args as lstm_fit_args
@@ -164,6 +187,20 @@ UPDATE_TOL = {"float32": (1e-6, 1e-5), "bfloat16": (1e-2, 2e-2)}
 # lr 0.05 and momentum into the weights
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
+# train phase, the bf16 fused step at the same size, card vs the port's
+# CPU path in bf16: the two round to bf16 at the same places but from sums
+# in other orders, so a value near a rounding point lands an ulp apart,
+# as the CPU's bf16 lands from its f32. The losses and the parameters must
+# lie within TRAIN_BF16_SPREAD times the CPU's own bf16-to-f32 distance
+# (tools/train_bf16_spread.py measures both distances on the CPU). A card
+# that computed the step in f32 would lie that distance from the CPU's
+# bf16, 1x, and the parameters' distance is an ulp of the largest weights
+# either way, so it cannot tell the two apart; the losses can: the sound
+# card reads 0.30x (PERF.md), the f32 control 1.0x. So the losses are
+# held to TRAIN_BF16_LOSS times the distance, between the two, and the
+# phase runs the control through the same comparison: it must fail
+TRAIN_BF16_SPREAD = 1.5
+TRAIN_BF16_LOSS = 0.6
 # conv_wgrad, kernel vs plain: max |error| / max |plain dW|. Both sum the
 # same f32 products (bf16 operands widen exactly) over L = N*OH*OW, up to
 # 100,352 terms, in other orders: a few f32 ulps of the largest sums
@@ -258,7 +295,8 @@ def flash_cases():
     query rows; 128 bf16 or 64 f32 keys): lengths of 1, 63, 65, 129 and
     2047, a ragged causal tq < tk, head_dim 64 at a length no multiple of
     128, B * H = 64, and rows whose T stride is no multiple of 16 bytes
-    (the forward wrapper copies them)."""
+    (the forward wrapper copies them). Last, the train phase's own case
+    (:func:`train_main_case`, bf16 at batch 32)."""
     cases = []
     for dtype in ("float32", "bfloat16"):
         cases += [(1, 16, 4, t, t, 128, True, dtype, True)
@@ -274,7 +312,15 @@ def flash_cases():
                   (1, 16, 4, 1000, 1000, 64, True, dtype, False),
                   (4, 16, 4, 256, 256, 128, True, dtype, True),
                   (1, 16, 4, 300, 300, 128, True, dtype, "padded")]
-    return cases
+    return cases + [train_main_case()]
+
+
+def train_main_case():
+    """The flash case of the train phase's main path: its batch and
+    length, the LM's heads, its type, the (B, T, H, D) views."""
+    return (TRAIN["batch"], LM["heads"], LM["kv_heads"], TRAIN["seq"],
+            TRAIN["seq"], LM["d_model"] // LM["heads"], True, TRAIN["dtype"],
+            False)
 
 
 def emit(obj):
@@ -693,8 +739,9 @@ def phase_kernel(torch):
 
     instantiations = flash_fwd_report(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    results, worst = [], {}
-    for b, h, hkv, tq, tk, d, causal, dtype, layout in flash_cases():
+    results, worst, main_err = [], {}, None
+    for case in flash_cases():
+        b, h, hkv, tq, tk, d, causal, dtype, layout = case
         q, k, v = _qkv(torch, b, h, hkv, tq, tk, d, dtype, gen, layout)
         copied = any(fa.tensor_map_plan(t)[1] for t in (q, k, v))
         if copied != (layout == "padded"):
@@ -717,12 +764,20 @@ def phase_kernel(torch):
                         "max_abs_err": {"o": errs[0], "o_with_lse": errs[1],
                                         "lse": errs[2]}})
         worst[dtype] = max([worst.get(dtype, 0.0)] + errs)
+        if case == train_main_case():
+            main_err = results[-1]["max_abs_err"]
         del q, k, v, got, o, lse, want, want_lse
+        torch.cuda.empty_cache()
 
     timings = {}
-    for where, b in (("serve", 1), ("train", 4)):
+    # serve, train at batch 4 (the rows of earlier PRs), and the train
+    # phase's own batch in its type (bf16)
+    for where, b, dtypes in (("serve", 1, ("float32", "bfloat16")),
+                             ("train", 4, ("float32", "bfloat16")),
+                             ("train_main", TRAIN["batch"],
+                              (TRAIN["dtype"],))):
         timings[where] = {}
-        for dtype in ("float32", "bfloat16"):
+        for dtype in dtypes:
             h, hkv, t, d = 16, 4, 2048, 128
             q, k, v = _qkv(torch, b, h, hkv, t, t, d, dtype, gen, False)
             bound_ms, bound_by = attention_bound(b, h, hkv, t, t, d, True,
@@ -743,6 +798,7 @@ def phase_kernel(torch):
                 "bound_ms": bound_ms, "bound_by": bound_by}
             del q, k, v
             torch.cuda.empty_cache()
+    timings["train_main"][TRAIN["dtype"]]["main_path_max_abs_err"] = main_err
     emit({"phase": "kernel", "kernel": "flash_attention_fwd",
           "instantiations": instantiations, "cases": results,
           "max_abs_err": worst, "timings": timings})
@@ -805,13 +861,15 @@ def bwd_timing(torch, shape, dtype, kernel, plain, library,
 def phase_kernel_bwd(torch):
     """Flash backward: its instantiations' build and SASS report; kernels
     vs plain on the card (same q/k/v/o/lse/dO into both), then timings at
-    the training shape in the training layout."""
+    the training shape in the training layout. The train phase's case
+    heads the kernels line's row: its errors go with its timing."""
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
 
     instantiations = flash_bwd_report(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    results, worst = [], {}
-    for b, h, hkv, tq, tk, d, causal, dtype, layout in flash_cases():
+    results, worst, main_err = [], {}, None
+    for case in flash_cases():
+        b, h, hkv, tq, tk, d, causal, dtype, layout = case
         q, k, v = _qkv(torch, b, h, hkv, tq, tk, d, dtype, gen, layout)
         o, lse = fa.flash_attention_plain(q, k, v, causal=causal,
                                           return_lse=True)
@@ -833,21 +891,29 @@ def phase_kernel_bwd(torch):
                         "tol": BWD_TOL[dtype], "max_abs_err": errs,
                         "median_abs": typical})
         worst[dtype] = max([worst.get(dtype, 0.0)] + list(errs.values()))
+        if case == train_main_case():
+            main_err = errs
         del q, k, v, o, lse, do, got, want
+        torch.cuda.empty_cache()
 
     timings = {}
-    b, h, hkv, t, d = 4, 16, 4, 2048, 128
-    for dtype in ("float32", "bfloat16"):
+    h, hkv, t, d = 16, 4, 2048, 128
+    # batch 4 in both types (the rows of earlier PRs), and the train
+    # phase's own batch in its type under "train_main"
+    for key, b, dtype in ((("float32", 4, "float32"), ("bfloat16", 4,
+                                                       "bfloat16"),
+                           ("train_main", TRAIN["batch"], TRAIN["dtype"]))):
         q, k, v = _qkv(torch, b, h, hkv, t, t, d, dtype, gen, False)
         o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
         do = _randn(torch, b, h, t, d, dtype, gen, False)
-        timings[dtype] = bwd_timing(
+        timings[key] = bwd_timing(
             torch, (b, h, hkv, t, d, True), dtype,
             lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True),
             lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True),
             _sdpa_bwd(torch, q, k, v, do))
         del q, k, v, o, lse, do
         torch.cuda.empty_cache()
+    timings["train_main"]["main_path_max_abs_err"] = main_err
     emit({"phase": "kernel", "kernel": "flash_attention_bwd",
           "instantiations": instantiations, "cases": results,
           "max_abs_err": worst, "timings": timings})
@@ -889,7 +955,22 @@ def phase_kernel_update(torch):
                          ((1001,), "bfloat16")):
         for rescale, clip in ((1.0, -1.0), (0.5, 0.3)):
             cases.append((shape, dtype, rescale, clip))
+    lr_kernel = {"sgd_mom_update": fu.sgd_mom_update_lr,
+                 "adam_update": fu.adam_update_lr}
+    lr_plain = {"sgd_mom_update": fu.sgd_mom_update_lr_plain,
+                "adam_update": fu.adam_update_lr_plain}
+
+    def lr_args(kind, index=2):
+        """The device-lr entry's form of ``hyper[kind]``: lr and wd at
+        ``index`` of two f32 arrays on the card, the rest as before."""
+        h = dict(hyper[kind])
+        lr_arr = torch.tensor([0.5, 0.25, h.pop("lr"), 0.125],
+                              device="cuda")
+        wd_arr = torch.tensor([1.0, 0.5, h.pop("wd"), 0.0], device="cuda")
+        return (lr_arr, wd_arr, index), h
+
     results, worst = [], {k: 0.0 for k in kernel}
+    device_lr = []
     for kind in kernel:
         for shape, dtype, rescale, clip in cases:
             bufs = buffers(kind, shape, dtype)
@@ -899,7 +980,28 @@ def phase_kernel_update(torch):
                          **hyper[kind])
             plain[kind](*want, rescale_grad=rescale, clip_gradient=clip,
                         **hyper[kind])
+            # the device-lr entry point: bit for bit the scalar kernel's,
+            # and its plain version bit for bit the scalar plain one's
+            lr, rest = lr_args(kind)
+            got_lr = [t.clone() for t in bufs]
+            want_lr = [t.clone() for t in bufs]
+            lr_kernel[kind](*got_lr, *lr, rescale_grad=rescale,
+                            clip_gradient=clip, **rest)
+            lr_plain[kind](*want_lr, *lr, rescale_grad=rescale,
+                           clip_gradient=clip, **rest)
             torch.cuda.synchronize()
+            same = (all(torch.equal(a, b) for a, b in zip(got_lr, got)),
+                    all(torch.equal(a, b) for a, b in zip(want_lr, want)))
+            if not all(same):
+                raise RuntimeError(
+                    "%s device-lr entry at %s %s: kernel equals the scalar "
+                    "one %s, plain equals the scalar plain %s"
+                    % (kind, shape, dtype, same[0], same[1]))
+            device_lr.append({"kernel": kind + "_lr", "shape": list(shape),
+                              "dtype": dtype, "rescale_grad": rescale,
+                              "clip_gradient": clip,
+                              "equals_scalar_kernel": True,
+                              "plain_equals_scalar_plain": True})
             atol, rtol = UPDATE_TOL[dtype]
             errs = []
             for i, (g, w) in enumerate(zip(got, want)):
@@ -923,11 +1025,14 @@ def phase_kernel_update(torch):
             if kind == "adam_update":
                 p[3].zero_()
         bound_ms, bound_by = update_bound(kind, elements)
+        lr, rest = lr_args(kind)
         timings[kind] = {
             "parameters": len(shapes), "elements": elements,
             "dtype": "float32",
             "ms": time_ms(torch, lambda: [kernel[kind](*p, **hyper[kind])
                                           for p in params], reps=10),
+            "device_lr_ms": time_ms(torch, lambda: [lr_kernel[kind](
+                *p, *lr, **rest) for p in params], reps=10),
             "plain_ms": time_ms(torch, lambda: [plain[kind](
                 *p, **hyper[kind]) for p in params], reps=10),
             "library_ms": None,
@@ -938,7 +1043,8 @@ def phase_kernel_update(torch):
         del params
         torch.cuda.empty_cache()
     emit({"phase": "kernel", "kernel": "fused_update", "cases": results,
-          "max_abs_err": worst, "timings": timings})
+          "device_lr_cases": device_lr, "max_abs_err": worst,
+          "timings": timings})
     return worst, timings
 
 
@@ -1659,14 +1765,49 @@ def phase_serve(cfg=LM, serve=SERVE, device=None, ref_device="cpu",
 
 
 def _counters():
+    """The train phase's counters: name -> wrappers whose launches sum
+    under it (the fused updates' scalar and device-lr entry points are one
+    kernel each)."""
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
     from mxnet_tpu_torch.ops.kernels import fused_update as fu
 
-    return {"flash_attention_fwd": fa.flash_attention,
-            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-            "sgd_mom_update": fu.sgd_mom_update,
-            "adam_update": fu.adam_update}
+    return {"flash_attention_fwd": (fa.flash_attention,),
+            "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq,),
+            "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv,),
+            "sgd_mom_update": (fu.sgd_mom_update, fu.sgd_mom_update_lr),
+            "adam_update": (fu.adam_update, fu.adam_update_lr)}
+
+
+def _count(counters):
+    return {k: sum(c.launches for c in cs) for k, cs in counters.items()}
+
+
+def _types(counters):
+    """name -> {type: launches} of the counters that count by type."""
+    out = {}
+    for k, cs in counters.items():
+        for c in cs:
+            for key, n in c.launches_by_dtype.items():
+                out.setdefault(k, {})[key] = out.get(k, {}).get(key, 0) + n
+    return out
+
+
+def _require_types(phase, types, launches, dtype, names):
+    """Each of ``names`` launched only its ``dtype`` instantiation: a step
+    that quietly ran another type would hide the kernels of its own."""
+    want = {k: {dtype: launches[k]} for k in names if launches[k]}
+    got = {k: types.get(k, {}) for k in names if launches[k] or k in types}
+    if got != want:
+        raise RuntimeError("%s phase launched by type %s, want %s"
+                           % (phase, got, want))
+
+
+def _zero(counters):
+    from mxnet_tpu_torch.ops.kernels import _launches
+
+    for cs in counters.values():
+        for c in cs:
+            _launches.reset(c)
 
 
 def _train_steps(torch, exe, names, updater, steps, sync):
@@ -1685,14 +1826,163 @@ def _train_steps(torch, exe, names, updater, steps, sync):
     return losses, secs
 
 
+def _fused_steps(torch, run, steps, sync):
+    """``steps`` calls of a fused step's ``run`` (:func:`lm_train_step`);
+    (losses, seconds each). The loss is read after the step, from the
+    step's own copy."""
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        outs = run()
+        loss = float(outs[0])
+        if sync:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss)
+    return losses, secs
+
+
+def _peak(torch, on_card):
+    """Peak bytes allocated since the last reset (a captured graph's pool
+    counts: its blocks stay allocated) and reserved now."""
+    if not on_card:
+        return {}
+    return {"max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "memory_reserved": torch.cuda.memory_reserved()}
+
+
+def _fresh(torch, on_card):
+    """Drop what an earlier run left and reset the peak."""
+    gc.collect()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _equal_params(got, want):
+    """(bit for bit?, worst |difference|, its name, how many differ) of two
+    name -> host array dicts."""
+    diff = {n: float(np.abs(got[n].astype(np.float64) - want[n]).max())
+            for n in want}
+    worst = max(diff, key=diff.get)
+    return (all(np.array_equal(got[n], want[n]) for n in want),
+            diff[worst], worst, sum(d > 0 for d in diff.values()))
+
+
+def _train_check_bf16(torch, cfg, train, params, device, ref_device, f32):
+    """The bf16 fused step at the check's size, card against the port's
+    CPU path, after ``check_steps`` SGD steps: the losses within
+    TRAIN_BF16_LOSS and the parameters within TRAIN_BF16_SPREAD times the
+    CPU's own bf16-to-f32 distance (``f32``: the f32 check's CPU losses and
+    parameters). The control, the same step with the card in f32 through
+    the same comparison, must fail the loss gate, or the gate could not
+    tell a bf16 step from an f32 one."""
+    cb, cs = train["check_batch"], train["check_seq"]
+
+    def run(dev, dtype):
+        exe, names = lm_train_executor(cfg, cb, cs, dev, dtype)
+        exe.copy_params_from(params)
+        lm_feed(exe, cfg, SEED + 3)
+        step, _ = lm_train_step(exe, names, lm_updater("sgd", train, names))
+        losses, _ = _fused_steps(torch, step, train["check_steps"], False)
+        return losses, {n: exe.arg_dict[n].asnumpy() for n in names}
+
+    ref_l, ref_p = run(ref_device, "bfloat16")
+    f32_l, f32_p = f32
+    loss_spread = max(abs(a - b) for a, b in zip(ref_l, f32_l))
+    param_spread = max(float(np.abs(ref_p[n] - f32_p[n]).max())
+                       for n in ref_p)
+
+    def reading(dtype):
+        got_l, got_p = run(device, dtype)
+        loss_err = max(abs(a - b) for a, b in zip(got_l, ref_l))
+        param_err = max(float(np.abs(got_p[n] - ref_p[n]).max())
+                        for n in ref_p)
+        return {"losses": got_l, "loss_abs_err": loss_err,
+                "param_max_abs_err": param_err,
+                "loss_x_spread": loss_err / loss_spread if loss_spread
+                else None,
+                "param_x_spread": param_err / param_spread if param_spread
+                else None,
+                "passes": bool(loss_err <= TRAIN_BF16_LOSS * loss_spread
+                               and param_err
+                               <= TRAIN_BF16_SPREAD * param_spread)}
+
+    got, control = reading("bfloat16"), reading(None)
+    if not got["passes"]:
+        raise RuntimeError(
+            "train bf16 check: losses %s vs %s (|err| %g, gate %g x the CPU's "
+            "bf16-to-f32 %g), parameters max abs err %g (gate %g x %g)"
+            % (got["losses"], ref_l, got["loss_abs_err"], TRAIN_BF16_LOSS,
+               loss_spread, got["param_max_abs_err"], TRAIN_BF16_SPREAD,
+               param_spread))
+    if control["passes"]:
+        raise RuntimeError(
+            "train bf16 check: the f32 control passes the gate too (loss "
+            "|err| %g, parameters %g): it cannot tell bf16 from f32"
+            % (control["loss_abs_err"], control["param_max_abs_err"]))
+    return dict(got, batch=cb, seq=cs, sgd_steps=train["check_steps"],
+                ref_losses=ref_l, cpu_bf16_to_f32_loss=loss_spread,
+                cpu_bf16_to_f32_param=param_spread, f32_control=control,
+                gate={"loss": TRAIN_BF16_LOSS, "param": TRAIN_BF16_SPREAD,
+                      "of": "the CPU's bf16-to-f32 distance"})
+
+
+def _train_run(torch, cfg, train, device, seed, capture, on_card, counters):
+    """The run: bench.py's bf16 LM step through ``make_train_step``
+    (``capture`` or eager), 5 SGD-momentum then 3 Adam steps from Xavier
+    weights, then ``timed_steps`` more Adam steps for the step time.
+    Returns (losses, parameters on the host, launches of the 8 steps,
+    seconds of the timed steps, stats of the steps, executor facts)."""
+    b, t = train["batch"], train["seq"]
+    exe, names = lm_train_setup(cfg, train, device, seed)
+    losses, stats = [], {}
+    _zero(counters)
+    for kind, steps in (("sgd", train["sgd_steps"]),
+                        ("adam", train["adam_steps"])):
+        if kind == "adam":
+            del run, step   # the SGD step's graph and its pool
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+        with cuda_graph(capture):
+            run, step = lm_train_step(exe, names,
+                                      lm_updater(kind, train, names))
+        losses += _fused_steps(torch, run, steps, on_card)[0]
+        stats[kind] = step.stats()
+    launches = _count(counters), _types(counters)
+    params = {n: exe.arg_dict[n].asnumpy() for n in names}
+    _, secs = _fused_steps(torch, run, train["timed_steps"], on_card)
+    stats["adam"] = step.stats()
+    facts = {"parameters": len(names),
+             "elements": int(sum(exe.arg_dict[n].size for n in names)),
+             "batch": b, "seq": t}
+    del exe, run, step
+    return losses, params, launches, secs, stats, facts
+
+
+def _require_captured(phase, stats, on_card):
+    """On the card every step of the phase's run must have taken the
+    captured path: warm-up, one capture, replays."""
+    if not on_card:
+        return
+    for st in stats:
+        if st["path"] != "captured" or st["captures"] != 1 or \
+                st["replays"] < 1:
+            raise RuntimeError("%s phase did not take the captured path: %s"
+                               % (phase, st))
+
+
 def phase_train(cfg=LM, train=TRAIN, device=None, ref_device="cpu",
                 seed=SEED):
     """The training path end to end. ``device`` None = the card; the
-    card-vs-reference check runs the same weights on ``ref_device``, where
+    card-vs-reference checks run the same weights on ``ref_device``, where
     every wrapper takes its plain version."""
     import torch
 
     # 1. card vs the port's CPU path: same weights, same batch, 2 SGD steps
+    # through forward / backward / Updater, f32
     params = lm_arg_params(cfg, seed)
     cb, cs = train["check_batch"], train["check_seq"]
     runs = []
@@ -1714,53 +2004,70 @@ def phase_train(cfg=LM, train=TRAIN, device=None, ref_device="cpu",
             "max abs err %g (tol %g)" % (got_l, ref_l, loss_err,
                                          TRAIN_LOSS_RTOL, param_err,
                                          TRAIN_PARAM_ATOL))
+    # 2. the same in bf16 through the fused step, held to the CPU's own
+    # bf16-to-f32 distance
+    check_bf16 = _train_check_bf16(torch, cfg, train, params, device,
+                                   ref_device, (ref_l, ref_p))
     del params, runs, got_p, ref_p
 
-    # 2. the run: Xavier init from the seed, 5 SGD-momentum + 3 Adam steps
+    # 3. the run: bf16, captured on the card, exact launches
     on_card = device is None or torch.device(device).type == "cuda"
-    b, t = train["batch"], train["seq"]
-    exe, names = lm_train_setup(cfg, train, device, seed)
     counters = _counters()
-    if on_card:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
-    losses, secs = _train_steps(torch, exe, names,
-                                lm_updater("sgd", train, names),
-                                train["sgd_steps"], on_card)
-    more, more_s = _train_steps(torch, exe, names,
-                                lm_updater("adam", train, names),
-                                train["adam_steps"], on_card)
-    launches = {k: c.launches for k, c in counters.items()}
-    losses += more
-    secs += more_s
+    _fresh(torch, on_card)
+    losses, got, (launches, types), secs, stats, facts = _train_run(
+        torch, cfg, train, device, seed, True, on_card, counters)
+    memory = _peak(torch, on_card)
     steps = train["sgd_steps"] + train["adam_steps"]
     want = {"flash_attention_fwd": cfg["layers"] * steps,
             "flash_attention_bwd_dq": cfg["layers"] * steps,
             "flash_attention_bwd_dkv": cfg["layers"] * steps,
-            "sgd_mom_update": len(names) * train["sgd_steps"],
-            "adam_update": len(names) * train["adam_steps"]}
+            "sgd_mom_update": facts["parameters"] * train["sgd_steps"],
+            "adam_update": facts["parameters"] * train["adam_steps"]}
     if launches != want:
         raise RuntimeError("train phase launched %s, want %s"
                            % (launches, want))
+    _require_types("train", types, launches, train["dtype"],
+                   [k for k in want if k.startswith("flash")])
     if not all(np.isfinite(losses)):
         raise RuntimeError("train phase: non-finite loss in %s" % losses)
-    step_s = float(np.median(secs))
-    result = {"phase": "train", "batch": b, "seq": t, "dtype": "float32",
-              "parameters": len(names),
-              "elements": int(sum(exe.arg_dict[n].size for n in names)),
+    _require_captured("train", stats.values(), on_card)
+
+    # 4. the same run eagerly: the captured steps must land on the same
+    # parameters, bit for bit
+    _fresh(torch, on_card)
+    e_losses, e_got, _, e_secs, e_stats, _ = _train_run(
+        torch, cfg, train, device, seed, False, on_card, counters)
+    e_memory = _peak(torch, on_card)
+    same, worst, worst_name, differ = _equal_params(got, e_got)
+    if not same or e_losses != losses:
+        raise RuntimeError(
+            "train phase: the captured steps land %g from the eager ones "
+            "(%s, %d parameters differ; losses %s vs %s)"
+            % (worst, worst_name, differ, losses, e_losses))
+    del got, e_got
+    step_s, eager_s = float(np.median(secs)), float(np.median(e_secs))
+    b, t = facts["batch"], facts["seq"]
+    result = {"phase": "train", "batch": b, "seq": t,
+              "dtype": train["dtype"], "path": "captured", "steps": stats,
+              "parameters": facts["parameters"],
+              "elements": facts["elements"],
               "check": {"batch": cb, "seq": cs, "sgd_steps":
                         train["check_steps"], "losses": got_l,
                         "ref_losses": ref_l, "loss_rel_err": loss_err,
                         "param_max_abs_err": param_err,
                         "loss_rtol": TRAIN_LOSS_RTOL,
                         "param_atol": TRAIN_PARAM_ATOL},
-              "losses": losses, "step_ms": [x * 1e3 for x in secs],
+              "check_bf16": check_bf16, "losses": losses,
+              "timed_step_ms": [x * 1e3 for x in secs],
               "median_step_ms": step_s * 1e3,
-              "tokens_per_s": b * t / step_s, "launches": launches}
-    if on_card:
-        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+              "tokens_per_s": b * t / step_s,
+              "eager": {"timed_step_ms": [x * 1e3 for x in e_secs],
+                        "median_step_ms": eager_s * 1e3,
+                        "tokens_per_s": b * t / eager_s,
+                        "steps": e_stats, **e_memory},
+              "captured_vs_eager": {"bit_for_bit": same,
+                                    "losses_equal": True},
+              "launches": launches, "launches_by_type": types, **memory}
     emit(result)
     return launches
 
@@ -1769,18 +2076,77 @@ def _resnet_counters():
     from mxnet_tpu_torch.ops.kernels import conv_wgrad as cw
     from mxnet_tpu_torch.ops.kernels import fused_update as fu
 
-    return {"conv_wgrad_partial": cw.conv_wgrad_partial,
-            "conv_wgrad_reduce": cw.conv_wgrad_reduce,
-            "sgd_mom_update": fu.sgd_mom_update}
+    return {"conv_wgrad_partial": (cw.conv_wgrad_partial,),
+            "conv_wgrad_reduce": (cw.conv_wgrad_reduce,),
+            "conv_wgrad_repack": (cw.repack,),
+            "sgd_mom_update": (fu.sgd_mom_update, fu.sgd_mom_update_lr)}
 
 
-def resnet_wgrad_launches(per_step, steps):
+def resnet_wgrad_launches(per_step, steps, repacks=False):
     """conv_wgrad's launches over ``steps`` steps of a model with
     ``per_step`` 3x3 convolutions: every call launches one partial kernel
-    (whatever its route) and one reduce kernel; the bf16 route's repack is
-    a PyTorch copy, not counted (the resnet path is f32)."""
+    (whatever its route) and one reduce kernel; with ``repacks`` (bf16 on
+    the card, where every ResNet-50 shape takes the wgmma route) the repack
+    kernel once for x and once for dy (NCHW views, never the wgmma
+    operand's form)."""
     return {"conv_wgrad_partial": per_step * steps,
-            "conv_wgrad_reduce": per_step * steps}
+            "conv_wgrad_reduce": per_step * steps,
+            "conv_wgrad_repack": 2 * per_step * steps if repacks else 0}
+
+
+def _fit_timed(torch, mod, it, kwargs, on_card):
+    """``mod.fit(it, **kwargs)`` with a synchronized time and the metric
+    after each batch: (ms from each batch's end to the next's, the first
+    batch's ms, the metrics)."""
+    times, metrics = [], []
+
+    def record(param):
+        if on_card:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        metrics.append({k: float(v) for k, v in
+                        param.eval_metric.get_name_value()})
+
+    t0 = time.perf_counter()
+    mod.fit(it, batch_end_callback=record, **kwargs)
+    return ([(b - a) * 1e3 for a, b in zip(times, times[1:])],
+            (times[0] - t0) * 1e3, metrics)
+
+
+def _steady_ms(step_ms, on_card):
+    """The step times of replays: on the card the first CAPTURE_WARMUP
+    batch-to-batch times hold the second warm-up call and the capture."""
+    from mxnet_tpu_torch.executor import CAPTURE_WARMUP
+
+    steady = step_ms[CAPTURE_WARMUP:] if on_card else step_ms
+    return float(np.median(steady or step_ms))
+
+
+def _eager_twin(torch, setup, kwargs, on_card, want, what):
+    """The run of a captured ``Module.fit`` again with the fused step
+    eager (``MXNET_CUDA_GRAPH=0``) from the same set-up: its parameters
+    and aux states must equal ``want`` (the captured run's) bit for bit.
+    Returns the eager run's record."""
+    _fresh(torch, on_card)
+    with cuda_graph(False):
+        mod, it, init = setup()
+        step_ms, first_ms, _ = _fit_timed(torch, mod, it, kwargs(init),
+                                          on_card)
+        stats = mod.fit_step_stats()
+        got = _host_state(mod)
+    memory = _peak(torch, on_card)
+    del mod
+    same_args = _equal_params(got[0], want[0])
+    same_aux = _equal_params(got[1], want[1]) if want[1] else (True, 0.0,
+                                                               None, 0)
+    if not (same_args[0] and same_aux[0]):
+        raise RuntimeError(
+            "%s: the captured steps land %g (%s) / aux %g (%s) from the "
+            "eager ones" % (what, same_args[1], same_args[2], same_aux[1],
+                            same_aux[2]))
+    return {"path": stats["path"], "steps": stats,
+            "step_ms": step_ms, "first_batch_ms": first_ms,
+            "median_step_ms": float(np.median(step_ms)), **memory}
 
 
 def _host_state(mod):
@@ -1872,57 +2238,60 @@ def phase_resnet(cfg=RESNET, device=None, ref_device="cpu", seed=SEED):
                      "ce": RESNET_CE}}
     del runs, got_s, ref_s
 
-    # 2. the run: one epoch of `batches` batches of `batch`
+    # 2. the run: one epoch of `batches` batches of `batch`, in bench.py's
+    # compute type, through the captured fused step
     on_card = device is None or torch.device(device).type == "cuda"
-    mod, it, init = resnet_setup(cfg, cfg["batch"], cfg["batches"], device,
-                                 seed)
-    times, metrics = [], []
 
-    def record(param):
-        if on_card:
-            torch.cuda.synchronize()
-        times.append(time.perf_counter())
-        metrics.append({k: float(v) for k, v in
-                        param.eval_metric.get_name_value()})
+    def setup():
+        return resnet_setup(cfg, cfg["batch"], cfg["batches"], device, seed,
+                            compute_dtype=cfg["dtype"])
 
+    mod, it, init = setup()
     counters = _resnet_counters()
-    if on_card:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
-    t0 = time.perf_counter()
-    mod.fit(it, batch_end_callback=record, **fit_args(cfg, init))
-    launches = {k: c.launches for k, c in counters.items()}
+    _fresh(torch, on_card)
+    _zero(counters)
+    step_ms, first_ms, metrics = _fit_timed(torch, mod, it,
+                                            fit_args(cfg, init), on_card)
+    launches, types = _count(counters), _types(counters)
+    memory = _peak(torch, on_card)
+    stats = mod.fit_step_stats()
     steps = cfg["batches"]
-    args, aux = mod.get_params()
+    state = _host_state(mod)
+    args, aux = state
     n_params = len(args)
     per_step = wgrad_convs(mod.symbol)
-    want = dict(resnet_wgrad_launches(per_step, steps),
-                sgd_mom_update=n_params * steps)
+    want = dict(resnet_wgrad_launches(
+        per_step, steps, on_card and cfg["dtype"] == "bfloat16"),
+        sgd_mom_update=n_params * steps)
     if launches != want:
         raise RuntimeError("resnet phase launched %s, want %s"
                            % (launches, want))
+    _require_types("resnet", types, launches, cfg["dtype"],
+                   ["conv_wgrad_partial"])
     ce_run = [m["cross-entropy"] for m in metrics]
     if len(metrics) != steps or not all(np.isfinite(ce_run)):
         raise RuntimeError("resnet phase: %d batches, cross-entropy %s"
                            % (len(metrics), ce_run))
-    step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
-    median_ms = float(np.median(step_ms))
+    _require_captured("resnet", [stats], on_card)
+    del mod
+    eager = _eager_twin(torch, setup, lambda i: fit_args(cfg, i), on_card,
+                        state, "resnet phase")
+    median_ms = _steady_ms(step_ms, on_card)
     result = {"phase": "resnet", "depth": cfg["depth"],
               "classes": cfg["classes"], "image": list(cfg["image"]),
-              "batch": cfg["batch"], "batches": steps, "dtype": "float32",
+              "batch": cfg["batch"], "batches": steps,
+              "dtype": cfg["dtype"], "path": stats["path"], "steps": stats,
               "parameters": n_params,
               "elements": int(sum(a.size for a in args.values())),
               "aux_states": len(aux),
               "wgrad_convs_per_step": per_step, "check": check,
-              "metrics": metrics,
-              "first_batch_ms": (times[0] - t0) * 1e3,
+              "metrics": metrics, "first_batch_ms": first_ms,
               "step_ms": step_ms, "median_step_ms": median_ms,
               "images_per_s": cfg["batch"] / median_ms * 1e3,
-              "launches": launches}
-    if on_card:
-        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+              "eager": dict(eager, images_per_s=cfg["batch"]
+                            / eager["median_step_ms"] * 1e3),
+              "captured_vs_eager": {"bit_for_bit": True},
+              "launches": launches, "launches_by_type": types, **memory}
     emit(result)
     return launches
 
@@ -2041,21 +2410,18 @@ def phase_lstm(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
         [lambda dev=dev: lstm_setup(cfg, cb, cs, dev, seed)
          for dev in (device, ref_device)])
 
-    # 2. the run: one epoch of `batches` batches of `batch`, then score
+    # 2. the run: one epoch of `batches` batches of `batch` through the
+    # captured fused step, then score
     on_card = device is None or torch.device(device).type == "cuda"
-    mod, it, init = lstm_setup(cfg, cfg["batch"], cfg["batches"], device,
-                               seed)
-    times, metrics = [], []
+
+    def setup():
+        return lstm_setup(cfg, cfg["batch"], cfg["batches"], device, seed)
+
+    mod, it, init = setup()
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
-
-    def record(param):
-        sync()
-        times.append(time.perf_counter())
-        metrics.append({k: float(v) for k, v in
-                        param.eval_metric.get_name_value()})
 
     sync()
     if on_card:
@@ -2063,15 +2429,18 @@ def phase_lstm(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
               **memory_holders(torch)})
     start_memory = _reset_peak(torch) if on_card else None
     kl.lstm_step.launches = 0
-    t0 = time.perf_counter()
-    mod.fit(it, batch_end_callback=record, **lstm_fit_args(cfg, init))
+    step_ms, first_ms, metrics = _fit_timed(
+        torch, mod, it, lstm_fit_args(cfg, init), on_card)
     fit_launches = kl.lstm_step.launches
+    stats = mod.fit_step_stats()
+    state = _host_state(mod)
     kl.lstm_step.launches = 0
     t1 = time.perf_counter()
     score = dict(mod.score(it, metric.Perplexity(ignore_label=None)))
     sync()
     score_s = time.perf_counter() - t1
     score_launches = kl.lstm_step.launches
+    memory = _peak(torch, on_card)
     steps = cfg["batches"]
     want = lstm_steps(cfg, steps)
     if fit_launches != want or score_launches != want:
@@ -2083,23 +2452,30 @@ def phase_lstm(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
             or not np.isfinite(score["Perplexity"]):
         raise RuntimeError("lstm phase: %d batches, perplexity %s, score %s"
                            % (len(metrics), ppl_run, score))
-    step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
-    median_ms = float(np.median(step_ms))
-    args, _ = mod.get_params()
+    _require_captured("lstm", [stats], on_card)
+    args = state[0]
+    del mod
+    eager = _eager_twin(torch, setup, lambda i: lstm_fit_args(cfg, i),
+                        on_card, state, "lstm phase")
+    median_ms = _steady_ms(step_ms, on_card)
     tokens = cfg["batch"] * cfg["seq"]
     result = {"phase": "lstm", "vocab": cfg["vocab"], "embed": cfg["embed"],
               "hidden": cfg["hidden"], "layers": cfg["layers"],
               "seq": cfg["seq"], "batch": cfg["batch"], "batches": steps,
-              "dtype": "float32", "parameters": len(args),
+              "dtype": "float32", "path": stats["path"], "steps": stats,
+              "parameters": len(args),
               "elements": int(sum(a.size for a in args.values())),
               "check": check, "metrics": metrics,
               "score": score, "score_ms_per_batch": score_s * 1e3 / steps,
-              "first_batch_ms": (times[0] - t0) * 1e3,
+              "first_batch_ms": first_ms,
               "step_ms": step_ms, "median_step_ms": median_ms,
               "tokens_per_s": tokens / median_ms * 1e3,
-              "launches": {"fit": fit_launches, "score": score_launches}}
+              "eager": dict(eager, tokens_per_s=tokens
+                            / eager["median_step_ms"] * 1e3),
+              "captured_vs_eager": {"bit_for_bit": True},
+              "launches": {"fit": fit_launches, "score": score_launches},
+              **memory}
     if on_card:
-        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         result["start_memory_allocated"] = start_memory
     emit(result)
     return {"fit": fit_launches, "score": score_launches}
@@ -2135,23 +2511,18 @@ def phase_custom(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
         [rtc_setup(device, b, cs),
          lambda: lstm_setup(cfg, b, cs, device, seed)])
 
-    # (c) the run: one epoch of `batches` batches of `batch`, then score
+    # (c) the run: one epoch of `batches` batches of `batch` through the
+    # captured fused step, then score
     on_card = device is None or torch.device(device).type == "cuda"
-    mod, it, init = rtc_setup(device, b, cfg["batches"])()
+    setup = rtc_setup(device, b, cfg["batches"])
+    mod, it, init = setup()
     kern = rs.kernels(cfg["vocab"])
     bwd = [kern[k] for k in ("bwd", "bwd_vec") if k in kern]
     counters = [kern["fwd"], kl.lstm_step] + bwd
-    times, metrics = [], []
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
-
-    def record(param):
-        sync()
-        times.append(time.perf_counter())
-        metrics.append({k: float(v) for k, v in
-                        param.eval_metric.get_name_value()})
 
     def counts():
         """Launches by kernel; "bwd" sums the backward's two sources."""
@@ -2163,10 +2534,12 @@ def phase_custom(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
     start_memory = _reset_peak(torch) if on_card else None
     for c in counters:
         c.launches = 0
-    t0 = time.perf_counter()
-    mod.fit(it, batch_end_callback=record, **lstm_fit_args(cfg, init))
+    step_ms, first_ms, metrics = _fit_timed(
+        torch, mod, it, lstm_fit_args(cfg, init), on_card)
     fit_launches = counts()
     fit_vector = kern["bwd_vec"].launches if "bwd_vec" in kern else 0
+    stats = mod.fit_step_stats()
+    state = _host_state(mod)
     for c in counters:
         c.launches = 0
     t1 = time.perf_counter()
@@ -2174,6 +2547,7 @@ def phase_custom(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
     sync()
     score_s = time.perf_counter() - t1
     score_launches = counts()
+    memory = _peak(torch, on_card)
     steps = cfg["batches"]
     want_fit = {"fwd": steps, "bwd": steps,
                 "lstm_step": lstm_steps(cfg, steps)}
@@ -2191,22 +2565,29 @@ def phase_custom(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
             or not np.isfinite(score["Perplexity"]):
         raise RuntimeError("custom phase: %d batches, perplexity %s, score "
                            "%s" % (len(metrics), ppl_run, score))
-    step_ms = [(y - x) * 1e3 for x, y in zip(times, times[1:])]
-    median_ms = float(np.median(step_ms))
+    _require_captured("custom", [stats], on_card)
+    del mod
+    eager = _eager_twin(torch, setup, lambda i: lstm_fit_args(cfg, i),
+                        on_card, state, "custom phase")
+    median_ms = _steady_ms(step_ms, on_card)
+    tokens = b * cfg["seq"]
     result = {"phase": "custom", "head": "Custom(op_type=rtc_softmax)",
               "vocab": cfg["vocab"], "embed": cfg["embed"],
               "hidden": cfg["hidden"], "layers": cfg["layers"],
               "seq": cfg["seq"], "batch": b, "batches": steps,
-              "dtype": "float32", "check_vs_cpu": check_cpu,
+              "dtype": "float32", "path": stats["path"], "steps": stats,
+              "check_vs_cpu": check_cpu,
               "check_vs_softmax_output": check_head, "metrics": metrics,
               "score": score, "score_ms_per_batch": score_s * 1e3 / steps,
-              "first_batch_ms": (times[0] - t0) * 1e3,
+              "first_batch_ms": first_ms,
               "step_ms": step_ms, "median_step_ms": median_ms,
-              "tokens_per_s": b * cfg["seq"] / median_ms * 1e3,
+              "tokens_per_s": tokens / median_ms * 1e3,
+              "eager": dict(eager, tokens_per_s=tokens
+                            / eager["median_step_ms"] * 1e3),
+              "captured_vs_eager": {"bit_for_bit": True},
               "launches": {"fit": fit_launches, "score": score_launches},
-              "bwd_vector_launches": fit_vector}
+              "bwd_vector_launches": fit_vector, **memory}
     if on_card:
-        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         result["start_memory_allocated"] = start_memory
     emit(result)
     return {"fit": fit_launches, "score": score_launches}
@@ -2244,8 +2625,11 @@ def main():
         "dtype": "float32", "shape": t["shape"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "bfloat16": timings["serve"]["bfloat16"], "train": timings["train"]}]
-    t = bwd_timings["float32"]
+        "bfloat16": timings["serve"]["bfloat16"], "train": timings["train"],
+        "bfloat16_main": timings["train_main"][TRAIN["dtype"]]}]
+    # the backward runs on the main path only in the train phase: its
+    # type and batch head the row
+    t = {k: v for k, v in bwd_timings["train_main"].items() if k != "work"}
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SRC,
         "replaces": FA_BWD_REPLACES,
@@ -2254,13 +2638,11 @@ def main():
         "launches_by_kernel": {"dq": train["flash_attention_bwd_dq"],
                                "dkv": train["flash_attention_bwd_dkv"]},
         "max_abs_err": max(bwd_worst.values()), "max_err": bwd_worst,
-        "dtype": "float32", "shape": t["shape"], "ms": t["ms"],
-        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "device_ms": t["device_ms"],
-        "library_device_ms": t["library_device_ms"],
-        "bfloat16": {k: v for k, v in bwd_timings["bfloat16"].items()
-                     if k != "work"}})
+        "dtype": TRAIN["dtype"], **t,
+        "float32": {k: v for k, v in bwd_timings["float32"].items()
+                    if k != "work"},
+        "bfloat16_batch4": {k: v for k, v in bwd_timings["bfloat16"].items()
+                            if k != "work"}})
     for kind in ("sgd_mom_update", "adam_update"):
         t = upd_timings[kind]
         by_phase = {"train": train[kind]}
@@ -2274,28 +2656,33 @@ def main():
             "max_abs_err": upd_worst[kind], "dtype": "float32",
             "shape": "%d LM parameters, %d elements" % (t["parameters"],
                                                         t["elements"]),
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["device_lr_ms"], "plain_ms": t["plain_ms"],
+            "scalar_entry_ms": t["ms"],
+            "main_path_entry": kind + "_lr (lr / wd read on the card)",
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "library_note": t["library_note"]})
-    t = wgrad_step["float32"]
+    # the resnet phase's type heads the row
+    t = wgrad_step[RESNET["dtype"]]
     rows.append({
         "name": "conv_wgrad", "route": "cuda", "source": WGRAD_SRC,
         "replaces": WGRAD_REPLACES,
         "launches": resnet["conv_wgrad_partial"]
-        + resnet["conv_wgrad_reduce"],
+        + resnet["conv_wgrad_reduce"] + resnet["conv_wgrad_repack"],
         "launches_by_kernel": {"partial": resnet["conv_wgrad_partial"],
-                               "reduce": resnet["conv_wgrad_reduce"]},
+                               "reduce": resnet["conv_wgrad_reduce"],
+                               "repack": resnet["conv_wgrad_repack"]},
         "max_abs_err": max(wgrad_worst.values()), "max_err": wgrad_worst,
-        "dtype": "float32",
+        "dtype": RESNET["dtype"],
         "shape": "the 16 3x3 convolutions of one ResNet-50 step at batch 32",
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": ("operations" if all(
-            x["bound_by"] == "operations" for x in wgrad_timings["float32"])
-            else "bytes"), "library_ms": t["library_ms"],
+            x["bound_by"] == "operations"
+            for x in wgrad_timings[RESNET["dtype"]]) else "bytes"),
+        "library_ms": t["library_ms"],
         "device_ms": t["device_ms"],
         "library_device_ms": t["library_device_ms"],
         "library": "torch.nn.grad.conv2d_weight (cuDNN wgrad, no TF32)",
-        "bfloat16": wgrad_step["bfloat16"],
+        "float32": wgrad_step["float32"],
         "per_shape": wgrad_timings})
     t = lstm_timings["float32"]
     rows.append({

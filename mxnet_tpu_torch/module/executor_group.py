@@ -4,8 +4,9 @@ Counterpart of ``mxnet_tpu/module/executor_group.py`` (reference
 python/mxnet/module/executor_group.py) for one device: one ``Executor``
 bound over the whole batch, ``grad_req`` "null" for the data (unless the
 module wants input gradients), the labels and the fixed parameters. Each
-batch is copied into the bound data and label arrays on the device. A
-group over several devices waits for the communication slice, and raises.
+batch is copied into the bound data and label arrays on the device;
+``compute_dtype`` passes to the executor. A group over several devices
+waits for the communication slice, and raises.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ def _name_shape(desc):
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 fixed_param_names=None, grad_req="write"):
+                 fixed_param_names=None, grad_req="write",
+                 compute_dtype=None):
         if len(contexts) != 1:
             raise MXNetError("an executor group over %d devices is not "
                              "ported (one device)" % len(contexts))
@@ -35,6 +37,7 @@ class DataParallelExecutorGroup:
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.fixed_param_names = fixed_param_names or []
+        self.compute_dtype = compute_dtype
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.data_shapes = data_shapes
@@ -72,7 +75,8 @@ class DataParallelExecutorGroup:
         auxs = {n: nd.zeros(s, device) for n, s in zip(self.aux_names,
                                                       aux_shapes)}
         self._exec = Executor(self.symbol, device, args, grads,
-                              self.grad_req, auxs)
+                              self.grad_req, auxs,
+                              compute_dtype=self.compute_dtype)
 
     # --- computations -----------------------------------------------------
     def forward(self, data_batch, is_train=None):

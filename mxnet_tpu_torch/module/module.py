@@ -8,13 +8,28 @@ moving_var 1) and copies them to the device, ``init_optimizer`` creates
 the optimizer with ``rescale_grad = 1 / batch_size`` and its ``Updater``,
 and ``update`` runs one updater call per parameter (the fused update
 kernels). ``context=None`` is the first CUDA card; without one it raises.
-The reference's fused ``fit_step`` (``Executor.make_train_step``),
-``compute_dtype``, kvstores, several contexts, checkpoints and shared
-modules are not ported.
+``compute_dtype`` ("bfloat16") passes to the executor.
+
+``fit_step`` (what ``fit`` calls each batch) is the reference's fused
+step: forward, backward and the optimizer's ``pure_rule`` as one
+``Executor.make_train_step``, which on the card is one CUDA graph
+replayed each step (``MXNET_CUDA_GRAPH=0`` runs it eagerly). The step
+updates the executor's parameters and the updater's states in place, so
+``get_params``, ``set_params`` and a manual ``update`` see and reach the
+same tensors. Per-parameter lr / wd go in as device arrays, uploaded again
+when their contents change (a schedule, Adam's bias correction, an
+in-place ``opt.lr_mult[name] = 2.0``). The reference's conditions apply
+(``MXNET_FUSED_FIT``, no kvstore, a pure rule, no input gradients, every
+parameter's ``grad_req`` "write"), and one of the port's: no Custom op
+that copies to the host (a ``NumpyOp``). Otherwise ``fit_step`` runs
+``forward_backward`` and ``update`` and :meth:`Module.fit_step_stats`
+says why. Kvstores, several contexts, checkpoints and shared modules are
+not ported.
 """
 from __future__ import annotations
 
 import logging
+import os
 
 import numpy as np
 
@@ -33,8 +48,9 @@ class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
                  context=None, work_load_list=None, fixed_param_names=None,
-                 state_names=None):
+                 state_names=None, compute_dtype=None):
         super().__init__(logger=logger)
+        self._compute_dtype = compute_dtype
         contexts = context if isinstance(context, (list, tuple)) \
             else [context]
         if len(contexts) != 1:
@@ -69,6 +85,9 @@ class Module(BaseModule):
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
+        # the fused step's state: None not built yet, False ineligible
+        self._fused_fit = None
+        self._fused_reason = None
 
     # --- properties -------------------------------------------------------
     @property
@@ -166,6 +185,7 @@ class Module(BaseModule):
         if force_rebind:
             self.binded = False
             self._exec_group = None
+            self._fused_fit = None
         if self.binded:
             self.logger.warning("Already bound, ignoring bind()")
             return
@@ -181,7 +201,8 @@ class Module(BaseModule):
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, for_training,
             inputs_need_grad, fixed_param_names=self._fixed_param_names,
-            grad_req=grad_req)
+            grad_req=grad_req, compute_dtype=self._compute_dtype)
+        self._fused_fit = None
         self.binded = True
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
@@ -212,6 +233,7 @@ class Module(BaseModule):
         self._update_on_kvstore = update_on_kvstore
         self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
+        self._fused_fit = None
 
     # --- computations -----------------------------------------------------
     def forward(self, data_batch, is_train=None):
@@ -231,6 +253,87 @@ class Module(BaseModule):
         _update_params(self._exec_group.param_arrays,
                        self._exec_group.grad_arrays, updater=self._updater,
                        num_device=len(self._context), kvstore=self._kvstore)
+
+    # --- the fused step ---------------------------------------------------
+    def fit_step(self, data_batch):
+        """One training step: the fused step (forward, backward and update
+        as one ``make_train_step``, one CUDA graph on the card) where the
+        set-up allows it, else ``forward_backward`` + ``update``."""
+        fs = self._fused_fit_state()
+        if fs is None:
+            self.forward_backward(data_batch)
+            self.update()
+            return
+        exe, update = self._exec_group._exec, fs["update"]
+        lr_arr, wd_arr = update.lr_wd(exe._device)
+        self._exec_group._load_data(data_batch)
+        # the executor's parameters and the updater's states, which the
+        # step updates in place (the first call adopts them)
+        params = {n: exe.arg_dict[n]._data for n in update.names}
+        fs["step"](params, update.states(exe.arg_dict), None, lr_arr, wd_arr)
+        self._params_dirty = True
+        if not fs["host_checked"]:
+            # the first step created the Custom operators: a NumpyOp reads
+            # the host, which no captured step can hold
+            fs["host_checked"] = True
+            ops = exe._host_copy_ops()
+            if ops:
+                self._fused_ineligible(
+                    "a Custom op copies to the host (%s)"
+                    % ", ".join(sorted({type(o).__name__ for o in ops})))
+
+    def fit_step_stats(self):
+        """Which path ``fit_step`` takes: {"path": "captured" | "eager" |
+        "unfused", ...}; the captured and eager paths add their step's
+        counts (warm-up calls, captures, replays), the unfused one the
+        reason."""
+        if self._fused_fit:
+            return dict(self._fused_fit["step"].stats(), **{
+                "compute_dtype": str(self._exec_group._exec.compute_dtype
+                                     or "float32").replace("torch.", "")})
+        return {"path": "unfused", "reason": self._fused_reason}
+
+    def _fused_ineligible(self, reason):
+        self._fused_fit = False
+        self._fused_reason = reason
+
+    def _fused_fit_state(self):
+        """The fused step's state, built on first use; None where the
+        set-up does not allow it (the reason kept)."""
+        if self._fused_fit is not None:
+            if self._fused_fit and self._fused_fit["update"].key != \
+                    self._optimizer._hyperparam_key():
+                # a hyperparameter the rule fixes changed: build anew
+                self._fused_fit = None
+            else:
+                return self._fused_fit or None
+        exe = self._exec_group._exec if self._exec_group else None
+        names = list(self._exec_group.param_names) if exe else []
+        reason = None
+        if os.environ.get("MXNET_FUSED_FIT", "1") == "0":
+            reason = "MXNET_FUSED_FIT=0"
+        elif not self.optimizer_initialized:
+            reason = "no optimizer"
+        elif self._kvstore is not None or self._update_on_kvstore:
+            reason = "a kvstore"
+        elif self._optimizer.pure_rule() is None:
+            reason = "%s has no pure rule" % type(self._optimizer).__name__
+        elif self.inputs_need_grad:
+            reason = "inputs_need_grad"
+        elif any(exe.grad_req.get(n) != "write" for n in names):
+            reason = "a parameter's grad_req is not write"
+        elif exe._host_copy_ops():
+            reason = "a Custom op copies to the host"
+        if reason is not None:
+            self._fused_ineligible(reason)
+            return None
+        # the unfused path's state keys (model.py _update_params)
+        update = opt.FusedUpdate(self._updater, names, [
+            i * len(self._context) for i in range(len(names))])
+        self._fused_fit = {"step": exe.make_train_step(update),
+                           "update": update, "host_checked": False}
+        self._fused_reason = None
+        return self._fused_fit
 
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)

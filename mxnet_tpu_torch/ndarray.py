@@ -219,8 +219,16 @@ class NDArray:
     def __mod__(self, other):
         return self._binop(other, "broadcast_mod", "_mod_scalar")
 
+    def __rmod__(self, other):
+        return self._binop(other, "broadcast_mod", "_mod_scalar",
+                           reverse=True)
+
     def __pow__(self, other):
         return self._binop(other, "broadcast_power", "_power_scalar")
+
+    def __rpow__(self, other):
+        return self._binop(other, "broadcast_power", "_power_scalar",
+                           reverse=True)
 
     def __neg__(self):
         return invoke(get_op("negative"), [self], {})[0]
@@ -396,7 +404,8 @@ def array(source, ctx=None, dtype=None) -> NDArray:
     if dtype is None and (not was_ndarray or arr.dtype == np.float64):
         arr = arr.astype(np.float32)
     device = resolve_device(ctx)
-    t = torch.as_tensor(arr).to(device)
+    # a copy on every device: torch.as_tensor shares a CPU array's memory
+    t = torch.tensor(arr, device=device)
     if dtype is not None:
         t = t.to(_as_torch_dtype(dtype))
     return NDArray(t)

@@ -46,7 +46,11 @@ _REQS = {0: "null", 1: "write", 2: "inplace", 3: "add"}
 
 class CustomOp:
     """Base class of a custom operator's implementation (reference
-    operator.py ``CustomOp``): override ``forward`` and ``backward``."""
+    operator.py ``CustomOp``): override ``forward`` and ``backward``.
+    ``copies_to_host`` says the op reads its arrays on the host, which a
+    training step captured as a CUDA graph cannot hold."""
+
+    copies_to_host = False
 
     def forward(self, is_train, req, in_data, out_data, aux):
         raise NotImplementedError
@@ -269,6 +273,8 @@ class PythonOp(CustomOp):
     ``forward_np(in_data, out_data)`` and ``backward_np(out_grad, in_data,
     out_data, in_grad)`` over numpy arrays, filling the output (gradient)
     arrays in place; the port copies them into the op's tensors."""
+
+    copies_to_host = True
 
     def forward(self, is_train, req, in_data, out_data, aux):
         outs = [o.asnumpy() for o in out_data]

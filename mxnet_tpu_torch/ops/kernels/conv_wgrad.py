@@ -38,6 +38,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ._launches import counted, launched
+
 _NAME = "conv_wgrad"
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # the f32 kernel's block rows and rows of L a stage (csrc/conv_wgrad.cu
@@ -256,7 +258,7 @@ def repack(t):
     return out
 
 
-repack.launches = 0
+counted(repack)
 _REPACK_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -273,7 +275,7 @@ def _stream(t):
 def conv_wgrad_partial(x, dy, ksz, stride, pad):
     """Launch the partial-sum kernel of :func:`plan`'s route on CUDA x / dy
     (checked by :func:`wgrad`; repacked first for the wgmma route); returns
-    the f32 workspace (splits, M, K) and counts the launch in
+    the f32 workspace (splits, M, K) and counts the launch (by type) in
     ``conv_wgrad_partial.launches``."""
     p = plan_of(x, dy, ksz, stride, pad)
     n, h, w, c = x.shape
@@ -306,7 +308,7 @@ def conv_wgrad_partial(x, dy, ksz, stride, pad):
     if err != 0:
         raise RuntimeError("conv_wgrad partial (%s) launch failed: "
                            "cudaError %d" % (p.route, err))
-    conv_wgrad_partial.launches += 1
+    launched(conv_wgrad_partial, x.dtype)
     return ws
 
 
@@ -327,8 +329,8 @@ def conv_wgrad_reduce(ws, ksz, c):
     return out
 
 
-conv_wgrad_partial.launches = 0
-conv_wgrad_reduce.launches = 0
+counted(conv_wgrad_partial)
+counted(conv_wgrad_reduce)
 
 
 def wgrad(x, dy, ksz, stride=1, pad=None):

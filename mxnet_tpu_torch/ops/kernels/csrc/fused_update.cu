@@ -20,6 +20,13 @@
 // (4 f32 or 8 bf16 elements per thread per step) when every pointer is
 // 16-byte aligned, and a scalar loop for the tail (or all of it, when not
 // aligned). A launch over many parameters at once is later work.
+//
+// Two entry points a kernel: the scalar one takes lr and wd as kernel
+// arguments; the device-lr one (`*_lr`) reads them from two device f32
+// arrays at the parameter's index when the kernel starts, so a step
+// captured in a CUDA graph follows a schedule, a multiplier change or
+// Adam's bias correction without being captured anew. The elementwise
+// body and its f32 math are the same; the results are bit for bit equal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,13 +52,30 @@ struct alignas(16) Pack {
   T x[16 / sizeof(T)];
 };
 
+// lr_arr / wd_arr null: lr and wd as given; else lr_arr[index] and
+// wd_arr[index] (device memory), read by resolved() when the kernel starts
 struct SgdArgs {
   float lr, momentum, wd, rescale, clip;
+  const float* lr_arr;
+  const float* wd_arr;
+  int64_t index;
 };
 
 struct AdamArgs {
   float lr, beta1, beta2, eps, wd, rescale, clip;
+  const float* lr_arr;
+  const float* wd_arr;
+  int64_t index;
 };
+
+template <typename Args>
+__device__ __forceinline__ Args resolved(Args a) {
+  if (a.lr_arr != nullptr) {
+    a.lr = a.lr_arr[a.index];
+    a.wd = a.wd_arr[a.index];
+  }
+  return a;
+}
 
 // rescale, then clip to [-clip, clip] when clip > 0 (NaN stays NaN)
 __device__ __forceinline__ float prep(float g, float rescale, float clip) {
@@ -86,8 +110,9 @@ __device__ __forceinline__ void adam_one(T& w, T g, T& m, T& v,
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 sgd_mom_kernel(T* __restrict__ w, const T* __restrict__ g,
-               T* __restrict__ m, int64_t n, int64_t n_vec, SgdArgs a) {
+               T* __restrict__ m, int64_t n, int64_t n_vec, SgdArgs args) {
   constexpr int N = 16 / sizeof(T);
+  const SgdArgs a = resolved(args);
   const int64_t stride = (int64_t)gridDim.x * THREADS;
   const int64_t first = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   for (int64_t i = first; i < n_vec; i += stride) {
@@ -106,8 +131,9 @@ sgd_mom_kernel(T* __restrict__ w, const T* __restrict__ g,
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 adam_kernel(T* __restrict__ w, const T* __restrict__ g, T* __restrict__ m,
-            T* __restrict__ v, int64_t n, int64_t n_vec, AdamArgs a) {
+            T* __restrict__ v, int64_t n, int64_t n_vec, AdamArgs args) {
   constexpr int N = 16 / sizeof(T);
+  const AdamArgs a = resolved(args);
   const int64_t stride = (int64_t)gridDim.x * THREADS;
   const int64_t first = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   for (int64_t i = first; i < n_vec; i += stride) {
@@ -139,17 +165,9 @@ unsigned blocks(int64_t n, int64_t n_vec) {
   return (unsigned)(b < MAX_BLOCKS ? (b > 0 ? b : 1) : MAX_BLOCKS);
 }
 
-}  // namespace
-
-extern "C" {
-
-// w/g/mom: n contiguous elements of one type (dtype 0 float32, 1 bfloat16);
-// w and mom are updated in place. Returns a cudaError_t.
-int mxtt_sgd_mom_update(void* w, const void* g, void* mom, int64_t n,
-                        int dtype, float lr, float momentum, float wd,
-                        float rescale, float clip, void* stream) {
+int sgd_mom_launch(void* w, const void* g, void* mom, int64_t n, int dtype,
+                   const SgdArgs& a, void* stream) {
   if (n < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  const SgdArgs a{lr, momentum, wd, rescale, clip};
   const void* ptrs[3] = {w, g, mom};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -166,14 +184,9 @@ int mxtt_sgd_mom_update(void* w, const void* g, void* mom, int64_t n,
   return (int)cudaGetLastError();
 }
 
-// w/g/mean/var: n contiguous elements of one type; w, mean and var are
-// updated in place. Returns a cudaError_t.
-int mxtt_adam_update(void* w, const void* g, void* mean, void* var,
-                     int64_t n, int dtype, float lr, float beta1, float beta2,
-                     float eps, float wd, float rescale, float clip,
-                     void* stream) {
+int adam_launch(void* w, const void* g, void* mean, void* var, int64_t n,
+                int dtype, const AdamArgs& a, void* stream) {
   if (n < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  const AdamArgs a{lr, beta1, beta2, eps, wd, rescale, clip};
   const void* ptrs[4] = {w, g, mean, var};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -189,6 +202,63 @@ int mxtt_adam_update(void* w, const void* g, void* mean, void* var,
         n, nv, a);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// w/g/mom: n contiguous elements of one type (dtype 0 float32, 1 bfloat16);
+// w and mom are updated in place. Returns a cudaError_t.
+int mxtt_sgd_mom_update(void* w, const void* g, void* mom, int64_t n,
+                        int dtype, float lr, float momentum, float wd,
+                        float rescale, float clip, void* stream) {
+  return sgd_mom_launch(w, g, mom, n, dtype,
+                        SgdArgs{lr, momentum, wd, rescale, clip, nullptr,
+                                nullptr, 0},
+                        stream);
+}
+
+// As mxtt_sgd_mom_update, with lr = lr_arr[index] and wd = wd_arr[index]
+// read on the device (f32 arrays).
+int mxtt_sgd_mom_update_lr(void* w, const void* g, void* mom, int64_t n,
+                           int dtype, const float* lr_arr,
+                           const float* wd_arr, int64_t index,
+                           float momentum, float rescale, float clip,
+                           void* stream) {
+  if (lr_arr == nullptr || wd_arr == nullptr || index < 0)
+    return (int)cudaErrorInvalidValue;
+  return sgd_mom_launch(w, g, mom, n, dtype,
+                        SgdArgs{0.f, momentum, 0.f, rescale, clip, lr_arr,
+                                wd_arr, index},
+                        stream);
+}
+
+// w/g/mean/var: n contiguous elements of one type; w, mean and var are
+// updated in place. Returns a cudaError_t.
+int mxtt_adam_update(void* w, const void* g, void* mean, void* var,
+                     int64_t n, int dtype, float lr, float beta1, float beta2,
+                     float eps, float wd, float rescale, float clip,
+                     void* stream) {
+  return adam_launch(w, g, mean, var, n, dtype,
+                     AdamArgs{lr, beta1, beta2, eps, wd, rescale, clip,
+                              nullptr, nullptr, 0},
+                     stream);
+}
+
+// As mxtt_adam_update, with lr = lr_arr[index] (the bias correction folded
+// in) and wd = wd_arr[index] read on the device.
+int mxtt_adam_update_lr(void* w, const void* g, void* mean, void* var,
+                        int64_t n, int dtype, const float* lr_arr,
+                        const float* wd_arr, int64_t index, float beta1,
+                        float beta2, float eps, float rescale, float clip,
+                        void* stream) {
+  if (lr_arr == nullptr || wd_arr == nullptr || index < 0)
+    return (int)cudaErrorInvalidValue;
+  return adam_launch(w, g, mean, var, n, dtype,
+                     AdamArgs{0.f, beta1, beta2, eps, 0.f, rescale, clip,
+                              lr_arr, wd_arr, index},
+                     stream);
 }
 
 }  // extern "C"

@@ -13,7 +13,8 @@ around the pair is :class:`FlashAttention`.
 :func:`flash_attention` takes q (B, H, Tq, D) and k/v (B, Hkv, Tk, D) with
 Hkv dividing H. For CPU tensors it runs :func:`flash_attention_plain`; for
 CUDA tensors it launches the kernel and counts the launch in
-``flash_attention.launches``, or raises — it never falls back. Unlike the
+``flash_attention.launches`` (and by type in ``launches_by_dtype``), or
+raises — it never falls back. Unlike the
 reference there is no shape contract beyond the kernel's own limits
 (ragged lengths are masked in the kernel) and no minimum-length gate.
 """
@@ -24,6 +25,7 @@ import ctypes
 import torch
 
 from ..attention import grouped_logits
+from ._launches import counted, launched
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (64, 128)
@@ -159,7 +161,7 @@ def _launch(q, k, v, causal, scale, return_lse):
         raise RuntimeError("flash_attention_fwd launch failed: cudaError %d"
                            % err)
     # one thread launches (the engine worker on the serving path)
-    flash_attention.launches += 1
+    launched(flash_attention, q.dtype)
     return (out, lse) if return_lse else out
 
 
@@ -185,7 +187,7 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False):
     return _launch(q, k, v, causal, scale, return_lse)
 
 
-flash_attention.launches = 0
+counted(flash_attention)
 
 
 # --- backward ----------------------------------------------------------------
@@ -244,28 +246,28 @@ def flash_attention_bwd_dq(q, k, v, do, strides, lse, dvec, causal, scale):
     """Launch the dQ kernel on the inputs :func:`flash_attention_bwd`
     prepares (CUDA, :func:`bwd_operands` and their 12 byte strides,
     contiguous f32 lse and D = rowsum(dO * O)); returns dq and counts the
-    launch in ``flash_attention_bwd_dq.launches``."""
+    launch (by type) in ``flash_attention_bwd_dq.launches``."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch(0, "flash_attention_bwd dQ", q, k, v, do, strides, lse, dvec,
                 dq, None, None, causal, scale)
-    flash_attention_bwd_dq.launches += 1
+    launched(flash_attention_bwd_dq, q.dtype)
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, do, strides, lse, dvec, causal, scale):
     """Launch the dK/dV kernel on the same inputs as
     :func:`flash_attention_bwd_dq`; returns (dk, dv) and counts the launch
-    in ``flash_attention_bwd_dkv.launches``."""
+    (by type) in ``flash_attention_bwd_dkv.launches``."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     _bwd_launch(1, "flash_attention_bwd dK/dV", q, k, v, do, strides, lse,
                 dvec, None, dk, dv, causal, scale)
-    flash_attention_bwd_dkv.launches += 1
+    launched(flash_attention_bwd_dkv, q.dtype)
     return dk, dv
 
 
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+counted(flash_attention_bwd_dq)
+counted(flash_attention_bwd_dkv)
 
 
 def bwd_operands(q, k, v, do):

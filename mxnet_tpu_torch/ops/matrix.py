@@ -120,14 +120,15 @@ def _expand_dims(attrs, data):
 @defop("slice_axis", arg_names=("data",),
        param_spec={"axis": 0, "begin": 0, "end": None})
 def _slice_axis(attrs, data):
-    """``data[begin:end]`` along ``axis``; ``end`` None is the axis' size
-    and a negative ``end`` counts from it."""
+    """``data[begin:end]`` along ``axis``, as a Python slice: ``end`` None
+    is the axis' size, and a negative ``begin`` or ``end`` counts from
+    it."""
     ax = int(attrs["axis"]) % data.dim()
     end = attrs["end"]
-    end = data.shape[ax] if end is None else int(end)
-    if end < 0:
-        end += data.shape[ax]
-    return data.narrow(ax, int(attrs["begin"]), end - int(attrs["begin"]))
+    begin, end, _ = slice(int(attrs["begin"]),
+                          None if end is None else int(end)).indices(
+                              data.shape[ax])
+    return data.narrow(ax, begin, max(0, end - begin))
 
 
 @defop("Concat", arg_names=(), variadic=True,

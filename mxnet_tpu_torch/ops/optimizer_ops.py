@@ -19,9 +19,8 @@ _COMMON = {"lr": 0.01, "wd": 0.0, "rescale_grad": 1.0, "clip_gradient": -1.0}
 @defop("sgd_update", arg_names=("weight", "grad"), param_spec=dict(_COMMON))
 def _sgd_update(attrs, weight, grad):
     """weight - lr * (clip(rescale * grad) + wd * weight), a new tensor."""
-    g = _fu._prep(grad, attrs["rescale_grad"], attrs["clip_gradient"])
-    return (weight - attrs["lr"] * (g + attrs["wd"] * weight)).to(
-        weight.dtype)
+    return _fu.sgd_update(weight, grad, attrs["lr"], attrs["wd"],
+                          attrs["rescale_grad"], attrs["clip_gradient"])
 
 
 @defop("sgd_mom_update", arg_names=("weight", "grad", "mom"),

@@ -42,6 +42,7 @@ import torch
 
 from .base import MXNetError
 from .ndarray import NDArray
+from .ops.kernels._launches import counted
 
 MODES = ("cuda", "torch")
 #: tensor type -> the CUDA C type of its kernel parameter
@@ -88,7 +89,7 @@ class Rtc:
         self.src = textwrap.dedent(src)
         self.mode = mode
         #: kernel launches (cuda mode) since the count was last reset
-        self.launches = 0
+        counted(self)
         #: signature key -> NVRTC compile ms, one entry per compile
         self.compile_ms: Dict[Tuple, float] = {}
         self._images: Dict[Tuple, bytes] = {}

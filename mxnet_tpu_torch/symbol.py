@@ -297,17 +297,22 @@ class Symbol:
 
     # --- binding ----------------------------------------------------------
     def bind(self, ctx, args, args_grad=None, grad_req="write",
-             aux_states=None):
+             aux_states=None, compute_dtype=None):
+        """An :class:`~.executor.Executor` over the given arrays;
+        ``compute_dtype`` ("bfloat16") runs the graph in that type over
+        f32 values (default ``MXNET_COMPUTE_DTYPE``)."""
         from .executor import Executor
 
-        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states,
+                        compute_dtype=compute_dtype)
 
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
-                    **kwargs):
+                    compute_dtype=None, **kwargs):
         """Infer shapes from the named input shapes, allocate zeroed
         arguments (and gradients, for every argument whose ``grad_req`` is
-        not "null") on ``ctx``, and bind. ``ctx`` None is the first CUDA
-        card; without one it raises."""
+        not "null") on ``ctx``, and bind (``compute_dtype`` as in
+        :meth:`bind`). ``ctx`` None is the first CUDA card; without one it
+        raises."""
         from . import ndarray as nd
         from .context import resolve_device
         from .executor import Executor
@@ -323,7 +328,8 @@ class Symbol:
                  for n, a in args.items() if reqs[n] != "null"}
         aux = {n: nd.zeros(s, device, dtypes[n])
                for n, s in zip(self.list_auxiliary_states(), aux_shapes)}
-        return Executor(self, device, args, grads, reqs, aux)
+        return Executor(self, device, args, grads, reqs, aux,
+                        compute_dtype=compute_dtype)
 
     # --- evaluation -------------------------------------------------------
     def build_eval(self):
@@ -361,6 +367,7 @@ class Symbol:
                         aux_updates[child.name] = new
             return [env[(id(n), i)] for n, i in entries], aux_updates
 
+        eval_fn.memos = memos
         return eval_fn
 
     def debug_str(self):

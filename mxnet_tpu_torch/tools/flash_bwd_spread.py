@@ -47,7 +47,8 @@ SHAPES = ((1, 16, 4, 128, 128, 128, True), (1, 16, 4, 512, 512, 128, True),
           (1, 16, 4, 63, 63, 128, True), (1, 16, 4, 65, 65, 128, True),
           (1, 16, 4, 129, 129, 128, True), (1, 16, 4, 2047, 2047, 128, True),
           (2, 16, 4, 129, 515, 128, True), (1, 16, 4, 1000, 1000, 64, True),
-          (4, 16, 4, 256, 256, 128, True), (1, 16, 4, 300, 300, 128, True))
+          (4, 16, 4, 256, 256, 128, True), (1, 16, 4, 300, 300, 128, True),
+          (32, 16, 4, 2048, 2048, 128, True))
 
 
 def bf16_operand(x, split):

@@ -46,7 +46,8 @@ def _kind(name: str) -> str:
         if fn in name:
             return kind
     low = name.lower()
-    if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "cublas")):
+    if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "cublas",
+                              "nvjet")):
         return "matmul"
     return "other"
 

@@ -38,7 +38,8 @@ KINDS = (
     ("lstm_step", ("lstm_step", "lstm_f32_kernel", "lstm_wgmma_kernel",
                    "lstm_simt_kernel")),
     ("rtc_softmax", ("rtc_softmax",)),
-    ("matmul", ("gemm", "gemv", "cublas", "cutlass", "xmma", "splitk")),
+    ("matmul", ("gemm", "gemv", "cublas", "cutlass", "xmma", "splitk",
+                "nvjet")),
     ("softmax", ("softmax",)),
     ("embedding", ("embedding", "index", "scatter", "gather")),
     ("sgd", ("sgd",)),

@@ -38,7 +38,7 @@ KINDS = (
     ("conv dgrad", ("dgrad",)),
     ("conv forward", ("fprop", "convolve", "conv2d", "implicit_gemm",
                       "nchwtonhwc", "nhwctonchw", "cudnn")),
-    ("matmul", ("gemm", "gemv", "cublas", "cutlass", "xmma")),
+    ("matmul", ("gemm", "gemv", "cublas", "cutlass", "xmma", "nvjet")),
     ("bn/relu/elementwise", ("elementwise", "reduce", "relu", "threshold",
                              "clamp", "rsqrt", "batch_norm", "sum",
                              "mean")),

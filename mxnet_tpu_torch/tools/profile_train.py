@@ -4,8 +4,10 @@
 
 Sets up the train run that ``chip_smoke.py`` drives
 (``tools/lm.py:lm_train_setup``: the full-width LM at ``TRAIN``'s batch
-4 x 2048, f32, no TF32, Xavier-initialized from the seed, one fixed
-batch), warms two SGD-momentum steps, then measures on the card:
+32 x 2048 in its compute type (bf16 over f32 weights), no TF32,
+Xavier-initialized from the seed, one fixed batch), warms two
+SGD-momentum steps, then measures on the card, stage by stage (the
+captured fused step is ``tools/profile_capture.py``'s):
 
 - host-clock time of the step's three stages — forward (is_train),
   backward, the 53 parameter updates — each ending in

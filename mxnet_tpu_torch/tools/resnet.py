@@ -3,13 +3,14 @@
 ``chip_smoke.py`` (its ``resnet`` phase) and
 :mod:`mxnet_tpu_torch.tools.profile_module` train bench.py's headline
 model through ``Module.fit``: ``models.get_symbol("resnet-50",
-num_classes=1000)`` on 3 x 224 x 224 images, f32, ``Xavier(factor_type=
+num_classes=1000)`` on 3 x 224 x 224 images, in ``dtype`` (bench.py's
+bf16 compute over f32 weights, ``BENCH_DTYPE``), ``Xavier(factor_type=
 "in", magnitude=2)`` and SGD lr 0.05 / momentum 0.9 / wd 1e-4
 (``bench.py:117-181``), at batch 32, the reference MXNet's per-GPU batch
 (``BENCH_BATCH=32``), over ``batches`` seeded batches of ``uniform(-1, 1)``
 images and random labels (``bench.py:167-169``). The card-vs-CPU check
-runs the same model at ``check_batch`` for ``check_steps`` batches. All
-take the configuration and the set-up from here.
+runs the same model in f32 at ``check_batch`` for ``check_steps``
+batches. All take the configuration and the set-up from here.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import numpy as np
 
 RESNET = {"depth": 50, "classes": 1000, "image": (3, 224, 224),
           "batch": 32, "batches": 8, "lr": 0.05, "momentum": 0.9,
-          "wd": 1e-4, "check_batch": 2, "check_steps": 2}
+          "wd": 1e-4, "dtype": "bfloat16", "check_batch": 2,
+          "check_steps": 2}
 SEED = 0
 
 
@@ -39,14 +41,16 @@ def resnet_data(cfg, batch, batches, seed):
     return x, y
 
 
-def resnet_setup(cfg, batch, batches, device=None, seed=SEED):
-    """(Module on ``device`` (None = the card), NDArrayIter over
-    :func:`resnet_data` from ``seed + 1``, Xavier initializer drawing from
-    ``seed``)."""
+def resnet_setup(cfg, batch, batches, device=None, seed=SEED,
+                 compute_dtype=None):
+    """(Module on ``device`` (None = the card) computing in
+    ``compute_dtype``, NDArrayIter over :func:`resnet_data` from ``seed +
+    1``, Xavier initializer drawing from ``seed``)."""
     from .. import initializer, io
     from ..module import Module
 
-    mod = Module(resnet_symbol(cfg), context=device)
+    mod = Module(resnet_symbol(cfg), context=device,
+                 compute_dtype=compute_dtype)
     x, y = resnet_data(cfg, batch, batches, seed + 1)
     it = io.NDArrayIter(x, y, batch_size=batch)
     init = initializer.Xavier(factor_type="in", magnitude=2,

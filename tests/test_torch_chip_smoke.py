@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 import chip_smoke as cs
+from mxnet_tpu_torch.ops.kernels import _launches
 from mxnet_tpu_torch.ops.kernels import conv_wgrad as cw
 from mxnet_tpu_torch.ops.kernels import flash_attention as fa
 from mxnet_tpu_torch.ops.kernels import fused_update as fu
@@ -24,6 +25,7 @@ TINY_SERVE = {"slots": 2, "prefill_buckets": (8, 16), "max_context": 24,
               "check_lens": (9, 14)}
 TINY_TRAIN = {"batch": 2, "seq": 16, "sgd_steps": 2, "adam_steps": 1,
               "lr": 0.05, "momentum": 0.9, "wd": 1e-4, "adam_lr": 1e-3,
+              "dtype": "bfloat16", "timed_steps": 2,
               "check_batch": 1, "check_seq": 8, "check_steps": 2}
 # plain version -> the launchers whose kernel launches it stands in for
 PLAINS = {"flash_attention_plain": ("flash_attention",),
@@ -37,7 +39,7 @@ PLAINS = {"flash_attention_plain": ("flash_attention",),
 # shortcuts is 3x3 (17 per step)
 TINY_RESNET = {"depth": 18, "classes": 10, "image": (3, 16, 16), "batch": 2,
                "batches": 2, "lr": 0.05, "momentum": 0.9, "wd": 1e-4,
-               "check_batch": 2, "check_steps": 2}
+               "dtype": "bfloat16", "check_batch": 2, "check_steps": 2}
 # the fused LSTM LM, 2 layers, narrow
 TINY_LSTM = {"vocab": 50, "embed": 16, "hidden": 16, "layers": 2, "seq": 5,
              "batch": 4, "batches": 2, "lr": 0.5, "check_batch": 2,
@@ -45,7 +47,8 @@ TINY_LSTM = {"vocab": 50, "embed": 16, "hidden": 16, "layers": 2, "seq": 5,
 
 
 def _count_plain_calls(monkeypatch):
-    """Count each plain call on the host as its kernels' launches."""
+    """Count each plain call on the host as its kernels' launches, by the
+    type of its first operand."""
     for plain_name, launcher_names in PLAINS.items():
         mod = next(m for m in (fa, fu, cw, kl) if hasattr(m, plain_name))
         plain = getattr(mod, plain_name)
@@ -53,7 +56,7 @@ def _count_plain_calls(monkeypatch):
 
         def counted(*args, _plain=plain, _launchers=launchers, **kw):
             for launcher in _launchers:
-                launcher.launches += 1
+                _launches.launched(launcher, args[0].dtype)
             return _plain(*args, **kw)
 
         monkeypatch.setattr(mod, plain_name, counted)
@@ -136,6 +139,7 @@ def test_resnet_phase_on_cpu(monkeypatch, capsys):
     steps = TINY_RESNET["batches"]
     assert launches == {"conv_wgrad_partial": 17 * steps,
                         "conv_wgrad_reduce": 17 * steps,
+                        "conv_wgrad_repack": 0,
                         "sgd_mom_update": 59 * steps}
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert '"phase": "resnet"' in line and '"images_per_s"' in line
@@ -614,12 +618,15 @@ def test_wgrad_routes_of_the_resnet_shapes():
 
 def test_resnet_phase_launch_arithmetic():
     """One partial and one reduce launch for each 3x3 convolution of a
-    step, whatever the route: ResNet-50's 16 over the phase's 8 batches,
-    the tiny ResNet-18's 17 over 2."""
-    assert cs.resnet_wgrad_launches(16, cs.RESNET["batches"]) == {
-        "conv_wgrad_partial": 128, "conv_wgrad_reduce": 128}
+    step, whatever the route, and in bf16 on the card two repacks (x and
+    dy): ResNet-50's 16 over the phase's 8 batches, the tiny ResNet-18's 17
+    over 2 on the CPU (no repack)."""
+    assert cs.resnet_wgrad_launches(16, cs.RESNET["batches"], True) == {
+        "conv_wgrad_partial": 128, "conv_wgrad_reduce": 128,
+        "conv_wgrad_repack": 256}
     assert cs.resnet_wgrad_launches(17, TINY_RESNET["batches"]) == {
-        "conv_wgrad_partial": 34, "conv_wgrad_reduce": 34}
+        "conv_wgrad_partial": 34, "conv_wgrad_reduce": 34,
+        "conv_wgrad_repack": 0}
     assert all(p.route == "f32" for c, p in _resnet_plans()
                if c[-1] == "float32")
 
@@ -962,3 +969,121 @@ def test_variants_forget_drops_only_that_kernels_entries(monkeypatch):
     _variants.forget("lstm_step")
     assert _build._libs == {"conv_wgrad": 2}
     assert _build._fns == {"mxtt_conv_wgrad_f32": 3}
+
+
+def test_train_phase_holds_bf16_and_the_eager_twin(monkeypatch, capsys):
+    """The train phase's line on the host: the bf16 fused check (card and
+    CPU both the host here: equal) and the eager twin of the run (equal
+    bit for bit), with the step counts of both steps."""
+    import json
+
+    _count_plain_calls(monkeypatch)
+    cs.phase_train(TINY, TINY_TRAIN, device="cpu")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["dtype"] == "bfloat16"
+    assert line["check_bf16"]["loss_abs_err"] == 0.0
+    assert line["check_bf16"]["cpu_bf16_to_f32_param"] > 0.0
+    # the f32 control lies the whole bf16-to-f32 distance away: it fails
+    control = line["check_bf16"]["f32_control"]
+    assert control["loss_x_spread"] == 1.0 and not control["passes"]
+    steps = TINY_TRAIN["sgd_steps"] + TINY_TRAIN["adam_steps"]
+    for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        assert line["launches_by_type"][k] == {
+            "bfloat16": TINY["layers"] * steps}
+    assert line["captured_vs_eager"]["bit_for_bit"]
+    assert line["steps"]["sgd"]["eager_calls"] == TINY_TRAIN["sgd_steps"]
+    assert line["steps"]["adam"]["eager_calls"] == (
+        TINY_TRAIN["adam_steps"] + TINY_TRAIN["timed_steps"])
+
+
+def test_require_types_refuses_another_type():
+    """A main path that launched a kernel's f32 instantiation where the
+    phase runs bf16 (a quiet upcast) fails; so does a launch no type
+    counted."""
+    names = ["flash_attention_fwd"]
+    launches = {"flash_attention_fwd": 8}
+    cs._require_types("train", {"flash_attention_fwd": {"bfloat16": 8}},
+                      launches, "bfloat16", names)
+    for types in ({"flash_attention_fwd": {"bfloat16": 4, "float32": 4}},
+                  {"flash_attention_fwd": {"float32": 8}}, {}):
+        with pytest.raises(RuntimeError, match="launched by type"):
+            cs._require_types("train", types, launches, "bfloat16", names)
+    cs._require_types("train", {}, {"flash_attention_fwd": 0}, "bfloat16",
+                      names)
+
+
+def test_bf16_check_fails_when_the_control_passes(monkeypatch):
+    """If the card's f32 step also lay within the loss gate, the gate could
+    not tell bf16 from f32: the check refuses. Here the "card" runs the
+    control in bf16 too, so the control reads 0x."""
+    real = cs.lm_train_executor
+
+    def always_bf16(cfg, b, t, dev, dtype=None):
+        return real(cfg, b, t, dev, "bfloat16")
+
+    _count_plain_calls(monkeypatch)
+    monkeypatch.setattr(cs, "lm_train_executor", always_bf16)
+    with pytest.raises(RuntimeError, match="control passes the gate"):
+        cs.phase_train(TINY, TINY_TRAIN, device="cpu")
+
+
+def test_captured_path_is_required_on_the_card():
+    eager = {"path": "eager", "warmup_calls": 0, "captures": 0,
+             "replays": 0, "eager_calls": 8}
+    cs._require_captured("resnet", [eager], on_card=False)
+    with pytest.raises(RuntimeError, match="did not take the captured"):
+        cs._require_captured("resnet", [eager], on_card=True)
+    with pytest.raises(RuntimeError, match="did not take the captured"):
+        cs._require_captured("resnet", [{"path": "unfused",
+                                         "reason": "a kvstore"}], True)
+    cs._require_captured("resnet", [dict(eager, path="captured",
+                                         captures=1, replays=6)], True)
+
+
+def test_eager_twin_refuses_other_parameters(monkeypatch):
+    """The eager twin of a captured run must land on its parameters bit
+    for bit: one last-bit change fails it."""
+    from mxnet_tpu_torch.tools.lstm_lm import lstm_setup
+
+    _count_plain_calls(monkeypatch)
+
+    def setup():
+        return lstm_setup(TINY_LSTM, 2, 2, "cpu")
+
+    mod, it, init = setup()
+    mod.fit(it, **cs.lstm_fit_args(TINY_LSTM, init))
+    state = cs._host_state(mod)
+    rec = cs._eager_twin(None, setup, lambda i: cs.lstm_fit_args(
+        TINY_LSTM, i), False, state, "lstm")
+    assert rec["path"] == "eager" and len(rec["step_ms"]) == 1
+    name = sorted(state[0])[0]
+    state[0][name] = np.nextafter(state[0][name], np.float32(np.inf))
+    with pytest.raises(RuntimeError, match="captured steps land"):
+        cs._eager_twin(None, setup, lambda i: cs.lstm_fit_args(
+            TINY_LSTM, i), False, state, "lstm")
+
+
+def test_steady_step_time_skips_the_warm_up_and_capture():
+    ms = [500.0, 900.0, 10.0, 11.0, 12.0]
+    assert cs._steady_ms(ms, on_card=True) == 11.0
+    assert cs._steady_ms(ms, on_card=False) == 12.0
+
+
+def test_train_bf16_spread_tool_on_the_tiny_lm():
+    from mxnet_tpu_torch.tools.train_bf16_spread import spread
+
+    lines = list(spread(TINY, TINY_TRAIN))
+    assert [ln["step"] for ln in lines] == [1, 2]
+    for ln in lines:
+        assert 0.0 < ln["param_max_abs_diff"] < 0.1
+        assert np.isfinite(ln["loss_bf16"]) and np.isfinite(ln["loss_f32"])
+
+
+def test_profile_capture_needs_a_card(monkeypatch):
+    import torch
+
+    from mxnet_tpu_torch.tools import profile_capture
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert profile_capture.main([]) == 2
