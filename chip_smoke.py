@@ -28,8 +28,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    f32 on register tiles + cp.async, bf16 on wgmma + TMA, a simt body for
    odd bf16 layouts; the same instantiation report, each case's route, the
    scan's main-path shapes held to the f32 and wgmma bodies) at the LSTM
-   LM's shape and odd ones, on the views the RNN op passes, beside cuBLAS
-   + PyTorch's fused LSTM cell and, for a whole layer, cuDNN's LSTM.
+   LM's shape, the bucketing run's (32, 512) and odd ones, on the views the
+   RNN op passes, beside cuBLAS + PyTorch's fused LSTM cell and, for a
+   whole layer, cuDNN's LSTM.
 3. ``serve``   — the continuous-batching generate path at full width (the
    GQA decoder LM of ``bench.py``: d 2048, 16 heads, 4 kv heads, ffn 8192,
    vocab 10000, bench.py's own 4 layers (not cut), seeded random weights,
@@ -95,7 +96,26 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    lstm_step 560 + 560), finite perplexity, step times, tokens/s and peak
    memory; then the 8 batches again with the step eager, equal bit for
    bit.
-9. ``kernels`` — one line per the port's kernel table.
+9. ``bucketing`` — the same LSTM LM as MXNet's ``lstm_bucketing.py``
+   trains it (``mxnet_tpu_torch/tools/lstm_bucketing.py``: buckets
+   10..60, batch 32, dropout 0.5 between the layers, SGD lr 0.01 / wd
+   1e-5 / momentum 0.9, a seeded Markov corpus) through
+   ``BucketingModule``: (1) card vs the port's CPU path at p = 0 (the two
+   devices' generators draw different masks), 2 batches of 8 in bucket
+   10 and 2 in 60, at the lstm phase's gates; (2) one epoch (>= 24
+   batches, every bucket twice or more) with ``do_checkpoint`` and
+   ``module_checkpoint(save_optimizer_states=True)`` at its end, then
+   ``score``, with exact launches (lstm_step 2 x the epoch's summed
+   bucket lengths, f32 only; sgd_mom_update 4 x batches), eager step ms
+   by bucket, tokens/s and peak memory; (3) a fresh BucketingModule from
+   the checkpoint and its optimizer states against the uninterrupted
+   one, 4 batches after the same seed: bit for bit; (4) dropout on the
+   card: eval at p = 0.5 equals p = 0 bit for bit, seeds repeat and
+   differ, a 2^20-element mask keeps 0.5 +- 5 sigma, each kept entry
+   x / (1 - p) exactly; (5) ``Module.fit`` at seq 35 with dropout through
+   the captured step against its eager twin, bit for bit, and two more
+   replays on one batch, which must differ.
+10. ``kernels`` — one line per the port's kernel table.
 
 Then the card's ``nvidia-smi`` name/power-limit line and, last, the
 ``{"ok": true, "device": ...}`` line. Exits non-zero without a CUDA card.
@@ -121,6 +141,8 @@ from mxnet_tpu_torch.tools.lm import LM, SERVE, SEED, TRAIN, \
 from mxnet_tpu_torch.tools.lstm_lm import LSTM_LM, STEP_SHAPES, STEP_TOL, \
     lstm_setup, lstm_steps
 from mxnet_tpu_torch.tools.lstm_lm import fit_args as lstm_fit_args
+from mxnet_tpu_torch.tools import lstm_bucketing as lb
+from mxnet_tpu_torch.tools.lstm_bucketing import BUCKETING
 from mxnet_tpu_torch.tools.resnet import RESNET, change_err, fit_args, \
     resnet_setup, wgrad_convs
 
@@ -229,10 +251,12 @@ RESNET_CE = (1e-4, 1e-2)
 # last-bit differences carried through 35 recurrences
 LSTM_SCAN_TOL = (1e-4, 1e-4)
 # (N, H) of lstm_step: the LSTM LM's batch 128 and its check's batch 8 at
-# H 512, bench_lstm.py's default (32, 256), and two shapes the reference's
-# use_for refuses (H not a multiple of 128, N not of 8); 200 is lstm-lm's
-# default width
-LSTM_CASES = ((128, 512), (8, 512), (32, 256), (4, 8), (3, 200))
+# H 512, the bucketing run's batch 32, bench_lstm.py's default (32, 256),
+# and two shapes the reference's use_for refuses (H not a multiple of 128,
+# N not of 8); 200 is lstm-lm's default width
+LSTM_CASES = ((128, 512), (8, 512), (32, 512), (32, 256), (4, 8), (3, 200))
+# the bucketing phase's step: (batch, hidden), f32, in the scan's layout
+BUCKET_STEP = (BUCKETING["batch"], BUCKETING["hidden"])
 # lstm phase, card vs the port's CPU path (the LSTM LM, 2 batches of 8):
 # after each batch, each parameter's update within LSTM_UPDATE (L2 norm of
 # the difference over the norm of the CPU's update) and the perplexity
@@ -1290,8 +1314,8 @@ def lstm_report(torch):
             kl.ROUTE_CODE["f32" if dtype == "float32" else "wgmma"], tile))
 
 
-def lstm_route_check(plans, report):
-    """Fails unless each main-path shape (LSTM_MAIN) in the scan's layout
+def lstm_route_check(plans, report, main=LSTM_MAIN):
+    """Fails unless each main-path shape (``main``) in the scan's layout
     (``plans``: [((n, h), dtype, layout, Plan)]) takes the f32 tile body
     with 16-byte copies of h and Wh (f32) or the wgmma body (bf16), into an
     instantiation of ``report`` (:func:`lstm_report`) whose SASS holds
@@ -1301,7 +1325,7 @@ def lstm_route_check(plans, report):
     for (n, h), dtype, layout, p in plans:
         label = lstm_label(p)
         routes["%s/%s/%s" % (dtype, [n, h], layout)] = label
-        if (n, h) not in LSTM_MAIN or layout != "scan":
+        if (n, h) not in main or layout != "scan":
             continue
         what = "lstm_step %s %s in the scan's layout" % (dtype, (n, h))
         want = "f32" if dtype == "float32" else "wgmma"
@@ -1388,7 +1412,8 @@ def phase_kernel_lstm(torch):
                                                 "c": errs[1]}})
                 plans.append(((n, h), dtype, layout, p))
                 worst[dtype] = max([worst.get(dtype, 0.0)] + errs)
-    routes = lstm_route_check(plans, instantiations)
+    routes = lstm_route_check(plans, instantiations,
+                              main=LSTM_MAIN + (BUCKET_STEP,))
 
     # the 35-step scan at the LM's shape: kernel scan vs plain scan, f32
     cfg = LSTM_LM
@@ -1407,11 +1432,15 @@ def phase_kernel_lstm(torch):
     del ib, got, want
 
     timings = {}
-    for dtype in ("float32", "bfloat16"):
-        ib, hs, cs, wh = _lstm_inputs(torch, n, h, dtype, gen, "scan")
+    # the LM's (128, 512) in both types; the bucketing run's (32, 512), f32
+    for key, (tn, dtype) in (("float32", (n, "float32")),
+                             ("bfloat16", (n, "bfloat16")),
+                             ("bucketing_float32", (BUCKET_STEP[0],
+                                                    "float32"))):
+        ib, hs, cs, wh = _lstm_inputs(torch, tn, h, dtype, gen, "scan")
         h_out, c_out = torch.empty_like(hs), torch.empty_like(cs)
-        timings[dtype] = lstm_timing(
-            torch, n, h, dtype, kl.plan_of(hs, wh),
+        timings[key] = lstm_timing(
+            torch, tn, h, dtype, kl.plan_of(hs, wh),
             (("ms", lambda: kl.lstm_step(ib, hs, cs, wh, h_out, c_out)),
              ("plain_ms", lambda: kl.lstm_step_plain(ib, hs, cs, wh)),
              ("library_ms", _fused_lstm_cell(torch, ib, hs, cs, wh))))
@@ -2354,17 +2383,18 @@ def memory_holders(torch, top=8):
             "untracked_bytes": allocated - live}
 
 
-def _lstm_check(what, cfg, cs, setups):
+def _lstm_check(what, cfg, cs, setups, fit_args=lstm_fit_args):
     """Fit the LSTM LM of each of the two ``setups`` (each returns a fresh
-    (module, iterator, initializer)) for its ``cs`` batches, and hold the
-    first run against the second: after each batch, each parameter's
-    update within LSTM_UPDATE and the perplexity within LSTM_PPL; the
-    initial weights equal. Raises naming ``what``; returns the record."""
+    (module, iterator, initializer)) for its ``cs`` batches with
+    ``fit_args(cfg, init)``, and hold the first run against the second:
+    after each batch, each parameter's update within LSTM_UPDATE and the
+    perplexity within LSTM_PPL; the initial weights equal. Raises naming
+    ``what``; returns the record."""
     runs = []
     for setup in setups:
         mod, it, init = setup()
         batch = it.batch_size
-        runs.append(_fit_recorded(mod, it, init, lstm_fit_args(cfg, init)))
+        runs.append(_fit_recorded(mod, it, init, fit_args(cfg, init)))
         del mod
     (got_s, got_m), (ref_s, ref_m) = runs
     init_err = max(float(np.abs(got_s[0][0][n] - ref_s[0][0][n]).max())
@@ -2593,6 +2623,342 @@ def phase_custom(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
     return {"fit": fit_launches, "score": score_launches}
 
 
+def _bucket_fit(torch, mod, it, kwargs, on_card):
+    """``mod.fit(it, **kwargs)`` with a synchronized time and the bucket
+    and metric after each batch: (ms from each batch's end to the next's,
+    the first batch's ms, bucket keys, metrics)."""
+    times, keys, metrics = [], [], []
+
+    def record(param):
+        if on_card:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        keys.append(param.locals["data_batch"].bucket_key)
+        metrics.append({k: float(v) for k, v in
+                        param.eval_metric.get_name_value()})
+
+    t0 = time.perf_counter()
+    mod.fit(it, batch_end_callback=record, **kwargs)
+    return ([(b - a) * 1e3 for a, b in zip(times, times[1:])],
+            (times[0] - t0) * 1e3, keys, metrics)
+
+
+def _by_bucket(step_ms, keys, batch):
+    """Per bucket: the median eager step ms over its batches after its
+    first (which binds the bucket's executor), and the tokens (padded)
+    a second over the same batches."""
+    seen, ms = set([keys[0]]), {}
+    for key, t in zip(keys[1:], step_ms):
+        if key in seen:
+            ms.setdefault(key, []).append(t)
+        seen.add(key)
+    out = {str(k): {"median_ms": float(np.median(v)), "batches": len(v)}
+           for k, v in sorted(ms.items())}
+    tokens = sum(batch * k * len(v) for k, v in ms.items())
+    total = sum(sum(v) for v in ms.values())
+    return out, (tokens / total * 1e3 if total else None)
+
+
+def _bucket_dropout_checks(torch, cfg, mod, batch, device, seed):
+    """On ``device``: the LM's eval output at p = cfg["dropout"] equals the
+    p = 0 output bit for bit on the same weights and batch; two training
+    forwards after the same seed are equal and after another seed differ;
+    the Dropout op over cfg["mask_elements"] elements keeps a share within
+    5 sigma of 1 - p, each kept entry exactly x / (1 - p)."""
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch import random as mrand
+    from mxnet_tpu_torch.module import Module
+
+    p = cfg["dropout"]
+    args, aux = mod.get_params()
+    key = batch.bucket_key
+    outs = {}
+    for drop in (p, 0.0):
+        m = Module(lb.lm_symbol(cfg, key, drop), context=device)
+        m.bind(batch.provide_data, batch.provide_label)
+        m.init_params(arg_params=args, aux_params=aux)
+        m.forward(batch, is_train=False)
+        outs[drop] = m.get_outputs()[0].asnumpy()
+        if drop:
+            train = []
+            for s in (seed, seed, seed + 1):
+                mrand.seed(s)
+                m.forward(batch, is_train=True)
+                train.append(m.get_outputs()[0].asnumpy())
+        del m
+    failures = []
+    if not np.array_equal(outs[p], outs[0.0]):
+        failures.append("eval output at p = %g differs from p = 0" % p)
+    if not np.array_equal(train[0], train[1]):
+        failures.append("two training forwards after one seed differ")
+    if np.array_equal(train[0], train[2]):
+        failures.append("training forwards after two seeds are equal")
+    n = cfg["mask_elements"]
+    x = nd.array(np.random.RandomState(seed).uniform(
+        0.5, 2.0, n).astype(np.float32), ctx=device)
+    y = nd.Dropout(x, p=p, mode="always")
+    kept = y._data != 0
+    share = float(kept.float().mean())
+    sigma = math.sqrt(p * (1 - p) / n)
+    exact = bool(torch.equal(y._data[kept], (x._data / (1 - p))[kept]))
+    if not abs(share - (1 - p)) <= 5 * sigma:
+        failures.append("Dropout kept %.6f of %d, want %g +- %g"
+                        % (share, n, 1 - p, 5 * sigma))
+    if not exact:
+        failures.append("a kept entry differs from x / (1 - p)")
+    if failures:
+        raise RuntimeError("bucketing dropout: " + "; ".join(failures))
+    return {"eval_equals_p0": True, "same_seed_equal": True,
+            "other_seed_differs": True, "bucket": key,
+            "mask": {"elements": n, "kept_share": share,
+                     "want": 1 - p, "five_sigma": 5 * sigma,
+                     "kept_exact": exact}}
+
+
+def _bucket_capture(torch, cfg, device, seed, on_card):
+    """The LM at seq cfg["capture_seq"] with dropout through ``Module.fit``
+    for cfg["capture_batches"] batches of cfg["batch"]: the fused step
+    (captured on the card) against the same run eager, bit for bit; then
+    two more steps on one batch from the same parameters, whose outputs
+    must differ (the masks are drawn anew at each replay)."""
+    from mxnet_tpu_torch import random as mrand
+    from mxnet_tpu_torch.ops.kernels import fused_update as fu
+    from mxnet_tpu_torch.ops.kernels import lstm as kl
+
+    lcfg = dict(LSTM_LM, seq=cfg["capture_seq"], vocab=cfg["vocab"],
+                embed=cfg["embed"], hidden=cfg["hidden"],
+                layers=cfg["layers"])
+    steps = cfg["capture_batches"]
+    sym = lb.lm_symbol(cfg, lcfg["seq"], cfg["dropout"])
+
+    def setup():
+        made = lstm_setup(lcfg, cfg["batch"], steps, device, seed, symbol=sym)
+        mrand.seed(seed + 5)
+        return made
+
+    mod, it, init = setup()
+    counters = {"lstm_step": (kl.lstm_step,),
+                "sgd_mom_update_lr": (fu.sgd_mom_update_lr,)}
+    _zero(counters)
+    step_ms, first_ms, metrics = _fit_timed(
+        torch, mod, it, lb.fit_args(cfg, init), on_card)
+    launches = _count(counters)
+    stats = mod.fit_step_stats()
+    state = _host_state(mod)
+    _require_captured("bucketing capture", [stats], on_card)
+    want = {"lstm_step": lstm_steps(lcfg, steps),
+            "sgd_mom_update_lr": len(state[0]) * steps}
+    if launches["lstm_step"] != want["lstm_step"] or (
+            on_card and launches != want):
+        raise RuntimeError("bucketing capture launched %s, want %s"
+                           % (launches, want))
+    # two steps on one batch from the same parameters: fresh masks
+    it.reset()
+    batch = next(iter(it))
+    args, aux = mod.get_params()
+    outs = []
+    for _ in range(2):
+        mod.set_params(args, aux)
+        mod.fit_step(batch)
+        outs.append(mod.get_outputs()[0].asnumpy())
+    after = mod.fit_step_stats()
+    if on_card and (after["captures"] != 1
+                    or after["replays"] != stats["replays"] + 2):
+        raise RuntimeError("bucketing capture: the two extra steps were not "
+                           "replays of the one graph: %s" % after)
+    if np.array_equal(outs[0], outs[1]):
+        raise RuntimeError("bucketing capture: two steps on one batch give "
+                           "the same output (the masks repeat)")
+    del mod
+    eager = _eager_twin(torch, setup, lambda i: lb.fit_args(cfg, i),
+                        on_card, state, "bucketing capture")
+    return {"seq": lcfg["seq"], "batch": cfg["batch"], "batches": steps,
+            "dropout": cfg["dropout"], "path": stats["path"],
+            "steps": stats, "after_two_more": after, "metrics": metrics,
+            "step_ms": step_ms, "median_step_ms": _steady_ms(step_ms,
+                                                             on_card),
+            "first_batch_ms": first_ms, "launches": launches,
+            "captured_vs_eager": {"bit_for_bit": True},
+            "replays_differ": True, "eager": eager}
+
+
+def phase_bucketing(cfg=BUCKETING, device=None, ref_device="cpu",
+                    seed=SEED):
+    """The bucketed LSTM LM through ``BucketingModule`` (``tools/
+    lstm_bucketing.py``): (1) card vs the port's CPU path at p = 0,
+    cfg["check_batch"] a batch over the buckets cfg["check_keys"]; (2) the
+    run: one epoch of ``BucketSentenceIter`` at p = cfg["dropout"] with
+    ``do_checkpoint`` and ``module_checkpoint(save_optimizer_states=True)``
+    at its end, then ``score``, with exact lstm_step (f32) and sgd_mom_update
+    launches; (3) the resume: a fresh BucketingModule from the checkpoint
+    and its states and the uninterrupted module, each after the same seed,
+    over batches of the buckets cfg["resume_keys"], bit for bit; (4)
+    dropout on ``device`` (:func:`_bucket_dropout_checks`); (5) dropout in the
+    captured step (:func:`_bucket_capture`). ``device`` None = the card."""
+    import shutil
+    import tempfile
+
+    import torch
+    from mxnet_tpu_torch import callback, metric, model
+    from mxnet_tpu_torch import random as mrand
+    from mxnet_tpu_torch.ops.kernels import fused_update as fu
+    from mxnet_tpu_torch.ops.kernels import lstm as kl
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    top = max(cfg["buckets"])
+
+    # 1. card vs the port's CPU path, no dropout: the generators differ
+    cb, keys = cfg["check_batch"], cfg["check_keys"]
+
+    def check_setup(dev):
+        def setup():
+            mod, init = lb.bucketing_module(cfg, dev, 0.0, cb, seed)
+            return mod, lb.pick_batches(lb.bucket_iter(cfg, cb, seed + 1),
+                                        keys), init
+        return setup
+
+    check = _lstm_check("bucketing check, card vs CPU at p = 0", cfg,
+                        len(keys), [check_setup(device),
+                                    check_setup(ref_device)],
+                        fit_args=lb.fit_args)
+    check["buckets"] = list(keys)
+
+    # 2. the run
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    work = tempfile.mkdtemp(prefix="bucketing-")
+    try:
+        batch = cfg["batch"]
+        mod, init = lb.bucketing_module(cfg, device, cfg["dropout"], batch,
+                                        seed)
+        it = lb.bucket_iter(cfg, batch, seed + 1)
+        master = lb.master_module(mod)
+        ckpt, params_ck = os.path.join(work, "ck"), os.path.join(work, "lm")
+        counters = {"lstm_step": (kl.lstm_step,),
+                    "sgd_mom_update": (fu.sgd_mom_update,)}
+        mrand.seed(seed)
+        sync()
+        start_memory = _reset_peak(torch) if on_card else None
+        _zero(counters)
+        step_ms, first_ms, fit_keys, metrics = _bucket_fit(
+            torch, mod, it, dict(lb.fit_args(cfg, init), epoch_end_callback=[
+                callback.do_checkpoint(params_ck),
+                callback.module_checkpoint(master, ckpt,
+                                           save_optimizer_states=True)]),
+            on_card)
+        fit_launches = _count(counters)
+        fit_types = _types(counters)
+        live = _host_state(mod)
+        _zero(counters)
+        score_keys = []
+        t1 = time.perf_counter()
+        score = dict(mod.score(
+            it, metric.Perplexity(ignore_label=cfg["invalid_label"]),
+            batch_end_callback=lambda p: score_keys.append(
+                p.locals["eval_batch"].bucket_key)))
+        sync()
+        score_s = time.perf_counter() - t1
+        score_launches = _count(counters)
+        memory = _peak(torch, on_card)
+        n_params = len(live[0])
+        want_fit = {"lstm_step": lb.lstm_steps(cfg, fit_keys),
+                    "sgd_mom_update": n_params * len(fit_keys)}
+        want_score = {"lstm_step": lb.lstm_steps(cfg, score_keys),
+                      "sgd_mom_update": 0}
+        failures = []
+        if fit_launches != want_fit or score_launches != want_score:
+            failures.append("launched %s in fit and %s in score, want %s "
+                            "and %s" % (fit_launches, score_launches,
+                                        want_fit, want_score))
+        if set(fit_types.get("lstm_step", {})) != {"float32"}:
+            failures.append("lstm_step ran %s, want float32 only"
+                            % fit_types.get("lstm_step"))
+        per = {k: fit_keys.count(k) for k in cfg["buckets"]}
+        if len(fit_keys) < 24 or min(per.values()) < 2:
+            failures.append("the epoch ran %d batches, by bucket %s: want "
+                            ">= 24 and every bucket twice" % (len(fit_keys),
+                                                              per))
+        ppl = [m["Perplexity"] for m in metrics]
+        if not all(np.isfinite(ppl)) or not np.isfinite(score["Perplexity"]):
+            failures.append("perplexity %s, score %s" % (ppl, score))
+        # the checkpoints hold the stepped parameters
+        for prefix in (ckpt, params_ck):
+            _, ck_args, _ = model.load_checkpoint(prefix, 1)
+            if not _equal_params({n: a.asnumpy() for n, a in
+                                  ck_args.items()}, live[0])[0]:
+                failures.append("%s-0001.params differs from the module's "
+                                "parameters" % os.path.basename(prefix))
+        if failures:
+            raise RuntimeError("bucketing phase: " + "; ".join(failures))
+
+        # 3. the resume, bit for bit
+        more = lb.pick_batches(lb.bucket_iter(cfg, batch, seed + 2),
+                               cfg["resume_keys"])
+        mrand.seed(seed + 3)
+        for b in more.batches:
+            mod.fit_step(b)
+        want = _host_state(mod)
+        _, ck_args, ck_aux = model.load_checkpoint(ckpt, 1)
+        resumed, _ = lb.bucketing_module(cfg, device, cfg["dropout"], batch,
+                                         seed + 9)
+        resumed.set_params(ck_args, ck_aux)
+        resumed.init_optimizer(optimizer="sgd",
+                               optimizer_params=lb.optimizer_params(cfg))
+        lb.master_module(resumed).load_optimizer_states(ckpt + "-0001.states")
+        mrand.seed(seed + 3)
+        for b in more.batches:
+            resumed.fit_step(b)
+        got = _host_state(resumed)
+        same = _equal_params(got[0], want[0])
+        if not same[0]:
+            raise RuntimeError("bucketing resume: %d parameters differ, the "
+                               "worst %s by %g" % (same[3], same[2],
+                                                   same[1]))
+        resume = {"batches": [b.bucket_key for b in more.batches],
+                  "bit_for_bit": True,
+                  "files": sorted(os.listdir(work))}
+        del resumed
+
+        # 4. dropout on the card
+        dropout = _bucket_dropout_checks(torch, cfg, mod, more.batches[0],
+                                         device, seed)
+        del mod, master
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # 5. dropout in the captured step
+    _fresh(torch, on_card)
+    capture = _bucket_capture(torch, cfg, device, seed, on_card)
+
+    by_bucket, tokens_per_s = _by_bucket(step_ms, fit_keys, batch)
+    result = {"phase": "bucketing", "vocab": cfg["vocab"],
+              "embed": cfg["embed"], "hidden": cfg["hidden"],
+              "layers": cfg["layers"], "dropout": cfg["dropout"],
+              "buckets": list(cfg["buckets"]), "batch": batch,
+              "dtype": "float32", "path": "eager (BucketingModule)",
+              "check": check, "bucket_sequence": fit_keys,
+              "batches": len(fit_keys), "metrics": metrics,
+              "score": score, "score_ms_per_batch":
+                  score_s * 1e3 / max(len(score_keys), 1),
+              "first_batch_ms": first_ms, "step_ms": step_ms,
+              "step_ms_by_bucket": by_bucket,
+              "tokens_per_s": tokens_per_s,
+              "launches": {"fit": fit_launches, "score": score_launches,
+                           "capture": capture["launches"]},
+              "resume": resume, "dropout_checks": dropout,
+              "capture": capture, **memory}
+    if on_card:
+        result["start_memory_allocated"] = start_memory
+    emit(result)
+    return {"lstm_step": fit_launches["lstm_step"]
+            + score_launches["lstm_step"],
+            "sgd_mom_update": fit_launches["sgd_mom_update"],
+            "sgd_mom_update_lr": capture["launches"]["sgd_mom_update_lr"],
+            "capture_lstm_step": capture["launches"]["lstm_step"]}
+
+
 def main():
     import torch
 
@@ -2614,6 +2980,7 @@ def main():
     resnet = phase_resnet()
     lstm = phase_lstm()
     custom = phase_custom()
+    bucketing = phase_bucketing()
     t = timings["serve"]["float32"]
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda", "source": FA_SRC,
@@ -2648,6 +3015,10 @@ def main():
         by_phase = {"train": train[kind]}
         if kind in resnet:
             by_phase["resnet"] = resnet[kind]
+        if kind in bucketing:
+            # the Updater's scalar entry, and the captured step's lr entry
+            by_phase["bucketing"] = bucketing[kind]
+            by_phase["bucketing_capture"] = bucketing[kind + "_lr"]
         rows.append({
             "name": kind, "route": "cuda", "source": UPDATE_SRC,
             "replaces": UPDATE_REPLACES[kind],
@@ -2687,9 +3058,14 @@ def main():
     t = lstm_timings["float32"]
     rows.append({
         "name": "lstm_step", "route": "cuda", "source": LSTM_SRC,
-        "replaces": LSTM_REPLACES, "launches": lstm["fit"] + lstm["score"],
+        "replaces": LSTM_REPLACES,
+        "launches": lstm["fit"] + lstm["score"] + bucketing["lstm_step"]
+        + bucketing["capture_lstm_step"],
         "launches_by_phase": {"lstm_fit": lstm["fit"],
-                              "lstm_score": lstm["score"]},
+                              "lstm_score": lstm["score"],
+                              "bucketing": bucketing["lstm_step"],
+                              "bucketing_capture":
+                                  bucketing["capture_lstm_step"]},
         "max_abs_err": max(lstm_worst.values()), "max_err": lstm_worst,
         "dtype": "float32", "shape": "one step at (N, H) = (128, 512)",
         "kernel": t["kernel"], "layout": t["layout"],
@@ -2697,7 +3073,9 @@ def main():
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "library": "torch.mm(h, wh.t()) + aten._thnn_fused_lstm_cell (no "
                    "single PyTorch call computes the step)",
-        "bfloat16": lstm_timings["bfloat16"], "layer": lstm_layer})
+        "bfloat16": lstm_timings["bfloat16"],
+        "bucketing_float32": lstm_timings["bucketing_float32"],
+        "layer": lstm_layer})
     for kind in ("fwd", "bwd"):
         t = rtc_timings[kind]
         rows.append(dict(t, **{

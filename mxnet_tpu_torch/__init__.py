@@ -24,11 +24,17 @@ the ``lstm_step`` kernel (the LSTM language model through ``Module.fit``);
 and the user-extension surface: imperative ``autograd`` over PyTorch's
 graph, Python custom operators (``operator``, the ``Custom`` op) and
 ``rtc``, user CUDA C compiled at run time by NVRTC and launched with the
-caller's grid and block.
+caller's grid and block; and the bucketed recurrent LM as MXNet's
+``lstm_bucketing.py`` trains it: ``random`` (a generator a device) with
+``Dropout``, ``DropoutCell`` / ``ZoneoutCell`` and the ``RNN`` op's
+dropout, ``rnn.BucketSentenceIter``, ``module.BucketingModule``, and the
+checkpoints (``nd.save`` / ``nd.load``, symbol JSON, optimizer states,
+``Module.save_checkpoint`` / ``Module.load``) in the JAX package's files,
+and the reference's through ``interop``.
 """
 from . import (autograd, base, callback, context, engine, executor,
-               initializer, io, metric, model, models, module, ndarray,
-               operator, optimizer, rnn, rtc, symbol)
+               initializer, interop, io, metric, model, models, module,
+               ndarray, operator, optimizer, random, rnn, rtc, symbol)
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
@@ -39,6 +45,6 @@ __version__ = "0.9.5-torch.5"
 
 __all__ = ["MXNetError", "autograd", "base", "callback", "context", "cpu",
            "default_device", "engine", "executor", "gpu", "initializer",
-           "io", "metric", "mod", "model", "models", "module", "nd",
-           "ndarray", "operator", "optimizer", "rnn", "rtc", "sym",
-           "symbol"]
+           "interop", "io", "metric", "mod", "model", "models", "module",
+           "nd", "ndarray", "operator", "optimizer", "random", "rnn", "rtc",
+           "sym", "symbol"]

@@ -1,12 +1,40 @@
 """Training callbacks (counterpart of ``mxnet_tpu/callback.py``,
-reference python/mxnet/callback.py): ``Speedometer``, ``log_train_metric``
-and ``ProgressBar``. The checkpoint callbacks wait for params save."""
+reference python/mxnet/callback.py): the checkpoint callbacks
+``module_checkpoint`` and ``do_checkpoint``, ``Speedometer``,
+``log_train_metric`` and ``ProgressBar``."""
 from __future__ import annotations
 
 import logging
 import math
 import sys
 import time
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """An epoch-end callback: ``mod.save_checkpoint`` every ``period``
+    epochs (reference callback.py module_checkpoint)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+
+    return _callback
+
+
+def do_checkpoint(prefix, period=1):
+    """An epoch-end callback: ``model.save_checkpoint`` of the epoch's
+    symbol and parameters every ``period`` epochs (reference
+    callback.py:39)."""
+    from .model import save_checkpoint
+
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+
+    return _callback
 
 
 def log_train_metric(period, auto_reset=False):

@@ -13,7 +13,11 @@ conflicted on a variable — but the pushing thread is not blocked.
     engine.push(lambda: write_file(...), mutable_vars=[v])
     engine.fence([v]).wait()
 
-The native engine, capture/replay and trace-and-fuse are not ported yet.
+Checkpoint files are written through it (:func:`push_file_write`, one
+variable a path): ``async_write=True`` returns at once and the write
+overlaps training; a reader waits with :func:`wait_for_file`, and a failed
+write raises there or at the next file write. The native engine,
+capture/replay and trace-and-fuse are not ported yet.
 """
 from __future__ import annotations
 
@@ -146,3 +150,59 @@ def fence(vars: Sequence[int], priority: int = 0,
     vs = list(vars)
     get().push(ev.set, const_vars=vs, priority=priority, name=name)
     return Fence(ev, len(vs))
+
+
+# --- checkpoint file writes (reference: every store goes through the engine)
+_file_lock = threading.Lock()
+_file_vars = {}   # absolute path -> engine variable
+_file_errs = {}   # absolute path -> the exception its last write raised
+
+
+def push_file_write(path: str, fn, wait: bool = True,
+                    name: Optional[str] = None):
+    """Run ``fn`` (which writes ``path``) as an engine op holding the
+    path's variable; ``wait=False`` returns at once. A failed write
+    raises at the next :func:`wait_for_file` of its path, or at the next
+    file write of any path (per-epoch files have distinct names, so a
+    full disk must not stay silent)."""
+    apath = os.path.abspath(path)
+    _raise_pending_file_error()
+    with _file_lock:
+        var = _file_vars.get(apath)
+        if var is None:
+            var = _file_vars[apath] = new_variable()
+
+    def run():
+        try:
+            fn()
+        except Exception as e:  # raised at the next sync point
+            with _file_lock:
+                _file_errs[apath] = e
+
+    push(run, mutable_vars=[var],
+         name=name or "file_write:%s" % os.path.basename(apath))
+    if wait:
+        wait_for_file(apath)
+
+
+def _raise_pending_file_error():
+    with _file_lock:
+        if not _file_errs:
+            return
+        path = next(iter(_file_errs))
+        err = _file_errs.pop(path)
+    raise err
+
+
+def wait_for_file(path: str):
+    """Block until every write pushed for ``path`` has run; raise the
+    failure of one, if any."""
+    apath = os.path.abspath(path)
+    with _file_lock:
+        var = _file_vars.get(apath)
+    if var is not None:
+        wait_for_var(var)
+    with _file_lock:
+        err = _file_errs.pop(apath, None)
+    if err is not None:
+        raise err

@@ -27,6 +27,14 @@ exactly only up to 256; the reference casts them.
 :meth:`Executor.make_train_step` is the whole training step (forward,
 backward and the caller's update) as one function; on the card it is one
 CUDA graph, captured after a few warm-up calls and replayed (``_TrainStep``).
+
+An operator that draws (``Dropout``, the ``RNN`` op's dropout) takes the
+device's generator (``random.generator``) in every training forward, so
+each forward, backward and step draws anew, as the reference's fresh key
+a step does. A captured step registers that generator with its graph:
+the warm-up calls draw eagerly, the capture draws nothing, and each replay
+draws from the offset the eager step would have reached, so captured and
+eager steps equal each other bit for bit and no mask repeats.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from . import random as _random
 from .base import MXNetError
 from .context import resolve_device
 from .ndarray import NDArray, _as_torch_dtype
@@ -526,6 +535,9 @@ class _TrainStep:
             return outs
         if self._graph is None:
             graph = torch.cuda.CUDAGraph()
+            if self._exe._symbol._needs_rng():
+                # replays advance the generator as eager steps would
+                graph.register_generator_state(_random.generator(device))
 
             def record():
                 with torch.cuda.graph(graph):

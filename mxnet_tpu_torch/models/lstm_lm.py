@@ -6,11 +6,11 @@ parameter names: Embedding -> stacked LSTM unrolled over ``seq_len`` ->
 a per-step FullyConnected -> SoftmaxOutput over the flattened
 (batch * time) axis. ``fused=True`` is one ``RNN`` op over a packed blob
 (``FusedRNNCell``; every step through the ``lstm_step`` kernel on the
-card), ``fused=False`` a ``SequentialRNNCell`` of ``LSTMCell``s. Dropout
-between layers waits for the port's ``Dropout`` op.
+card), ``fused=False`` a ``SequentialRNNCell`` of ``LSTMCell``s.
+``dropout`` acts between the layers in training: the ``RNN`` op's ``p``
+when fused, a ``DropoutCell`` between the cells when not.
 """
 from .. import symbol as sym
-from ..base import MXNetError
 from ..rnn import rnn_cell
 
 
@@ -24,13 +24,12 @@ def get_symbol(num_classes=10000, seq_len=35, num_embed=200, num_hidden=200,
                                       mode='lstm', dropout=dropout,
                                       prefix='lstm_')
     else:
-        if dropout > 0 and num_layers > 1:
-            raise MXNetError("lstm-lm: dropout between unfused layers needs "
-                             "DropoutCell, which a later slice of the port "
-                             "brings")
         stack = rnn_cell.SequentialRNNCell()
         for i in range(num_layers):
             stack.add(rnn_cell.LSTMCell(num_hidden, prefix='lstm_l%d_' % i))
+            if dropout > 0 and i < num_layers - 1:
+                stack.add(rnn_cell.DropoutCell(dropout,
+                                               prefix='drop_l%d_' % i))
 
     outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True,
                               layout='NTC')

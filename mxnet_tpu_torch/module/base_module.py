@@ -4,8 +4,8 @@ Counterpart of ``mxnet_tpu/module/base_module.py`` (reference
 python/mxnet/module/base_module.py): bind -> init_params ->
 init_optimizer, then per batch ``fit_step`` (forward_backward + update) and
 ``update_metric``; ``score``, ``predict`` and ``iter_predict`` for
-evaluation. Params save/load waits for checkpoints; monitors are not
-ported.
+evaluation; ``save_params`` / ``load_params`` (the ``arg:`` / ``aux:``
+blob of ``model.save_checkpoint``). Monitors are not ported.
 """
 from __future__ import annotations
 
@@ -14,9 +14,11 @@ import time
 
 import torch
 
+from .. import engine
 from .. import metric as metric_mod
+from .. import ndarray as nd
 from ..base import MXNetError
-from ..model import BatchEndParam
+from ..model import BatchEndParam, split_param_dict, write_params
 from ..ndarray import NDArray
 
 
@@ -209,6 +211,20 @@ class BaseModule:
         self.init_params(initializer=None, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
+
+    def save_params(self, fname, async_write=False):
+        """``get_params()`` as an ``arg:`` / ``aux:`` blob, written
+        atomically through the engine (behind training with
+        ``async_write``: the values are those of the call)."""
+        arg_params, aux_params = self.get_params()
+        write_params(fname, arg_params, aux_params, async_write,
+                     name="save_params")
+
+    def load_params(self, fname):
+        """``set_params`` from a blob :meth:`save_params` (or the JAX
+        package, or the reference) wrote."""
+        engine.wait_for_file(fname)
+        self.set_params(*split_param_dict(nd.load(fname), fname))
 
     def forward(self, data_batch, is_train=None):
         raise NotImplementedError()

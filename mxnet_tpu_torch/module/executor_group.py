@@ -5,8 +5,11 @@ python/mxnet/module/executor_group.py) for one device: one ``Executor``
 bound over the whole batch, ``grad_req`` "null" for the data (unless the
 module wants input gradients), the labels and the fixed parameters. Each
 batch is copied into the bound data and label arrays on the device;
-``compute_dtype`` passes to the executor. A group over several devices
-waits for the communication slice, and raises.
+``compute_dtype`` passes to the executor. A group bound with a
+``shared_group`` (a bucket of ``BucketingModule``) takes that group's
+parameter and aux-state arrays, the same tensors, and allocates only its
+own data, label and gradient arrays. A group over several devices waits
+for the communication slice, and raises.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
                  fixed_param_names=None, grad_req="write",
-                 compute_dtype=None):
+                 compute_dtype=None, shared_group=None):
         if len(contexts) != 1:
             raise MXNetError("an executor group over %d devices is not "
                              "ported (one device)" % len(contexts))
@@ -59,21 +62,33 @@ class DataParallelExecutorGroup:
                 self.grad_req[name] = req
         else:
             self.grad_req = dict(grad_req)
-        self._bind()
+        self._bind(shared_group)
         self.batch_size = _name_shape(data_shapes[0])[1][0]
 
-    def _bind(self):
+    def _bind(self, shared_group=None):
         shapes = dict(_name_shape(d) for d in
                       list(self.data_shapes) + list(self.label_shapes or []))
         arg_shapes, _, aux_shapes = self.symbol.infer_shape(**shapes)
         device = self.contexts[0]
-        args = {n: nd.zeros(s, device) for n, s in zip(self.arg_names,
-                                                      arg_shapes)}
+        shared = {}
+        if shared_group is not None:
+            shared = {n: a for n, a in shared_group._exec.arg_dict.items()
+                      if n in self.param_names}
+            shared.update(shared_group._exec.aux_dict)
+
+        def array(n, s):
+            if n not in shared:
+                return nd.zeros(s, device)
+            if shared[n].shape != tuple(s):
+                raise MXNetError("shared array %s has shape %s, this bucket "
+                                 "needs %s" % (n, shared[n].shape, tuple(s)))
+            return shared[n]
+
+        args = {n: array(n, s) for n, s in zip(self.arg_names, arg_shapes)}
         grads = {n: nd.zeros(s, device) for n, s in zip(self.arg_names,
                                                        arg_shapes)
                  if self.grad_req.get(n, "null") != "null"}
-        auxs = {n: nd.zeros(s, device) for n, s in zip(self.aux_names,
-                                                      aux_shapes)}
+        auxs = {n: array(n, s) for n, s in zip(self.aux_names, aux_shapes)}
         self._exec = Executor(self.symbol, device, args, grads,
                               self.grad_req, auxs,
                               compute_dtype=self.compute_dtype)

@@ -23,8 +23,21 @@ in-place ``opt.lr_mult[name] = 2.0``). The reference's conditions apply
 parameter's ``grad_req`` "write"), and one of the port's: no Custom op
 that copies to the host (a ``NumpyOp``). Otherwise ``fit_step`` runs
 ``forward_backward`` and ``update`` and :meth:`Module.fit_step_stats`
-says why. Kvstores, several contexts, checkpoints and shared modules are
-not ported.
+says why.
+
+``bind(shared_module=...)`` (``BucketingModule``'s buckets) shares that
+module's parameter and aux-state tensors and host copies; both must list
+their parameters in the same order, the updater's index keys.
+``borrow_optimizer`` shares its optimizer and updater. Checkpoints
+(``save_checkpoint``, ``Module.load``, ``save_params`` / ``load_params``,
+``save_optimizer_states`` / ``load_optimizer_states``) are the JAX
+package's files: the symbol's JSON, an ``nd.save`` blob of ``arg:`` /
+``aux:`` arrays and the ``Updater``'s state blob, written through the
+engine (``async_write``). The fused step updates the executor's
+parameters and the updater's states in place, so a save reads the
+stepped values; loading optimizer states replaces the updater's tensors,
+so it drops the fused step, which the next ``fit_step`` builds (and, on
+the card, captures) anew. Kvstores and several contexts are not ported.
 """
 from __future__ import annotations
 
@@ -33,13 +46,14 @@ import os
 
 import numpy as np
 
+from .. import engine
 from .. import ndarray as nd
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..context import cpu, resolve_device
 from ..initializer import InitDesc, Uniform
 from ..io import DataDesc
-from ..model import _create_kvstore, _update_params
+from ..model import _create_kvstore, _update_params, load_checkpoint
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
 
@@ -88,6 +102,75 @@ class Module(BaseModule):
         # the fused step's state: None not built yet, False ineligible
         self._fused_fit = None
         self._fused_reason = None
+        # optimizer states init_optimizer loads (Module.load)
+        self._preload_opt_states = None
+
+    # --- checkpoints ------------------------------------------------------
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module of a checkpoint's symbol and parameters (reference
+        module.py:115); with ``load_optimizer_states`` its
+        ``init_optimizer`` loads ``prefix-%04d.states`` as well."""
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
+                        async_write=False):
+        """``prefix-symbol.json``, ``prefix-%04d.params`` and, with
+        ``save_optimizer_states``, ``prefix-%04d.states`` (reference
+        module.py:135)."""
+        self._symbol.save("%s-symbol.json" % prefix)
+        param_name = "%s-%04d.params" % (prefix, epoch)
+        self.save_params(param_name, async_write=async_write)
+        logging.info("Saved checkpoint to \"%s\"", param_name)
+        if save_optimizer_states:
+            state_name = "%s-%04d.states" % (prefix, epoch)
+            self.save_optimizer_states(state_name, async_write=async_write)
+            logging.info("Saved optimizer state to \"%s\"", state_name)
+
+    def save_optimizer_states(self, fname, async_write=False):
+        """The updater's state blob (``Updater.get_states``, taken now),
+        written atomically through the engine."""
+        if not self.optimizer_initialized:
+            raise MXNetError("call init_optimizer first")
+        blob = self._updater.get_states()
+
+        def write():
+            with open(fname + ".tmp", "wb") as fout:
+                fout.write(blob)
+            os.replace(fname + ".tmp", fname)
+
+        engine.push_file_write(fname, write, wait=not async_write,
+                               name="save_optimizer_states")
+
+    def load_optimizer_states(self, fname):
+        """Restore the updater's states from a blob of either package. The
+        fused step adopted the old state tensors, so it is dropped and
+        built anew at the next ``fit_step``."""
+        if not self.optimizer_initialized:
+            raise MXNetError("call init_optimizer first")
+        engine.wait_for_file(fname)
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
+        self._fused_fit = None
+
+    def borrow_optimizer(self, shared_module):
+        """Share ``shared_module``'s optimizer and updater (reference
+        module.py borrow_optimizer; used by ``BucketingModule``)."""
+        if not shared_module.optimizer_initialized:
+            raise MXNetError("the shared module has no optimizer yet")
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
+        self._fused_fit = None
 
     # --- properties -------------------------------------------------------
     @property
@@ -179,9 +262,20 @@ class Module(BaseModule):
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
         """Bind the executor group for ``data_shapes`` / ``label_shapes``
-        ((name, shape) pairs or ``DataDesc``) on the module's device."""
+        ((name, shape) pairs or ``DataDesc``) on the module's device; with
+        ``shared_module`` (bound, initialized, the same parameter names in
+        the same order) on its parameter and aux-state tensors."""
         if shared_module is not None:
-            raise MXNetError("shared modules are not ported")
+            if not (shared_module.binded
+                    and shared_module.params_initialized):
+                raise MXNetError("bind and initialize the shared module "
+                                 "first")
+            if shared_module._param_names != self._param_names:
+                raise MXNetError(
+                    "the shared module lists its parameters as %s, this "
+                    "one as %s: the updater's index keys would mix their "
+                    "states" % (shared_module._param_names,
+                                self._param_names))
         if force_rebind:
             self.binded = False
             self._exec_group = None
@@ -201,10 +295,16 @@ class Module(BaseModule):
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, for_training,
             inputs_need_grad, fixed_param_names=self._fixed_param_names,
-            grad_req=grad_req, compute_dtype=self._compute_dtype)
+            grad_req=grad_req, compute_dtype=self._compute_dtype,
+            shared_group=(shared_module._exec_group
+                          if shared_module is not None else None))
         self._fused_fit = None
         self.binded = True
-        if self.params_initialized:
+        if shared_module is not None:
+            self.params_initialized = True
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+        elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -234,6 +334,9 @@ class Module(BaseModule):
         self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         self._fused_fit = None
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     # --- computations -----------------------------------------------------
     def forward(self, data_batch, is_train=None):

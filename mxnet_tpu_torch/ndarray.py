@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from . import autograd as _autograd
+from . import random as _random
 from .base import MXNetError
 from .context import resolve_device
 from .ops import OP_REGISTRY, OpContext, OpDef, get_op
@@ -324,11 +325,15 @@ def invoke(op: OpDef, inputs: Sequence[NDArray], attrs: Dict[str, Any],
     attrs = op.parse_attrs(attrs)
     n_aux = 0 if op.variadic else len(op.get_aux_names(attrs))
     n_in = len(inputs) - n_aux
+    rng = None
+    if op.needs_rng:
+        rng = _random.generator(inputs[0].context if inputs
+                                else resolve_device(attrs.get("ctx")))
     with torch.set_grad_enabled(_autograd.is_recording()):
         outs, aux_out = op.impl(
             attrs, tuple(x._data for x in inputs[:n_in]),
             tuple(x._data for x in inputs[n_in:]),
-            OpContext(is_train=_autograd.is_training()))
+            OpContext(is_train=_autograd.is_training(), rng=rng))
     with torch.no_grad():
         for handle, new in zip(inputs[n_in:], aux_out):
             handle._data.copy_(new)
@@ -440,6 +445,55 @@ def concatenate(arrays: Sequence[NDArray], axis=0,
     """The arrays joined along ``axis``, as a new array on their device."""
     del always_copy  # torch.cat always copies
     return NDArray(torch.cat([a._data for a in arrays], dim=axis))
+
+
+# --- save / load (the checkpoint container, reference ndarray.h:334-343) -----
+def save(fname: str, data, format: str = "npz") -> None:
+    """Save an NDArray, a list or a dict of them: by default the JAX
+    package's npz container (``__format__`` "dict" or "list", list entries
+    as ``arr_<i>``), written at ``fname`` itself; ``format="reference"``
+    the reference's dmlc ``.params`` blob (``interop.save_params``).
+    :func:`load` reads either, and so does the JAX package."""
+    import os
+
+    if format not in ("npz", "reference"):
+        raise ValueError("nd.save format must be 'npz' or 'reference', "
+                         "got %r" % (format,))
+    if isinstance(data, NDArray):
+        data = [data]
+    if format == "reference":
+        from . import interop
+
+        interop.save_params(fname, data)
+        return
+    if isinstance(data, dict):
+        np.savez(fname, __format__="dict",
+                 **{k: v.asnumpy() for k, v in data.items()})
+    else:
+        np.savez(fname, __format__="list",
+                 **{"arr_%d" % i: v.asnumpy() for i, v in enumerate(data)})
+    if not fname.endswith(".npz") and os.path.exists(fname + ".npz"):
+        os.replace(fname + ".npz", fname)
+
+
+def load(fname: str):
+    """The dict or list :func:`save` wrote (either format, told apart by
+    the first 8 bytes), as NDArrays on the host."""
+    from . import interop
+    from .context import cpu
+
+    with open(fname, "rb") as fh:
+        head = fh.read(8)
+    if interop.is_reference_params(head):
+        return interop.load_params(fname)
+    with np.load(fname, allow_pickle=False) as f:
+        fmt = str(f["__format__"]) if "__format__" in f.files else "dict"
+        if fmt == "list":
+            keys = sorted((k for k in f.files if k.startswith("arr_")),
+                          key=lambda k: int(k.split("_")[1]))
+            return [array(f[k], ctx=cpu()) for k in keys]
+        return {k: array(f[k], ctx=cpu()) for k in f.files
+                if k != "__format__"}
 
 
 def waitall():

@@ -27,13 +27,15 @@ def _layer_norm_op(attrs, data, gamma, beta):
 
 @defop("MultiHeadAttention", arg_names=("query", "key", "value"),
        param_spec={"num_heads": 1, "num_kv_heads": 0, "causal": False,
-                   "use_rope": False})
+                   "use_rope": False, "use_flash": True})
 def _multi_head_attention(attrs, query, key, value):
     """Multi-head attention on (B, T, H*D) projected inputs: split heads,
     RoPE on q/k if asked, grouped-query attention (``num_kv_heads`` < heads;
     0 means MHA), merge heads. Attention always goes through the
     flash-attention function, whose backward is the flash backward; the
-    port has no einsum path to select."""
+    port has no einsum path to select, so ``use_flash`` (the reference's
+    switch, kept so graph JSON crosses between the packages) changes
+    nothing."""
     from .kernels import flash_attention as _fa
 
     h = int(attrs["num_heads"])

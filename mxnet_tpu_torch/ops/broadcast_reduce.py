@@ -96,3 +96,14 @@ def _broadcast_to(attrs, data):
     shape = tuple(int(s) for s in attrs["shape"])
     return data.expand(tuple(d if s == 0 else s
                              for s, d in zip(shape, data.shape)))
+
+
+@defop("where", arg_names=("condition", "x", "y"), param_spec={},
+       no_grad_inputs=("condition",))
+def _where(attrs, condition, x, y):
+    """Elementwise select, ``x`` where ``condition`` is non-zero (reference
+    control_flow_op.cc where); a 1-D condition over a larger ``x`` selects
+    whole rows."""
+    if condition.shape != x.shape and condition.dim() == 1:
+        condition = condition.reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(condition != 0, x, y)

@@ -1,12 +1,13 @@
 """Constant-creating operators.
 
-Counterpart of ``_zeros`` / ``_ones`` of ``mxnet_tpu/ops/init_random.py``
-(reference src/operator/tensor/init_op.cc), which ``symbol.zeros`` /
-``symbol.ones`` and the RNN cells' ``begin_state`` build on. An op
-without inputs makes its tensor on the device of the graph that runs it
+Counterpart of ``_zeros`` / ``_ones`` / ``ones_like`` of
+``mxnet_tpu/ops/init_random.py`` (reference src/operator/tensor/
+init_op.cc), which ``symbol.zeros`` / ``symbol.ones``, the RNN cells'
+``begin_state`` and ``ZoneoutCell``'s masks build on. An op without
+inputs makes its tensor on the device of the graph that runs it
 (``OpContext.device``), or, called imperatively, on its ``ctx`` attribute
-(None is the card). The rest of the module (``_arange``, ``_eye``, the
-sampling ops) is not ported yet.
+(None is the card). The rest of the module (``_arange``, ``_eye``,
+``zeros_like``, the sampling ops) is not ported yet.
 """
 from __future__ import annotations
 
@@ -38,3 +39,9 @@ def _creator(name, fill):
 
 _creator("_zeros", 0)
 _creator("_ones", 1)
+
+
+@defop("ones_like", arg_names=("data",), param_spec={})
+def _ones_like(attrs, data):
+    """Ones of ``data``'s shape, type and device (no gradient flows)."""
+    return torch.ones_like(data)

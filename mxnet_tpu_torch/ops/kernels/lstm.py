@@ -11,9 +11,10 @@ state and ``wh`` (4H, H) the recurrent weight, gate order i, f, g, o; it
 returns (h', c') in h's and c's type, the product and the gate maths in
 f32. For CPU tensors the plain version runs; for CUDA tensors :func:`plan`
 picks one of three kernels (its ``route``) and the kernel launches,
-counting its launches in ``lstm_step.launches``, or the call raises — it
-never falls back. Unlike the reference there is no selection gate
-(``use_for``): a CUDA tensor always takes a kernel, at any N and H.
+counting its launches in ``lstm_step.launches`` (and by type in
+``launches_by_dtype``), or the call raises — it never falls back. Unlike
+the reference there is no selection gate (``use_for``): a CUDA tensor
+always takes a kernel, at any N and H.
 
 - ``"f32"``: float32, register tiles fed by ``cp.async``, at any strides:
   rows that are 16-byte aligned and contiguous in k copy 16 bytes a time,
@@ -37,7 +38,7 @@ import functools
 
 import torch
 
-from ._launches import counted
+from ._launches import counted, launched
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NAME = "lstm_step"
@@ -227,7 +228,7 @@ def lstm_step(ib, h, c, wh, h_out=None, c_out=None):
     if err != 0:
         raise RuntimeError("lstm_step launch failed (%s route): cudaError "
                            "%d" % (p.route, err))
-    lstm_step.launches += 1
+    launched(lstm_step, h.dtype)
     return h_out, c_out
 
 

@@ -2,8 +2,8 @@
 
 Counterpart of the parts of ``mxnet_tpu/ops/nn.py`` the ported paths use
 (reference src/operator/*): ``FullyConnected``, ``Convolution``,
-``Pooling``, ``BatchNorm``, ``Activation``, the softmax family, and the
-loss heads ``SoftmaxOutput`` and ``MakeLoss``. The loss heads keep the
+``Pooling``, ``BatchNorm``, ``Activation``, ``Dropout``, the softmax
+family, and the loss heads ``SoftmaxOutput`` and ``MakeLoss``. The loss heads keep the
 reference's backward semantics, which ignore the incoming head gradient;
 each is a ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``).
 The 2-D 3x3 convolution's weight gradient is the ``conv_wgrad`` kernel
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import random as _random
 from ..base import MXNetError
 from .kernels.conv_wgrad import wgrad
 from .registry import REQUIRED, alias, defop
@@ -28,6 +29,26 @@ def _ntuple(v, n):
     if isinstance(v, (int, np.integer)):
         return (int(v),) * n
     return tuple(int(x) for x in v)
+
+
+# --- Dropout -----------------------------------------------------------------
+@defop("Dropout", param_spec={"p": 0.5, "mode": "training"}, needs_rng=True,
+       simple=False)
+def _dropout(attrs, inputs, aux, ctx):
+    """Inverted dropout (reference dropout-inl.h): in training (or always,
+    with ``mode="always"``) ``x * mask / (1 - p)``, the mask drawn from
+    the device's generator (``random.keep_mask``), so a kept entry is
+    exactly ``x / (1 - p)`` and the gradient is ``dy / (1 - p)`` there, 0
+    elsewhere; otherwise the identity."""
+    (data,) = inputs
+    p = float(attrs["p"])
+    if p <= 0.0 or not (ctx.is_train or attrs["mode"] == "always") or \
+            data.device.type == "meta":  # shape inference draws nothing
+        return (data,), ()
+    keep = 1.0 - p
+    mask = _random.keep_mask(data.shape, keep, ctx.rng, data.device,
+                             data.dtype)
+    return (data * mask / keep,), ()
 
 
 # --- FullyConnected ----------------------------------------------------------

@@ -38,6 +38,9 @@ class OpContext:
     # operator, created once per bound node as the reference creates it
     # at bind)
     memo: Optional[Dict[Any, Any]] = None
+    # the device's torch.Generator (``random.generator``) where the op
+    # draws (``OpDef.needs_rng``), else None
+    rng: Optional[torch.Generator] = None
 
 
 @dataclasses.dataclass
@@ -52,6 +55,7 @@ class OpDef:
     param_spec: Optional[Dict[str, Any]] = None  # name -> default / REQUIRED
     variadic: bool = False  # takes any number of inputs (add_n)
     no_grad_inputs: Sequence[str] = ()  # e.g. labels
+    needs_rng: bool = False  # draws from OpContext.rng (Dropout)
     doc: str = ""
     py_name: Optional[str] = None  # name in the nd / sym namespaces
     output_names: Any = None  # tuple or fn(attrs); default ["output"]
@@ -116,7 +120,7 @@ def get_op(name: str) -> OpDef:
 
 def defop(name, arg_names=("data",), aux_names=(), num_outputs=1,
           param_spec=None, variadic=False, no_grad_inputs=(), py_name=None,
-          output_names=None, simple=True):
+          output_names=None, simple=True, needs_rng=False):
     """Decorator registering an operator implementation.
 
     ``simple=True``  — fn(attrs, *inputs) -> out | tuple(outs)
@@ -134,7 +138,7 @@ def defop(name, arg_names=("data",), aux_names=(), num_outputs=1,
             name=name, impl=impl, arg_names=arg_names, aux_names=aux_names,
             num_outputs=num_outputs, param_spec=param_spec,
             variadic=variadic, no_grad_inputs=no_grad_inputs,
-            doc=fn.__doc__ or "", py_name=py_name or name,
+            needs_rng=needs_rng, doc=fn.__doc__ or "", py_name=py_name or name,
             output_names=output_names))
         return fn
 

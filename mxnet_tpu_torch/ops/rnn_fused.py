@@ -16,13 +16,17 @@ The packed parameter blob has the reference's (and cuDNN's) layout: per
 layer, per direction, the i2h then the h2h weight, then every bias pair,
 so ``FusedRNNCell`` slices and the reference's checkpoints match.
 Layouts: data (T, N, input_size); states (num_layers * dirs, N, H).
-Dropout between layers (``p > 0`` in training) waits for the port's
-``Dropout`` op and raises.
+Dropout between layers (``p > 0`` in training): after every layer but
+the last, the layer's whole output times a keep mask over ``1 - p``, one
+mask a layer drawn in layer order from the device's generator
+(``random.keep_mask``, as the ``Dropout`` op draws), as the reference
+does; a plain elementwise pass, the recurrence stays on the kernel.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import random as _random
 from ..base import MXNetError
 from .kernels.lstm import lstm_step
 from .registry import defop, get_op
@@ -170,7 +174,7 @@ def _rnn_out_shapes(attrs, data):
     num_outputs=lambda attrs: (
         1 if not attrs.get("state_outputs")
         else (3 if attrs.get("mode", "lstm") == "lstm" else 2)),
-    simple=False,
+    simple=False, needs_rng=True,
 )
 def _rnn(attrs, inputs, aux, ctx):
     """Fused RNN forward (see the module docstring); data (T, N, I)."""
@@ -185,10 +189,6 @@ def _rnn(attrs, inputs, aux, ctx):
         shapes = _rnn_out_shapes(attrs, data)[:n_out]
         return tuple(data.new_empty(s) for s in shapes), ()
     dropout = float(attrs["p"])
-    if dropout > 0 and ctx.is_train:
-        raise MXNetError(
-            "RNN: dropout between layers (p = %g) in training needs the "
-            "Dropout op, which a later slice of the port brings" % dropout)
     if mode == "lstm":
         data, params, state, state_cell = inputs
     else:
@@ -223,6 +223,10 @@ def _rnn(attrs, inputs, aux, ctx):
             outs.append(ys)
             h_states.append(h_last)
         x = outs[0] if dirs == 1 else torch.cat(outs, dim=2)
+        if dropout > 0 and ctx.is_train and layer != num_layers - 1:
+            keep = 1.0 - dropout
+            x = x * _random.keep_mask(x.shape, keep, ctx.rng, x.device,
+                                      x.dtype) / keep
 
     if not attrs["state_outputs"]:
         return (x,), ()

@@ -9,7 +9,10 @@ training loop calls per parameter. The updates run the registry ops
 ``sgd_update`` / ``sgd_mom_update`` / ``adam_update``; the last two are the
 fused CUDA kernels, which update the weight and the state in place. The
 reference's whole-tree jitted ``update_all`` has no counterpart: here
-``update_all`` loops, one kernel launch per parameter.
+``update_all`` loops, one kernel launch per parameter. ``Updater.
+get_states`` / ``set_states`` are the JAX package's blob (a pickle of numpy
+arrays by index plus ``__update_counts__``), so optimizer states cross
+between the packages in both directions.
 
 The whole training step (``Executor.make_train_step``, ``Module.fit_step``)
 takes each optimizer's ``pure_rule()``: fn(w, g, state, lr, wd) -> (w,
@@ -24,6 +27,7 @@ the ``Updater``'s updates bit for bit. The rest of the reference's zoo
 from __future__ import annotations
 
 import math
+import pickle
 from typing import Dict
 
 import numpy as np
@@ -293,6 +297,9 @@ class Updater:
         self.optimizer = optimizer
         self.states: Dict = {}
         self._state_keys: Dict = {}
+        # indices whose state set_states left on the host: moved to the
+        # weight's device on first use
+        self._on_host = set()
 
     def ensure_state(self, index, weight, key=None):
         """The state of ``index``, created on first use and created again
@@ -300,6 +307,10 @@ class Updater:
         _hyperparam_key`) changes its structure."""
         if key is None:
             key = self.optimizer._hyperparam_key()
+        if index in self._on_host:
+            self._on_host.discard(index)
+            self.states[index] = _state_to(self.states[index],
+                                           weight.context)
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
         elif self._state_keys.get(index) != key:
@@ -319,6 +330,51 @@ class Updater:
         key = self.optimizer._hyperparam_key()
         for index, grad, weight in pairs:
             self(index, grad, weight, key)
+
+    def get_states(self):
+        """The states as bytes: a pickle of {index: numpy array, tuple of
+        them or None} plus ``__update_counts__``, the optimizer's count of
+        each index (the JAX package's blob)."""
+        def conv(v):
+            if isinstance(v, tuple):
+                return tuple(None if x is None else x.asnumpy() for x in v)
+            return None if v is None else v.asnumpy()
+
+        blob = {k: conv(v) for k, v in self.states.items()}
+        blob["__update_counts__"] = dict(self.optimizer._index_update_count)
+        return pickle.dumps(blob)
+
+    def set_states(self, states):
+        """Restore :meth:`get_states`' bytes (from either package): the
+        counts, so a count-dependent rule (Adam's bias correction) goes on
+        from its step, and the states, held on the host until their
+        index's first use moves them to its weight's device."""
+        blob = pickle.loads(states)
+        counts = blob.pop("__update_counts__", None)
+        if counts is not None:
+            self.optimizer._index_update_count = dict(counts)
+            if counts:
+                self.optimizer.num_update = max(self.optimizer.num_update,
+                                                max(counts.values()))
+
+        def conv(v):
+            if isinstance(v, tuple):
+                return tuple(None if x is None else nd.array(x, ctx="cpu")
+                             for x in v)
+            return None if v is None else nd.array(v, ctx="cpu")
+
+        self.states = {k: conv(v) for k, v in blob.items()}
+        self._state_keys = {}
+        self._on_host = set(self.states)
+
+
+def _state_to(state, device):
+    """An optimizer state (None, an NDArray or a tuple) on ``device``."""
+    if isinstance(state, tuple):
+        return tuple(_state_to(x, device) for x in state)
+    if state is None or state.context == device:
+        return state
+    return NDArray(state._data.to(device))
 
 
 class FusedUpdate:

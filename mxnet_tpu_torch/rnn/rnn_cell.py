@@ -2,15 +2,17 @@
 
 Counterpart of ``mxnet_tpu/rnn/rnn_cell.py`` (reference python/mxnet/rnn/
 rnn_cell.py): ``RNNCell`` / ``LSTMCell`` / ``GRUCell`` with ``unroll``,
-``SequentialRNNCell``, ``BidirectionalCell``, the ``ModifierCell`` base
-and ``ResidualCell``, and ``FusedRNNCell``, whose ``unroll`` emits the
+``SequentialRNNCell``, ``BidirectionalCell``, ``DropoutCell``, the
+``ModifierCell`` base with ``ZoneoutCell`` and ``ResidualCell``, and
+``FusedRNNCell``, whose ``unroll`` emits the
 fused ``RNN`` op (``ops/rnn_fused.py``: every LSTM step through the
 ``lstm_step`` kernel on the card) and whose ``unfuse`` gives the
 equivalent stack of explicit cells. Parameter names, gate orders and the
 packed blob's layout are the reference's, so weights cross between the
 packages and between the fused and the unfused form
 (``unpack_weights`` / ``pack_weights``). ``DropoutCell`` and
-``ZoneoutCell`` wait for the port's ``Dropout`` op.
+``ZoneoutCell`` draw through the ``Dropout`` op, so they act in training
+only.
 """
 from __future__ import annotations
 
@@ -519,6 +521,24 @@ class SequentialRNNCell(BaseRNNCell):
         return inputs, sum(next_states, [])
 
 
+class DropoutCell(BaseRNNCell):
+    """Dropout on the stepped output, no state (reference rnn_cell.py
+    DropoutCell)."""
+
+    def __init__(self, dropout, prefix="dropout_", params=None):
+        super().__init__(prefix, params)
+        self.dropout = dropout
+
+    @property
+    def state_info(self):
+        return []
+
+    def __call__(self, inputs, states):
+        if self.dropout > 0:
+            inputs = symbol.Dropout(data=inputs, p=self.dropout)
+        return inputs, states
+
+
 class ModifierCell(BaseRNNCell):
     """A cell wrapped around another, sharing its parameters."""
 
@@ -551,6 +571,52 @@ class ModifierCell(BaseRNNCell):
 
     def __call__(self, inputs, states):
         raise NotImplementedError()
+
+
+class ZoneoutCell(ModifierCell):
+    """Zoneout (reference rnn_cell.py ZoneoutCell): in training each
+    element of the output (``zoneout_outputs``) and of each state
+    (``zoneout_states``) keeps its previous value with that probability,
+    through ``where`` on a ``Dropout`` of ones. The first step's previous
+    output is zeros of the output's shape, as the reference's 0-dim
+    unification makes ``zeros((0, 0))``; the JAX package's
+    ``zeros((0, 0))`` fails shape inference there."""
+
+    def __init__(self, base_cell, zoneout_outputs=0.0, zoneout_states=0.0):
+        if isinstance(base_cell, FusedRNNCell):
+            raise MXNetError("FusedRNNCell doesn't support zoneout. Please "
+                             "unfuse first.")
+        if isinstance(base_cell, BidirectionalCell):
+            raise MXNetError("BidirectionalCell doesn't support zoneout "
+                             "since it doesn't support step. Please add "
+                             "ZoneoutCell to the cells underneath instead.")
+        super().__init__(base_cell)
+        self.zoneout_outputs = zoneout_outputs
+        self.zoneout_states = zoneout_states
+        self.prev_output = None
+
+    def reset(self):
+        super().reset()
+        self.prev_output = None
+
+    def __call__(self, inputs, states):
+        cell = self.base_cell
+        p_outputs, p_states = self.zoneout_outputs, self.zoneout_states
+        next_output, next_states = cell(inputs, states)
+
+        def mask(p, like):
+            return symbol.Dropout(symbol.ones_like(like), p=p)
+
+        prev_output = self.prev_output if self.prev_output is not None \
+            else symbol.ones_like(next_output) * 0.0
+        output = (symbol.where(mask(p_outputs, next_output), next_output,
+                               prev_output)
+                  if p_outputs != 0.0 else next_output)
+        states_out = ([symbol.where(mask(p_states, new_s), new_s, old_s)
+                       for new_s, old_s in zip(next_states, states)]
+                      if p_states != 0.0 else next_states)
+        self.prev_output = output
+        return output, states_out
 
 
 class ResidualCell(ModifierCell):

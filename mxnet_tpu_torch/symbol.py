@@ -8,8 +8,12 @@ the per-op parameter rules of ``ops/shape_rules.py`` sizing the weights;
 ``simple_bind`` allocates from it and binds an :class:`~.executor.
 Executor`; :meth:`Symbol.build_eval` is a topological-order interpreter
 over the op registry, run eagerly by the executor (autograd differentiates
-it). Graph JSON, ``Symbol.grad`` and the segmented-remat evaluator are not
-ported.
+it). Graph JSON (:meth:`Symbol.tojson`, :func:`load_json`) is the JAX
+package's own schema or, with ``format="reference"``, the reference
+MXNet's (``interop.py``); a file written by either package builds the
+same graph in the other. An operator that draws (``Dropout``) gets the
+generator of the graph's device (``random.generator``). ``Symbol.grad``
+and the segmented-remat evaluator are not ported.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import numpy as np
 import torch
 
 from . import attribute, name as _name_mod
-from .base import MXNetError
+from . import random as _random
+from .base import MXNetError, coerce_attr
 from .ndarray import _as_torch_dtype
 from .ops import OP_REGISTRY, OpContext, OpDef, get_op
 
@@ -99,6 +104,10 @@ class Symbol:
 
     def list_inputs(self):
         return [n.name for n in self._nodes() if n.is_var]
+
+    def _needs_rng(self):
+        """Whether an operator of the graph draws random numbers."""
+        return any(not n.is_var and n.op.needs_rng for n in self._nodes())
 
     def get_internals(self) -> "Symbol":
         entries = []
@@ -356,9 +365,11 @@ class Symbol:
                     continue
                 args, aux = node.split_inputs(
                     [env[(id(c), i)] for c, i in node.inputs])
+                rng = (_random.generator(device)
+                       if node.op.needs_rng and device is not None else None)
                 outs, aux_out = node.op.impl(
                     node.attrs, args, aux,
-                    OpContext(is_train, device, memos[id(node)]))
+                    OpContext(is_train, device, memos[id(node)], rng))
                 for i, o in enumerate(outs):
                     env[(id(node), i)] = o
                 n_args = len(args)
@@ -369,6 +380,40 @@ class Symbol:
 
         eval_fn.memos = memos
         return eval_fn
+
+    # --- save / load ------------------------------------------------------
+    def tojson(self, format: str = "native") -> str:
+        """The graph as JSON: ``native``, the JAX package's schema (node
+        attributes as ``repr`` strings, ``attrs.mxnet_tpu_version``), or
+        ``reference``, the reference MXNet's ``nodes`` / ``arg_nodes`` /
+        ``heads`` schema (``interop.save_symbol_json``)."""
+        if format == "reference":
+            from . import interop
+
+            return interop.save_symbol_json(self)
+        if format != "native":
+            raise ValueError("unknown symbol JSON format %r" % (format,))
+        nodes = self._nodes()
+        idx = {id(n): i for i, n in enumerate(nodes)}
+        jnodes = [{
+            "op": "null" if n.is_var else n.op.name,
+            "name": n.name,
+            # None as "null", which coerce_attr reads back as None
+            "attrs": {k: ("null" if v is None else repr(v)
+                          if not isinstance(v, str) else v)
+                      for k, v in n.attrs.items()},
+            "inputs": [[idx[id(c)], i, 0] for c, i in n.inputs],
+            "is_aux": bool(n.is_aux),
+            "misc_attrs": n.misc_attrs} for n in nodes]
+        return json.dumps({
+            "nodes": jnodes,
+            "arg_nodes": [i for i, n in enumerate(nodes) if n.is_var],
+            "heads": [[idx[id(n)], i, 0] for n, i in self._entries],
+            "attrs": {"mxnet_tpu_version": 1}}, indent=2)
+
+    def save(self, fname: str, format: str = "native"):
+        with open(fname, "w") as f:
+            f.write(self.tojson(format=format))
 
     def debug_str(self):
         lines = []
@@ -390,6 +435,36 @@ def _grad_reqs(grad_req, arg_names):
     if isinstance(grad_req, (list, tuple)):
         return dict(zip(arg_names, grad_req))
     return {n: grad_req.get(n, "null") for n in arg_names}
+
+
+def load_json(json_str: str) -> Symbol:
+    """A Symbol from JSON in either schema of :meth:`Symbol.tojson` (the
+    reference's, of any version its legacy upgrader reads, through
+    ``interop.load_symbol_json``)."""
+    from . import interop
+
+    data = json.loads(json_str)
+    if interop.is_reference_symbol_json(data):
+        return interop.load_symbol_json(data)
+    nodes: List[_Node] = []
+    for jn in data["nodes"]:
+        if jn["op"] == "null":
+            node = _Node(None, jn["name"], {}, [], jn.get("is_aux", False),
+                         jn.get("misc_attrs", {}))
+        else:
+            op = get_op(jn["op"])
+            attrs = op.parse_attrs({k: coerce_attr(v) for k, v in
+                                    jn.get("attrs", {}).items()})
+            inputs = [(nodes[i], oi) for i, oi, _ in jn["inputs"]]
+            node = _Node(op, jn["name"], attrs, inputs, False,
+                         jn.get("misc_attrs", {}))
+        nodes.append(node)
+    return Symbol([(nodes[i], oi) for i, oi, _ in data["heads"]])
+
+
+def load(fname: str) -> Symbol:
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 def Variable(name: str, attr=None, shape=None, lr_mult=None, wd_mult=None,

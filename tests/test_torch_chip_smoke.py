@@ -1,10 +1,12 @@
 """chip_smoke.py's logic on the CPU at a tiny size.
 
-The script itself needs a CUDA card; here its serve, train, resnet, lstm
-and custom phases run on the host (each wrapper takes its plain version,
-counted in place of kernel launches) so a broken phase shows before a card
-run, and its bound arithmetic is checked against closed forms.
+The script itself needs a CUDA card; here its serve, train, resnet, lstm,
+custom and bucketing phases run on the host (each wrapper takes its plain
+version, counted in place of kernel launches) so a broken phase shows
+before a card run, and its bound arithmetic is checked against closed
+forms.
 """
+import json
 import re
 
 import numpy as np
@@ -44,6 +46,14 @@ TINY_RESNET = {"depth": 18, "classes": 10, "image": (3, 16, 16), "batch": 2,
 TINY_LSTM = {"vocab": 50, "embed": 16, "hidden": 16, "layers": 2, "seq": 5,
              "batch": 4, "batches": 2, "lr": 0.5, "check_batch": 2,
              "check_steps": 2}
+
+
+# the bucketed LSTM LM, 2 layers, narrow, buckets 4 and 8
+TINY_BUCKETING = dict(cs.BUCKETING, vocab=50, embed=16, hidden=16,
+                      buckets=(4, 8), batch=4, sentences=200,
+                      check_batch=2, check_keys=(4, 4, 8, 8),
+                      resume_keys=(4, 8, 8, 4), capture_seq=5,
+                      capture_batches=4, mask_elements=4096)
 
 
 def _count_plain_calls(monkeypatch):
@@ -246,6 +256,52 @@ def test_lstm_spread_of_f32_against_f64_is_within_the_check():
     for ln in lines:
         assert ln["update_err_worst"] <= cs.LSTM_UPDATE
         assert ln["perplexity_rel_err"] <= cs.LSTM_PPL
+
+
+def test_bucketing_phase_on_cpu(monkeypatch, capsys):
+    """The whole phase on the host: the check at p = 0, the epoch with its
+    checkpoints, the launch arithmetic of the epoch's bucket sequence, the
+    resume bit for bit, eval at p = 0.5 equal to p = 0, the mask checks,
+    and the fused step with dropout against its eager twin."""
+    _count_plain_calls(monkeypatch)
+    got = cs.phase_bucketing(TINY_BUCKETING, device="cpu")
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    rec = json.loads(line)
+    assert rec["phase"] == "bucketing" and rec["resume"]["bit_for_bit"]
+    keys = rec["bucket_sequence"]
+    assert got["lstm_step"] == 2 * sum(keys) + rec["launches"]["score"][
+        "lstm_step"]
+    assert got["sgd_mom_update"] == 4 * len(keys)
+    assert got["capture_lstm_step"] == 2 * 5 * 4
+    assert rec["dropout_checks"]["eval_equals_p0"]
+    assert rec["capture"]["captured_vs_eager"]["bit_for_bit"]
+    assert rec["capture"]["path"] == "eager"
+    assert set(rec["step_ms_by_bucket"]) <= {"4", "8"}
+    assert {"ck-0001.params", "ck-0001.states", "ck-symbol.json",
+            "lm-0001.params", "lm-symbol.json"} <= set(
+                rec["resume"]["files"])
+
+
+def test_bucketing_phase_fails_when_lstm_step_is_not_reached():
+    """On the host nothing counts a launch: the phase must refuse."""
+    with pytest.raises(RuntimeError, match="bucketing phase: launched"):
+        cs.phase_bucketing(TINY_BUCKETING, device="cpu")
+
+
+def test_bucketing_launch_arithmetic_and_corpus():
+    """Two lstm_step launches a time step of a bucket (2 layers), and the
+    full-size corpus gives an epoch of >= 24 batches with every bucket
+    twice or more."""
+    from mxnet_tpu_torch.tools import lstm_bucketing as lb
+
+    assert lb.lstm_steps(cs.BUCKETING, (10, 60, 30)) == 200
+    it = lb.bucket_iter(cs.BUCKETING, cs.BUCKETING["batch"], cs.SEED + 1)
+    keys = [lb.BUCKETING["buckets"][i] for i, _ in it.idx]
+    assert len(keys) >= 24
+    assert min(keys.count(k) for k in cs.BUCKETING["buckets"]) >= 2
+    more = lb.pick_batches(lb.bucket_iter(cs.BUCKETING, 32, cs.SEED + 2),
+                           cs.BUCKETING["resume_keys"])
+    assert [b.bucket_key for b in more.batches] == [10, 60, 30, 60]
 
 
 def _count_twin_pushes(monkeypatch):

@@ -384,16 +384,27 @@ def test_rnn_op_matches_jax(mode, bidir, state_outputs):
 
 
 def test_rnn_op_refuses_dropout_in_training_only():
+    """Dropout between layers acts in training only, and there it refuses
+    to draw without the device's generator (no fallback to PyTorch's
+    global one); with it, the output differs from the eval output, which
+    equals the p = 0 output."""
     data = torch.randn(2, 1, 3)
     size = trnn.rnn_param_size(2, 3, 4, "gru")
     args = (data, torch.randn(size) * 0.1, torch.zeros(2, 1, 4))
-    attrs = treg.get_op("RNN").parse_attrs(
+    op = treg.get_op("RNN")
+    attrs = op.parse_attrs(
         {"state_size": 4, "num_layers": 2, "mode": "gru", "p": 0.5})
-    impl = treg.get_op("RNN").impl
-    with pytest.raises(MXNetError, match="Dropout"):
-        impl(attrs, args, (), treg.OpContext(True, data.device))
-    (out,), _ = impl(attrs, args, (), treg.OpContext(False, data.device))
+    with pytest.raises(MXNetError, match="generator"):
+        op.impl(attrs, args, (), treg.OpContext(True, data.device))
+    (out,), _ = op.impl(attrs, args, (), treg.OpContext(False, data.device))
     assert out.shape == (2, 1, 4)
+    (plain,), _ = op.impl(dict(attrs, p=0.0), args, (),
+                          treg.OpContext(False, data.device))
+    assert torch.equal(out, plain)
+    gen = torch.Generator().manual_seed(0)
+    (drop,), _ = op.impl(attrs, args, (), treg.OpContext(
+        True, data.device, rng=gen))
+    assert drop.shape == (2, 1, 4) and not torch.equal(drop, out)
 
 
 @pytest.mark.parametrize("layers,i,h,mode,bidir", [
