@@ -38,6 +38,25 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    prompts through ``DecodeScheduler`` with four slots, so admissions
    happen mid-flight. Checks every stream, the kernel's launch count, and
    first-token logits against the port's plain path on the CPU.
+3b. ``serve_paged`` — the same LM behind ``SERVE_PAGED``'s traffic (8
+   slots over 288 blocks of 16 positions, five prompts behind one
+   1000-token system prompt, three unshared, 32 new tokens each):
+   (1) the serve phase's prompts again with the decode step captured as
+   one CUDA graph: the streams equal the eager ones bit for bit, 24 flash
+   launches, 2 warm-up steps, 1 capture, a replay a later step; (2) the
+   traffic through eight arms (paged and unpaged, f32 and int8 KV, eager
+   and captured): every stream 32 tokens, captured streams equal eager
+   ones, paged arms with the prefix hits, tokens saved and forks that
+   follow from the prompts, an admission that waited on blocks, the pool
+   free at the end and no flash launch, unpaged arms a flash launch a
+   prompt and layer, int8 ``kv_bytes`` exact; 8 captured paged steps
+   from copies of one pair of slabs equal 8 eager ones bit for bit;
+   (3) teacher-forced, the first sharer and a forking joiner: paged
+   against unpaged within SERVE_ATOL, the argmax equal wherever the
+   unpaged margin exceeds PAGED_MARGIN; int8 (captured) against f32 within
+   INT8_KV_TOL, the argmax in the f32 top 5. Prints each arm's decode ms a
+   step, TTFT, tokens/s, peak blocks and memory, and the prefill ms the
+   prefix hits saved.
 4. ``train``   — the same LM trained as bench.py trains it: first 2 SGD
    steps at 1 x 256 through ``simple_bind`` -> ``forward``/``backward``
    -> ``optimizer.Updater``, f32, no TF32, on the card and on the port's
@@ -134,10 +153,11 @@ import time
 
 import numpy as np
 
-from mxnet_tpu_torch.tools.lm import LM, SERVE, SEED, TRAIN, \
-    lm_arg_params, lm_feed, lm_param_shapes, lm_train_executor, \
-    cuda_graph, lm_train_setup, lm_train_step, lm_update, lm_updater, \
-    nvidia_smi
+from mxnet_tpu_torch.tools.lm import LM, SERVE, SERVE_PAGED, SEED, TRAIN, \
+    cuda_graph, expected_prefix_counts, forced_arms, lm_arg_params, \
+    lm_feed, lm_param_shapes, lm_train_executor, lm_train_setup, \
+    lm_train_step, lm_update, lm_updater, nvidia_smi, paged_prompts, \
+    serve_prompts
 from mxnet_tpu_torch.tools.lstm_lm import LSTM_LM, STEP_SHAPES, STEP_TOL, \
     lstm_setup, lstm_steps
 from mxnet_tpu_torch.tools.lstm_lm import fit_args as lstm_fit_args
@@ -268,6 +288,21 @@ LSTM_UPDATE = 1e-4
 LSTM_PPL = 1e-6
 RTC_SRC = "mxnet_tpu_torch/tools/rtc_softmax.py"
 RTC_REPLACES = "mxnet_tpu/rtc.py:77"
+# serve and serve_paged phases: the served logits against the plain path
+# on the CPU (first tokens), and the paged programs against the unpaged
+# ones teacher-forced (f32 on the card): within SERVE_ATOL; the argmax
+# equal wherever the unpaged top-2 margin exceeds PAGED_MARGIN (the
+# unpaged prefill runs the flash kernel, the paged one an einsum, so a
+# near-tie may flip)
+SERVE_ATOL = 1e-3
+PAGED_MARGIN = 2e-3
+# serve_paged, int8 KV teacher-forced against f32 (captured, paged and
+# unpaged): the argmax in the f32 top 5 at every step and every logit
+# within INT8_KV_TOL = 1.5 x the f32-to-int8 distance that
+# tools/kv_int8_spread.py measures on the CPU at this width (PERF.md: on
+# the H100 host's 8 cores, torch 2.11.0+cu128)
+INT8_KV_SPREAD = 0.004024982452392578
+INT8_KV_TOL = 1.5 * INT8_KV_SPREAD
 # mx.rtc test kernels (the JAX package's tests' axpy, inc and relu, and axpy
 # in bf16) in CUDA C: the kernel body of each and its mode="torch" twin.
 # Each body runs with ``N`` (the element count) and ``i`` (the thread's
@@ -470,20 +505,26 @@ def _device_events(torch, fn, reps, warmup, calls=None):
     ``fn()``, after ``warmup`` untraced ones. A trace that shows no device
     time, or (``calls``: {name part: launches a call}) fewer or more
     launches of a kernel than ``fn`` makes, lost events: it is taken
-    again, three times at most."""
+    again, five times at most. Each trace opens and closes with a short
+    spin kernel, left out of the events: traces of whole runs of this
+    script have lost one launch a trace, five traces in a row, where
+    traces of the same phase alone lost none."""
     prof_mod = torch.profiler
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _attempt in range(3):
+    for _attempt in range(5):
         with prof_mod.profile(activities=[prof_mod.ProfilerActivity.CPU,
                                           prof_mod.ProfilerActivity.CUDA]) \
                 as p:
+            torch.cuda._sleep(1000)
             for _ in range(reps):
                 fn()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         events = [e for e in p.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.key]
         seen = {part: sum(e.count for e in events if part in e.key)
                 for part in (calls or {})}
         if sum(e.self_device_time_total for e in events) > 0 and \
@@ -1697,35 +1738,35 @@ def phase_kernel_rtc(torch):
     return worst, timings
 
 
-def phase_serve(cfg=LM, serve=SERVE, device=None, ref_device="cpu",
-                seed=SEED):
-    """The generate path end to end. ``device`` None = the card (the
-    port's default); the reference prefill runs on ``ref_device``, where
-    flash_attention takes its plain version."""
-    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
-    from mxnet_tpu_torch.serving import generate as gen
+def _serve_streams(gen, model, cfg, conf, prompts, **knobs):
+    """Serve ``prompts`` through a ``DecodeScheduler`` at ``conf``'s slots,
+    context, buckets and new tokens (``knobs``: paged, kv_dtype, capture,
+    block_tokens, num_blocks), every stream consumed by its own thread.
+    Checks each stream ran to ``max_tokens``; returns its records (tokens
+    and arrival times), the scheduler's stats before it stopped, the
+    flash launches, the wall seconds and the card's peak memory."""
+    import torch
 
-    params = lm_arg_params(cfg, seed)
-    spec = gen.DecodeSpec(num_heads=cfg["heads"],
-                          num_kv_heads=cfg["kv_heads"])
-    model = gen.DecodeModel.from_arg_params(params, spec, device=device)
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    knobs = dict(dict(paged=False, kv_dtype="f32", capture=False), **knobs)
     config = gen.GenerateConfig(
         num_heads=cfg["heads"], num_kv_heads=cfg["kv_heads"],
-        slots=serve["slots"], max_context=serve["max_context"],
-        prefill_buckets=serve["prefill_buckets"],
-        max_new_tokens=serve["max_new_tokens"], eos_id=None, capture=False,
-        paged=False, kv_dtype="f32", quant_weights="", spec=False)
-    rng = np.random.default_rng(seed + 1)
-    prompts = [rng.integers(0, cfg["vocab"], n).tolist()
-               for n in serve["prompt_lens"]]
+        slots=conf["slots"], max_context=conf["max_context"],
+        prefill_buckets=conf["prefill_buckets"],
+        max_new_tokens=conf["max_new_tokens"], eos_id=None,
+        quant_weights="", spec=False, **knobs)
+    on_card = model.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        _reset_peak(torch)
     sched = gen.DecodeScheduler(model, config)
     sched.start()
-    records = []
+    records, threads = [], []
     try:
         fa.flash_attention.launches = 0
         t0 = time.monotonic()
         streams = [sched.submit(p) for p in prompts]
-        threads = []
         for s in streams:
             rec = {"stream": s, "times": [], "tokens": []}
             records.append(rec)
@@ -1745,7 +1786,7 @@ def phase_serve(cfg=LM, serve=SERVE, device=None, ref_device="cpu",
         stats = sched.stats()
     finally:
         sched.stop()
-    want = serve["max_new_tokens"]
+    want = conf["max_new_tokens"]
     for rec, th in zip(records, threads):
         s = rec["stream"]
         if th.is_alive() or s.finish_reason != "max_tokens" \
@@ -1753,6 +1794,32 @@ def phase_serve(cfg=LM, serve=SERVE, device=None, ref_device="cpu",
             raise RuntimeError("stream of %d prompt tokens ended %r with %d "
                                "tokens" % (s.prompt_len, s.finish_reason,
                                            len(rec["tokens"])))
+    gaps = [b - a for rec in records
+            for a, b in zip(rec["times"], rec["times"][1:])]
+    total = sum(len(rec["tokens"]) for rec in records)
+    return {"records": records, "stats": stats, "launches": launches,
+            "wall_s": wall, "tokens": [rec["tokens"] for rec in records],
+            "ttft_ms": [(rec["times"][0] - rec["stream"].submitted) * 1e3
+                        for rec in records],
+            "decode_ms_per_step": float(np.median(gaps)) * 1e3,
+            "tokens_per_s": total / wall, **_peak(torch, on_card)}
+
+
+def phase_serve(cfg=LM, serve=SERVE, device=None, ref_device="cpu",
+                seed=SEED):
+    """The generate path end to end. ``device`` None = the card (the
+    port's default); the reference prefill runs on ``ref_device``, where
+    flash_attention takes its plain version. Returns the flash launches
+    and the streams' tokens."""
+    from mxnet_tpu_torch.serving import generate as gen
+
+    params = lm_arg_params(cfg, seed)
+    spec = gen.DecodeSpec(num_heads=cfg["heads"],
+                          num_kv_heads=cfg["kv_heads"])
+    model = gen.DecodeModel.from_arg_params(params, spec, device=device)
+    prompts = serve_prompts(cfg, serve, seed)
+    run = _serve_streams(gen, model, cfg, serve, prompts)
+    records, launches = run["records"], run["launches"]
     expected = len(prompts) * cfg["layers"]
     if launches != expected:
         raise RuntimeError("flash kernel ran %d times in the serve phase, "
@@ -1764,10 +1831,12 @@ def phase_serve(cfg=LM, serve=SERVE, device=None, ref_device="cpu",
                                                 device=ref_device)
     ref_progs = gen.DecodePrograms(ref_model, 1, serve["max_context"],
                                    serve["prefill_buckets"])
+    progs = gen.DecodePrograms(model, 1, serve["max_context"],
+                               serve["prefill_buckets"])
     checks = []
     for n in serve["check_lens"]:
         i = serve["prompt_lens"].index(n)
-        got = sched.programs.prefill(prompts[i])[0].float().cpu()
+        got = progs.prefill(prompts[i])[0].float().cpu()
         ref = ref_progs.prefill(prompts[i])[0].float().cpu()
         err = float((got - ref).abs().max())
         tok_ref = int(ref.argmax())
@@ -1778,19 +1847,284 @@ def phase_serve(cfg=LM, serve=SERVE, device=None, ref_device="cpu",
                                            tok_ref))
         checks.append({"prompt_len": n, "max_abs_err": err,
                        "token": tok_ref})
-    gaps = [b - a for rec in records
-            for a, b in zip(rec["times"], rec["times"][1:])]
-    total = sum(len(rec["tokens"]) for rec in records)
     result = {"phase": "serve", "requests": len(prompts),
               "prompt_lens": list(serve["prompt_lens"]),
-              "ttft_ms": [(rec["times"][0] - rec["stream"].submitted) * 1e3
-                          for rec in records],
-              "decode_ms_per_step": float(np.median(gaps)) * 1e3,
-              "tokens_per_s": total / wall, "wall_s": wall,
-              "steps": stats["steps"], "flash_launches": launches,
+              "ttft_ms": run["ttft_ms"],
+              "decode_ms_per_step": run["decode_ms_per_step"],
+              "tokens_per_s": run["tokens_per_s"], "wall_s": run["wall_s"],
+              "steps": run["stats"]["steps"], "flash_launches": launches,
               "first_token_check": checks}
     emit(result)
-    return launches
+    return launches, run["tokens"]
+
+
+def _require_decode_capture(what, stats, on_card):
+    """On the card a captured run must have taken the captured path: two
+    warm-up steps, one capture, a replay for every later step. On the CPU
+    the step runs eagerly (there is no CUDA graph to take)."""
+    if not on_card:
+        if stats["decode_path"] != "eager":
+            raise RuntimeError("%s: decode path %r on the CPU"
+                               % (what, stats["decode_path"]))
+        return
+    want = {"decode_path": "captured", "warmup_calls": 2, "captures": 1,
+            "replays": stats["steps"] - 2}
+    got = {k: stats[k] for k in want}
+    if got != want:
+        raise RuntimeError("%s did not take the captured decode path: %s, "
+                           "want %s" % (what, got, want))
+
+
+def _waited_on_blocks(records):
+    """Whether some stream's first token came after an earlier-submitted
+    stream's last: its admission waited for a retirement."""
+    last = [rec["times"][-1] for rec in records]
+    return any(rec["times"][0] > min(last[:i])
+               for i, rec in enumerate(records) if i)
+
+
+def _teacher_forced_gate(what, got, ref, atol, top=None, margin=None):
+    """Per step: max |got - ref| within ``atol``; and the argmax of got
+    either in ref's top ``top``, or equal to ref's wherever ref's top-2
+    margin exceeds ``margin``. Returns the worst difference."""
+    worst = float(np.abs(got - ref).max())
+    order = np.argsort(-ref, axis=-1)
+    am = got.argmax(-1)
+    if top is not None:
+        bad = [i for i in range(len(ref)) if am[i] not in order[i, :top]]
+    else:
+        gap = ref[np.arange(len(ref)), order[:, 0]] \
+            - ref[np.arange(len(ref)), order[:, 1]]
+        bad = [i for i in range(len(ref))
+               if gap[i] > margin and am[i] != order[i, 0]]
+    if worst > atol or bad:
+        raise RuntimeError("%s: logits within %g of the reference arm "
+                           "(limit %g), argmax off at steps %s"
+                           % (what, worst, atol, bad))
+    return worst
+
+
+def _prefill_saved(torch, gen, model, paged, prompts):
+    """Paged prefill ms (CUDA events around the call, median of 3) of each
+    joiner's whole prompt (cold) and of its suffix after the shared prefix
+    (warm), on the card."""
+    progs = gen.PagedDecodePrograms(
+        model, paged["slots"], paged["max_context"],
+        paged["prefill_buckets"], paged["block_tokens"],
+        paged["num_blocks"])
+    rows = []
+    for share in (True, False):
+        cache = gen.PagedKVCacheManager(progs, prefix_share=share)
+        first = cache.try_admit("first", prompts[0],
+                                paged["max_new_tokens"])
+        progs.paged_prefill(cache.k_slab, cache.v_slab, first.table,
+                            first.ctx_len, first.suffix, first.fork_src,
+                            first.fork_dst)
+        for i in range(1, len(paged["suffix_lens"])):
+            plan = cache.try_admit(i, prompts[i], paged["max_new_tokens"])
+            ms = time_ms(torch, lambda: progs.paged_prefill(
+                cache.k_slab, cache.v_slab, plan.table, plan.ctx_len,
+                plan.suffix, plan.fork_src, plan.fork_dst), reps=3, warmup=1)
+            if share:
+                rows.append({"prompt_len": len(prompts[i]),
+                             "suffix": len(plan.suffix), "warm_ms": ms})
+            else:
+                rows[i - 1]["cold_ms"] = ms
+            cache.free(plan.slot)
+    for r in rows:
+        r["saved_ms"] = r["cold_ms"] - r["warm_ms"]
+    return rows
+
+
+def phase_serve_paged(cfg=LM, serve=SERVE, paged=SERVE_PAGED, device=None,
+                      seed=SEED, eager_tokens=None, int8_tol=None):
+    """Paged KV with prefix sharing, int8 KV and the captured decode step
+    at full width (phase 3b of the docstring). ``eager_tokens``: the serve
+    phase's streams (None: served eagerly here first). ``int8_tol``: the
+    int8 drift gate (None: INT8_KV_TOL). Returns the flash launches."""
+    import torch
+
+    from mxnet_tpu_torch.serving import generate as gen
+
+    int8_tol = INT8_KV_TOL if int8_tol is None else int8_tol
+    params = lm_arg_params(cfg, seed)
+    spec = gen.DecodeSpec(num_heads=cfg["heads"],
+                          num_kv_heads=cfg["kv_heads"])
+    model = gen.DecodeModel.from_arg_params(params, spec, device=device)
+    on_card = model.device.type == "cuda"
+    flash = 0
+    result = {"phase": "serve_paged"}
+
+    # 1. unpaged, f32, captured, on the serve phase's prompts
+    prompts = serve_prompts(cfg, serve, seed)
+    if eager_tokens is None:
+        eager_tokens = _serve_streams(gen, model, cfg, serve,
+                                      prompts)["tokens"]
+    run = _serve_streams(gen, model, cfg, serve, prompts, capture=True)
+    want = len(prompts) * cfg["layers"]
+    if run["launches"] != want:
+        raise RuntimeError("flash kernel ran %d times in the captured "
+                           "unpaged run, want %d" % (run["launches"], want))
+    if run["tokens"] != eager_tokens:
+        raise RuntimeError("the captured unpaged streams differ from the "
+                           "eager serve phase's")
+    _require_decode_capture("the captured unpaged run", run["stats"],
+                            on_card)
+    flash += run["launches"]
+    result["unpaged_capture"] = {
+        k: run["stats"][k] for k in ("steps", "decode_path", "warmup_calls",
+                                     "captures", "replays")}
+    result["unpaged_capture"].update(
+        flash_launches=run["launches"], equal_to_eager=True,
+        decode_ms_per_step=run["decode_ms_per_step"])
+
+    # 2. paged traffic through every arm; the paged ones gated
+    prompts = paged_prompts(cfg, paged, seed)
+    hits, saved, forks = expected_prefix_counts(prompts,
+                                                paged["block_tokens"])
+    T = paged["block_tokens"]
+    arms, tokens = {}, {}
+    for kv in ("f32", "int8"):
+        for is_paged in (True, False):
+            for capture in (False, True):
+                name = "%s_%s_%s" % ("paged" if is_paged else "unpaged", kv,
+                                     "captured" if capture else "eager")
+                knobs = dict(kv_dtype=kv, capture=capture)
+                if is_paged:
+                    knobs.update(paged=True, block_tokens=T,
+                                 num_blocks=paged["num_blocks"])
+                run = _serve_streams(gen, model, cfg, paged, prompts,
+                                     **knobs)
+                st = run["stats"]
+                want = 0 if is_paged else len(prompts) * cfg["layers"]
+                if run["launches"] != want:
+                    raise RuntimeError(
+                        "%s: flash kernel ran %d times, want %d (the paged "
+                        "prefill attends through an einsum)"
+                        % (name, run["launches"], want))
+                flash += run["launches"]
+                if capture:
+                    _require_decode_capture(name, st, on_card)
+                row = {"decode_ms_per_step": run["decode_ms_per_step"],
+                       "tokens_per_s": run["tokens_per_s"],
+                       "ttft_ms": run["ttft_ms"], "wall_s": run["wall_s"],
+                       "steps": st["steps"], "kv_bytes": st["kv_bytes"],
+                       "flash_launches": run["launches"],
+                       "max_memory_allocated": run.get(
+                           "max_memory_allocated")}
+                if is_paged:
+                    got = (st["prefix_hits"], st["prefix_tokens_saved"],
+                           st["cow_forks"])
+                    if got != (hits, saved, forks):
+                        raise RuntimeError(
+                            "%s: prefix hits, tokens saved, forks %s; the "
+                            "prompts give %s" % (name, got,
+                                                 (hits, saved, forks)))
+                    if not _waited_on_blocks(run["records"]):
+                        raise RuntimeError("%s: no admission waited on "
+                                           "blocks" % name)
+                    if st["blocks_free"] != st["blocks_total"]:
+                        raise RuntimeError("%s: %d of %d blocks free at the "
+                                           "end" % (name, st["blocks_free"],
+                                                    st["blocks_total"]))
+                    row.update(blocks_peak=st["blocks_peak"],
+                               blocks_total=st["blocks_total"])
+                if kv == "int8":
+                    # values 1 byte, scales 4, from the shapes alone
+                    rows, cols = ((paged["num_blocks"] + 1, T) if is_paged
+                                  else (paged["slots"],
+                                        paged["max_context"]))
+                    positions = cfg["layers"] * rows * cols
+                    head = cfg["kv_heads"] * cfg["d_model"] // cfg["heads"]
+                    want = 2 * positions * head + 2 * 4 * positions
+                    if st["kv_bytes"] != want:
+                        raise RuntimeError("%s: kv_bytes %d, want %d"
+                                           % (name, st["kv_bytes"], want))
+                arms[name] = row
+                tokens[name] = run["tokens"]
+    for kv in ("f32", "int8"):
+        for kind in ("paged", "unpaged"):
+            a, b = ("%s_%s_eager" % (kind, kv), "%s_%s_captured" % (kind, kv))
+            if tokens[a] != tokens[b]:
+                raise RuntimeError("%s: the captured streams differ from the "
+                                   "eager ones" % b)
+    result.update(arms=arms, prefix_hits=hits, prefix_tokens_saved=saved,
+                  cow_forks=forks)
+
+    # 3. teacher-forced: paged against unpaged (f32, eager), then int8
+    # (captured) against f32 on both
+    ref = forced_arms(gen, model, paged, prompts)
+    forced = [toks for _, toks in ref["unpaged"]]
+    checks = {"paged_vs_unpaged": [], "int8_unpaged": [], "int8_paged": []}
+    for i, ((u, _), p) in enumerate(zip(ref["unpaged"], ref["paged"])):
+        checks["paged_vs_unpaged"].append(_teacher_forced_gate(
+            "paged vs unpaged, prompt %d" % paged["forced"][i], p, u,
+            SERVE_ATOL, margin=PAGED_MARGIN))
+    if not ref["plans"][1].forked or ref["plans"][1].ctx_len != \
+            paged["system_len"]:
+        raise RuntimeError("the teacher-forced joiner did not share and "
+                           "fork: %s" % ref["plans"][1])
+
+    # the direct check: 8 captured steps of the paged program from copies
+    # of one pair of slabs against 8 eager ones, bit for bit. They replay
+    # the last 8 teacher-forced steps (rows rewound by 8 positions, fed
+    # the same tokens), so every write lands inside a reservation
+    progs_e = ref["programs"][1]
+    progs_c = gen.PagedDecodePrograms(
+        model, paged["slots"], paged["max_context"],
+        paged["prefill_buckets"], T, paged["num_blocks"], capture=True)
+    cache = ref["cache"]
+    lengths, tables = cache.step_arrays()
+    n_direct = min(8, len(forced[0]))
+    outs = []
+    for progs in (progs_e, progs_c):
+        k, v = cache.k_slab.clone(), cache.v_slab.clone()
+        lens = lengths.astype(np.int64)
+        logits = []
+        for step in range(n_direct):
+            toks = np.zeros(paged["slots"], np.int64)
+            rows = np.zeros(paged["slots"], np.int64)
+            for j, plan in enumerate(ref["plans"]):
+                toks[plan.slot] = forced[j][len(forced[j]) - n_direct + step]
+                rows[plan.slot] = lens[plan.slot] - n_direct + step
+            logits.append(progs.decode(k, v, tables, rows, toks).clone())
+        outs.append((torch.stack(logits), k, v))
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    if not same:
+        raise RuntimeError("%d captured paged decode steps differ from the "
+                           "eager ones" % n_direct)
+    st = progs_c.capture_stats()
+    _require_decode_capture("the direct paged check", dict(
+        st, decode_path=st["path"], steps=n_direct), on_card)
+    result["direct_paged_capture"] = dict(st, steps=n_direct,
+                                          bit_for_bit=same)
+    del outs, progs_c, progs_e, cache
+
+    i8 = forced_arms(gen, model, paged, prompts, kv_dtype="int8",
+                     capture=True, forced=forced)
+    for i, idx in enumerate(paged["forced"]):
+        checks["int8_unpaged"].append(_teacher_forced_gate(
+            "int8 unpaged, prompt %d" % idx, i8["unpaged"][i][0],
+            ref["unpaged"][i][0], int8_tol, top=5))
+        checks["int8_paged"].append(_teacher_forced_gate(
+            "int8 paged, prompt %d" % idx, i8["paged"][i],
+            ref["paged"][i], int8_tol, top=5))
+    for progs in i8["programs"]:
+        if on_card:
+            st = progs.capture_stats()
+            if st["path"] != "captured" or st["captures"] < 1:
+                raise RuntimeError("the int8 teacher-forced run did not "
+                                   "capture: %s" % st)
+    result["teacher_forced"] = dict(
+        checks, atol={"paged_vs_unpaged": SERVE_ATOL, "int8": int8_tol},
+        margin=PAGED_MARGIN, steps=paged["max_new_tokens"])
+    del i8, ref
+    if on_card:
+        result["prefill_saved"] = _prefill_saved(torch, gen, model, paged,
+                                                 prompts)
+        result["gpu"] = nvidia_smi()
+    emit(result)
+    return flash
 
 
 def _counters():
@@ -2975,7 +3309,8 @@ def main():
     wgrad_worst, wgrad_timings, wgrad_step = phase_kernel_wgrad(torch)
     lstm_worst, lstm_timings, lstm_layer = phase_kernel_lstm(torch)
     rtc_worst, rtc_timings = phase_kernel_rtc(torch)
-    serve_launches = phase_serve()
+    serve_launches, serve_tokens = phase_serve()
+    paged_launches = phase_serve_paged(eager_tokens=serve_tokens)
     train = phase_train()
     resnet = phase_resnet()
     lstm = phase_lstm()
@@ -2985,8 +3320,10 @@ def main():
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda", "source": FA_SRC,
         "replaces": FA_REPLACES,
-        "launches": serve_launches + train["flash_attention_fwd"],
+        "launches": serve_launches + paged_launches
+        + train["flash_attention_fwd"],
         "launches_by_phase": {"serve": serve_launches,
+                              "serve_paged": paged_launches,
                               "train": train["flash_attention_fwd"]},
         "max_abs_err": max(worst.values()), "max_err": worst,
         "dtype": "float32", "shape": t["shape"], "ms": t["ms"],

@@ -3,8 +3,10 @@
 Counterpart of ``mxnet_tpu/ops/attention.py``: the ``LayerNorm`` and
 ``MultiHeadAttention`` operators, rotary embedding, the reference
 attention math (f32 logits and softmax whatever the input type), the
-grouped-query form that never repeats K/V, and the decode step's
-length-masked attention over a KV cache. Masked logits take
+grouped-query form that never repeats K/V, the decode step's
+length-masked attention over a KV cache (int8 caches widened through
+their per-position scales) and the paged prefill's attention over a
+cached prefix. Masked logits take
 ``finfo(float32).min`` as in the reference, not ``-inf``.
 """
 from __future__ import annotations
@@ -133,7 +135,16 @@ def _grouped_attention(q, k, v, hkv, causal, scale=None, mask=None):
     return out.reshape(b, hh, tq, d)
 
 
-def cached_attention(q, k_cache, v_cache, lengths):
+def dequantize_kv(cache, scale):
+    """Widen an int8 KV cache view to f32 for the attention einsum:
+    ``cache`` (..., Hkv, C, Dh) int8 times ``scale`` (..., C) f32, one
+    scale per cached position shared across kv heads and head dim (each
+    position is written once, so its scale never changes)."""
+    return cache.to(torch.float32) * scale[..., None, :, None]
+
+
+def cached_attention(q, k_cache, v_cache, lengths, k_scale=None,
+                     v_scale=None):
     """One decode step against a padded KV cache.
 
     ``q``: (B, H, 1, D), roped at its absolute position. ``k_cache`` /
@@ -142,10 +153,46 @@ def cached_attention(q, k_cache, v_cache, lengths):
     Positions past ``lengths[i]`` get exactly zero probability, so a row's
     output does not depend on stale kv elsewhere — the invariant
     continuous batching rests on. Same grouped math as prefill, Tq = 1;
-    there is no kernel on this path (nor in the reference).
+    there is no kernel on this path (nor in the reference). int8 caches
+    carry per-position ``k_scale`` / ``v_scale`` (B, C) and are widened
+    by :func:`dequantize_kv` at the einsum input.
     """
+    if k_scale is not None:
+        k_cache = dequantize_kv(k_cache, k_scale)
+        v_cache = dequantize_kv(v_cache, v_scale)
     cap = k_cache.shape[2]
     mask = (torch.arange(cap, device=q.device)[None, :]
             <= lengths.to(q.device)[:, None])
     return _grouped_attention(q, k_cache, v_cache, k_cache.shape[1],
                               causal=False, mask=mask)
+
+
+def prefix_cached_attention(q, k_ctx, v_ctx, ctx_len, k_new, v_new,
+                            k_scale=None, v_scale=None):
+    """Chunked prefill against a cached prefix (the paged admit path).
+
+    ``q``: (B, H, Tq, D), the suffix's queries roped at absolute positions
+    ``ctx_len + j``. ``k_ctx`` / ``v_ctx``: (B, Hkv, C, D), the cached
+    prefix, valid below ``ctx_len`` (a tensor: () or (B, 1)); every later
+    position gets exactly zero probability. ``k_new`` / ``v_new``:
+    (B, Hkv, Tq, D), the suffix's own keys and values, attended causally.
+    With ``ctx_len == 0`` this is causal self-attention over the suffix.
+    int8 prefixes carry ``k_scale`` / ``v_scale`` (B, C), widened as in
+    :func:`cached_attention`; the suffix's k/v stay full precision.
+    """
+    if k_scale is not None:
+        k_ctx = dequantize_kv(k_ctx, k_scale)
+        v_ctx = dequantize_kv(v_ctx, v_scale)
+    k_new = k_new.to(k_ctx.dtype)
+    v_new = v_new.to(v_ctx.dtype)
+    b, cap, tq = q.shape[0], k_ctx.shape[2], q.shape[2]
+    k_all = torch.cat([k_ctx, k_new], dim=2)
+    v_all = torch.cat([v_ctx, v_new], dim=2)
+    # ctx keys valid below ctx_len; the causal term (query i aligned with
+    # key cap + i) admits every ctx key and the suffix keys 0..i
+    ctx_valid = (torch.arange(cap, device=q.device)[None, :]
+                 < ctx_len.to(q.device)).expand(b, cap)
+    mask = torch.cat([ctx_valid, torch.ones(b, tq, dtype=torch.bool,
+                                             device=q.device)], dim=1)
+    return _grouped_attention(q, k_all, v_all, k_ctx.shape[1], causal=True,
+                              mask=mask)

@@ -2,20 +2,25 @@
 
 Counterpart of ``mxnet_tpu/serving/generate/``: an Orca-style
 :class:`DecodeScheduler` re-forms the decode batch every step as sequences
-finish, :class:`KVCacheManager` owns slot-allocated KV slabs behind engine
-variables, and :class:`DecodePrograms` holds the bucketed prefill ladder,
-the one decode step and the admit. Prefill attention runs the hand-written
-CUDA flash-attention kernel on the card.
+finish, :class:`KVCacheManager` owns slot-allocated KV slabs and
+:class:`PagedKVCacheManager` a block pool with prefix sharing, behind
+engine variables, and :class:`DecodePrograms` /
+:class:`PagedDecodePrograms` hold the bucketed prefill ladder, the one
+decode step (optionally one CUDA graph) and the admit. The unpaged
+prefill's attention runs the hand-written CUDA flash-attention kernel on
+the card; f32, bf16 and int8 KV.
 """
 from .kv_cache import AdmitPlan, KVCacheManager
 from .model import DecodeModel, DecodeSpec, params_from_numpy
-from .programs import DecodePrograms
+from .paged import TRASH_BLOCK, PagedKVCacheManager
+from .programs import DecodePrograms, PagedDecodePrograms
 from .scheduler import DecodeScheduler, GenerateConfig
 from .spec import sample_token
 from .stream import TokenStream
 
 __all__ = [
     "AdmitPlan", "DecodeModel", "DecodeSpec", "DecodePrograms",
-    "DecodeScheduler", "GenerateConfig", "KVCacheManager", "TokenStream",
-    "params_from_numpy", "sample_token",
+    "DecodeScheduler", "GenerateConfig", "KVCacheManager",
+    "PagedDecodePrograms", "PagedKVCacheManager", "TRASH_BLOCK",
+    "TokenStream", "params_from_numpy", "sample_token",
 ]

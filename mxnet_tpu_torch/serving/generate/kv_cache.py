@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/serving/generate/kv_cache.py``.
 ``KVCacheManager`` owns the decode state the engine serializes: the two
-``(L, slots, Hkv, C, Dh)`` slabs live behind ONE engine variable, and
+``(L, slots, Hkv, C, Dh)`` slabs (int8 KV: and their two ``(L, slots,
+C)`` f32 scale slabs) live behind ONE engine variable, and
 every program that touches them (admit, step, both in place) is pushed
 with ``mutable_vars=[var]``, so the engine orders step N+1 after step N
 and after any admits between them. The reference keeps one manager per
@@ -29,10 +30,20 @@ from .programs import DecodePrograms
 @dataclasses.dataclass
 class AdmitPlan:
     """What the scheduler needs to turn one queued prompt into one
-    admission op: the slot and the tokens the prefill program must run
-    (the whole prompt; the reference's paged fields come with paged KV)."""
+    admission op, from ``KVCacheManager.try_admit`` and
+    ``PagedKVCacheManager.try_admit``. Unpaged plans carry only (slot,
+    suffix = the whole prompt); paged plans add the cached-prefix length,
+    the block table and the copy-on-write fork pair."""
     slot: int
-    suffix: List[int]
+    suffix: List[int]          # tokens the prefill program must run
+    ctx_len: int = 0           # cached-prefix tokens reused (0 = cold)
+    table: Optional[np.ndarray] = None   # (max_blocks,) int32, paged only
+    fork_src: int = 0          # shared block to copy (0 = no fork)
+    fork_dst: int = 0          # private target of the copy (0 = no fork)
+
+    @property
+    def forked(self) -> bool:
+        return self.fork_dst != 0
 
 
 class KVCacheManager:
@@ -45,6 +56,9 @@ class KVCacheManager:
         self.var = _engine.new_variable()
         _engine.track_inflight(self.var)
         self.k_slab, self.v_slab = programs.fresh_slabs()
+        # int8 KV: per-position f32 scale slabs beside the value slabs
+        scales = programs.fresh_scale_slabs()
+        self.k_scale, self.v_scale = scales if scales else (None, None)
         self._lock = threading.Lock()
         # lengths[i] = tokens materialized in row i's kv (prompt +
         # generated so far); owner[i] = opaque sequence tag
@@ -94,14 +108,40 @@ class KVCacheManager:
         with self._lock:
             return int(self._lengths[slot])
 
+    def truncate(self, slot: int, new_len: int):
+        """Rewind ``slot``'s bookkeeping to ``new_len`` tokens. Slab rows
+        past ``new_len`` keep stale K/V, which every read masks by
+        length, so the rewind is this one host-side assignment."""
+        with self._lock:
+            self._lengths[slot] = int(new_len)
+
+    def owner(self, slot: int):
+        with self._lock:
+            return self._owner[slot]
+
+    def active_slots(self) -> List[int]:
+        with self._lock:
+            return [i for i in range(self.slots)
+                    if self._owner[i] is not None]
+
+    def occupancy_pct(self) -> float:
+        with self._lock:
+            used = sum(1 for o in self._owner if o is not None)
+        return 100.0 * used / self.slots
+
     # --- slab plumbing ----------------------------------------------------
     def reset(self):
-        """Fresh slabs + empty bookkeeping."""
+        """Fresh slabs + empty bookkeeping. A captured decode graph worked
+        on the old slabs: it is dropped, and the next step captures
+        anew."""
         with self._lock:
             self._lengths[:] = 0
             self._owner = [None] * self.slots
             self._free_slots = deque(range(self.slots))
+        self.programs.drop_capture()
         self.k_slab, self.v_slab = self.programs.fresh_slabs()
+        scales = self.programs.fresh_scale_slabs()
+        self.k_scale, self.v_scale = scales if scales else (None, None)
 
     def kv_bytes(self) -> int:
         return self.programs.kv_bytes()

@@ -8,25 +8,38 @@ builds the callables the generate path runs:
 - ``prefill(params, tokens (1, T), length (1,))`` — causal forward over a
   bucket-padded prompt through the flash-attention kernel; returns the
   logits at ``length - 1`` and the prompt's K/V padded to slab capacity
-  ``(L, 1, Hkv, C, Dh)``.
+  ``(L, 1, Hkv, C, Dh)`` (int8 KV: quantized, plus (L, 1, C) scales).
 - ``decode(params, k_slab, v_slab, lengths (B,), tokens (B,))`` — one
   token for every slot: write each row's new k/v at ``lengths[i]`` in
   place, attend over its own prefix (``cached_attention``), return (B, V)
   logits.
 - ``admit(k_slab, v_slab, k_new, v_new, slot)`` — slot a prefilled
   sequence's K/V into its row, in place.
+- ``paged_prefill`` / ``paged_decode`` — the same over a pool of
+  ``block_tokens``-position blocks addressed through block tables: the
+  prefill forks a shared boundary block (copy on write), attends over
+  the cached prefix gathered through the table and scatters the suffix
+  into its blocks; the decode scatters each row's new k/v into its own
+  block and gathers its dense view through its table.
+
+int8 KV (``kv_dtype="int8"``) adds f32 scale slabs, one scale per cached
+position, right after the value slabs in every signature; a position is
+quantized before attention reads it, so a token's own step sees the
+values every later step sees.
 
 The reference donates the slabs to its compiled programs and takes back
-the updated ones; here the decode and admit callables update the slabs in
-place, which is what donation bought there (the steady-state step
-allocates no new slab), so they return no slabs.
+the updated ones; here every callable updates the slabs in place, which
+is what donation bought there (the steady-state step allocates no new
+slab), and returns only what is new. A captured decode graph holds the
+slab tensors it was captured on (``programs.py``).
 
 The math follows the reference op for op: LayerNorm eps 1e-5 with the
 population variance, no-bias q/k/v/o, RoPE on split halves at absolute
 positions, tanh-approximate gelu (``jax.nn.gelu``'s default), biased head.
 Every per-position op is row-local and the decode mask is the row's own
 length, so a sequence's tokens do not depend on which other sequences
-share the batch. The paged, verify and int8 programs are not ported yet.
+share the batch. The verify programs (speculative decoding) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -38,13 +51,16 @@ import torch
 import torch.nn.functional as F
 
 from ...context import resolve_device
-from ...ops.attention import cached_attention, rope
+from ...ops.attention import cached_attention, prefix_cached_attention, \
+    rope
 from ...ops.attention import layer_norm as _ln
 from ...ops.kernels import flash_attention as _fa
 from ..batcher import ServingError
 
-#: kv dtype name -> slab element type (int8 is not ported yet)
-KV_SLAB_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: kv dtype name -> slab element type (int8's scales ride in separate f32
+#: slabs, see ``kv_scale_slab_shape``)
+KV_SLAB_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "int8": torch.int8}
 _PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # stacked param -> checkpoint suffix of models/transformer.py naming
@@ -74,6 +90,17 @@ def _mm(params, x, name, l=None):
     """``x @ W.T`` with ``W = params[name]`` (``[l]`` when stacked)."""
     w = params[name] if l is None else params[name][l]
     return x @ w.T
+
+
+def _quantize_kv(x):
+    """Per-position symmetric int8 over the (Hkv, Dh) axes:
+    ``x (..., Hkv, t, Dh) -> (q int8 same shape, scale (..., t) f32)``,
+    the reference's expression: ``scale = max(amax, 1e-12) / 127``, then
+    ``clip(round(x / scale), -127, 127)`` (both round half to even)."""
+    amax = x.abs().amax(dim=(-3, -1))
+    scale = torch.clamp(amax, min=1e-12).to(torch.float32) / 127.0
+    q = torch.clamp(torch.round(x / scale[..., None, :, None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def _kv_dtype(kv_dtype: str) -> torch.dtype:
@@ -178,6 +205,23 @@ class DecodeModel:
         """(L, slots, Hkv, C, Dh) — one of the two KV slabs."""
         return (self.layers, slots, self.spec.hkv, capacity, self.head_dim)
 
+    def kv_scale_slab_shape(self, slots: int, capacity: int) -> tuple:
+        """(L, slots, C) — per-position f32 scales of an int8 KV slab."""
+        return (self.layers, slots, capacity)
+
+    def paged_slab_shape(self, num_blocks: int, block_tokens: int) -> tuple:
+        """(L, num_blocks, Hkv, T, Dh) — one of the two paged slabs;
+        ``num_blocks`` includes block 0, the trash block that inactive
+        lanes and padded positions write into."""
+        return (self.layers, num_blocks, self.spec.hkv, block_tokens,
+                self.head_dim)
+
+    def paged_scale_slab_shape(self, num_blocks: int,
+                               block_tokens: int) -> tuple:
+        """(L, num_blocks, T) — per-position f32 scales of an int8 paged
+        slab (block 0 included)."""
+        return (self.layers, num_blocks, block_tokens)
+
     # --- pieces -----------------------------------------------------------
     def _project(self, params, h, l, b, t):
         """q/k/v projections of (b, t, D) -> split-head (b, {H|Hkv}, t, Dh),
@@ -207,7 +251,9 @@ class DecodeModel:
         (logits (1, V), k, v (L, 1, Hkv, C, Dh) of ``kv_dtype``). Padded
         positions >= length produce kv that decode never reads (masked by
         length); the causal mask keeps them out of the returned logits.
-        ``kv_dtype`` re-types the returned cache only."""
+        ``kv_dtype`` re-types the returned cache only: bf16 casts, int8
+        quantizes per position (after the flash kernel, which runs in the
+        model's type) and appends the (L, 1, C) k and v scales."""
         if bucket > capacity:
             raise ServingError("prefill bucket %d exceeds kv capacity %d"
                                % (bucket, capacity))
@@ -217,8 +263,9 @@ class DecodeModel:
         def prefill(params, tokens, length):
             x = params["embed"][tokens.long()]                # (1, T, D)
             kv_shape = self.kv_slab_shape(1, capacity)
-            k_out = torch.zeros(kv_shape, dtype=elem, device=x.device)
-            v_out = torch.zeros(kv_shape, dtype=elem, device=x.device)
+            wide = x.dtype if elem == torch.int8 else elem
+            k_out = torch.zeros(kv_shape, dtype=wide, device=x.device)
+            v_out = torch.zeros(kv_shape, dtype=wide, device=x.device)
             for l in range(self.layers):
                 h = _ln(x, params["ln1_g"][l], params["ln1_b"][l])
                 q, k, v = self._project(params, h, l, 1, bucket)
@@ -234,65 +281,291 @@ class DecodeModel:
                 v_out[l, :, :, :bucket] = v
             # the head is row-local: run it on the one row that is returned
             last = x[torch.arange(1, device=x.device), length.long() - 1]
-            return self._head(params, last), k_out, v_out
+            logits = self._head(params, last)
+            if elem == torch.int8:
+                kq, k_s = _quantize_kv(k_out)            # scales (L, 1, C)
+                vq, v_s = _quantize_kv(v_out)
+                return logits, kq, vq, k_s, v_s
+            return logits, k_out, v_out
 
         return prefill
+
+    def _check_slab(self, what, slab, shape, elem):
+        if slab.dtype != elem or tuple(slab.shape) != shape:
+            raise ServingError("%s: slab %s %s, want %s %s"
+                               % (what, tuple(slab.shape), slab.dtype,
+                                  shape, elem))
+
+    def _step_layer(self, params, x, l, pos):
+        """One layer's q and new k/v for a (B, D) step at rope positions
+        ``pos`` (B, 1, 1): q (B, H, 1, Dh), k_t, v_t (B, Hkv, 1, Dh)."""
+        spec, hd, b = self.spec, self.head_dim, x.shape[0]
+        h = _ln(x, params["ln1_g"][l], params["ln1_b"][l])
+        q = _mm(params, h, "wq", l).reshape(b, spec.num_heads, 1, hd)
+        k_t = _mm(params, h, "wk", l).reshape(b, spec.hkv, 1, hd)
+        v_t = _mm(params, h, "wv", l).reshape(b, spec.hkv, 1, hd)
+        q = rope(q, positions=pos, base=spec.rope_base)
+        k_t = rope(k_t, positions=pos, base=spec.rope_base)
+        return q, k_t, v_t
+
+    def _step_rest(self, params, x, att, l):
+        att = att.transpose(1, 2).reshape(x.shape[0], self.dm)
+        x = x + _mm(params, att.to(x.dtype), "wo", l)
+        return self._mlp(params, x, l)
 
     def build_decode(self, slots: int, capacity: int,
                      kv_dtype: str = "float32"):
         """fn(params, k_slab, v_slab, lengths (B,), tokens (B,)) ->
-        logits (B, V), the slabs updated in place.
-        Inactive slots run with lengths pinned to 0 — wasted lanes, never
-        wrong lanes. bf16 slabs take cast writes; reads go through the
-        f32 attention math."""
+        logits (B, V), the slabs updated in place; int8 KV takes the scale
+        slabs (L, B, C) after the value slabs: fn(params, k_slab, v_slab,
+        ks_slab, vs_slab, lengths, tokens). Inactive slots run with
+        lengths pinned to 0 — wasted lanes, never wrong lanes. bf16 slabs
+        take cast writes, int8 slabs quantized ones (each new position
+        before attention reads it); reads go through the f32 attention
+        math. Nothing here waits for the device or reads a tensor's value
+        on the host, so the step can be captured as a CUDA graph."""
         elem = _kv_dtype(kv_dtype)
-        spec = self.spec
-        hd = self.head_dim
+        shape = self.kv_slab_shape(slots, capacity)
+        sshape = self.kv_scale_slab_shape(slots, capacity)
 
-        def decode(params, k_slab, v_slab, lengths, tokens):
-            if k_slab.dtype != elem or k_slab.shape != self.kv_slab_shape(
-                    slots, capacity):
-                raise ServingError("decode: slab %s %s, want %s %s"
-                                   % (tuple(k_slab.shape), k_slab.dtype,
-                                      self.kv_slab_shape(slots, capacity),
-                                      elem))
+        def body(params, k_slab, v_slab, ks_slab, vs_slab, lengths, tokens):
+            self._check_slab("decode", k_slab, shape, elem)
+            self._check_slab("decode", v_slab, shape, elem)
             lengths = lengths.long()
             x = params["embed"][tokens.long()]                # (B, D)
             # rope positions: the new token sits at index `length`
             pos = lengths.reshape(slots, 1, 1)
             rows = torch.arange(slots, device=x.device)
             for l in range(self.layers):
-                h = _ln(x, params["ln1_g"][l], params["ln1_b"][l])
-                q = _mm(params, h, "wq", l).reshape(slots, spec.num_heads,
-                                                    1, hd)
-                k_t = _mm(params, h, "wk", l).reshape(slots, spec.hkv, 1, hd)
-                v_t = _mm(params, h, "wv", l).reshape(slots, spec.hkv, 1, hd)
-                q = rope(q, positions=pos, base=spec.rope_base)
-                k_t = rope(k_t, positions=pos, base=spec.rope_base)
+                q, k_t, v_t = self._step_layer(params, x, l, pos)
                 k_l, v_l = k_slab[l], v_slab[l]               # views
                 # each row's k/v lands at its own position lengths[i]
-                k_l[rows, :, lengths] = k_t[:, :, 0].to(elem)
-                v_l[rows, :, lengths] = v_t[:, :, 0].to(elem)
-                att = cached_attention(q, k_l, v_l, lengths)
-                att = att.transpose(1, 2).reshape(slots, self.dm)
-                x = x + _mm(params, att.to(x.dtype), "wo", l)
-                x = self._mlp(params, x, l)
+                if ks_slab is None:
+                    k_l[rows, :, lengths] = k_t[:, :, 0].to(elem)
+                    v_l[rows, :, lengths] = v_t[:, :, 0].to(elem)
+                    att = cached_attention(q, k_l, v_l, lengths)
+                else:
+                    kq, k_s = _quantize_kv(k_t)               # scales (B, 1)
+                    vq, v_s = _quantize_kv(v_t)
+                    k_l[rows, :, lengths] = kq[:, :, 0]
+                    v_l[rows, :, lengths] = vq[:, :, 0]
+                    ks_l, vs_l = ks_slab[l], vs_slab[l]
+                    ks_l[rows, lengths] = k_s[:, 0]
+                    vs_l[rows, lengths] = v_s[:, 0]
+                    att = cached_attention(q, k_l, v_l, lengths,
+                                           k_scale=ks_l, v_scale=vs_l)
+                x = self._step_rest(params, x, att, l)
             return self._head(params, x)
+
+        if elem == torch.int8:
+            def decode(params, k_slab, v_slab, ks_slab, vs_slab, lengths,
+                       tokens):
+                self._check_slab("decode", ks_slab, sshape, torch.float32)
+                self._check_slab("decode", vs_slab, sshape, torch.float32)
+                return body(params, k_slab, v_slab, ks_slab, vs_slab,
+                            lengths, tokens)
+        else:
+            def decode(params, k_slab, v_slab, lengths, tokens):
+                return body(params, k_slab, v_slab, None, None, lengths,
+                            tokens)
 
         return decode
 
     def build_admit(self, slots: int, capacity: int,
                     kv_dtype: str = "float32"):
         """fn(k_slab, v_slab, k_new (L, 1, Hkv, C, Dh), v_new, slot):
-        overwrites row ``slot`` of the slabs in place."""
-        _kv_dtype(kv_dtype)
+        overwrites row ``slot`` of the slabs in place; int8 KV:
+        fn(k_slab, v_slab, ks_slab, vs_slab, k_new, v_new, ks_new, vs_new,
+        slot), the (L, 1, C) scale rows beside the values."""
+        elem = _kv_dtype(kv_dtype)
 
-        def admit(k_slab, v_slab, k_new, v_new, slot):
+        def row(slot):
             slot = int(slot)
             if not 0 <= slot < slots:
                 raise ServingError("admit: slot %d out of range [0, %d)"
                                    % (slot, slots))
-            k_slab[:, slot] = k_new[:, 0]
-            v_slab[:, slot] = v_new[:, 0]
+            return slot
+
+        if elem == torch.int8:
+            def admit(k_slab, v_slab, ks_slab, vs_slab, k_new, v_new,
+                      ks_new, vs_new, slot):
+                slot = row(slot)
+                k_slab[:, slot] = k_new[:, 0]
+                v_slab[:, slot] = v_new[:, 0]
+                ks_slab[:, slot] = ks_new[:, 0]
+                vs_slab[:, slot] = vs_new[:, 0]
+        else:
+            def admit(k_slab, v_slab, k_new, v_new, slot):
+                slot = row(slot)
+                k_slab[:, slot] = k_new[:, 0]
+                v_slab[:, slot] = v_new[:, 0]
 
         return admit
+
+    def build_paged_prefill(self, bucket: int, block_tokens: int,
+                            max_blocks: int, kv_dtype: str = "float32"):
+        """fn(params, k_slab, v_slab, table (MB,), ctx_len (), tokens
+        (1, T=bucket), n (1,), fork_src (), fork_dst ()) -> logits (1, V),
+        the slabs (L, NB, Hkv, T, Dh) updated in place; int8 KV takes the
+        scale slabs (L, NB, T) after the value slabs. Integer arguments are
+        tensors. One callable does what the reference's program does:
+
+        1. **copy-on-write fork**: block ``fork_src`` is copied into
+           ``fork_dst`` (both 0, the trash block, when there is no fork),
+           so a suffix that diverges inside a shared block writes a
+           private copy while every other sharer reads the original;
+        2. **chunked prefill over the cached prefix**: the first
+           ``ctx_len`` positions are gathered through ``table``; the ``n``
+           suffix tokens, roped at ``ctx_len + j``, attend to them and
+           causally to each other (``prefix_cached_attention``);
+        3. **admit**: suffix position j's k/v goes to block
+           ``table[(ctx_len + j) // T]`` at offset ``(ctx_len + j) % T``;
+           padded positions (j >= n) go to the trash block.
+
+        int8: the fork copies scale blocks with value blocks, the prefix
+        widens through its scales, and the suffix is stored quantized.
+        Attention here is the reference's einsum (its paged prefill runs
+        no Pallas kernel), so the flash kernel is not launched."""
+        elem = _kv_dtype(kv_dtype)
+        spec = self.spec
+        T, mb = int(block_tokens), int(max_blocks)
+        cap = T * mb
+
+        def body(params, k_slab, v_slab, ks_slab, vs_slab, table, ctx_len,
+                 tokens, n, fork_src, fork_dst):
+            dev = k_slab.device
+            table = table.long()
+            ctx_len = ctx_len.long()
+            # (1) CoW fork, before anything reads through the table (whose
+            # boundary entry already names fork_dst)
+            src, dst = fork_src.long().reshape(1), fork_dst.long().reshape(1)
+            for slab in (k_slab, v_slab, ks_slab, vs_slab):
+                if slab is not None:
+                    slab.index_copy_(1, dst, slab.index_select(1, src))
+            x = params["embed"][tokens.long()]                # (1, T, D)
+            j = torch.arange(bucket, device=dev)
+            pos = ctx_len + j                                 # absolute
+            phys = torch.where(j < n.long()[0],
+                               table[torch.clamp(pos // T, 0, mb - 1)],
+                               torch.zeros_like(j))
+            off = pos % T
+            hkv, hd = spec.hkv, self.head_dim
+            for l in range(self.layers):
+                h = _ln(x, params["ln1_g"][l], params["ln1_b"][l])
+                q, k, v = self._project(params, h, l, 1, bucket)
+                q = rope(q, positions=pos, base=spec.rope_base)
+                k = rope(k, positions=pos, base=spec.rope_base)
+                # (2) the cached prefix, gathered through the block table
+                k_ctx = k_slab[l][table].transpose(0, 1).reshape(
+                    1, hkv, cap, hd)
+                v_ctx = v_slab[l][table].transpose(0, 1).reshape(
+                    1, hkv, cap, hd)
+                if ks_slab is None:
+                    att = prefix_cached_attention(q, k_ctx, v_ctx, ctx_len,
+                                                  k, v)
+                else:
+                    att = prefix_cached_attention(
+                        q, k_ctx, v_ctx, ctx_len, k, v,
+                        k_scale=ks_slab[l][table].reshape(1, cap),
+                        v_scale=vs_slab[l][table].reshape(1, cap))
+                att = att.transpose(1, 2).reshape(1, bucket, self.dm)
+                x = x + _mm(params, att.to(x.dtype), "wo", l)
+                x = self._mlp(params, x, l)
+                # (3) admit: this layer's suffix k/v into its blocks
+                if ks_slab is None:
+                    k_slab[l, phys, :, off] = k[0].transpose(0, 1).to(elem)
+                    v_slab[l, phys, :, off] = v[0].transpose(0, 1).to(elem)
+                else:
+                    kq, k_s = _quantize_kv(k)          # scales (1, bucket)
+                    vq, v_s = _quantize_kv(v)
+                    k_slab[l, phys, :, off] = kq[0].transpose(0, 1)
+                    v_slab[l, phys, :, off] = vq[0].transpose(0, 1)
+                    ks_slab[l, phys, off] = k_s[0]
+                    vs_slab[l, phys, off] = v_s[0]
+            last = x[torch.arange(1, device=dev), n.long() - 1]
+            return self._head(params, last)
+
+        if elem == torch.int8:
+            def prefill(params, k_slab, v_slab, ks_slab, vs_slab, table,
+                        ctx_len, tokens, n, fork_src, fork_dst):
+                return body(params, k_slab, v_slab, ks_slab, vs_slab, table,
+                            ctx_len, tokens, n, fork_src, fork_dst)
+        else:
+            def prefill(params, k_slab, v_slab, table, ctx_len, tokens, n,
+                        fork_src, fork_dst):
+                return body(params, k_slab, v_slab, None, None, table,
+                            ctx_len, tokens, n, fork_src, fork_dst)
+
+        return prefill
+
+    def build_paged_decode(self, slots: int, block_tokens: int,
+                           max_blocks: int, kv_dtype: str = "float32"):
+        """fn(params, k_slab, v_slab, tables (B, MB), lengths (B,), tokens
+        (B,)) -> logits (B, V), the slabs updated in place; int8 KV takes
+        the scale slabs after the value slabs.
+
+        The paged twin of ``build_decode``: row i's new k/v goes to block
+        ``tables[i, lengths[i] // T]`` at offset ``lengths[i] % T`` (a
+        block private to row i: copy-on-write resolved sharing at
+        admission), then attention gathers the row's dense (Hkv, MB*T, Dh)
+        view through its table and masks by length. Inactive lanes carry
+        an all-zero table, so they write the trash block. Capturable, as
+        ``build_decode``."""
+        elem = _kv_dtype(kv_dtype)
+        spec = self.spec
+        T, mb = int(block_tokens), int(max_blocks)
+        cap = T * mb
+
+        def body(params, k_slab, v_slab, ks_slab, vs_slab, tables, lengths,
+                 tokens):
+            if k_slab.dtype != elem or v_slab.dtype != elem:
+                raise ServingError("paged decode: slabs %s, want %s"
+                                   % (k_slab.dtype, elem))
+            hkv, hd = spec.hkv, self.head_dim
+            lengths = lengths.long()
+            tables = tables.long()
+            x = params["embed"][tokens.long()]                # (B, D)
+            pos = lengths.reshape(slots, 1, 1)
+            # write site per row: its own block
+            phys_w = tables.gather(
+                1, torch.clamp(lengths // T, 0, mb - 1)[:, None])[:, 0]
+            off_w = lengths % T
+            for l in range(self.layers):
+                q, k_t, v_t = self._step_layer(params, x, l, pos)
+                if ks_slab is None:
+                    k_slab[l, phys_w, :, off_w] = k_t[:, :, 0].to(elem)
+                    v_slab[l, phys_w, :, off_w] = v_t[:, :, 0].to(elem)
+                else:
+                    kq, k_s = _quantize_kv(k_t)               # scales (B, 1)
+                    vq, v_s = _quantize_kv(v_t)
+                    k_slab[l, phys_w, :, off_w] = kq[:, :, 0]
+                    v_slab[l, phys_w, :, off_w] = vq[:, :, 0]
+                    ks_slab[l, phys_w, off_w] = k_s[:, 0]
+                    vs_slab[l, phys_w, off_w] = v_s[:, 0]
+                # each row's dense view, after the write: the new token's
+                # k/v is visible to its own attention
+                k_l = k_slab[l][tables].transpose(1, 2).reshape(
+                    slots, hkv, cap, hd)
+                v_l = v_slab[l][tables].transpose(1, 2).reshape(
+                    slots, hkv, cap, hd)
+                if ks_slab is None:
+                    att = cached_attention(q, k_l, v_l, lengths)
+                else:
+                    att = cached_attention(
+                        q, k_l, v_l, lengths,
+                        k_scale=ks_slab[l][tables].reshape(slots, cap),
+                        v_scale=vs_slab[l][tables].reshape(slots, cap))
+                x = self._step_rest(params, x, att, l)
+            return self._head(params, x)
+
+        if elem == torch.int8:
+            def decode(params, k_slab, v_slab, ks_slab, vs_slab, tables,
+                       lengths, tokens):
+                return body(params, k_slab, v_slab, ks_slab, vs_slab, tables,
+                            lengths, tokens)
+        else:
+            def decode(params, k_slab, v_slab, tables, lengths, tokens):
+                return body(params, k_slab, v_slab, None, None, tables,
+                            lengths, tokens)
+
+        return decode

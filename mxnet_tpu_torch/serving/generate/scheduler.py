@@ -1,24 +1,35 @@
 """Orca-style iteration-level scheduler for continuous-batching decode.
 
-Counterpart of ``mxnet_tpu/serving/generate/scheduler.py`` (unpaged path).
-One scheduler thread drives one KV cache: each loop iteration it
-(1) expires/admits waiting prompts into freed slots — each admission is a
-prefill through the flash-attention kernel plus an admit into the slot
-row — (2) pushes ONE fixed-shape decode step over all slots onto the
-engine (``mutable_vars=[kv var]``, so the engine orders step N+1 after
-step N and after any admits between them), (3) fences, samples on the
-host, streams tokens out, and retires finished sequences. The batch is
-re-formed every step as sequences finish and new ones join mid-flight.
+Counterpart of ``mxnet_tpu/serving/generate/scheduler.py``. One scheduler
+thread drives one KV cache: each loop iteration it (1) expires/admits
+waiting prompts — each admission is one engine op: unpaged, a prefill
+through the flash-attention kernel plus an admit into the slot row;
+paged, one paged prefill (copy-on-write fork + attention over the cached
+prefix + the suffix's scatter into its blocks) — (2) pushes ONE
+fixed-shape decode step over all slots onto the engine (``mutable_vars=
+[kv var]``, so the engine orders step N+1 after step N and after any
+admits between them), (3) fences, samples on the host, streams tokens
+out, and retires finished sequences. The batch is re-formed every step as
+sequences finish and new ones join mid-flight.
+
+Paged KV (``paged=True``: ``block_tokens``, ``num_blocks``,
+``prefix_share``) drives ``PagedDecodePrograms`` + ``PagedKVCacheManager``:
+admission reserves blocks and reuses shared prompt prefixes, and the
+decode step carries each row's block table. ``kv_dtype="int8"`` stores
+the cache quantized with per-position scale slabs; ``capture=True`` runs
+the decode step as one CUDA graph on the card (eagerly on the CPU).
 
 The scheduler's ``_cond`` is never held across an engine push or fence;
-``TokenStream._cond`` and ``KVCacheManager._lock`` are leaves taken
+``TokenStream._cond`` and the cache managers' ``_lock`` are leaves taken
 under it.
 
-Not ported yet: paged KV, speculative decoding, weight quantization, int8
-KV and engine capture — setting any of them raises ``ServingError``
-(code ``not_ported``). Telemetry spans, the flight recorder and the
-reference's ``replicas`` (one cache per replica, for the multi-device
-``InferenceServer``) are not ported either.
+Not ported yet: speculative decoding and weight quantization — setting
+``spec`` or ``quant_weights`` raises ``ServingError`` (code
+``not_ported``). Telemetry spans, the flight recorder, the reference's
+``replicas`` (one cache per replica, for the multi-device
+``InferenceServer``) and its engine-wide capture
+(``MXNET_ENGINE_CAPTURE``, ``engine.CapturedSequence``) are not ported
+either.
 """
 from __future__ import annotations
 
@@ -35,7 +46,8 @@ from ... import engine as _engine
 from ..batcher import ServingError
 from .kv_cache import KVCacheManager
 from .model import DecodeModel
-from .programs import DecodePrograms
+from .paged import PagedKVCacheManager
+from .programs import DecodePrograms, PagedDecodePrograms
 from .spec import sample_token
 from .stream import TokenStream
 
@@ -86,9 +98,10 @@ class GenerateConfig:
     """Decode-side knobs; every default reads its ``MXNET_DECODE_*`` env
     var at construction time, with the reference's names and defaults.
     Head counts are architecture facts of the checkpoint. The knobs of
-    unported features (paged, spec, quant_weights, capture, int8 KV) are
-    kept so that setting one raises instead of being ignored; their
-    sub-knobs (block sizes, draft choice) come with them."""
+    unported features (spec, quant_weights) are kept so that setting one
+    raises instead of being ignored; their sub-knobs (the draft choice)
+    come with them. ``num_blocks`` 0 sizes the paged pool to the unpaged
+    slabs' positions: ``slots * ceil(max_context / block_tokens)``."""
     num_heads: int
     num_kv_heads: int = 0
     slots: int = dataclasses.field(
@@ -107,6 +120,12 @@ class GenerateConfig:
     rope_base: float = 10000.0
     paged: bool = dataclasses.field(
         default_factory=lambda: _env_flag("MXNET_DECODE_PAGED", "0"))
+    block_tokens: int = dataclasses.field(
+        default_factory=lambda: _env_int("MXNET_DECODE_BLOCK_TOKENS", 16))
+    num_blocks: int = dataclasses.field(
+        default_factory=lambda: _env_int("MXNET_DECODE_BLOCKS", 0))
+    prefix_share: bool = dataclasses.field(
+        default_factory=lambda: _env_flag("MXNET_DECODE_PREFIX_SHARE", "1"))
     kv_dtype: str = dataclasses.field(
         default_factory=lambda: os.environ.get(
             "MXNET_DECODE_KV_DTYPE", "f32"))
@@ -117,11 +136,9 @@ class GenerateConfig:
         default_factory=lambda: _env_flag("MXNET_DECODE_SPEC", "0"))
 
 
-def _refuse_unported(config: GenerateConfig, kv_dtype: str):
-    for knob, on in (("paged", config.paged), ("spec", config.spec),
-                     ("quant_weights", bool(config.quant_weights)),
-                     ("capture", config.capture),
-                     ("kv_dtype='int8'", kv_dtype == "int8")):
+def _refuse_unported(config: GenerateConfig):
+    for knob, on in (("spec", config.spec),
+                     ("quant_weights", bool(config.quant_weights))):
         if on:
             raise ServingError("decode: %s is not yet ported" % knob,
                                code="not_ported")
@@ -145,19 +162,27 @@ class _Active:
 
 
 class DecodeScheduler:
-    """Continuous-batching decode over one model and one pair of KV slabs
-    on the model's device."""
+    """Continuous-batching decode over one model and one KV cache (slot
+    rows or a block pool) on the model's device."""
 
     def __init__(self, model: DecodeModel, config: GenerateConfig):
         self.config = config
         self.kv_dtype = normalize_kv_dtype(config.kv_dtype)
-        _refuse_unported(config, self.kv_dtype)
+        _refuse_unported(config)
         self.model = model
-        self.programs = DecodePrograms(model, config.slots,
-                                       config.max_context,
-                                       config.prefill_buckets,
-                                       kv_dtype=self.kv_dtype)
-        self.cache: Optional[KVCacheManager] = None
+        if config.paged:
+            blocks = config.num_blocks or config.slots * (
+                -(-config.max_context // config.block_tokens))
+            self.programs: DecodePrograms = PagedDecodePrograms(
+                model, config.slots, config.max_context,
+                config.prefill_buckets, config.block_tokens, blocks,
+                kv_dtype=self.kv_dtype, capture=config.capture)
+        else:
+            self.programs = DecodePrograms(
+                model, config.slots, config.max_context,
+                config.prefill_buckets, kv_dtype=self.kv_dtype,
+                capture=config.capture)
+        self.cache = None      # KVCacheManager | PagedKVCacheManager
         self._cond = threading.Condition()
         self._queue: deque = deque()   # (stream, prompt, temperature, rng)
         self._active: Dict[int, _Active] = {}     # slot -> sequence
@@ -171,7 +196,11 @@ class DecodeScheduler:
             if self._state != "stopped":
                 return
             self._state = "running"
-        self.cache = KVCacheManager(self.programs)
+        if self.config.paged:
+            self.cache = PagedKVCacheManager(
+                self.programs, prefix_share=self.config.prefix_share)
+        else:
+            self.cache = KVCacheManager(self.programs)
         self._thread = threading.Thread(target=self._loop,
                                         name="decode-scheduler", daemon=True)
         self._thread.start()
@@ -314,9 +343,12 @@ class DecodeScheduler:
             a.stream._finish(reason or "eos")
 
     def _admit_waiting(self):
-        """Prefill waiting prompts into free slots. Each admission is one
-        engine op on the kv var (prefill -> slot insert), fenced as a
-        group so fresh sequences join the very next step."""
+        """Prefill waiting prompts into free slots (unpaged) / free blocks
+        (paged). Each admission is one engine op on the kv var (prefill ->
+        slot insert; paged: the one paged prefill, which may run only the
+        suffix after a shared prefix and fork a shared boundary block
+        first), fenced as a group so fresh sequences join the very next
+        step."""
         admitted = []         # (active, holder)
         cache = self.cache
         while True:
@@ -325,8 +357,8 @@ class DecodeScheduler:
                     break
                 stream, prompt, temp, rng = self._queue.popleft()
             plan = cache.try_admit(stream, prompt, stream.max_new_tokens)
-            if plan is None:      # slots exhausted — wait for retirement,
-                with self._cond:  # never evict mid-stream
+            if plan is None:      # slots/blocks exhausted — wait for
+                with self._cond:  # retirement, never evict mid-stream
                     self._queue.appendleft((stream, prompt, temp, rng))
                 break
             # build the bucket's prefill program here (scheduler thread)
@@ -337,10 +369,25 @@ class DecodeScheduler:
                                      temperature=temp, rng=rng), holder))
 
             def op(plan=plan, holder=holder):
+                progs = self.programs
                 try:
-                    last, k_new, v_new = self.programs.prefill(plan.suffix)
-                    self.programs.admit(cache.k_slab, cache.v_slab, k_new,
-                                        v_new, plan.slot)
+                    if self.config.paged:
+                        last = progs.paged_prefill(
+                            cache.k_slab, cache.v_slab, plan.table,
+                            plan.ctx_len, plan.suffix, plan.fork_src,
+                            plan.fork_dst, ks_slab=cache.k_scale,
+                            vs_slab=cache.v_scale)
+                    else:
+                        last, *kv_new = progs.prefill(plan.suffix)
+                        if len(kv_new) == 4:    # int8 KV: + scale rows
+                            progs.admit(cache.k_slab, cache.v_slab,
+                                        kv_new[0], kv_new[1], plan.slot,
+                                        ks_slab=cache.k_scale,
+                                        vs_slab=cache.v_scale,
+                                        ks_new=kv_new[2], vs_new=kv_new[3])
+                        else:
+                            progs.admit(cache.k_slab, cache.v_slab,
+                                        kv_new[0], kv_new[1], plan.slot)
                     holder["logits"] = last.float().cpu().numpy()
                 except Exception as e:      # noqa: BLE001 — reported below
                     holder["error"] = e
@@ -394,12 +441,22 @@ class DecodeScheduler:
         for a in actives:
             lengths[a.slot] = cache.length(a.slot)
             tokens[a.slot] = a.last_token
+        # paged rows read and write kv through their block tables (freed
+        # rows are all-trash: they write block 0 and read nothing unmasked)
+        tables = cache.step_arrays()[1] if self.config.paged else None
         holder: Dict[str, object] = {}
 
         def op():
+            scales = {"ks_slab": cache.k_scale, "vs_slab": cache.v_scale}
             try:
-                logits = self.programs.decode(cache.k_slab, cache.v_slab,
-                                              lengths, tokens)
+                if tables is not None:
+                    logits = self.programs.decode(
+                        cache.k_slab, cache.v_slab, tables, lengths, tokens,
+                        **scales)
+                else:
+                    logits = self.programs.decode(
+                        cache.k_slab, cache.v_slab, lengths, tokens,
+                        **scales)
                 holder["logits"] = logits.float().cpu().numpy()
             except Exception as e:      # noqa: BLE001 — reported below
                 holder["error"] = e
@@ -410,7 +467,8 @@ class DecodeScheduler:
         err = holder.get("error")
         if err is not None:
             # a failed in-place step may leave the slabs half written:
-            # rebuild the cache rather than step on that state
+            # rebuild the cache (and recapture) rather than step on that
+            # state
             for a in actives:
                 self._retire(a, error=ServingError(
                     "decode step failed: %s" % err, code="dispatch_error"))
@@ -423,8 +481,24 @@ class DecodeScheduler:
 
     # --- introspection ----------------------------------------------------
     def stats(self) -> Dict[str, object]:
+        """Steps, queue and batch, the KV type and bytes, the decode
+        step's path with its warm-up calls, captures and replays, and
+        (paged) the pool and the prefix counters."""
         with self._cond:
             queued = len(self._queue)
             active = len(self._active)
-        return {"steps": self.steps, "queued": queued, "active": active,
-                "kv_dtype": self.kv_dtype}
+        cap = self.programs.capture_stats()
+        st = {"steps": self.steps, "queued": queued, "active": active,
+              "kv_dtype": self.kv_dtype, "kv_bytes": self.programs.kv_bytes(),
+              "decode_path": cap["path"],
+              "warmup_calls": cap["warmup_calls"],
+              "captures": cap["captures"], "replays": cap["replays"]}
+        cache = self.cache
+        if self.config.paged and cache is not None:
+            st.update(blocks_total=cache.blocks_total(),
+                      blocks_free=cache.blocks_free(),
+                      blocks_peak=cache.blocks_peak,
+                      prefix_hits=cache.prefix_hits,
+                      prefix_tokens_saved=cache.prefix_tokens_saved,
+                      cow_forks=cache.cow_forks)
+        return st

@@ -3,10 +3,12 @@
 ``chip_smoke.py`` and :mod:`mxnet_tpu_torch.tools.profile_generate` serve
 the GQA decoder LM of ``bench.py`` (d 2048, 16 heads, 4 kv heads,
 ffn 8192, vocab 10000, bench.py's own 4 layers) from seeded random weights
-in ``models/transformer.py`` checkpoint naming, and ``chip_smoke.py``
-trains it (``TRAIN``: bench.py's SGD hyperparameters, bf16 compute and
-batch 32 x 2048, through the fused step ``lm_train_step``). All take the
-configuration, the weights and the card's identity line from here.
+in ``models/transformer.py`` checkpoint naming (``SERVE``: slot rows;
+``SERVE_PAGED``: a block pool behind a shared system prompt), and
+``chip_smoke.py`` trains it (``TRAIN``: bench.py's SGD hyperparameters,
+bf16 compute and batch 32 x 2048, through the fused step
+``lm_train_step``). All take the configuration, the weights, the prompts,
+the teacher-forced decode runs and the card's identity line from here.
 """
 from __future__ import annotations
 
@@ -22,6 +24,17 @@ SERVE = {"slots": 4, "prefill_buckets": (128, 512, 2048),
          "max_context": 2304, "max_new_tokens": 32,
          "prompt_lens": (100, 300, 500, 900, 1500, 2000),
          "check_lens": (500, 2000)}
+# paged serving: 8 slots over 288 blocks of 16 positions (the positions of
+# two unpaged slots at max_context 2304), so short streams pack eight wide
+# and long ones wait for blocks; five prompts share a 1000-token system
+# prompt (62 full blocks + 8 positions) before their own suffixes, three
+# share nothing; ``forced``: the prompts run teacher-forced (the first
+# sharer, cold, and a joiner that forks the boundary block)
+SERVE_PAGED = {"slots": 8, "num_blocks": 288, "block_tokens": 16,
+               "prefill_buckets": (128, 512, 2048), "max_context": 2304,
+               "max_new_tokens": 32, "system_len": 1000,
+               "suffix_lens": (24, 100, 300, 500, 900),
+               "other_lens": (100, 1500, 2000), "forced": (0, 1)}
 # bench.py:334's SGD hyperparameters, compute type (bf16 over f32 master
 # weights) and batch (32 x 2048: 38 GB on the card); the card-vs-CPU checks
 # run 1 x 256 so their CPU side finishes in seconds; ``timed_steps`` more
@@ -177,6 +190,149 @@ def lm_arg_params(cfg, seed):
         else:
             p[name] = np.zeros(shape, np.float32)
     return p
+
+
+def serve_prompts(cfg, serve, seed):
+    """The serve traffic's prompts (``serve["prompt_lens"]``)."""
+    rng = np.random.default_rng(seed + 1)
+    return [rng.integers(0, cfg["vocab"], n).tolist()
+            for n in serve["prompt_lens"]]
+
+
+def paged_prompts(cfg, paged, seed):
+    """The paged traffic: the system prompt followed by each suffix, then
+    the prompts that share nothing. Every suffix starts with a token of
+    its own and every unshared prompt with a token no other prompt starts
+    with, so two sharers' common prefix is exactly the system prompt and
+    an unshared prompt's is empty."""
+    rng = np.random.default_rng(seed + 2)
+    system = rng.integers(0, cfg["vocab"], paged["system_len"]).tolist()
+    firsts = rng.permutation(cfg["vocab"])
+    firsts = [int(t) for t in firsts if t != system[0]]
+    out = []
+    for i, n in enumerate(paged["suffix_lens"]):
+        out.append(system + [firsts[i]]
+                   + rng.integers(0, cfg["vocab"], n - 1).tolist())
+    for i, n in enumerate(paged["other_lens"], len(paged["suffix_lens"])):
+        out.append([firsts[i]]
+                   + rng.integers(0, cfg["vocab"], n - 1).tolist())
+    return out
+
+
+def expected_prefix_counts(prompts, block_tokens):
+    """(prefix_hits, prefix_tokens_saved, cow_forks) that follow from the
+    prompts when each is admitted in order while every earlier one is
+    still resident: a prompt reuses its longest common prefix with an
+    earlier one, short of its last token (which it prefills for its first
+    logits), and forks when that prefix ends inside a block."""
+    hits = saved = forks = 0
+    for i, p in enumerate(prompts):
+        lcp = 0
+        for q in prompts[:i]:
+            k = 0
+            while k < min(len(p), len(q)) and p[k] == q[k]:
+                k += 1
+            lcp = max(lcp, k)
+        ctx = min(lcp, len(p) - 1)
+        if ctx:
+            hits += 1
+            saved += ctx
+        if ctx % block_tokens:
+            forks += 1
+    return hits, saved, forks
+
+
+def _logits_np(t):
+    return t.float().cpu().numpy()
+
+
+def forced_unpaged(progs, prompt, steps, forced=None):
+    """Prefill ``prompt`` into slot 0 of fresh slabs of ``progs`` (a
+    ``DecodePrograms``), then ``steps`` decode steps of slot 0 (the other
+    slots inactive), fed ``forced`` or, when None, each step's argmax
+    (greedy). Returns (logits (steps + 1, V) f32, the tokens fed)."""
+    slabs = list(progs.fresh_slabs())
+    scales = progs.fresh_scale_slabs()
+    pre = progs.prefill(prompt)
+    if scales:
+        progs.admit(*slabs, pre[1], pre[2], 0, ks_slab=scales[0],
+                    vs_slab=scales[1], ks_new=pre[3], vs_new=pre[4])
+    else:
+        progs.admit(*slabs, pre[1], pre[2], 0)
+    rows = [_logits_np(pre[0])]
+    lengths = np.zeros(progs.slots, np.int64)
+    tokens = np.zeros(progs.slots, np.int64)
+    lengths[0] = len(prompt)
+    fed = []
+    for i in range(steps):
+        tokens[0] = forced[i] if forced is not None else int(rows[-1].argmax())
+        fed.append(int(tokens[0]))
+        out = progs.decode(*slabs, lengths, tokens,
+                           *(scales if scales else ()))
+        rows.append(_logits_np(out[0]))
+        lengths[0] += 1
+    return np.stack(rows), fed
+
+
+def forced_paged(progs, cache, prompt, max_new, forced):
+    """Admit ``prompt`` into ``cache`` (a ``PagedKVCacheManager`` over
+    ``progs``; prompts admitted earlier stay, so their prefixes are
+    shared), run its paged prefill, then one decode step a token of
+    ``forced`` with every other row inactive. Returns (logits
+    (len(forced) + 1, V) f32, the admission plan)."""
+    plan = cache.try_admit(prompt, prompt, max_new)
+    if plan is None:
+        raise RuntimeError("forced_paged: no blocks for a %d-token prompt"
+                           % len(prompt))
+    scales = {"ks_slab": cache.k_scale, "vs_slab": cache.v_scale}
+    rows = [_logits_np(progs.paged_prefill(
+        cache.k_slab, cache.v_slab, plan.table, plan.ctx_len, plan.suffix,
+        plan.fork_src, plan.fork_dst, **scales))]
+    tables = np.zeros((progs.slots, progs.max_blocks), np.int64)
+    tables[plan.slot] = plan.table
+    lengths = np.zeros(progs.slots, np.int64)
+    tokens = np.zeros(progs.slots, np.int64)
+    for tok in forced:
+        lengths[plan.slot] = cache.length(plan.slot)
+        tokens[plan.slot] = tok
+        rows.append(_logits_np(progs.decode(
+            cache.k_slab, cache.v_slab, tables, lengths, tokens,
+            **scales)[plan.slot]))
+        cache.advance(plan.slot)
+    return np.stack(rows), plan
+
+
+def forced_arms(gen, model, paged, prompts, kv_dtype="float32",
+                capture=False, forced=None):
+    """The teacher-forced runs of ``paged["forced"]``'s prompts through
+    the unpaged and the paged programs at ``paged``'s configuration, in
+    ``kv_dtype``: {"unpaged": [(logits, tokens)...], "paged": [logits...],
+    "plans": [...]}; tokens are greedy from the unpaged run unless
+    ``forced`` (one token list a prompt) is given. The paged prompts are
+    admitted in order into one cache, so a joiner shares and forks."""
+    steps = paged["max_new_tokens"] - 1
+    unpaged = gen.DecodePrograms(model, paged["slots"],
+                                 paged["max_context"],
+                                 paged["prefill_buckets"], kv_dtype=kv_dtype,
+                                 capture=capture)
+    out = {"unpaged": [], "paged": [], "plans": []}
+    for i, idx in enumerate(paged["forced"]):
+        out["unpaged"].append(forced_unpaged(
+            unpaged, prompts[idx], steps,
+            None if forced is None else forced[i]))
+    progs = gen.PagedDecodePrograms(
+        model, paged["slots"], paged["max_context"],
+        paged["prefill_buckets"], paged["block_tokens"],
+        paged["num_blocks"], kv_dtype=kv_dtype, capture=capture)
+    cache = gen.PagedKVCacheManager(progs)
+    for (_, toks), idx in zip(out["unpaged"], paged["forced"]):
+        logits, plan = forced_paged(progs, cache, prompts[idx],
+                                    paged["max_new_tokens"], toks)
+        out["paged"].append(logits)
+        out["plans"].append(plan)
+    out["programs"] = (unpaged, progs)
+    out["cache"] = cache
+    return out
 
 
 def nvidia_smi():

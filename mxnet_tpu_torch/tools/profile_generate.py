@@ -1,16 +1,25 @@
 """Where the time goes on the generate path, on one CUDA card.
 
-    python3 -m mxnet_tpu_torch.tools.profile_generate     # from the repo root
+    python3 -m mxnet_tpu_torch.tools.profile_generate [ARM ...]   # repo root
 
-Builds the full-width LM that ``chip_smoke.py`` serves (``tools/lm.py``:
-same seeded weights, f32, no TF32), warms every program, then measures on the card:
+ARM is ``{unpaged|paged}_{f32|int8}_{eager|captured}`` (default: all
+eight). Builds the full-width LM that ``chip_smoke.py`` serves
+(``tools/lm.py``: same seeded weights, f32 weights, no TF32) at
+``SERVE_PAGED``'s configuration (8 slots, capacity 2304; paged: 288
+blocks of 16 positions), admits the first six prompts of its traffic
+(the five sharers of the system prompt and one unshared prompt, the
+joiners sharing and forking when paged), then measures each arm on the
+card:
 
-- host-clock time of one prefill per bucket and of one decode step over
-  all slots (each ending in ``torch.cuda.synchronize()``, median of reps);
-- a ``torch.profiler`` window over one 2048-bucket prefill and ten decode
-  steps: device kernel time by kind (the flash kernel, matrix products,
-  everything else), the device's busy and idle share of the window, and
-  the heaviest kernels.
+- host-clock ms of one prefill per bucket (unpaged: ``prefill`` of a
+  prompt 3 short of the bucket; paged: its cold ``paged_prefill``) and of
+  one decode step over all slots, with and without the logits' copy to
+  the host (each ending in ``torch.cuda.synchronize()``, median of reps);
+- a ``torch.profiler`` window over one 2048-bucket prefill and over ten
+  decode steps (each with its logits' copy to the host, as the scheduler
+  takes them): device kernel time by kind (the flash kernel, matrix
+  products, everything else), the device's busy ms and idle share of the
+  window, the kernel launches and the heaviest kernels.
 
 Prints one JSON line per measurement; exits non-zero without a card.
 """
@@ -63,71 +72,148 @@ def _host_ms(fn, reps):
     return float(np.median(times))
 
 
-def main() -> int:
+ARMS = ["%s_%s_%s" % (kind, kv, how) for kind in ("unpaged", "paged")
+        for kv in ("f32", "int8") for how in ("eager", "captured")]
+
+
+def _profile(fn):
+    """Device busy ms by kind, idle share and launches of one window."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_kind = {}
+    for e in kernels:
+        k = _kind(e.key)
+        by_kind[k] = by_kind.get(k, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(by_kind.values())
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "device_ms_by_kind": by_kind,
+            "kernel_launches": int(sum(e.count for e in kernels)),
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def _arm(gen, lm, model, arm):
+    """(decode step fn, prefill fn by bucket, notes) of one arm, with the
+    first six prompts of the paged traffic admitted."""
+    kind, kv, how = arm.split("_")
+    kv = {"f32": "float32", "int8": "int8"}[kv]
+    paged = lm.SERVE_PAGED
+    capture = how == "captured"
+    prompts = lm.paged_prompts(lm.LM, paged, lm.SEED)[:6]
+    rng = np.random.default_rng(1)
+    cold = {b: rng.integers(0, lm.LM["vocab"], b - 3).tolist()
+            for b in paged["prefill_buckets"]}
+    lengths = np.zeros(paged["slots"], np.int64)
+    tokens = np.arange(paged["slots"], dtype=np.int64)
+    if kind == "unpaged":
+        progs = gen.DecodePrograms(model, paged["slots"],
+                                   paged["max_context"],
+                                   paged["prefill_buckets"], kv_dtype=kv,
+                                   capture=capture)
+        cache = gen.KVCacheManager(progs)
+        for slot, p in enumerate(prompts):
+            pre = progs.prefill(p)
+            progs.admit(cache.k_slab, cache.v_slab, pre[1], pre[2], slot,
+                        ks_slab=cache.k_scale, vs_slab=cache.v_scale,
+                        ks_new=pre[3] if len(pre) == 5 else None,
+                        vs_new=pre[4] if len(pre) == 5 else None)
+            lengths[slot] = len(p)
+
+        def step():
+            return progs.decode(cache.k_slab, cache.v_slab, lengths, tokens,
+                                ks_slab=cache.k_scale, vs_slab=cache.v_scale)
+
+        def prefill(b):
+            return progs.prefill(cold[b])[0]
+
+        return step, prefill, {}
+    progs = gen.PagedDecodePrograms(
+        model, paged["slots"], paged["max_context"],
+        paged["prefill_buckets"], paged["block_tokens"],
+        paged["num_blocks"], kv_dtype=kv, capture=capture)
+    cache = gen.PagedKVCacheManager(progs)
+    scales = {"ks_slab": cache.k_scale, "vs_slab": cache.v_scale}
+    for p in prompts:
+        plan = cache.try_admit(p, p, paged["max_new_tokens"])
+        progs.paged_prefill(cache.k_slab, cache.v_slab, plan.table,
+                            plan.ctx_len, plan.suffix, plan.fork_src,
+                            plan.fork_dst, **scales)
+    lengths, tables = cache.step_arrays()
+
+    def step():
+        return progs.decode(cache.k_slab, cache.v_slab, tables, lengths,
+                            tokens, **scales)
+
+    # cold paged prefills go through a second manager and its own slabs,
+    # so they leave the decode state as it is
+    spare = gen.PagedKVCacheManager(progs, prefix_share=False)
+
+    def prefill(b):
+        plan = spare.try_admit(b, cold[b], 1)
+        try:
+            return progs.paged_prefill(spare.k_slab, spare.v_slab,
+                                       plan.table, 0, plan.suffix, 0, 0,
+                                       ks_slab=spare.k_scale,
+                                       vs_slab=spare.v_scale)
+        finally:
+            spare.free(plan.slot)
+
+    return step, prefill, {"blocks_in_use": cache.blocks_total()
+                           - cache.blocks_free(),
+                           "prefix_tokens_saved": cache.prefix_tokens_saved}
+
+
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_generate: no CUDA device available", file=sys.stderr)
         return 2
     from mxnet_tpu_torch.serving import generate as gen
     from mxnet_tpu_torch.tools import lm
 
+    arms = list(sys.argv[1:] if argv is None else argv) or ARMS
+    unknown = sorted(set(arms) - set(ARMS))
+    if unknown:
+        print("profile_generate: unknown arm(s) %s; have %s"
+              % (unknown, ARMS), file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, serve = lm.LM, lm.SERVE
+    cfg = lm.LM
     spec = gen.DecodeSpec(num_heads=cfg["heads"], num_kv_heads=cfg["kv_heads"])
     model = gen.DecodeModel.from_arg_params(lm.lm_arg_params(cfg, lm.SEED),
                                             spec)
-    progs = gen.DecodePrograms(model, serve["slots"], serve["max_context"],
-                               serve["prefill_buckets"])
-    k_slab, v_slab = progs.fresh_slabs()
-    rng = np.random.default_rng(1)
-    prompts = {b: rng.integers(0, cfg["vocab"], b - 3).tolist()
-               for b in progs.buckets}
-    for b in progs.buckets:                       # warm every program
-        _last, k_new, v_new = progs.prefill(prompts[b])
-        progs.admit(k_slab, v_slab, k_new, v_new, 0)
-    lengths = np.array([2045, 600, 300, 100][:progs.slots], np.int64)
-    tokens = np.arange(progs.slots, dtype=np.int64)
-
-    def step():
-        return progs.decode(k_slab, v_slab, lengths, tokens)
-
-    for _ in range(3):
-        step()
-    _emit({"measure": "host_ms",
-           "prefill_ms": {b: _host_ms(lambda b=b: progs.prefill(prompts[b]),
-                                      5) for b in progs.buckets},
-           "decode_step_ms": _host_ms(step, 20),
-           "decode_step_with_logits_to_host_ms": _host_ms(
-               lambda: step().cpu(), 20),
-           "gpu": lm.nvidia_smi()})
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for window, fn in (("prefill_2048", lambda: progs.prefill(
-            prompts[progs.buckets[-1]])),
-            ("decode_x10", lambda: [step().cpu() for _ in range(10)])):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        by_kind = {}
-        for e in kernels:
-            k = _kind(e.key)
-            by_kind[k] = by_kind.get(k, 0.0) + e.self_device_time_total / 1e3
-        busy = sum(by_kind.values())
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        _emit({"measure": "profile", "window": window, "wall_ms": wall_ms,
-               "device_busy_ms": busy,
-               "device_idle_share": 1.0 - busy / wall_ms,
-               "device_ms_by_kind": by_kind,
-               "kernel_launches": int(sum(e.count for e in kernels)),
-               "top_kernels": [{"name": e.key[:80], "count": e.count,
-                                "ms": e.self_device_time_total / 1e3}
-                               for e in top]})
+    gpu = lm.nvidia_smi()
+    for arm in arms:
+        step, prefill, notes = _arm(gen, lm, model, arm)
+        buckets = lm.SERVE_PAGED["prefill_buckets"]
+        for b in buckets:                       # warm every program
+            prefill(b)
+        for _ in range(3):                      # warm-up calls, capture
+            step()
+        _emit({"measure": "host_ms", "arm": arm,
+               "prefill_ms": {b: _host_ms(lambda b=b: prefill(b), 5)
+                              for b in buckets},
+               "decode_step_ms": _host_ms(step, 20),
+               "decode_step_with_logits_to_host_ms": _host_ms(
+                   lambda: step().cpu(), 20), "gpu": gpu, **notes})
+        for window, fn in (
+                ("prefill_%d" % buckets[-1], lambda: prefill(buckets[-1])),
+                ("decode_x10", lambda: [step().cpu() for _ in range(10)])):
+            _emit(dict({"measure": "profile", "arm": arm,
+                        "window": window}, **_profile(fn)))
+        del step, prefill
+        torch.cuda.empty_cache()
     return 0
 
 

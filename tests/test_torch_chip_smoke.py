@@ -25,6 +25,14 @@ TINY = {"vocab": 97, "d_model": 32, "heads": 4, "kv_heads": 2, "ffn": 64,
 TINY_SERVE = {"slots": 2, "prefill_buckets": (8, 16), "max_context": 24,
               "max_new_tokens": 4, "prompt_lens": (3, 9, 14),
               "check_lens": (9, 14)}
+# the paged traffic's shape, narrow: 8 slots over 22 blocks of 4, five
+# prompts behind a 10-token system prompt (2 full blocks + 2), three
+# unshared; the first six fit, the seventh waits for blocks
+TINY_PAGED = {"slots": 8, "num_blocks": 22, "block_tokens": 4,
+              "prefill_buckets": (8, 16, 24), "max_context": 24,
+              "max_new_tokens": 4, "system_len": 10,
+              "suffix_lens": (2, 3, 5, 7, 9), "other_lens": (3, 14, 18),
+              "forced": (0, 1)}
 TINY_TRAIN = {"batch": 2, "seq": 16, "sgd_steps": 2, "adam_steps": 1,
               "lr": 0.05, "momentum": 0.9, "wd": 1e-4, "adam_lr": 1e-3,
               "dtype": "bfloat16", "timed_steps": 2,
@@ -74,8 +82,9 @@ def _count_plain_calls(monkeypatch):
 
 def test_serve_phase_on_cpu(monkeypatch, capsys):
     _count_plain_calls(monkeypatch)
-    launches = cs.phase_serve(TINY, TINY_SERVE, device="cpu")
+    launches, tokens = cs.phase_serve(TINY, TINY_SERVE, device="cpu")
     assert launches == len(TINY_SERVE["prompt_lens"]) * TINY["layers"]
+    assert [len(t) for t in tokens] == [TINY_SERVE["max_new_tokens"]] * 3
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert '"phase": "serve"' in line and '"flash_launches": 6' in line
 
@@ -84,6 +93,89 @@ def test_serve_phase_fails_when_the_kernel_is_not_reached(monkeypatch):
     """On the host nothing counts a launch: the phase must refuse."""
     with pytest.raises(RuntimeError, match="flash kernel ran 0 times"):
         cs.phase_serve(TINY, TINY_SERVE, device="cpu")
+
+
+def _tiny_int8_tol():
+    """1.5 x the tiny LM's f32-to-int8 distance, as chip_smoke.py's
+    INT8_KV_TOL is of the full-width one."""
+    from mxnet_tpu_torch.tools import kv_int8_spread
+
+    res = kv_int8_spread.spread(TINY, TINY_PAGED, cs.SEED)
+    assert res["unpaged"]["argmax_in_f32_top5"]
+    assert res["paged"]["argmax_in_f32_top5"]
+    assert 0 < res["spread"] < 0.5
+    return 1.5 * res["spread"]
+
+
+def test_serve_paged_phase_on_cpu(monkeypatch, capsys):
+    """Every arm and gate of the phase on the host; the capture checks
+    read the eager path, the only one the CPU has."""
+    _count_plain_calls(monkeypatch)
+    launches = cs.phase_serve_paged(TINY, TINY_SERVE, TINY_PAGED,
+                                    device="cpu", int8_tol=_tiny_int8_tol())
+    # the captured serve run, then the four unpaged arms of 8 prompts
+    assert launches == (3 + 4 * 8) * TINY["layers"]
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "serve_paged"
+    assert (line["prefix_hits"], line["prefix_tokens_saved"],
+            line["cow_forks"]) == (4, 40, 4)
+    assert len(line["arms"]) == 8
+    assert line["arms"]["paged_int8_captured"]["flash_launches"] == 0
+    assert line["unpaged_capture"]["decode_path"] == "eager"
+    assert line["direct_paged_capture"]["bit_for_bit"]
+
+
+def test_serve_paged_phase_fails_when_a_prefix_count_is_off(monkeypatch):
+    from mxnet_tpu_torch.serving.generate import paged as tpaged
+
+    _count_plain_calls(monkeypatch)
+    admit = tpaged.PagedKVCacheManager.try_admit
+
+    def one_hit_too_many(self, *a, **kw):
+        plan = admit(self, *a, **kw)
+        if plan is not None and plan.ctx_len:
+            self.prefix_hits += 1
+        return plan
+
+    monkeypatch.setattr(tpaged.PagedKVCacheManager, "try_admit",
+                        one_hit_too_many)
+    with pytest.raises(RuntimeError, match="prefix hits"):
+        cs.phase_serve_paged(TINY, TINY_SERVE, TINY_PAGED, device="cpu",
+                             int8_tol=1.0)
+
+
+def test_serve_paged_phase_fails_on_a_flash_launch_in_the_paged_path(
+        monkeypatch):
+    from mxnet_tpu_torch.serving.generate import model as tmodel
+
+    _count_plain_calls(monkeypatch)
+    attend = tmodel.prefix_cached_attention
+
+    def with_flash(q, *a, **kw):
+        fa.flash_attention(q, q[:, :2], q[:, :2], causal=True)
+        return attend(q, *a, **kw)
+
+    monkeypatch.setattr(tmodel, "prefix_cached_attention", with_flash)
+    with pytest.raises(RuntimeError, match="paged_f32_eager: flash kernel"):
+        cs.phase_serve_paged(TINY, TINY_SERVE, TINY_PAGED, device="cpu",
+                             int8_tol=1.0)
+
+
+def test_serve_paged_traffic_at_full_width():
+    """The full-width traffic's counts and block arithmetic: four joiners
+    share the 1000-token system prompt (62 full blocks + 8 positions, so
+    each forks), the first six prompts' reservations fit the 288 blocks,
+    the seventh's does not."""
+    paged = cs.SERVE_PAGED
+    prompts = cs.paged_prompts(cs.LM, paged, cs.SEED)
+    assert [len(p) for p in prompts] == [1024, 1100, 1300, 1500, 1900, 100,
+                                         1500, 2000]
+    assert cs.expected_prefix_counts(prompts, 16) == (4, 4000, 4)
+    need = [-(-min(len(p) + 32, 2304) // 16) for p in prompts]
+    shared = [0] + [1000 // 16] * 4 + [0] * 3
+    first_wave = sum(n - s for n, s in zip(need[:6], shared[:6]))
+    assert first_wave <= 288 < first_wave + need[6]
+    assert need[6] + need[7] <= 288
 
 
 @pytest.mark.parametrize("tq,tk", [(2048, 2048), (300, 1000), (7, 7)])
@@ -1143,3 +1235,15 @@ def test_profile_capture_needs_a_card(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert profile_capture.main([]) == 2
+
+
+def test_profile_generate_needs_a_card_and_names_its_arms(monkeypatch):
+    import torch
+
+    from mxnet_tpu_torch.tools import profile_generate as pg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pg.main([]) == 2
+    assert pg.main(["paged_int8_captured"]) == 2
+    assert len(pg.ARMS) == len(set(pg.ARMS)) == 8
+    assert {a.split("_")[0] for a in pg.ARMS} == {"paged", "unpaged"}

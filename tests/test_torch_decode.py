@@ -181,9 +181,7 @@ def test_scheduler_bf16_kv_runs_and_stops_cleanly():
     assert reasons == ["max_tokens"] * 2 and all(len(t) == 4 for t in toks)
 
 
-@pytest.mark.parametrize("knob", [{"paged": True}, {"spec": True},
-                                  {"quant_weights": "int8"},
-                                  {"capture": True}, {"kv_dtype": "int8"}])
+@pytest.mark.parametrize("knob", [{"spec": True}, {"quant_weights": "int8"}])
 def test_unported_knobs_raise(knob):
     _, tm = _models()
     with pytest.raises(ServingError, match="not yet ported") as ei:
