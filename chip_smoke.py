@@ -57,6 +57,30 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    INT8_KV_TOL, the argmax in the f32 top 5. Prints each arm's decode ms a
    step, TTFT, tokens/s, peak blocks and memory, and the prefill ms the
    prefix hits saved.
+3c. ``serve_spec`` — the same LM behind ``SERVE_SPEC``'s traffic
+   (SERVE_PAGED's eight prompts and pool, 64 new tokens, k = 4 drafts):
+   (1) ``quantized_matmul`` on the card against its CPU path at the LM's
+   shapes (M 8 and 40): the int8-activation path bit for bit, dequant on
+   load within QMM_F32_RTOL / one bf16 ulp; the int8 product's time at M
+   = 8 beside its bound and the f32 product; (2) twelve arms: vanilla
+   captured (unpaged f32, paged f32, paged int8 KV), ``quant_weights``
+   int8 and fp8 (captured, unpaged), speculative greedy (int8 draft
+   unpaged eager and captured, self draft captured, int8 draft paged f32
+   and paged int8 KV captured) and sampled (paged, captured, temperature
+   0.8, twice): every stream 64 tokens, exact flash launches (a prompt and
+   layer unpaged, none paged or in a verify), exact int8 products (a
+   forward of the int8 draft a draft step; of the int8 model a prefill
+   and a step), the captured path (draft step and verify: 2 warm-ups, 1
+   capture, replays), every block free, more tokens than
+   sequence-iterations; greedy spec streams equal the vanilla ones of
+   their layout but where the vanilla top-2 margin <= PAGED_MARGIN
+   (printed), captured = eager, the sampled runs equal, the self draft
+   accepting >= SPEC_SELF_ACCEPT; (3) teacher-forced: the verify fed the
+   vanilla streams as windows within SERVE_ATOL of the decode logits (f32
+   and int8 KV, unpaged and paged), and the quantized weights within
+   QUANT_WEIGHTS_TOL of f32, argmax in the f32 top 5. Prints tokens/s
+   against vanilla, ms a token, accept rates, tokens a sequence-iteration
+   and peak memory.
 4. ``train``   — the same LM trained as bench.py trains it: first 2 SGD
    steps at 1 x 256 through ``simple_bind`` -> ``forward``/``backward``
    -> ``optimizer.Updater``, f32, no TF32, on the card and on the port's
@@ -153,8 +177,9 @@ import time
 
 import numpy as np
 
-from mxnet_tpu_torch.tools.lm import LM, SERVE, SERVE_PAGED, SEED, TRAIN, \
-    cuda_graph, expected_prefix_counts, forced_arms, lm_arg_params, \
+from mxnet_tpu_torch.tools.lm import LM, SERVE, SERVE_PAGED, SERVE_SPEC, \
+    SEED, TRAIN, cuda_graph, expected_prefix_counts, forced_arms, \
+    forced_unpaged, forced_verify, forced_verify_paged, lm_arg_params, \
     lm_feed, lm_param_shapes, lm_train_executor, lm_train_setup, \
     lm_train_step, lm_update, lm_updater, nvidia_smi, paged_prompts, \
     serve_prompts
@@ -166,7 +191,8 @@ from mxnet_tpu_torch.tools.lstm_bucketing import BUCKETING
 from mxnet_tpu_torch.tools.resnet import RESNET, change_err, fit_args, \
     resnet_setup, wgrad_convs
 
-H100 = {"bf16_flops": 989e12, "f32_flops": 67e12, "bytes_per_s": 3.35e12}
+H100 = {"bf16_flops": 989e12, "f32_flops": 67e12, "int8_ops": 1979e12,
+        "bytes_per_s": 3.35e12}
 CSRC = "mxnet_tpu_torch/ops/kernels/csrc/"
 FA_SRC = CSRC + "flash_attention_fwd.cu"
 FA_REPLACES = "mxnet_tpu/ops/pallas/flash_attention.py:259"
@@ -303,6 +329,29 @@ PAGED_MARGIN = 2e-3
 # the H100 host's 8 cores, torch 2.11.0+cu128)
 INT8_KV_SPREAD = 0.004024982452392578
 INT8_KV_TOL = 1.5 * INT8_KV_SPREAD
+# serve_spec: each greedy speculative stream equals the vanilla stream of
+# its KV layout and type, token for token, but that the first difference
+# may fall where the vanilla run's top-2 margin is at most PAGED_MARGIN
+# (the verify sums in another order than the decode step); the verify fed
+# a vanilla stream as windows gives its decode logits within SERVE_ATOL;
+# the self draft accepts at least SPEC_SELF_ACCEPT of its drafts (the
+# reference's test's bound); the int8 draft's accept rate is printed
+# beside SPEC_INT8_ACCEPT_PREDICTED, the prediction in PERF.md
+SPEC_SELF_ACCEPT = 0.8
+SPEC_INT8_ACCEPT_PREDICTED = 0.65
+# serve_spec, quant_weights arms teacher-forced against f32 (captured):
+# the argmax in the f32 top 5 at every step and every logit within
+# QUANT_WEIGHTS_TOL = 1.5 x the arm's f32 distance that
+# tools/quant_weights_spread.py measures on the CPU at this width (PERF.md:
+# on the H100 host's 8 cores)
+QUANT_WEIGHTS_SPREAD = {"int8": 0.10994094610214233,
+                        "fp8": 0.2456832230091095}
+QUANT_WEIGHTS_TOL = {k: 1.5 * v for k, v in QUANT_WEIGHTS_SPREAD.items()}
+# quantized_matmul on the card against its CPU path on the same operands:
+# the int8-activation path bit for bit (int32 sums are exact); dequant on
+# load within QMM_F32_RTOL of the largest |output| (f32) or one bf16 ulp
+# of it (bf16)
+QMM_F32_RTOL = 1e-5
 # mx.rtc test kernels (the JAX package's tests' axpy, inc and relu, and axpy
 # in bf16) in CUDA C: the kernel body of each and its mode="torch" twin.
 # Each body runs with ``N`` (the element count) and ``i`` (the thread's
@@ -1738,24 +1787,30 @@ def phase_kernel_rtc(torch):
     return worst, timings
 
 
-def _serve_streams(gen, model, cfg, conf, prompts, **knobs):
+def _serve_streams(gen, model, cfg, conf, prompts, temperature=0.0,
+                   seed=SEED, **knobs):
     """Serve ``prompts`` through a ``DecodeScheduler`` at ``conf``'s slots,
     context, buckets and new tokens (``knobs``: paged, kv_dtype, capture,
-    block_tokens, num_blocks), every stream consumed by its own thread.
-    Checks each stream ran to ``max_tokens``; returns its records (tokens
-    and arrival times), the scheduler's stats before it stopped, the
-    flash launches, the wall seconds and the card's peak memory."""
+    block_tokens, num_blocks, quant_weights, spec, spec_tokens,
+    spec_draft), every stream consumed by its own thread; stream i samples
+    at ``temperature`` from seed ``seed + i`` (0: greedy). Checks each
+    stream ran to ``max_tokens``; returns its records (tokens and arrival
+    times), the scheduler's stats before it stopped, the flash launches
+    and the int8 products, the wall seconds and the card's peak
+    memory. The scheduler (and a quantized copy of the weights it made)
+    is gone when it returns."""
     import torch
 
     from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    from mxnet_tpu_torch.ops.matrix import int8_product
 
-    knobs = dict(dict(paged=False, kv_dtype="f32", capture=False), **knobs)
+    knobs = dict(dict(paged=False, kv_dtype="f32", capture=False,
+                      quant_weights="", spec=False), **knobs)
     config = gen.GenerateConfig(
         num_heads=cfg["heads"], num_kv_heads=cfg["kv_heads"],
         slots=conf["slots"], max_context=conf["max_context"],
         prefill_buckets=conf["prefill_buckets"],
-        max_new_tokens=conf["max_new_tokens"], eos_id=None,
-        quant_weights="", spec=False, **knobs)
+        max_new_tokens=conf["max_new_tokens"], eos_id=None, **knobs)
     on_card = model.device.type == "cuda"
     if on_card:
         torch.cuda.synchronize()
@@ -1765,8 +1820,10 @@ def _serve_streams(gen, model, cfg, conf, prompts, **knobs):
     records, threads = [], []
     try:
         fa.flash_attention.launches = 0
+        int8_product.launches = 0
         t0 = time.monotonic()
-        streams = [sched.submit(p) for p in prompts]
+        streams = [sched.submit(p, temperature=temperature, seed=seed + i)
+                   for i, p in enumerate(prompts)]
         for s in streams:
             rec = {"stream": s, "times": [], "tokens": []}
             records.append(rec)
@@ -1783,9 +1840,11 @@ def _serve_streams(gen, model, cfg, conf, prompts, **knobs):
             th.join(timeout=600)
         wall = time.monotonic() - t0
         launches = fa.flash_attention.launches
+        int8_products = int8_product.launches
         stats = sched.stats()
     finally:
         sched.stop()
+        del sched
     want = conf["max_new_tokens"]
     for rec, th in zip(records, threads):
         s = rec["stream"]
@@ -1797,7 +1856,14 @@ def _serve_streams(gen, model, cfg, conf, prompts, **knobs):
     gaps = [b - a for rec in records
             for a, b in zip(rec["times"], rec["times"][1:])]
     total = sum(len(rec["tokens"]) for rec in records)
+    # a stream's decode ms a token, first token to last (speculative
+    # tokens arrive in bursts, so the median gap says nothing there)
+    per_token = [(rec["times"][-1] - rec["times"][0]) * 1e3
+                 / (len(rec["times"]) - 1) for rec in records
+                 if len(rec["times"]) > 1]
     return {"records": records, "stats": stats, "launches": launches,
+            "int8_products": int8_products,
+            "ms_per_token": float(np.median(per_token)),
             "wall_s": wall, "tokens": [rec["tokens"] for rec in records],
             "ttft_ms": [(rec["times"][0] - rec["stream"].submitted) * 1e3
                         for rec in records],
@@ -2123,6 +2189,373 @@ def phase_serve_paged(cfg=LM, serve=SERVE, paged=SERVE_PAGED, device=None,
         result["prefill_saved"] = _prefill_saved(torch, gen, model, paged,
                                                  prompts)
         result["gpu"] = nvidia_smi()
+    emit(result)
+    return flash
+
+
+def qmm_shapes(cfg):
+    """(K, N, products a forward) of the LM's weight products: q and o, k
+    and v, ffn up, ffn down, the head."""
+    d, f, v, n = cfg["d_model"], cfg["ffn"], cfg["vocab"], cfg["layers"]
+    dkv = d // cfg["heads"] * cfg["kv_heads"]
+    return ((d, d, 2 * n), (d, dkv, 2 * n), (d, f, n), (f, d, n), (d, v, 1))
+
+
+def int8_product_bound(m, k, n):
+    """Least ms of an (m, K) x (K, n) int8 product with int32 results: its
+    bytes (int8 operands read once, the int32 result written once) over
+    the memory rate, or its operations over the int8 peak."""
+    moved = m * k + k * n + 4 * m * n
+    return max(moved / H100["bytes_per_s"],
+               2.0 * m * k * n / H100["int8_ops"]) * 1e3
+
+
+def _qmm_check(torch, cfg, device, seed):
+    """quantized_matmul on ``device`` against its CPU path on the same
+    operands at ``cfg``'s shapes, M = slots and slots x (k + 1), the
+    weights quantized on ``device``. Returns, by weight type and
+    strategy, the cases and the largest difference with its limit."""
+    from mxnet_tpu_torch import quant
+    from mxnet_tpu_torch.ops.matrix import quantized_matmul
+
+    gen = torch.Generator().manual_seed(seed)
+    cases = {}
+    for K, N, _ in qmm_shapes(cfg):
+        w = torch.randn(N, K, generator=gen) / K ** 0.5
+        for wd in ("int8", "fp8_e4m3"):
+            q, sc = quant.quantize_weight(w.to(device), wd, 0)
+            q_cpu, sc_cpu = q.cpu(), sc.cpu()
+            q_ref, sc_ref = quant.quantize_weight(w, wd, 0)
+            if not (torch.equal(sc_cpu, sc_ref) and torch.equal(
+                    q_cpu.view(torch.uint8), q_ref.view(torch.uint8))):
+                raise RuntimeError("quantize_weight %s (%d, %d): the card's "
+                                   "values or scales differ from the CPU's"
+                                   % (wd, N, K))
+            for m in (SERVE_SPEC["slots"],
+                      SERVE_SPEC["slots"] * (SERVE_SPEC["spec_tokens"] + 1)):
+                x = torch.randn(m, K, generator=gen)
+                for act in (("int8", "float32", "bf16") if wd == "int8"
+                            else ("float32", "bf16")):
+                    got = quantized_matmul(x.to(device), q, sc, act).cpu()
+                    want = quantized_matmul(x, q_cpu, sc_cpu, act)
+                    err = float((got - want).abs().max())
+                    top = float(want.abs().max())
+                    if act == "int8":
+                        limit, ok = 0.0, torch.equal(got, want)
+                    elif act == "float32":
+                        limit = QMM_F32_RTOL * top
+                        ok = err <= limit
+                    else:
+                        limit = 2.0 ** (math.floor(math.log2(top)) - 7)
+                        ok = err <= limit
+                    if not ok:
+                        raise RuntimeError(
+                            "quantized_matmul %s %s (%d, %d) x (%d, %d): the "
+                            "card differs from the CPU by %g (limit %g)"
+                            % (wd, act, m, K, N, K, err, limit))
+                    key = "%s/%s" % (wd, act)
+                    row = cases.setdefault(key, {"cases": 0,
+                                                 "max_abs_err": 0.0,
+                                                 "worst_limit": limit})
+                    row["cases"] += 1
+                    if err >= row["max_abs_err"]:
+                        row.update(max_abs_err=err, worst_limit=limit)
+    return cases
+
+
+def _qmm_timing(torch, cfg):
+    """The int8 product at M = slots (padded to INT_MM_PAD_ROWS on the
+    card) at each LM shape, beside its bound, the whole int8 path and the
+    f32 product it replaces (CUDA events). Sums over one decode step's
+    products."""
+    from mxnet_tpu_torch.ops import matrix
+
+    m = SERVE_SPEC["slots"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for K, N, count in qmm_shapes(cfg):
+        xq = torch.randint(-127, 128, (m, K), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        w = torch.randint(-127, 128, (N, K), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        x = torch.randn(m, K, device="cuda", generator=gen)
+        wf = torch.randn(N, K, device="cuda", generator=gen)
+        sc = torch.rand(N, device="cuda", generator=gen)
+        rows.append({
+            "K": K, "N": N, "per_step": count,
+            "int8_product_ms": time_ms(
+                torch, lambda: matrix.int8_product(xq, w)),
+            "bound_ms": int8_product_bound(m, K, N),
+            "quantized_matmul_int8_ms": time_ms(
+                torch, lambda: matrix.quantized_matmul(x, w, sc, "int8")),
+            "f32_product_ms": time_ms(torch, lambda: x @ wf.t())})
+    step = {k: sum(r[k] * r["per_step"] for r in rows)
+            for k in ("int8_product_ms", "bound_ms",
+                      "quantized_matmul_int8_ms", "f32_product_ms")}
+    return {"M": m, "padded_to": matrix.INT_MM_PAD_ROWS, "shapes": rows,
+            "decode_step": step,
+            "library": "torch._int_mm (cuBLASLt int8, int32 results)"}
+
+
+def _spec_vs_vanilla(gen, model, conf, prompts, got, want, kv_dtype):
+    """Streams ``got`` against ``want`` (vanilla, same KV layout and
+    type): equal, or the first difference at a position where the vanilla
+    logits' top-2 margin (teacher-forced, unpaged, ``kv_dtype``) is at
+    most PAGED_MARGIN. Returns those positions."""
+    near_ties = []
+    progs = None
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        pos = next(m for m, (a, b) in enumerate(zip(g, w)) if a != b)
+        if progs is None:
+            progs = gen.DecodePrograms(model, conf["slots"],
+                                       conf["max_context"],
+                                       conf["prefill_buckets"],
+                                       kv_dtype=kv_dtype)
+        logits, _ = forced_unpaged(progs, prompts[i], pos, w[:pos])
+        top = np.sort(logits[pos])[::-1]
+        margin = float(top[0] - top[1])
+        if margin > PAGED_MARGIN:
+            raise RuntimeError(
+                "prompt %d: the speculative stream leaves the vanilla one "
+                "at token %d, where the vanilla top-2 margin is %g (> %g)"
+                % (i, pos, margin, PAGED_MARGIN))
+        near_ties.append({"prompt": i, "position": pos, "margin": margin})
+    return near_ties
+
+
+def _require_spec_capture(what, stats, k, on_card):
+    """A captured spec run took the captured path: the draft step (k calls
+    an iteration) and the verify (one) each 2 warm-ups, 1 capture and a
+    replay for every later call."""
+    if not on_card:
+        if stats["decode_path"] != "eager" or stats["verify_path"] != "eager":
+            raise RuntimeError("%s: decode / verify path %r / %r on the CPU"
+                               % (what, stats["decode_path"],
+                                  stats["verify_path"]))
+        return
+    steps = stats["steps"]
+    want = {"decode_path": "captured", "warmup_calls": 2, "captures": 1,
+            "replays": k * steps - 2, "verify_path": "captured",
+            "verify_warmup_calls": 2, "verify_captures": 1,
+            "verify_replays": steps - 2}
+    got = {key: stats[key] for key in want}
+    if got != want:
+        raise RuntimeError("%s did not take the captured path: %s, want %s"
+                           % (what, got, want))
+
+
+def phase_serve_spec(cfg=LM, conf=SERVE_SPEC, device=None, seed=SEED,
+                     quant_tol=None, self_accept=None):
+    """Speculative decoding and int8 / fp8 weights at full width: SERVE_SPEC's
+    traffic through vanilla, quantized-weight and speculative arms, with
+    the gates of the docstring's phase 3c. ``quant_tol``: the
+    quant_weights gates (None: QUANT_WEIGHTS_TOL); ``self_accept``: the
+    self draft's least accept rate (None: SPEC_SELF_ACCEPT). Returns the
+    flash launches."""
+    import torch
+
+    from mxnet_tpu_torch import quant
+    from mxnet_tpu_torch.serving import generate as gen
+
+    t0 = time.monotonic()
+    quant_tol = QUANT_WEIGHTS_TOL if quant_tol is None else quant_tol
+    self_accept = SPEC_SELF_ACCEPT if self_accept is None else self_accept
+    params = lm_arg_params(cfg, seed)
+    spec = gen.DecodeSpec(num_heads=cfg["heads"],
+                          num_kv_heads=cfg["kv_heads"])
+    model = gen.DecodeModel.from_arg_params(params, spec, device=device)
+    on_card = model.device.type == "cuda"
+    prompts = paged_prompts(cfg, conf, seed)
+    k = conf["spec_tokens"]
+    W = k + 1
+    per_forward = sum(c for _, _, c in qmm_shapes(cfg))
+    paged_knobs = dict(paged=True, block_tokens=conf["block_tokens"],
+                       num_blocks=conf["num_blocks"])
+    result = {"phase": "serve_spec", "prompts": [len(p) for p in prompts],
+              "spec_tokens": k, "max_new_tokens": conf["max_new_tokens"]}
+    if on_card:
+        result["gpu"] = nvidia_smi()
+
+    # 1. the product: card against CPU, and the int8 product's time
+    result["quantized_matmul"] = _qmm_check(torch, cfg, model.device, seed)
+    if on_card:
+        result["int8_product"] = _qmm_timing(torch, cfg)
+
+    # 2. the arms
+    arms = [
+        ("vanilla_unpaged_f32", dict(capture=True)),
+        ("vanilla_paged_f32", dict(capture=True, **paged_knobs)),
+        ("vanilla_paged_int8", dict(capture=True, kv_dtype="int8",
+                                    **paged_knobs)),
+        ("quant_int8_unpaged_f32", dict(capture=True, quant_weights="int8")),
+        ("quant_fp8_unpaged_f32", dict(capture=True, quant_weights="fp8")),
+        ("spec_int8_unpaged_f32_eager", dict(spec=True)),
+        ("spec_int8_unpaged_f32_captured", dict(spec=True, capture=True)),
+        ("spec_self_unpaged_f32_captured", dict(spec=True, capture=True,
+                                                spec_draft="self")),
+        ("spec_int8_paged_f32_captured", dict(spec=True, capture=True,
+                                              **paged_knobs)),
+        ("spec_int8_paged_int8_captured", dict(spec=True, capture=True,
+                                               kv_dtype="int8",
+                                               **paged_knobs)),
+        ("sampled_int8_paged_f32_captured", dict(
+            spec=True, capture=True, temperature=conf["temperature"],
+            **paged_knobs)),
+        ("sampled_int8_paged_f32_captured_again", dict(
+            spec=True, capture=True, temperature=conf["temperature"],
+            **paged_knobs))]
+    rows, tokens, flash = {}, {}, 0
+    for name, knobs in arms:
+        knobs = dict(knobs)
+        if knobs.get("spec"):
+            knobs.update(spec_tokens=k, spec_draft=knobs.get("spec_draft",
+                                                             "int8"))
+        run = _serve_streams(gen, model, cfg, conf, prompts, seed=seed,
+                             **knobs)
+        st = run["stats"]
+        is_paged = knobs.get("paged", False)
+        want = 0 if is_paged else len(prompts) * cfg["layers"]
+        if run["launches"] != want:
+            raise RuntimeError("%s: flash kernel ran %d times, want %d (a "
+                               "prompt and layer unpaged, none paged, none "
+                               "in a verify)" % (name, run["launches"], want))
+        flash += run["launches"]
+        # the int8 products the path must make: a forward of the int8
+        # draft per draft step, of the int8 model per prefill and step
+        if knobs.get("spec") and knobs["spec_draft"] == "int8":
+            want = per_forward * k * st["steps"]
+        elif knobs.get("quant_weights") == "int8":
+            want = per_forward * (len(prompts) + st["steps"])
+        else:
+            want = 0
+        if run["int8_products"] != want:
+            raise RuntimeError("%s: %d int8 products, want %d"
+                               % (name, run["int8_products"], want))
+        if knobs.get("capture"):
+            if knobs.get("spec"):
+                _require_spec_capture(name, st, k, on_card)
+            else:
+                _require_decode_capture(name, st, on_card)
+        if is_paged and st["blocks_free"] != st["blocks_total"]:
+            raise RuntimeError("%s: %d of %d blocks free at the end"
+                               % (name, st["blocks_free"],
+                                  st["blocks_total"]))
+        if knobs.get("spec") and not st["step_tokens"] > st["seq_steps"]:
+            raise RuntimeError("%s: %d tokens in %d sequence-iterations"
+                               % (name, st["step_tokens"], st["seq_steps"]))
+        rows[name] = {
+            "tokens_per_s": run["tokens_per_s"],
+            "ms_per_token": run["ms_per_token"],
+            "ttft_ms": float(np.median(run["ttft_ms"])),
+            "wall_s": run["wall_s"], "steps": st["steps"],
+            "accept_rate": st["decode_spec_accept_rate"],
+            "tokens_per_seq_step": st["decode_tokens_per_step"],
+            "drafted": st["drafted_tokens"],
+            "accepted": st["accepted_tokens"],
+            "int8_products": run["int8_products"],
+            "flash_launches": run["launches"],
+            "max_memory_allocated": run.get("max_memory_allocated")}
+        tokens[name] = run["tokens"]
+    for name, row in rows.items():
+        # against vanilla captured of the same KV layout and type
+        parts = name.split("_")
+        kind = "paged" if "paged" in parts else "unpaged"
+        ref = "vanilla_%s_%s" % (kind, parts[parts.index(kind) + 1])
+        row["tokens_per_s_vs_vanilla"] = (row["tokens_per_s"]
+                                          / rows[ref]["tokens_per_s"])
+    result["arms"] = rows
+
+    # 3. streams: greedy spec = vanilla; captured = eager; sampled twice
+    near_ties = {}
+    for name, ref, kv in (
+            ("spec_int8_unpaged_f32_eager", "vanilla_unpaged_f32", "float32"),
+            ("spec_int8_unpaged_f32_captured", "vanilla_unpaged_f32",
+             "float32"),
+            ("spec_self_unpaged_f32_captured", "vanilla_unpaged_f32",
+             "float32"),
+            ("spec_int8_paged_f32_captured", "vanilla_paged_f32", "float32"),
+            ("spec_int8_paged_int8_captured", "vanilla_paged_int8", "int8")):
+        near_ties[name] = _spec_vs_vanilla(gen, model, conf, prompts,
+                                           tokens[name], tokens[ref], kv)
+        for tie in near_ties[name]:
+            print("serve_spec: %s leaves %s at prompt %d token %d, vanilla "
+                  "top-2 margin %g" % (name, ref, tie["prompt"],
+                                       tie["position"], tie["margin"]),
+                  flush=True)
+    if tokens["spec_int8_unpaged_f32_captured"] != \
+            tokens["spec_int8_unpaged_f32_eager"]:
+        raise RuntimeError("the captured spec streams differ from the eager "
+                           "ones")
+    if tokens["sampled_int8_paged_f32_captured"] != \
+            tokens["sampled_int8_paged_f32_captured_again"]:
+        raise RuntimeError("two sampled spec runs from one seed differ")
+    rate = rows["spec_self_unpaged_f32_captured"]["accept_rate"]
+    if rate < self_accept:
+        raise RuntimeError("the self draft accepted %g of its drafts (want "
+                           ">= %g)" % (rate, self_accept))
+    result.update(near_ties=near_ties, captured_equals_eager=True,
+                  sampled_repeats=True,
+                  int8_accept_rate={
+                      "measured": rows["spec_int8_unpaged_f32_captured"][
+                          "accept_rate"],
+                      "predicted": SPEC_INT8_ACCEPT_PREDICTED})
+
+    # 4. teacher-forced: the verify fed vanilla streams as windows against
+    # the decode logits; the quantized weights against f32
+    steps = conf["max_new_tokens"] - 1
+    verify_err, forced = {}, None
+    for kv in ("float32", "int8"):
+        ref = forced_arms(gen, model, conf, prompts, kv_dtype=kv,
+                          capture=True, forced=forced)
+        if forced is None:
+            forced = [toks for _, toks in ref["unpaged"]]
+            f32_ref = ref["unpaged"]
+        unpaged, progs = ref["programs"]
+        unpaged.enable_verify(W)
+        progs.enable_verify(W)
+        cache = gen.PagedKVCacheManager(progs)
+        errs = {"unpaged": [], "paged": []}
+        for i, idx in enumerate(conf["forced"]):
+            got = forced_verify(unpaged, prompts[idx], forced[i], W)
+            errs["unpaged"].append(float(np.abs(
+                got - ref["unpaged"][i][0][1:]).max()))
+            got, _ = forced_verify_paged(progs, cache, prompts[idx],
+                                         conf["max_new_tokens"], forced[i], W)
+            errs["paged"].append(float(np.abs(
+                got - ref["paged"][i][1:]).max()))
+        worst = max(max(v) for v in errs.values())
+        if worst > SERVE_ATOL:
+            raise RuntimeError("%s KV: the verify fed the vanilla stream "
+                               "differs from the decode logits by %g (limit "
+                               "%g): %s" % (kv, worst, SERVE_ATOL, errs))
+        if on_card:
+            for p in (unpaged, progs):
+                st = p.capture_stats()["verify"]
+                if st["path"] != "captured" or not st["captures"] \
+                        or not st["replays"]:
+                    raise RuntimeError("the teacher-forced verify did not "
+                                       "capture: %s" % st)
+        verify_err[kv] = errs
+        del ref, unpaged, progs, cache
+    quant_err = {}
+    for arm, weight in (("int8", "int8"), ("fp8", "fp8_e4m3")):
+        qm = quant.quantize_decode_model(
+            model, quant.QuantConfig(weight_dtype=weight, act_dtype="int8"))
+        progs = gen.DecodePrograms(qm, conf["slots"], conf["max_context"],
+                                   conf["prefill_buckets"], capture=True)
+        quant_err[arm] = [_teacher_forced_gate(
+            "quant_weights %s, prompt %d" % (arm, idx),
+            forced_unpaged(progs, prompts[idx], steps, forced[i])[0],
+            f32_ref[i][0], quant_tol[arm], top=5)
+            for i, idx in enumerate(conf["forced"])]
+        del qm, progs
+    result["teacher_forced"] = {
+        "verify_vs_decode": verify_err, "verify_atol": SERVE_ATOL,
+        "quant_weights": quant_err, "quant_tol": quant_tol,
+        "steps": steps, "window": W}
+    result["seconds"] = time.monotonic() - t0
     emit(result)
     return flash
 
@@ -3311,6 +3744,7 @@ def main():
     rtc_worst, rtc_timings = phase_kernel_rtc(torch)
     serve_launches, serve_tokens = phase_serve()
     paged_launches = phase_serve_paged(eager_tokens=serve_tokens)
+    spec_launches = phase_serve_spec()
     train = phase_train()
     resnet = phase_resnet()
     lstm = phase_lstm()
@@ -3320,10 +3754,11 @@ def main():
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda", "source": FA_SRC,
         "replaces": FA_REPLACES,
-        "launches": serve_launches + paged_launches
+        "launches": serve_launches + paged_launches + spec_launches
         + train["flash_attention_fwd"],
         "launches_by_phase": {"serve": serve_launches,
                               "serve_paged": paged_launches,
+                              "serve_spec": spec_launches,
                               "train": train["flash_attention_fwd"]},
         "max_abs_err": max(worst.values()), "max_err": worst,
         "dtype": "float32", "shape": t["shape"], "ms": t["ms"],

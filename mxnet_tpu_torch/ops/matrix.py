@@ -5,13 +5,17 @@ use (reference src/operator/tensor/matrix_op.cc, indexing_op.cc,
 swapaxis.cc, concat.cc, slice_channel.cc, dot.cc): ``Reshape`` with the
 reference's special codes, ``dot``, ``Flatten``, ``SwapAxis``,
 ``expand_dims``, ``slice_axis``, ``Concat``, ``SliceChannel``,
-``Embedding`` and ``one_hot``. The shape ops return views where torch can.
+``Embedding`` and ``one_hot``, and ``quantized_matmul`` (the quantized
+serving path's product). The shape ops return views where torch can.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..base import MXNetError
+from .contrib import symmetric_scale
+from .kernels import _launches
 from .registry import alias, defop
 
 
@@ -90,6 +94,73 @@ def _dot(attrs, lhs, rhs):
     if lhs.dim() == 1 and rhs.dim() == 1:
         return torch.dot(lhs, rhs)
     return torch.tensordot(lhs, rhs, dims=([lhs.dim() - 1], [0]))
+
+
+#: ``torch._int_mm`` on a CUDA tensor (cuBLASLt) takes more than 16 rows
+#: and K, N multiples of 8: fewer rows are padded with zero rows to
+#: INT_MM_PAD_ROWS, and the pad is sliced off the result
+INT_MM_MIN_ROWS = 17
+INT_MM_PAD_ROWS = 32
+
+
+@_launches.counted
+def int8_product(xq, w):
+    """``xq (M, K) int8 @ w (N, K) int8 .T`` -> (M, N) int32, exact (int32
+    accumulation: the same integers on every device and in every order).
+    One ``torch._int_mm`` (cuBLASLt on the card), counted in
+    ``int8_product.launches``. On the card a shape it cannot take raises;
+    nothing widens the operands instead."""
+    m, k = xq.shape
+    n = w.shape[0]
+    _launches.launched(int8_product, xq.dtype)
+    if not xq.is_cuda:
+        return torch._int_mm(xq, w.t())
+    if k % 8 or n % 8:
+        raise MXNetError("quantized_matmul: the int8 product on the card "
+                         "needs K and N multiples of 8, got K=%d, N=%d"
+                         % (k, n))
+    if m >= INT_MM_MIN_ROWS:
+        return torch._int_mm(xq, w.t())
+    pad = xq.new_zeros((INT_MM_PAD_ROWS - m, k))
+    return torch._int_mm(torch.cat([xq, pad]), w.t())[:m]
+
+
+def quantized_matmul(x, w, scale, act_dtype="int8"):
+    """``x @ dequant(w).T`` for a per-channel quantized weight
+    (``mxnet_tpu/ops/matrix.py`` ``quantized_matmul``).
+
+    ``w``: (O, I) int8 or fp8-e4m3, ``scale``: (O,) or (O, 1) f32. Two
+    strategies, by ``act_dtype``:
+
+    - ``"int8"`` (int8 weights): dynamic per-row symmetric quantization of
+      the activations, then :func:`int8_product` (int32), rescaled in
+      f32 as ``acc * xs * scale`` in the reference's order;
+    - ``"bf16"`` / ``"float32"`` (and every fp8 weight): dequant on load,
+      the weight widened then scaled in the compute type, then a product
+      with f32 results (bf16 on the card: ``torch.mm(..., out_dtype=
+      float32)``; on the CPU the bf16 values' f32 product, as XLA's
+      ``preferred_element_type``).
+
+    Returns f32 of shape ``x.shape[:-1] + (O,)``."""
+    scale = scale.reshape(-1)
+    out_shape = x.shape[:-1] + (w.shape[0],)
+    x2 = x.reshape(-1, x.shape[-1])
+    if w.dtype == torch.int8 and act_dtype == "int8":
+        xs = symmetric_scale(x2.abs().amax(dim=1, keepdim=True), 127.0)
+        xq = torch.round(x2 / xs).to(torch.int8)
+        acc = int8_product(xq, w)
+        out = acc.to(torch.float32) * xs * scale[None, :]
+    elif act_dtype == "bf16":
+        wf = w.to(torch.bfloat16) * scale[:, None].to(torch.bfloat16)
+        xb = x2.to(torch.bfloat16)
+        if xb.is_cuda:
+            out = torch.mm(xb, wf.t(), out_dtype=torch.float32)
+        else:
+            out = xb.float() @ wf.float().t()
+    else:
+        wf = w.to(torch.float32) * scale[:, None].to(torch.float32)
+        out = x2.to(torch.float32) @ wf.t()
+    return out.reshape(out_shape)
 
 
 @defop("Flatten", arg_names=("data",), param_spec={})

@@ -1,7 +1,9 @@
 """Neural-network layer operators.
 
 Counterpart of the parts of ``mxnet_tpu/ops/nn.py`` the ported paths use
-(reference src/operator/*): ``FullyConnected``, ``Convolution``,
+(reference src/operator/*): ``FullyConnected`` (and
+``QuantizedFullyConnected`` over ``matrix.quantized_matmul``),
+``Convolution``,
 ``Pooling``, ``BatchNorm``, ``Activation``, ``Dropout``, the softmax
 family, and the loss heads ``SoftmaxOutput`` and ``MakeLoss``. The loss heads keep the
 reference's backward semantics, which ignore the incoming head gradient;
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 from .. import random as _random
 from ..base import MXNetError
 from .kernels.conv_wgrad import wgrad
+from .matrix import quantized_matmul
 from .registry import REQUIRED, alias, defop
 
 
@@ -62,6 +65,23 @@ def _fully_connected(attrs, data, weight, bias=None):
     fully_connected-inl.h:76-86)."""
     x = data.reshape(data.shape[0], -1) if attrs["flatten"] else data
     out = torch.matmul(x, weight.t())
+    return out if bias is None else out + bias
+
+
+@defop("QuantizedFullyConnected",
+       arg_names=lambda attrs: (("data", "weight", "scale")
+                                if attrs.get("no_bias")
+                                else ("data", "weight", "scale", "bias")),
+       param_spec={"num_hidden": 0, "no_bias": False, "flatten": True,
+                   "act_dtype": "int8"},
+       no_grad_inputs=("weight", "scale"))
+def _quantized_fully_connected(attrs, data, weight, scale, bias=None):
+    """FullyConnected over a per-channel quantized int8 / fp8 weight
+    (weight (O, I), scale (O,): the output of ``mxnet_tpu_torch.quant``),
+    its product ``matrix.quantized_matmul`` with ``act_dtype``'s
+    strategy (int8 | bf16 | float32)."""
+    x = data.reshape(data.shape[0], -1) if attrs["flatten"] else data
+    out = quantized_matmul(x, weight, scale, attrs["act_dtype"])
     return out if bias is None else out + bias
 
 

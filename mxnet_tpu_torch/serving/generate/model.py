@@ -21,6 +21,10 @@ builds the callables the generate path runs:
   the cached prefix gathered through the table and scatters the suffix
   into its blocks; the decode scatters each row's new k/v into its own
   block and gathers its dense view through its table.
+- ``verify`` / ``paged_verify`` — speculative decoding's check: a
+  (B, W) window of tokens a row at positions ``lengths[i] + j``, attending
+  to the cached prefix and causally within the window, written over the
+  draft's scratch positions; returns (B, W, V) logits.
 
 int8 KV (``kv_dtype="int8"``) adds f32 scale slabs, one scale per cached
 position, right after the value slabs in every signature; a position is
@@ -38,8 +42,11 @@ population variance, no-bias q/k/v/o, RoPE on split halves at absolute
 positions, tanh-approximate gelu (``jax.nn.gelu``'s default), biased head.
 Every per-position op is row-local and the decode mask is the row's own
 length, so a sequence's tokens do not depend on which other sequences
-share the batch. The verify programs (speculative decoding) are not
-ported yet.
+share the batch.
+
+Weights quantized by ``mxnet_tpu_torch.quant`` (int8 or fp8-e4m3, with a
+``<name>_scale`` beside each) run their products through
+``ops.matrix.quantized_matmul`` with the model's ``quant_act`` strategy.
 """
 from __future__ import annotations
 
@@ -54,7 +61,9 @@ from ...context import resolve_device
 from ...ops.attention import cached_attention, prefix_cached_attention, \
     rope
 from ...ops.attention import layer_norm as _ln
+from ...ops.contrib import symmetric_scale
 from ...ops.kernels import flash_attention as _fa
+from ...ops.matrix import quantized_matmul
 from ..batcher import ServingError
 
 #: kv dtype name -> slab element type (int8's scales ride in separate f32
@@ -86,19 +95,28 @@ class DecodeSpec:
         return self.num_kv_heads or self.num_heads
 
 
-def _mm(params, x, name, l=None):
-    """``x @ W.T`` with ``W = params[name]`` (``[l]`` when stacked)."""
+def _mm(params, x, name, l=None, act="int8"):
+    """``x @ W.T`` with ``W = params[name]`` (``[l]`` when stacked).
+
+    A weight that ``mxnet_tpu_torch.quant`` rewrote has a ``<name>_scale``
+    sibling, and its product goes through ``quantized_matmul`` with
+    ``act``'s strategy. Without one this is the plain expression, so the
+    f32 paths compute exactly as without quantization."""
     w = params[name] if l is None else params[name][l]
+    sname = name + "_scale"
+    if sname in params:
+        s = params[sname] if l is None else params[sname][l]
+        return quantized_matmul(x, w, s, act_dtype=act)
     return x @ w.T
 
 
 def _quantize_kv(x):
     """Per-position symmetric int8 over the (Hkv, Dh) axes:
     ``x (..., Hkv, t, Dh) -> (q int8 same shape, scale (..., t) f32)``,
-    the reference's expression: ``scale = max(amax, 1e-12) / 127``, then
+    the reference's expression: ``scale = max(amax, 1e-12) / 127`` (a
+    true division on the card too, ``symmetric_scale``), then
     ``clip(round(x / scale), -127, 127)`` (both round half to even)."""
-    amax = x.abs().amax(dim=(-3, -1))
-    scale = torch.clamp(amax, min=1e-12).to(torch.float32) / 127.0
+    scale = symmetric_scale(x.abs().amax(dim=(-3, -1)), 127.0)
     q = torch.clamp(torch.round(x / scale[..., None, :, None]), -127, 127)
     return q.to(torch.int8), scale
 
@@ -119,17 +137,31 @@ def params_from_numpy(d: Dict, device=None,
     (``models/transformer.py`` naming: embed_weight, layer%d_q_weight, ...;
     values numpy or anything with ``asnumpy()``) or the reference
     ``DecodeModel.params`` dict after ``{k: np.asarray(v)}``. The same
-    numpy weights thus feed both packages; nothing is re-drawn."""
+    numpy weights thus feed both packages; nothing is re-drawn.
+
+    A stacked dict may be quantized (the reference's ``quant`` pass):
+    int8 weights stay int8, fp8-e4m3 weights (numpy's ``float8_e4m3fn``
+    of ``ml_dtypes``, which the port does not import) are read byte for
+    byte, and each ``<name>_scale`` stays f32."""
     device = resolve_device(device)
     if dtype not in _PARAM_DTYPES:
         raise ServingError("decode model: dtype %r not supported (have %s)"
                            % (dtype, sorted(_PARAM_DTYPES)))
 
-    def tensor(v):
+    def tensor(v, name=""):
         v = v.asnumpy() if hasattr(v, "asnumpy") else v
-        a = np.array(v, np.float32)    # a writable copy torch may own
-        return torch.from_numpy(a).to(device=device,
-                                      dtype=_PARAM_DTYPES[dtype])
+        a = np.asarray(v)
+        if str(a.dtype) == "float8_e4m3fn":
+            t = torch.from_numpy(np.array(a.view(np.uint8))).view(
+                torch.float8_e4m3fn)
+        elif a.dtype == np.int8:
+            t = torch.from_numpy(np.array(a))
+        else:
+            # a writable copy torch may own
+            t = torch.from_numpy(np.array(a, np.float32))
+            if not name.endswith("_scale"):
+                t = t.to(_PARAM_DTYPES[dtype])
+        return t.to(device)
 
     if "embed_weight" not in d:
         missing = set(_LAYER_NAMES) | set(_TOP_NAMES)
@@ -138,8 +170,9 @@ def params_from_numpy(d: Dict, device=None,
             raise ServingError("decode model: params lack %s — neither "
                                "checkpoint-named nor stacked"
                                % sorted(missing))
-        return {k: tensor(d[k]) for k in list(_LAYER_NAMES) + list(
-            _TOP_NAMES)}
+        names = list(_LAYER_NAMES) + list(_TOP_NAMES)
+        names += [n + "_scale" for n in names if n + "_scale" in d]
+        return {k: tensor(d[k], k) for k in names}
 
     def get(name):
         if name not in d:
@@ -175,6 +208,9 @@ class DecodeModel:
     def __init__(self, params: Dict[str, torch.Tensor], spec: DecodeSpec):
         self.params = params
         self.spec = spec
+        # the products' strategy where params carry quantized weights
+        # (set by quant.quantize_decode_model); inert without them
+        self.quant_act = "int8"
         self.vocab, self.dm = params["embed"].shape
         self.layers = params["wq"].shape[0]
         self.dff = params["w1"].shape[1]
@@ -226,23 +262,24 @@ class DecodeModel:
     def _project(self, params, h, l, b, t):
         """q/k/v projections of (b, t, D) -> split-head (b, {H|Hkv}, t, Dh),
         roped later (rope needs absolute positions)."""
-        s = self.spec
-        q = _mm(params, h, "wq", l).reshape(b, t, s.num_heads, self.head_dim)
-        k = _mm(params, h, "wk", l).reshape(b, t, s.hkv, self.head_dim)
-        v = _mm(params, h, "wv", l).reshape(b, t, s.hkv, self.head_dim)
+        s, act = self.spec, self.quant_act
+        q = _mm(params, h, "wq", l, act).reshape(b, t, s.num_heads,
+                                                 self.head_dim)
+        k = _mm(params, h, "wk", l, act).reshape(b, t, s.hkv, self.head_dim)
+        v = _mm(params, h, "wv", l, act).reshape(b, t, s.hkv, self.head_dim)
         return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
-    @staticmethod
-    def _mlp(params, x, l):
+    def _mlp(self, params, x, l):
+        act = self.quant_act
         h = _ln(x, params["ln2_g"][l], params["ln2_b"][l])
-        h = F.gelu(_mm(params, h, "w1", l) + params["b1"][l],
+        h = F.gelu(_mm(params, h, "w1", l, act) + params["b1"][l],
                    approximate="tanh")
-        return x + (_mm(params, h, "w2", l) + params["b2"][l])
+        return x + (_mm(params, h, "w2", l, act) + params["b2"][l])
 
-    @staticmethod
-    def _head(params, x):
+    def _head(self, params, x):
         x = _ln(x, params["lnf_g"], params["lnf_b"])
-        return _mm(params, x, "pred_w") + params["pred_b"]
+        return _mm(params, x, "pred_w", None, self.quant_act) \
+            + params["pred_b"]
 
     # --- the callables ----------------------------------------------------
     def build_prefill(self, bucket: int, capacity: int,
@@ -274,9 +311,7 @@ class DecodeModel:
                 # where the reference calls the Pallas flash kernel
                 # (model.py:253-254); on CUDA this is the CUDA kernel
                 att = _fa.flash_attention(q, k, v, causal=True)
-                att = att.transpose(1, 2).reshape(1, bucket, self.dm)
-                x = x + _mm(params, att.to(x.dtype), "wo", l)
-                x = self._mlp(params, x, l)
+                x = self._attend_rest(params, x, att, l)
                 k_out[l, :, :, :bucket] = k
                 v_out[l, :, :, :bucket] = v
             # the head is row-local: run it on the one row that is returned
@@ -298,19 +333,21 @@ class DecodeModel:
 
     def _step_layer(self, params, x, l, pos):
         """One layer's q and new k/v for a (B, D) step at rope positions
-        ``pos`` (B, 1, 1): q (B, H, 1, Dh), k_t, v_t (B, Hkv, 1, Dh)."""
-        spec, hd, b = self.spec, self.head_dim, x.shape[0]
+        ``pos`` (B, 1, 1), or a (B, W, D) window at positions (B, 1, W):
+        q (B, H, t, Dh), k_t, v_t (B, Hkv, t, Dh), t = 1 or W."""
+        spec = self.spec
+        b, t = x.shape[0], (1 if x.dim() == 2 else x.shape[1])
         h = _ln(x, params["ln1_g"][l], params["ln1_b"][l])
-        q = _mm(params, h, "wq", l).reshape(b, spec.num_heads, 1, hd)
-        k_t = _mm(params, h, "wk", l).reshape(b, spec.hkv, 1, hd)
-        v_t = _mm(params, h, "wv", l).reshape(b, spec.hkv, 1, hd)
+        q, k_t, v_t = self._project(params, h, l, b, t)
         q = rope(q, positions=pos, base=spec.rope_base)
         k_t = rope(k_t, positions=pos, base=spec.rope_base)
         return q, k_t, v_t
 
-    def _step_rest(self, params, x, att, l):
-        att = att.transpose(1, 2).reshape(x.shape[0], self.dm)
-        x = x + _mm(params, att.to(x.dtype), "wo", l)
+    def _attend_rest(self, params, x, att, l):
+        """The layer after attention: ``att`` (B, H, t, Dh) merged to x's
+        (B, [t,] D), the o projection, the residual and the MLP."""
+        att = att.transpose(1, 2).reshape(*x.shape[:-1], self.dm)
+        x = x + _mm(params, att.to(x.dtype), "wo", l, self.quant_act)
         return self._mlp(params, x, l)
 
     def build_decode(self, slots: int, capacity: int,
@@ -354,7 +391,7 @@ class DecodeModel:
                     vs_l[rows, lengths] = v_s[:, 0]
                     att = cached_attention(q, k_l, v_l, lengths,
                                            k_scale=ks_l, v_scale=vs_l)
-                x = self._step_rest(params, x, att, l)
+                x = self._attend_rest(params, x, att, l)
             return self._head(params, x)
 
         if elem == torch.int8:
@@ -468,9 +505,7 @@ class DecodeModel:
                         q, k_ctx, v_ctx, ctx_len, k, v,
                         k_scale=ks_slab[l][table].reshape(1, cap),
                         v_scale=vs_slab[l][table].reshape(1, cap))
-                att = att.transpose(1, 2).reshape(1, bucket, self.dm)
-                x = x + _mm(params, att.to(x.dtype), "wo", l)
-                x = self._mlp(params, x, l)
+                x = self._attend_rest(params, x, att, l)
                 # (3) admit: this layer's suffix k/v into its blocks
                 if ks_slab is None:
                     k_slab[l, phys, :, off] = k[0].transpose(0, 1).to(elem)
@@ -555,7 +590,7 @@ class DecodeModel:
                         q, k_l, v_l, lengths,
                         k_scale=ks_slab[l][tables].reshape(slots, cap),
                         v_scale=vs_slab[l][tables].reshape(slots, cap))
-                x = self._step_rest(params, x, att, l)
+                x = self._attend_rest(params, x, att, l)
             return self._head(params, x)
 
         if elem == torch.int8:
@@ -569,3 +604,183 @@ class DecodeModel:
                             lengths, tokens)
 
         return decode
+
+    # --- speculative decoding's verify ------------------------------------
+    def build_verify(self, slots: int, capacity: int, window: int,
+                     kv_dtype: str = "float32"):
+        """fn(params, k_slab, v_slab, lengths (B,), wtokens (B, W)) ->
+        logits (B, W, V), the slabs updated in place; int8 KV takes the
+        scale slabs after the value slabs. The verify of speculative
+        decoding (``spec.py``).
+
+        ``wtokens[i] = [last_token, d_1 .. d_k]`` (W = k + 1) sit at
+        positions ``lengths[i] + j``; each attends to the row's cached
+        prefix (masked by ``lengths[i]``, so the draft steps' scratch
+        writes are invisible) and causally to the earlier window
+        positions, and every window position's k/v is written into the
+        slab over the draft's, so a rewind is a host-side length edit.
+        ``logits[i, j]`` is the model's next-token distribution after
+        position ``lengths[i] + j``.
+
+        Positions at or past capacity are dropped (the reference's
+        ``mode="drop"``). The write covers W positions a row that all lie
+        below capacity, from ``min(lengths[i], capacity - W)``: each takes
+        its window lane's value where it is at or past ``lengths[i]`` and
+        keeps its own value before, so no two lanes write one position
+        and a lane past capacity writes nothing. int8: each window
+        position is quantized as the decode step quantizes it, and the
+        window attends to its quantized-then-widened values, the bytes
+        every later step reads."""
+        elem = _kv_dtype(kv_dtype)
+        W = int(window)
+        if W > capacity:
+            raise ServingError("verify window %d exceeds kv capacity %d"
+                               % (W, capacity))
+        shape = self.kv_slab_shape(slots, capacity)
+        sshape = self.kv_scale_slab_shape(slots, capacity)
+
+        def body(params, k_slab, v_slab, ks_slab, vs_slab, lengths, wtokens):
+            self._check_slab("verify", k_slab, shape, elem)
+            self._check_slab("verify", v_slab, shape, elem)
+            dev = k_slab.device
+            lengths = lengths.long()
+            x = params["embed"][wtokens.long()]              # (B, W, D)
+            lanes = torch.arange(W, device=dev)
+            pos = lengths[:, None] + lanes                     # (B, W)
+            rows = torch.arange(slots, device=dev)[:, None]    # (B, 1)
+            site = torch.clamp(lengths, max=capacity - W)[:, None] + lanes
+            fresh = site >= lengths[:, None]
+            lane = torch.clamp(site - lengths[:, None], min=0)
+
+            def write(slab_l, new):
+                # slab_l (B, Hkv, C, Dh) with new (B, Hkv, W, Dh), or the
+                # scales (B, C) with new (B, W)
+                if slab_l.dim() == 2:
+                    old, upd = slab_l[rows, site], new[rows, lane]
+                    slab_l[rows, site] = torch.where(fresh, upd, old)
+                else:
+                    old = slab_l[rows, :, site]          # (B, W, Hkv, Dh)
+                    upd = new.transpose(1, 2)[rows, lane]
+                    slab_l[rows, :, site] = torch.where(
+                        fresh[..., None, None], upd, old)
+
+            for l in range(self.layers):
+                q, k_t, v_t = self._step_layer(params, x, l, pos[:, None])
+                k_l, v_l = k_slab[l], v_slab[l]                # views
+                if ks_slab is None:
+                    k_win, v_win = k_t.to(elem), v_t.to(elem)
+                    write(k_l, k_win)
+                    write(v_l, v_win)
+                    att = prefix_cached_attention(
+                        q, k_l, v_l, lengths[:, None], k_win, v_win)
+                else:
+                    kq, k_s = _quantize_kv(k_t)               # scales (B, W)
+                    vq, v_s = _quantize_kv(v_t)
+                    ks_l, vs_l = ks_slab[l], vs_slab[l]
+                    write(k_l, kq)
+                    write(v_l, vq)
+                    write(ks_l, k_s)
+                    write(vs_l, v_s)
+                    k_win = kq.to(torch.float32) * k_s[:, None, :, None]
+                    v_win = vq.to(torch.float32) * v_s[:, None, :, None]
+                    att = prefix_cached_attention(
+                        q, k_l, v_l, lengths[:, None], k_win, v_win,
+                        k_scale=ks_l, v_scale=vs_l)
+                x = self._attend_rest(params, x, att, l)
+            return self._head(params, x)
+
+        if elem == torch.int8:
+            def verify(params, k_slab, v_slab, ks_slab, vs_slab, lengths,
+                       wtokens):
+                self._check_slab("verify", ks_slab, sshape, torch.float32)
+                self._check_slab("verify", vs_slab, sshape, torch.float32)
+                return body(params, k_slab, v_slab, ks_slab, vs_slab,
+                            lengths, wtokens)
+        else:
+            def verify(params, k_slab, v_slab, lengths, wtokens):
+                return body(params, k_slab, v_slab, None, None, lengths,
+                            wtokens)
+
+        return verify
+
+    def build_paged_verify(self, slots: int, block_tokens: int,
+                           max_blocks: int, window: int,
+                           kv_dtype: str = "float32"):
+        """fn(params, k_slab, v_slab, tables (B, MB), lengths (B,), wtokens
+        (B, W)) -> logits (B, W, V), the slabs updated in place; int8 KV
+        takes the scale slabs after the value slabs. The paged twin of
+        :meth:`build_verify`: window position ``lengths[i] + j`` goes to
+        block ``tables[i, (lengths[i] + j) // T]`` at offset ``% T``;
+        positions at or past capacity, and those past the row's
+        reservation (table entry 0), go to the trash block, which is never
+        read unmasked. The admission reservation covers every position a
+        stream can commit, so accepted tokens land in reserved private
+        blocks and a rewind stays a length edit
+        (``PagedKVCacheManager.truncate``)."""
+        elem = _kv_dtype(kv_dtype)
+        spec = self.spec
+        T, mb = int(block_tokens), int(max_blocks)
+        cap = T * mb
+        W = int(window)
+
+        def body(params, k_slab, v_slab, ks_slab, vs_slab, tables, lengths,
+                 wtokens):
+            if k_slab.dtype != elem or v_slab.dtype != elem:
+                raise ServingError("paged verify: slabs %s, want %s"
+                                   % (k_slab.dtype, elem))
+            hkv, hd = spec.hkv, self.head_dim
+            dev = k_slab.device
+            lengths = lengths.long()
+            tables = tables.long()
+            x = params["embed"][wtokens.long()]              # (B, W, D)
+            pos = lengths[:, None] + torch.arange(W, device=dev)  # (B, W)
+            # a position past capacity must not wrap onto a real block:
+            # clamping its table index would, so it goes to trash
+            phys = torch.where(
+                pos < cap,
+                tables.gather(1, torch.clamp(pos // T, 0, mb - 1)),
+                torch.zeros_like(pos))
+            off = pos % T
+            for l in range(self.layers):
+                q, k_t, v_t = self._step_layer(params, x, l, pos[:, None])
+                if ks_slab is None:
+                    k_win, v_win = k_t.to(elem), v_t.to(elem)
+                    k_slab[l, phys, :, off] = k_win.transpose(1, 2)
+                    v_slab[l, phys, :, off] = v_win.transpose(1, 2)
+                else:
+                    kq, k_s = _quantize_kv(k_t)               # scales (B, W)
+                    vq, v_s = _quantize_kv(v_t)
+                    k_slab[l, phys, :, off] = kq.transpose(1, 2)
+                    v_slab[l, phys, :, off] = vq.transpose(1, 2)
+                    ks_slab[l, phys, off] = k_s
+                    vs_slab[l, phys, off] = v_s
+                    k_win = kq.to(torch.float32) * k_s[:, None, :, None]
+                    v_win = vq.to(torch.float32) * v_s[:, None, :, None]
+                # each row's dense view through its table (after the write,
+                # as the paged decode; the window is masked by lengths)
+                k_l = k_slab[l][tables].transpose(1, 2).reshape(
+                    slots, hkv, cap, hd)
+                v_l = v_slab[l][tables].transpose(1, 2).reshape(
+                    slots, hkv, cap, hd)
+                if ks_slab is None:
+                    att = prefix_cached_attention(
+                        q, k_l, v_l, lengths[:, None], k_win, v_win)
+                else:
+                    att = prefix_cached_attention(
+                        q, k_l, v_l, lengths[:, None], k_win, v_win,
+                        k_scale=ks_slab[l][tables].reshape(slots, cap),
+                        v_scale=vs_slab[l][tables].reshape(slots, cap))
+                x = self._attend_rest(params, x, att, l)
+            return self._head(params, x)
+
+        if elem == torch.int8:
+            def verify(params, k_slab, v_slab, ks_slab, vs_slab, tables,
+                       lengths, wtokens):
+                return body(params, k_slab, v_slab, ks_slab, vs_slab, tables,
+                            lengths, wtokens)
+        else:
+            def verify(params, k_slab, v_slab, tables, lengths, wtokens):
+                return body(params, k_slab, v_slab, None, None, tables,
+                            lengths, wtokens)
+
+        return verify

@@ -16,6 +16,11 @@ reference's compiled step: on a CUDA device the decode step becomes one
 protocol of ``executor.py``'s ``_TrainStep``: warm-up calls on a side
 stream, one capture, then replays). On the CPU the step runs eagerly.
 
+**Speculative decoding** (``spec.py``): ``step_model`` is the draft,
+whose forward is the decode step, and ``enable_verify(W)`` adds the
+TARGET model's verify over a (slots, W) window, a step of its own
+(captured as its own graph, keyed on the slabs as the decode step's).
+
 The reference donates the slabs to the step and admit programs and
 adopts the slabs they return; here those callables update the slabs in
 place and return none, so the steady-state step allocates only its
@@ -51,6 +56,12 @@ def _check_kv_dtype(kv_dtype: str):
                            % (kv_dtype, sorted(KV_SLAB_DTYPES)))
 
 
+def _bind(model: DecodeModel, fn: Callable) -> Callable:
+    """``fn`` with ``model``'s params as its first argument."""
+    params = model.params
+    return lambda *args: fn(params, *args)
+
+
 def _check_buckets(prefill_buckets, capacity) -> List[int]:
     buckets = sorted({int(b) for b in prefill_buckets})
     if not buckets:
@@ -75,8 +86,10 @@ class _DecodeStep:
     graph and capture again. A capture that fails raises; the step never
     quietly runs eagerly instead."""
 
-    def __init__(self, fn: Callable, device: torch.device, capture: bool):
+    def __init__(self, fn: Callable, device: torch.device, capture: bool,
+                 name: str = "decode step"):
         self._fn = fn
+        self._name = name
         self._device = device
         self.captured = bool(capture) and device.type == "cuda"
         self.warmup_calls = 0
@@ -163,8 +176,8 @@ class _DecodeStep:
             self._delta = _launches.capture(record)
         except Exception as e:
             self.drop()
-            raise ServingError("the decode step could not be captured as a "
-                               "CUDA graph: %s" % e,
+            raise ServingError("the %s could not be captured as a "
+                               "CUDA graph: %s" % (self._name, e),
                                code="dispatch_error") from e
         self._graph = graph
         self.captures += 1
@@ -179,25 +192,28 @@ class DecodePrograms:
 
     def __init__(self, model: DecodeModel, slots: int, capacity: int,
                  prefill_buckets: Sequence[int],
-                 kv_dtype: str = "float32", capture: bool = False):
+                 kv_dtype: str = "float32", capture: bool = False,
+                 step_model: Optional[DecodeModel] = None):
         buckets = _check_buckets(prefill_buckets, capacity)
         _check_kv_dtype(kv_dtype)
         self.model = model
+        # the model the decode step runs: ``model``, or under speculative
+        # decoding the draft (the verify is the target's step)
+        self.step_model = step_model or model
         self.device = model.device
         self.slots = int(slots)
         self.capacity = int(capacity)
         self.buckets: List[int] = buckets
         self.kv_dtype = kv_dtype
+        self.capture = bool(capture)
         self._prefill: Dict[int, Callable] = {}
         self._admit = model.build_admit(self.slots, self.capacity, kv_dtype)
         self._step = _DecodeStep(
-            self._step_fn(model.build_decode(self.slots, self.capacity,
-                                             kv_dtype)),
+            _bind(self.step_model, self.step_model.build_decode(
+                self.slots, self.capacity, kv_dtype)),
             self.device, capture)
-
-    def _step_fn(self, decode):
-        params = self.model.params
-        return lambda *args: decode(params, *args)
+        self._verify: Optional[_DecodeStep] = None
+        self.spec_window = 0
 
     # --- shapes -----------------------------------------------------------
     def _slab_shapes(self):
@@ -269,12 +285,49 @@ class DecodePrograms:
     # --- the decode step's capture ------------------------------------------
     def capture_stats(self) -> Dict[str, object]:
         """Which path the decode step takes (``captured`` / ``eager``) and
-        its warm-up calls, captures, replays and eager calls."""
-        return self._step.stats()
+        its warm-up calls, captures, replays and eager calls; with the
+        verify enabled, the verify's under ``"verify"``."""
+        st = self._step.stats()
+        if self._verify is not None:
+            st["verify"] = self._verify.stats()
+        return st
 
     def drop_capture(self):
-        """Drop the captured decode graph (new slabs: capture again)."""
+        """Drop the captured decode and verify graphs (new slabs: capture
+        again)."""
         self._step.drop()
+        if self._verify is not None:
+            self._verify.drop()
+
+    # --- speculative decoding (spec.py) ------------------------------------
+    def enable_verify(self, window: int):
+        """Build the verify of the TARGET model over a (slots, W) window
+        (W = spec_tokens + 1), captured like the decode step (its own
+        graph at fixed shapes). Idempotent a window."""
+        W = int(window)
+        if self._verify is not None and self.spec_window == W:
+            return
+        self._verify = _DecodeStep(
+            _bind(self.model, self._build_verify(W)), self.device,
+            self.capture, name="verify")
+        self.spec_window = W
+
+    def _build_verify(self, window: int) -> Callable:
+        return self.model.build_verify(self.slots, self.capacity, window,
+                                       self.kv_dtype)
+
+    def _verify_step(self) -> "_DecodeStep":
+        if self._verify is None:
+            raise ServingError("decode: verify called before enable_verify")
+        return self._verify
+
+    def verify(self, k_slab, v_slab, lengths, wtokens, ks_slab=None,
+               vs_slab=None):
+        """Score a (slots, W) draft window with the target model: writes
+        the window's k/v over the draft's in place and returns the logits
+        (slots, W, V). The host arrays have been read when it returns."""
+        return self._verify_step()(
+            self._slabs(k_slab, v_slab, ks_slab, vs_slab), (lengths, wtokens))
 
     # --- execution --------------------------------------------------------
     def prefill(self, token_ids: Sequence[int]):
@@ -327,7 +380,8 @@ class PagedDecodePrograms(DecodePrograms):
     def __init__(self, model: DecodeModel, slots: int, capacity: int,
                  prefill_buckets: Sequence[int], block_tokens: int,
                  num_blocks: int, kv_dtype: str = "float32",
-                 capture: bool = False):
+                 capture: bool = False,
+                 step_model: Optional[DecodeModel] = None):
         buckets = _check_buckets(prefill_buckets, capacity)
         if block_tokens < 1:
             raise ServingError("decode: block_tokens must be >= 1")
@@ -335,11 +389,13 @@ class PagedDecodePrograms(DecodePrograms):
             raise ServingError("decode: need at least one usable KV block")
         _check_kv_dtype(kv_dtype)
         self.model = model
+        self.step_model = step_model or model    # the draft under spec
         self.device = model.device
         self.slots = int(slots)
         self.capacity = int(capacity)
         self.buckets: List[int] = buckets
         self.kv_dtype = kv_dtype
+        self.capture = bool(capture)
         self.block_tokens = int(block_tokens)
         # MB = a sequence's table width: every position < capacity is
         # addressable through a table
@@ -347,9 +403,11 @@ class PagedDecodePrograms(DecodePrograms):
         self.num_blocks = int(num_blocks)        # usable (excludes trash)
         self._prefill: Dict[int, Callable] = {}
         self._step = _DecodeStep(
-            self._step_fn(model.build_paged_decode(
+            _bind(self.step_model, self.step_model.build_paged_decode(
                 self.slots, self.block_tokens, self.max_blocks, kv_dtype)),
             self.device, capture)
+        self._verify: Optional[_DecodeStep] = None
+        self.spec_window = 0
 
     # --- shapes -----------------------------------------------------------
     def _slab_shapes(self):
@@ -360,6 +418,11 @@ class PagedDecodePrograms(DecodePrograms):
     def _build_prefill(self, bucket: int) -> Callable:
         return self.model.build_paged_prefill(bucket, self.block_tokens,
                                               self.max_blocks, self.kv_dtype)
+
+    def _build_verify(self, window: int) -> Callable:
+        return self.model.build_paged_verify(
+            self.slots, self.block_tokens, self.max_blocks, window,
+            self.kv_dtype)
 
     # --- execution --------------------------------------------------------
     def paged_prefill(self, k_slab, v_slab, table, ctx_len: int,
@@ -398,3 +461,11 @@ class PagedDecodePrograms(DecodePrograms):
         the host arrays have been read when it returns."""
         return self._step(self._slabs(k_slab, v_slab, ks_slab, vs_slab),
                           (tables, lengths, tokens))
+
+    def verify(self, k_slab, v_slab, tables, lengths, wtokens, ks_slab=None,
+               vs_slab=None):
+        """The target model's verify of a (slots, W) window through the
+        block tables: as ``DecodePrograms.verify``."""
+        return self._verify_step()(
+            self._slabs(k_slab, v_slab, ks_slab, vs_slab),
+            (tables, lengths, wtokens))

@@ -17,19 +17,26 @@ Paged KV (``paged=True``: ``block_tokens``, ``num_blocks``,
 admission reserves blocks and reuses shared prompt prefixes, and the
 decode step carries each row's block table. ``kv_dtype="int8"`` stores
 the cache quantized with per-position scale slabs; ``capture=True`` runs
-the decode step as one CUDA graph on the card (eagerly on the CPU).
+the decode step (and the verify) as one CUDA graph on the card (eagerly
+on the CPU).
+
+Weight quantization (``quant_weights`` int8 | fp8, ``MXNET_QUANT_*``)
+quantizes the model at construction (``mxnet_tpu_torch.quant``).
+Speculative decoding (``spec``, ``spec_tokens``, ``spec_draft``:
+``MXNET_DECODE_SPEC``, ``MXNET_DECODE_SPEC_TOKENS``, default 4,
+``MXNET_DECODE_SPEC_DRAFT``, default int8) replaces the decode step with
+``spec.SpecDecoder``'s iteration: k draft steps of the int8-quantized
+target (``int8``) or of the target itself (``self``), one verify, host
+acceptance; a stream emits 1..k+1 tokens an iteration.
 
 The scheduler's ``_cond`` is never held across an engine push or fence;
 ``TokenStream._cond`` and the cache managers' ``_lock`` are leaves taken
 under it.
 
-Not ported yet: speculative decoding and weight quantization — setting
-``spec`` or ``quant_weights`` raises ``ServingError`` (code
-``not_ported``). Telemetry spans, the flight recorder, the reference's
-``replicas`` (one cache per replica, for the multi-device
+Not ported: telemetry spans and gauges, the flight recorder, the
+reference's ``replicas`` (one cache per replica, for the multi-device
 ``InferenceServer``) and its engine-wide capture
-(``MXNET_ENGINE_CAPTURE``, ``engine.CapturedSequence``) are not ported
-either.
+(``MXNET_ENGINE_CAPTURE``, ``engine.CapturedSequence``).
 """
 from __future__ import annotations
 
@@ -43,16 +50,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ... import engine as _engine
+from ... import quant as _quant
 from ..batcher import ServingError
 from .kv_cache import KVCacheManager
 from .model import DecodeModel
 from .paged import PagedKVCacheManager
 from .programs import DecodePrograms, PagedDecodePrograms
-from .spec import sample_token
+from .spec import SpecDecoder, sample_token
 from .stream import TokenStream
 
-_KV_ALIASES = {"f32": "float32", "fp32": "float32", "float32": "float32",
-               "bf16": "bfloat16", "bfloat16": "bfloat16", "int8": "int8"}
+#: speculative drafts: the target quantized to int8, or the target itself
+SPEC_DRAFTS = ("int8", "self")
 
 
 def _env_int(name, default):
@@ -83,25 +91,15 @@ def _env_eos():
         return None
 
 
-def normalize_kv_dtype(name: str) -> str:
-    """Canonicalize an ``MXNET_DECODE_KV_DTYPE`` spelling (f32|bf16|int8,
-    long forms accepted)."""
-    try:
-        return _KV_ALIASES[str(name).strip().lower()]
-    except KeyError:
-        raise ServingError("MXNET_DECODE_KV_DTYPE must be one of %s, got %r"
-                           % (sorted(set(_KV_ALIASES)), name))
-
-
 @dataclasses.dataclass
 class GenerateConfig:
     """Decode-side knobs; every default reads its ``MXNET_DECODE_*`` env
     var at construction time, with the reference's names and defaults.
-    Head counts are architecture facts of the checkpoint. The knobs of
-    unported features (spec, quant_weights) are kept so that setting one
-    raises instead of being ignored; their sub-knobs (the draft choice)
-    come with them. ``num_blocks`` 0 sizes the paged pool to the unpaged
-    slabs' positions: ``slots * ceil(max_context / block_tokens)``."""
+    Head counts are architecture facts of the checkpoint. ``num_blocks``
+    0 sizes the paged pool to the unpaged slabs' positions: ``slots *
+    ceil(max_context / block_tokens)``. ``quant_weights`` "" is off;
+    ``spec_tokens`` is k, the drafts an iteration; ``spec_draft`` "int8"
+    or "self"."""
     num_heads: int
     num_kv_heads: int = 0
     slots: int = dataclasses.field(
@@ -134,14 +132,11 @@ class GenerateConfig:
             "MXNET_QUANT_WEIGHT_DTYPE", ""))
     spec: bool = dataclasses.field(
         default_factory=lambda: _env_flag("MXNET_DECODE_SPEC", "0"))
-
-
-def _refuse_unported(config: GenerateConfig):
-    for knob, on in (("spec", config.spec),
-                     ("quant_weights", bool(config.quant_weights))):
-        if on:
-            raise ServingError("decode: %s is not yet ported" % knob,
-                               code="not_ported")
+    spec_tokens: int = dataclasses.field(
+        default_factory=lambda: _env_int("MXNET_DECODE_SPEC_TOKENS", 4))
+    spec_draft: str = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "MXNET_DECODE_SPEC_DRAFT", "int8"))
 
 
 class _Active:
@@ -167,21 +162,44 @@ class DecodeScheduler:
 
     def __init__(self, model: DecodeModel, config: GenerateConfig):
         self.config = config
-        self.kv_dtype = normalize_kv_dtype(config.kv_dtype)
-        _refuse_unported(config)
+        self.kv_dtype = _quant.normalize_kv_dtype(config.kv_dtype)
+        if config.quant_weights and "wq_scale" not in model.params:
+            model = _quant.quantize_decode_model(
+                model, _quant.QuantConfig(weight_dtype=config.quant_weights))
         self.model = model
+        draft = None
+        if config.spec:
+            if config.spec_tokens < 1:
+                raise ServingError("decode: spec_tokens must be >= 1")
+            if config.spec_draft not in SPEC_DRAFTS:
+                raise ServingError(
+                    "decode: unknown spec_draft %r (want int8|self)"
+                    % config.spec_draft)
+            if config.spec_draft == "int8" \
+                    and "wq_scale" not in model.params:
+                draft = _quant.quantize_decode_model(
+                    model, _quant.QuantConfig(weight_dtype="int8"))
+            else:
+                # "self", or a target already quantized: the draft is the
+                # target, and its step is the vanilla decode step
+                draft = model
         if config.paged:
             blocks = config.num_blocks or config.slots * (
                 -(-config.max_context // config.block_tokens))
             self.programs: DecodePrograms = PagedDecodePrograms(
                 model, config.slots, config.max_context,
                 config.prefill_buckets, config.block_tokens, blocks,
-                kv_dtype=self.kv_dtype, capture=config.capture)
+                kv_dtype=self.kv_dtype, capture=config.capture,
+                step_model=draft)
         else:
             self.programs = DecodePrograms(
                 model, config.slots, config.max_context,
                 config.prefill_buckets, kv_dtype=self.kv_dtype,
-                capture=config.capture)
+                capture=config.capture, step_model=draft)
+        self._spec: Optional[SpecDecoder] = None
+        if config.spec:
+            self.programs.enable_verify(config.spec_tokens + 1)
+            self._spec = SpecDecoder(self)
         self.cache = None      # KVCacheManager | PagedKVCacheManager
         self._cond = threading.Condition()
         self._queue: deque = deque()   # (stream, prompt, temperature, rng)
@@ -189,6 +207,12 @@ class DecodeScheduler:
         self._state = "stopped"        # running|draining|stopped
         self._thread: Optional[threading.Thread] = None
         self.steps = 0
+        # speculative accounting (spec off: drafted stays 0 and
+        # step_tokens == seq_steps, one token a step)
+        self.seq_steps = 0        # per-sequence step iterations
+        self.step_tokens = 0      # tokens emitted by step iterations
+        self.drafted_tokens = 0   # draft lanes that could be accepted
+        self.accepted_tokens = 0  # draft lanes the target accepted
 
     # --- lifecycle --------------------------------------------------------
     def start(self):
@@ -408,9 +432,13 @@ class DecodeScheduler:
             self._emit(a, sample_token(holder["logits"], a.temperature,
                                        a.rng))
 
-    def _emit(self, a: _Active, token: int) -> bool:
+    def _emit(self, a: _Active, token: int,
+              length: Optional[int] = None) -> bool:
         """Deliver one sampled token; retire the sequence if done and
-        return False once it has retired."""
+        return False once it has retired (the speculative path then stops
+        emitting its window). ``length`` is the kv length after this
+        token's predecessor landed: speculative emits pass it, because the
+        cache already holds the whole accepted run."""
         a.last_token = token
         a.generated += 1
         a.stream._emit(token)
@@ -421,7 +449,9 @@ class DecodeScheduler:
         if a.generated >= a.stream.max_new_tokens:
             self._retire(a, reason="max_tokens")
             return False
-        if self.cache.length(a.slot) >= self.programs.capacity:
+        if length is None:
+            length = self.cache.length(a.slot)
+        if length >= self.programs.capacity:
             # the next step would write at kv position == capacity (the
             # write position IS the current length)
             self._retire(a, reason="capacity")
@@ -430,7 +460,12 @@ class DecodeScheduler:
 
     def _step_all(self):
         """One decode step over all slots when any is occupied: push the
-        step op, fence, then sample/stream on the host."""
+        step op, fence, then sample/stream on the host. With ``spec`` the
+        iteration is ``SpecDecoder``'s (the same push / fence / emit, 1..k+1
+        tokens a sequence)."""
+        if self._spec is not None:
+            self._spec.step_all()
+            return
         cache = self.cache
         with self._cond:
             actives = list(self._active.values())
@@ -477,22 +512,45 @@ class DecodeScheduler:
         logits = holder["logits"]
         for a in actives:
             cache.advance(a.slot)
+            self.seq_steps += 1
+            self.step_tokens += 1
             self._emit(a, sample_token(logits[a.slot], a.temperature, a.rng))
 
     # --- introspection ----------------------------------------------------
     def stats(self) -> Dict[str, object]:
-        """Steps, queue and batch, the KV type and bytes, the decode
-        step's path with its warm-up calls, captures and replays, and
-        (paged) the pool and the prefix counters."""
+        """Steps, queue and batch, the KV type and bytes, the weights'
+        quantization, the speculative counters and accept rate, the decode
+        step's path with its warm-up calls, captures and replays (with
+        spec, the verify's too), and (paged) the pool and the prefix
+        counters."""
         with self._cond:
             queued = len(self._queue)
             active = len(self._active)
         cap = self.programs.capture_stats()
         st = {"steps": self.steps, "queued": queued, "active": active,
               "kv_dtype": self.kv_dtype, "kv_bytes": self.programs.kv_bytes(),
+              "quant_weights": self.config.quant_weights or "off",
+              "seq_steps": self.seq_steps,
+              "step_tokens": self.step_tokens,
+              "drafted_tokens": self.drafted_tokens,
+              "accepted_tokens": self.accepted_tokens,
+              # the reference's decode_spec_accept_rate and
+              # decode_tokens_per_step gauges
+              "decode_spec_accept_rate": (
+                  self.accepted_tokens / self.drafted_tokens
+                  if self.drafted_tokens else 0.0),
+              "decode_tokens_per_step": (
+                  self.step_tokens / self.seq_steps
+                  if self.seq_steps else 0.0),
+              "spec": "%s k=%d" % (self.config.spec_draft,
+                                   self.config.spec_tokens)
+              if self.config.spec else "off",
               "decode_path": cap["path"],
               "warmup_calls": cap["warmup_calls"],
               "captures": cap["captures"], "replays": cap["replays"]}
+        if "verify" in cap:
+            st.update({"verify_" + k: v for k, v in cap["verify"].items()
+                       if k != "eager_calls"})
         cache = self.cache
         if self.config.paged and cache is not None:
             st.update(blocks_total=cache.blocks_total(),

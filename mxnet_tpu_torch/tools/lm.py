@@ -4,7 +4,8 @@
 the GQA decoder LM of ``bench.py`` (d 2048, 16 heads, 4 kv heads,
 ffn 8192, vocab 10000, bench.py's own 4 layers) from seeded random weights
 in ``models/transformer.py`` checkpoint naming (``SERVE``: slot rows;
-``SERVE_PAGED``: a block pool behind a shared system prompt), and
+``SERVE_PAGED``: a block pool behind a shared system prompt;
+``SERVE_SPEC``: the same traffic served speculatively), and
 ``chip_smoke.py`` trains it (``TRAIN``: bench.py's SGD hyperparameters,
 bf16 compute and batch 32 x 2048, through the fused step
 ``lm_train_step``). All take the configuration, the weights, the prompts,
@@ -35,6 +36,11 @@ SERVE_PAGED = {"slots": 8, "num_blocks": 288, "block_tokens": 16,
                "max_new_tokens": 32, "system_len": 1000,
                "suffix_lens": (24, 100, 300, 500, 900),
                "other_lens": (100, 1500, 2000), "forced": (0, 1)}
+# speculative serving: SERVE_PAGED's traffic, pool and slots, 64 new
+# tokens, k = 4 drafts an iteration (W = 5); the sampled arm draws at
+# ``temperature`` from a seed a stream
+SERVE_SPEC = dict(SERVE_PAGED, max_new_tokens=64, spec_tokens=4,
+                  temperature=0.8)
 # bench.py:334's SGD hyperparameters, compute type (bf16 over f32 master
 # weights) and batch (32 x 2048: 38 GB on the card); the card-vs-CPU checks
 # run 1 x 256 so their CPU side finishes in seconds; ``timed_steps`` more
@@ -300,6 +306,65 @@ def forced_paged(progs, cache, prompt, max_new, forced):
             **scales)[plan.slot]))
         cache.advance(plan.slot)
     return np.stack(rows), plan
+
+
+def forced_verify(progs, prompt, fed, window):
+    """Prefill ``prompt`` into slot 0 of fresh slabs of ``progs`` (a
+    ``DecodePrograms`` with its verify enabled), then feed ``fed`` (the
+    tokens a decode run fed, ``fed[i]`` at position ``len(prompt) + i``)
+    through the verify ``window`` at a time, the other slots inactive.
+    Returns logits (len(fed), V) f32: row i is the logits after position
+    ``len(prompt) + i``, as row i + 1 of :func:`forced_unpaged`."""
+    slabs = list(progs.fresh_slabs())
+    scales = progs.fresh_scale_slabs()
+    pre = progs.prefill(prompt)
+    if scales:
+        progs.admit(*slabs, pre[1], pre[2], 0, ks_slab=scales[0],
+                    vs_slab=scales[1], ks_new=pre[3], vs_new=pre[4])
+    else:
+        progs.admit(*slabs, pre[1], pre[2], 0)
+    lengths = np.zeros(progs.slots, np.int64)
+    lengths[0] = len(prompt)
+    rows = []
+    for i in range(0, len(fed), window):
+        chunk = fed[i:i + window]
+        wtok = np.zeros((progs.slots, window), np.int64)
+        wtok[0, :len(chunk)] = chunk
+        out = progs.verify(*slabs, lengths, wtok,
+                           *(scales if scales else ()))
+        rows.append(_logits_np(out[0, :len(chunk)]))
+        lengths[0] += len(chunk)
+    return np.concatenate(rows)
+
+
+def forced_verify_paged(progs, cache, prompt, max_new, fed, window):
+    """:func:`forced_verify` through the block tables: admit ``prompt``
+    into ``cache`` (a ``PagedKVCacheManager`` over ``progs``, a
+    ``PagedDecodePrograms`` with its verify enabled), run its paged
+    prefill, then the verify windows. Returns (logits (len(fed), V), the
+    admission plan)."""
+    plan = cache.try_admit(prompt, prompt, max_new)
+    if plan is None:
+        raise RuntimeError("forced_verify_paged: no blocks for a %d-token "
+                           "prompt" % len(prompt))
+    scales = {"ks_slab": cache.k_scale, "vs_slab": cache.v_scale}
+    progs.paged_prefill(cache.k_slab, cache.v_slab, plan.table,
+                        plan.ctx_len, plan.suffix, plan.fork_src,
+                        plan.fork_dst, **scales)
+    tables = np.zeros((progs.slots, progs.max_blocks), np.int64)
+    tables[plan.slot] = plan.table
+    lengths = np.zeros(progs.slots, np.int64)
+    lengths[plan.slot] = len(prompt)
+    rows = []
+    for i in range(0, len(fed), window):
+        chunk = fed[i:i + window]
+        wtok = np.zeros((progs.slots, window), np.int64)
+        wtok[plan.slot, :len(chunk)] = chunk
+        out = progs.verify(cache.k_slab, cache.v_slab, tables, lengths,
+                           wtok, **scales)
+        rows.append(_logits_np(out[plan.slot, :len(chunk)]))
+        lengths[plan.slot] += len(chunk)
+    return np.concatenate(rows), plan
 
 
 def forced_arms(gen, model, paged, prompts, kv_dtype="float32",

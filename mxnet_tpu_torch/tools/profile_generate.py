@@ -2,8 +2,13 @@
 
     python3 -m mxnet_tpu_torch.tools.profile_generate [ARM ...]   # repo root
 
-ARM is ``{unpaged|paged}_{f32|int8}_{eager|captured}`` (default: all
-eight). Builds the full-width LM that ``chip_smoke.py`` serves
+ARM is ``{unpaged|paged}_{f32|int8}_{eager|captured}``, a quantized-weight
+arm ``quant_{int8|fp8}_unpaged_f32_captured`` (the decode step of the
+model quantized as ``GenerateConfig.quant_weights`` quantizes it, int8
+activations) or a speculative arm ``spec_int8_{unpaged|paged}_f32_captured``
+(the int8 draft's decode step, the target's verify over W = k + 1
+positions, k = ``SERVE_SPEC["spec_tokens"]``; default: all twelve).
+Builds the full-width LM that ``chip_smoke.py`` serves
 (``tools/lm.py``: same seeded weights, f32 weights, no TF32) at
 ``SERVE_PAGED``'s configuration (8 slots, capacity 2304; paged: 288
 blocks of 16 positions), admits the first six prompts of its traffic
@@ -20,6 +25,10 @@ card:
   takes them): device kernel time by kind (the flash kernel, matrix
   products, everything else), the device's busy ms and idle share of the
   window, the kernel launches and the heaviest kernels.
+
+A speculative arm measures its draft step as the decode step and adds host
+ms and profiler windows of ten verifies and of ten iterations (k draft
+steps and a verify, each with its logits' copy).
 
 Prints one JSON line per measurement; exits non-zero without a card.
 """
@@ -74,6 +83,8 @@ def _host_ms(fn, reps):
 
 ARMS = ["%s_%s_%s" % (kind, kv, how) for kind in ("unpaged", "paged")
         for kv in ("f32", "int8") for how in ("eager", "captured")]
+ARMS += ["quant_int8_unpaged_f32_captured", "quant_fp8_unpaged_f32_captured",
+         "spec_int8_unpaged_f32_captured", "spec_int8_paged_f32_captured"]
 
 
 def _profile(fn):
@@ -104,12 +115,28 @@ def _profile(fn):
 
 
 def _arm(gen, lm, model, arm):
-    """(decode step fn, prefill fn by bucket, notes) of one arm, with the
-    first six prompts of the paged traffic admitted."""
-    kind, kv, how = arm.split("_")
+    """(decode step fn, prefill fn by bucket, notes, verify fn or None) of
+    one arm, with the first six prompts of the paged traffic admitted."""
+    from mxnet_tpu_torch import quant
+
+    parts = arm.split("_")
+    draft = None
+    if parts[0] == "quant":
+        weight = {"int8": "int8", "fp8": "fp8_e4m3"}[parts[1]]
+        model = quant.quantize_decode_model(
+            model, quant.QuantConfig(weight_dtype=weight, act_dtype="int8"))
+        parts = parts[2:]
+    elif parts[0] == "spec":
+        draft = quant.quantize_decode_model(
+            model, quant.QuantConfig(weight_dtype="int8", act_dtype="int8"))
+        parts = parts[2:]
+    kind, kv, how = parts
     kv = {"f32": "float32", "int8": "int8"}[kv]
     paged = lm.SERVE_PAGED
     capture = how == "captured"
+    window = lm.SERVE_SPEC["spec_tokens"] + 1
+    wtok = np.arange(paged["slots"] * window, dtype=np.int64).reshape(
+        paged["slots"], window)
     prompts = lm.paged_prompts(lm.LM, paged, lm.SEED)[:6]
     rng = np.random.default_rng(1)
     cold = {b: rng.integers(0, lm.LM["vocab"], b - 3).tolist()
@@ -120,7 +147,7 @@ def _arm(gen, lm, model, arm):
         progs = gen.DecodePrograms(model, paged["slots"],
                                    paged["max_context"],
                                    paged["prefill_buckets"], kv_dtype=kv,
-                                   capture=capture)
+                                   capture=capture, step_model=draft)
         cache = gen.KVCacheManager(progs)
         for slot, p in enumerate(prompts):
             pre = progs.prefill(p)
@@ -137,11 +164,18 @@ def _arm(gen, lm, model, arm):
         def prefill(b):
             return progs.prefill(cold[b])[0]
 
-        return step, prefill, {}
+        def verify():
+            return progs.verify(cache.k_slab, cache.v_slab, lengths, wtok,
+                                ks_slab=cache.k_scale, vs_slab=cache.v_scale)
+
+        if draft is None:
+            return step, prefill, {}, None
+        progs.enable_verify(window)
+        return step, prefill, {}, verify
     progs = gen.PagedDecodePrograms(
         model, paged["slots"], paged["max_context"],
         paged["prefill_buckets"], paged["block_tokens"],
-        paged["num_blocks"], kv_dtype=kv, capture=capture)
+        paged["num_blocks"], kv_dtype=kv, capture=capture, step_model=draft)
     cache = gen.PagedKVCacheManager(progs)
     scales = {"ks_slab": cache.k_scale, "vs_slab": cache.v_scale}
     for p in prompts:
@@ -169,9 +203,16 @@ def _arm(gen, lm, model, arm):
         finally:
             spare.free(plan.slot)
 
-    return step, prefill, {"blocks_in_use": cache.blocks_total()
-                           - cache.blocks_free(),
-                           "prefix_tokens_saved": cache.prefix_tokens_saved}
+    def verify():
+        return progs.verify(cache.k_slab, cache.v_slab, tables, lengths,
+                            wtok, **scales)
+
+    notes = {"blocks_in_use": cache.blocks_total() - cache.blocks_free(),
+             "prefix_tokens_saved": cache.prefix_tokens_saved}
+    if draft is None:
+        return step, prefill, notes, None
+    progs.enable_verify(window)
+    return step, prefill, notes, verify
 
 
 def main(argv=None) -> int:
@@ -194,25 +235,43 @@ def main(argv=None) -> int:
     model = gen.DecodeModel.from_arg_params(lm.lm_arg_params(cfg, lm.SEED),
                                             spec)
     gpu = lm.nvidia_smi()
+    k = lm.SERVE_SPEC["spec_tokens"]
     for arm in arms:
-        step, prefill, notes = _arm(gen, lm, model, arm)
+        step, prefill, notes, verify = _arm(gen, lm, model, arm)
         buckets = lm.SERVE_PAGED["prefill_buckets"]
         for b in buckets:                       # warm every program
             prefill(b)
         for _ in range(3):                      # warm-up calls, capture
             step()
-        _emit({"measure": "host_ms", "arm": arm,
-               "prefill_ms": {b: _host_ms(lambda b=b: prefill(b), 5)
-                              for b in buckets},
-               "decode_step_ms": _host_ms(step, 20),
-               "decode_step_with_logits_to_host_ms": _host_ms(
-                   lambda: step().cpu(), 20), "gpu": gpu, **notes})
-        for window, fn in (
-                ("prefill_%d" % buckets[-1], lambda: prefill(buckets[-1])),
-                ("decode_x10", lambda: [step().cpu() for _ in range(10)])):
+            if verify is not None:
+                verify()
+        host = {"measure": "host_ms", "arm": arm,
+                "prefill_ms": {b: _host_ms(lambda b=b: prefill(b), 5)
+                               for b in buckets},
+                "decode_step_ms": _host_ms(step, 20),
+                "decode_step_with_logits_to_host_ms": _host_ms(
+                    lambda: step().cpu(), 20), "gpu": gpu, **notes}
+        windows = [("prefill_%d" % buckets[-1], lambda: prefill(buckets[-1])),
+                   ("decode_x10", lambda: [step().cpu() for _ in range(10)])]
+        if verify is not None:
+            def iteration():
+                for _ in range(k):
+                    step().cpu()
+                verify().cpu()
+
+            host.update(verify_ms=_host_ms(verify, 20),
+                        verify_with_logits_to_host_ms=_host_ms(
+                            lambda: verify().cpu(), 20),
+                        iteration_ms=_host_ms(iteration, 10), k=k)
+            windows += [("verify_x10",
+                         lambda: [verify().cpu() for _ in range(10)]),
+                        ("iteration_x10",
+                         lambda: [iteration() for _ in range(10)])]
+        _emit(host)
+        for window, fn in windows:
             _emit(dict({"measure": "profile", "arm": arm,
                         "window": window}, **_profile(fn)))
-        del step, prefill
+        del step, prefill, verify, windows
         torch.cuda.empty_cache()
     return 0
 

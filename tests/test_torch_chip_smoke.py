@@ -33,6 +33,9 @@ TINY_PAGED = {"slots": 8, "num_blocks": 22, "block_tokens": 4,
               "max_new_tokens": 4, "system_len": 10,
               "suffix_lens": (2, 3, 5, 7, 9), "other_lens": (3, 14, 18),
               "forced": (0, 1)}
+# the speculative traffic: the paged traffic, 6 new tokens, k = 3
+TINY_SPEC = dict(TINY_PAGED, max_new_tokens=6, spec_tokens=3,
+                 temperature=0.8)
 TINY_TRAIN = {"batch": 2, "seq": 16, "sgd_steps": 2, "adam_steps": 1,
               "lr": 0.05, "momentum": 0.9, "wd": 1e-4, "adam_lr": 1e-3,
               "dtype": "bfloat16", "timed_steps": 2,
@@ -159,6 +162,92 @@ def test_serve_paged_phase_fails_on_a_flash_launch_in_the_paged_path(
     with pytest.raises(RuntimeError, match="paged_f32_eager: flash kernel"):
         cs.phase_serve_paged(TINY, TINY_SERVE, TINY_PAGED, device="cpu",
                              int8_tol=1.0)
+
+
+def _tiny_quant_tol():
+    """1.5 x the tiny LM's f32-to-quantized-weights distances, as
+    chip_smoke.py's QUANT_WEIGHTS_TOL is of the full-width one."""
+    from mxnet_tpu_torch.tools import quant_weights_spread
+
+    res = quant_weights_spread.spread(TINY, TINY_SPEC, cs.SEED,
+                                      arms=("int8", "fp8"))
+    assert all(r["argmax_in_f32_top5"] for r in res.values())
+    return {arm: 1.5 * r["max_abs"] for arm, r in res.items()}
+
+
+def test_serve_spec_phase_on_cpu(monkeypatch, capsys):
+    """Every arm and gate of the phase on the host; the capture checks
+    read the eager path, the only one the CPU has."""
+    _count_plain_calls(monkeypatch)
+    launches = cs.phase_serve_spec(TINY, TINY_SPEC, device="cpu",
+                                   quant_tol=_tiny_quant_tol())
+    # three unpaged arms of vanilla / quantized weights, three of spec
+    assert launches == 6 * 8 * TINY["layers"]
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "serve_spec" and len(line["arms"]) == 12
+    arms = line["arms"]
+    per_forward = 6 * TINY["layers"] + 1
+    spec = arms["spec_int8_unpaged_f32_captured"]
+    assert spec["int8_products"] == per_forward * 3 * spec["steps"] > 0
+    assert arms["spec_self_unpaged_f32_captured"]["int8_products"] == 0
+    assert arms["quant_fp8_unpaged_f32"]["int8_products"] == 0
+    assert arms["spec_int8_paged_int8_captured"]["flash_launches"] == 0
+    assert spec["tokens_per_seq_step"] > 1.0
+    assert arms["vanilla_unpaged_f32"]["accept_rate"] == 0.0
+    for name, row in arms.items():        # each against its own layout
+        if name.startswith("vanilla"):
+            assert row["tokens_per_s_vs_vanilla"] == 1.0
+    assert sorted(line["quantized_matmul"]) == [
+        "fp8_e4m3/bf16", "fp8_e4m3/float32", "int8/bf16", "int8/float32",
+        "int8/int8"]
+    assert line["quantized_matmul"]["int8/int8"]["max_abs_err"] == 0.0
+    assert line["int8_accept_rate"]["predicted"] == \
+        cs.SPEC_INT8_ACCEPT_PREDICTED
+    tf = line["teacher_forced"]
+    assert max(max(v) for e in tf["verify_vs_decode"].values()
+               for v in e.values()) <= cs.SERVE_ATOL
+
+
+def test_serve_spec_phase_fails_when_a_spec_stream_leaves_vanilla(
+        monkeypatch):
+    """A verify that favours another token where the margin is wide: the
+    greedy gate must refuse."""
+    from mxnet_tpu_torch.serving.generate import spec as tspec
+
+    _count_plain_calls(monkeypatch)
+    accept = tspec.accept_greedy
+
+    def off_by_one(draft, vlogits, k_eff):
+        acc, emitted = accept(draft, vlogits, k_eff)
+        return acc, emitted[:-1] + [(emitted[-1] + 1) % TINY["vocab"]]
+
+    monkeypatch.setattr(tspec, "accept_greedy", off_by_one)
+    with pytest.raises(RuntimeError, match="leaves the vanilla one"):
+        cs.phase_serve_spec(TINY, TINY_SPEC, device="cpu",
+                            quant_tol={"int8": 1.0, "fp8": 1.0})
+
+
+def test_serve_spec_phase_fails_without_the_int8_product(monkeypatch):
+    """A draft whose products were widened to f32 counts no int8 product:
+    the phase must refuse."""
+    from mxnet_tpu_torch.ops import matrix
+
+    _count_plain_calls(monkeypatch)
+    monkeypatch.setattr(matrix, "int8_product",
+                        lambda xq, w: xq.int() @ w.int().t())
+    with pytest.raises(RuntimeError, match="int8 products"):
+        cs.phase_serve_spec(TINY, TINY_SPEC, device="cpu",
+                            quant_tol={"int8": 1.0, "fp8": 1.0})
+
+
+def test_int8_product_bound_is_its_bytes_at_decode_shapes():
+    # (8, 2048) x (2048, 8192): 16 KiB + 16 MiB in, 256 KiB out
+    moved = 8 * 2048 + 2048 * 8192 + 4 * 8 * 8192
+    assert cs.int8_product_bound(8, 2048, 8192) == pytest.approx(
+        moved / 3.35e12 * 1e3)
+    assert cs.qmm_shapes(cs.LM) == (
+        (2048, 2048, 8), (2048, 512, 8), (2048, 8192, 4), (8192, 2048, 4),
+        (2048, 10000, 1))
 
 
 def test_serve_paged_traffic_at_full_width():
@@ -1245,5 +1334,41 @@ def test_profile_generate_needs_a_card_and_names_its_arms(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert pg.main([]) == 2
     assert pg.main(["paged_int8_captured"]) == 2
-    assert len(pg.ARMS) == len(set(pg.ARMS)) == 8
-    assert {a.split("_")[0] for a in pg.ARMS} == {"paged", "unpaged"}
+    assert len(pg.ARMS) == len(set(pg.ARMS)) == 12
+    assert {a.split("_")[0] for a in pg.ARMS} == {"paged", "unpaged",
+                                                   "quant", "spec"}
+
+
+@pytest.mark.parametrize("arm", ["quant_int8_unpaged_f32_captured",
+                                 "quant_fp8_unpaged_f32_captured",
+                                 "spec_int8_unpaged_f32_captured",
+                                 "spec_int8_paged_f32_captured"])
+def test_profile_generate_arms_build_and_step_on_the_cpu(arm):
+    """Each new arm at the tiny size: its step, prefill and (spec) verify
+    run, the spec arms' step being the int8 draft's."""
+    import types
+
+    from mxnet_tpu_torch.ops.matrix import int8_product
+    from mxnet_tpu_torch.serving import generate as gen
+    from mxnet_tpu_torch.tools import lm
+    from mxnet_tpu_torch.tools import profile_generate as pg
+
+    tiny_lm = types.SimpleNamespace(
+        LM=TINY, SERVE_PAGED=TINY_PAGED, SERVE_SPEC=TINY_SPEC, SEED=cs.SEED,
+        paged_prompts=lm.paged_prompts)
+    model = gen.DecodeModel.from_arg_params(
+        cs.lm_arg_params(TINY, cs.SEED),
+        gen.DecodeSpec(num_heads=TINY["heads"],
+                       num_kv_heads=TINY["kv_heads"]), device="cpu")
+    step, prefill, notes, verify = pg._arm(gen, tiny_lm, model, arm)
+    before = int8_product.launches
+    assert tuple(step().shape) == (TINY_PAGED["slots"], TINY["vocab"])
+    int8_steps = arm.startswith(("spec", "quant_int8"))
+    assert (int8_product.launches > before) == int8_steps
+    assert tuple(prefill(8).shape) == (TINY["vocab"],)
+    if arm.startswith("spec"):
+        assert tuple(verify().shape) == (TINY_PAGED["slots"],
+                                         TINY_SPEC["spec_tokens"] + 1,
+                                         TINY["vocab"])
+    else:
+        assert verify is None

@@ -181,14 +181,6 @@ def test_scheduler_bf16_kv_runs_and_stops_cleanly():
     assert reasons == ["max_tokens"] * 2 and all(len(t) == 4 for t in toks)
 
 
-@pytest.mark.parametrize("knob", [{"spec": True}, {"quant_weights": "int8"}])
-def test_unported_knobs_raise(knob):
-    _, tm = _models()
-    with pytest.raises(ServingError, match="not yet ported") as ei:
-        tgen.DecodeScheduler(tm, _config(tgen, **knob))
-    assert ei.value.code == "not_ported"
-
-
 def test_submit_rejects_prompt_beyond_ladder():
     _, tm = _models()
     sched = tgen.DecodeScheduler(tm, _config(tgen))
