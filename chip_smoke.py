@@ -80,7 +80,26 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    and int8 KV, unpaged and paged), and the quantized weights within
    QUANT_WEIGHTS_TOL of f32, argmax in the f32 top 5. Prints tokens/s
    against vanilla, ms a token, accept rates, tokens a sequence-iteration
-   and peak memory.
+   and peak memory. Also the ``quantize`` / ``dequantize`` ops (uint8,
+   int8, fp8) on the card against the CPU, bit for bit.
+3d. ``serve_trace`` — telemetry on the serve path: the serve phase's
+   traffic (6 prompts of 100-2000 tokens, 4 slots, 32 new tokens,
+   greedy, the decode step captured) five times, all prompts queued
+   before the first admission: spans off, spans on, inside a profiler
+   window (``mxnet_tpu_torch.profiler``: host spans and ``torch.profiler``
+   CPU + CUDA events in one dump), spans off and on again. Gates: the same
+   tokens and captured path (2 warm-ups, 1 capture, replays) in every
+   run; the dump's spans (one ``serving.queued``, ``serving.dispatch`` and
+   ``decode.prefill`` a request, one ``decode.step`` a scheduler step,
+   each stream's trace id on its queued span and in the ``trace_ids`` of
+   the 31 steps it shared); the dump's flash-forward kernel events as many
+   as the launch counter rose; the registry's exposition parses and
+   ``kv_bytes``, ``decode_tokens_total``, ``decode_spec_accept_rate``,
+   ``decode_tokens_per_step`` read the scheduler's stats; a stream past
+   its deadline writes one flight bundle. Prints each run's decode ms a
+   step, the spans' cost a step beside its prediction, and (not gated)
+   the train phase's run and ResNet-50's epoch under the profiler, each
+   kernel's events beside its launch counter.
 4. ``train``   — the same LM trained as bench.py trains it: first 2 SGD
    steps at 1 x 256 through ``simple_bind`` -> ``forward``/``backward``
    -> ``optimizer.Updater``, f32, no TF32, on the card and on the port's
@@ -163,6 +182,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 Then the card's ``nvidia-smi`` name/power-limit line and, last, the
 ``{"ok": true, "device": ...}`` line. Exits non-zero without a CUDA card.
 """
+import contextlib
 import functools
 import gc
 import json
@@ -392,6 +412,34 @@ RTC_SOFTMAX_CASES = ((4480, 10000), (128, 1000), (1, 10000), (3, 7))
 # the backward's route (rtc_softmax.bwd_plan) these cases must take: the
 # LM's head the vector source, a row of 7 the scalar one
 RTC_BWD_ROUTES = {(4480, 10000): "vector", (3, 7): "scalar"}
+
+
+# serve_trace: the trace events that stand for the flash forward's
+# launches (category, part of the kernel's name)
+FA_EVENT = ("kernel", "flash_fwd_")
+# the train and resnet runs under the profiler: launch counter -> parts of
+# the names of the kernels it launches
+TRAIN_EVENTS = {"flash_attention_fwd": ("flash_fwd_",),
+                "flash_attention_bwd_dq": ("flash_bwd_dq_",),
+                "flash_attention_bwd_dkv": ("flash_bwd_dkv_",),
+                "sgd_mom_update": ("sgd_mom_kernel",),
+                "adam_update": ("adam_kernel",)}
+RESNET_EVENTS = {"conv_wgrad_partial": ("conv_wgrad_wgmma_kernel",
+                                        "conv_wgrad_f32_kernel",
+                                        "conv_wgrad_f32tap_kernel",
+                                        "conv_wgrad_simt_kernel"),
+                 "conv_wgrad_reduce": ("conv_wgrad_reduce_kernel",),
+                 "conv_wgrad_repack": ("conv_wgrad_repack_kernel",),
+                 "sgd_mom_update": ("sgd_mom_kernel",)}
+# spans-on overhead a captured decode step, predicted before the first
+# chip run (PERF.md): about four spans a step at a few microseconds each
+SPAN_OVERHEAD_PREDICTED_US = 50
+# a sample line of the Prometheus text format (name, labels, value, and an
+# optional OpenMetrics exemplar)
+PROM_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\\n]|'
+    r'\\[\\"n])*",?)*\})?) (NaN|[-+]?[0-9.e+-]+|[-+]Inf)'
+    r'( # \{trace_id="[^"]*"\} [-+0-9.e]+ [0-9.e+]+)?$')
 
 
 def flash_cases():
@@ -1788,12 +1836,15 @@ def phase_kernel_rtc(torch):
 
 
 def _serve_streams(gen, model, cfg, conf, prompts, temperature=0.0,
-                   seed=SEED, **knobs):
+                   seed=SEED, traces=None, together=False, **knobs):
     """Serve ``prompts`` through a ``DecodeScheduler`` at ``conf``'s slots,
     context, buckets and new tokens (``knobs``: paged, kv_dtype, capture,
     block_tokens, num_blocks, quant_weights, spec, spec_tokens,
     spec_draft), every stream consumed by its own thread; stream i samples
-    at ``temperature`` from seed ``seed + i`` (0: greedy). Checks each
+    at ``temperature`` from seed ``seed + i`` (0: greedy), with trace
+    context ``traces[i]`` (None: none); ``together`` queues every prompt
+    before the scheduler admits the first, so the steps do not depend on
+    how the submitting thread and the scheduler interleave. Checks each
     stream ran to ``max_tokens``; returns its records (tokens and arrival
     times), the scheduler's stats before it stopped, the flash launches
     and the int8 products, the wall seconds and the card's peak
@@ -1822,8 +1873,11 @@ def _serve_streams(gen, model, cfg, conf, prompts, temperature=0.0,
         fa.flash_attention.launches = 0
         int8_product.launches = 0
         t0 = time.monotonic()
-        streams = [sched.submit(p, temperature=temperature, seed=seed + i)
-                   for i, p in enumerate(prompts)]
+        with (sched._cond if together else contextlib.nullcontext()):
+            streams = [sched.submit(p, temperature=temperature,
+                                    seed=seed + i,
+                                    trace=traces[i] if traces else None)
+                       for i, p in enumerate(prompts)]
         for s in streams:
             rec = {"stream": s, "times": [], "tokens": []}
             records.append(rec)
@@ -2263,6 +2317,60 @@ def _qmm_check(torch, cfg, device, seed):
     return cases
 
 
+def _quantize_ops_check(torch, device, seed):
+    """The ``quantize`` / ``dequantize`` ops on ``device`` against the CPU
+    on the same inputs, bit for bit: uint8 over a calibration range
+    (ranges drawn from ``seed``, each with inputs at every k + 0.5 of its
+    scaled grid, where a scale one ulp off rounds to the other neighbour,
+    and the example lo -1.3079847, hi 0.087778695, x -0.98778015, which
+    must give 59), int8 and fp8-e4m3 per tensor and per channel; then each
+    dequantized back. Returns the cases checked by type."""
+    from mxnet_tpu_torch.ops import registry as reg
+
+    def run(name, arrays, attrs, dev):
+        op = reg.get_op(name)
+        outs, _ = op.impl(op.parse_attrs(dict(attrs)),
+                          tuple(a.to(dev) for a in arrays), (),
+                          reg.OpContext())
+        return [o.cpu() for o in outs]
+
+    def same(a, b):
+        if a.dtype == torch.float8_e4m3fn:
+            a, b = a.view(torch.uint8), b.view(torch.uint8)
+        return a.dtype == b.dtype and torch.equal(a, b)
+
+    gen = torch.Generator().manual_seed(seed)
+    cases = [({"out_type": "uint8"}, torch.tensor([-0.98778015]),
+              torch.tensor([-1.3079847]), torch.tensor([0.087778695]))]
+    for _ in range(16):
+        lo = -3 * torch.rand(1, generator=gen)
+        hi = 3 * torch.rand(1, generator=gen)
+        scale = 255.0 / (hi - lo).double()
+        x = ((torch.arange(255, dtype=torch.float64) + 0.5) / scale
+             + lo.double()).float()
+        cases.append(({"out_type": "uint8"}, x, lo, hi))
+    w = torch.randn(64, 96, generator=gen)
+    one = torch.zeros(1)
+    for out_type in ("int8", "fp8_e4m3"):
+        for axis in (None, 0):
+            cases.append(({"out_type": out_type, "axis": axis}, w, one, one))
+    counts = {}
+    for attrs, x, lo, hi in cases:
+        got = run("quantize", (x, lo, hi), attrs, device)
+        want = run("quantize", (x, lo, hi), attrs, "cpu")
+        back = run("dequantize", want, {}, device)
+        back_want = run("dequantize", want, {}, "cpu")
+        if not all(same(a, b) for a, b in zip(got + back, want + back_want)):
+            raise RuntimeError("quantize / dequantize %s: the card differs "
+                               "from the CPU" % attrs)
+        counts[attrs["out_type"]] = counts.get(attrs["out_type"], 0) + 1
+    if run("quantize", cases[0][1:], cases[0][0], device)[0].tolist() != [59]:
+        raise RuntimeError("uint8 quantize of the example gives %s, want 59"
+                           % run("quantize", cases[0][1:], cases[0][0],
+                                 device)[0].tolist())
+    return {"cases": counts, "bit_for_bit": True}
+
+
 def _qmm_timing(torch, cfg):
     """The int8 product at M = slots (padded to INT_MM_PAD_ROWS on the
     card) at each LM shape, beside its bound, the whole int8 path and the
@@ -2378,8 +2486,10 @@ def phase_serve_spec(cfg=LM, conf=SERVE_SPEC, device=None, seed=SEED,
     if on_card:
         result["gpu"] = nvidia_smi()
 
-    # 1. the product: card against CPU, and the int8 product's time
+    # 1. the product and the quantize ops: card against CPU, and the int8
+    # product's time
     result["quantized_matmul"] = _qmm_check(torch, cfg, model.device, seed)
+    result["quantize_ops"] = _quantize_ops_check(torch, model.device, seed)
     if on_card:
         result["int8_product"] = _qmm_timing(torch, cfg)
 
@@ -2558,6 +2668,349 @@ def phase_serve_spec(cfg=LM, conf=SERVE_SPEC, device=None, seed=SEED,
     result["seconds"] = time.monotonic() - t0
     emit(result)
     return flash
+
+
+def parse_exposition(text):
+    """{sample name with labels: value} of a Prometheus text exposition;
+    raises on a line that is neither a HELP / TYPE comment nor a sample,
+    or a sample before its family's TYPE."""
+    samples, typed = {}, set()
+    for line in text.splitlines():
+        if line.startswith(("# HELP ", "# TYPE ")):
+            if line.startswith("# TYPE "):
+                typed.add(line.split()[2])
+            continue
+        m = PROM_SAMPLE.match(line)
+        if m is None:
+            raise RuntimeError("exposition line %r is not Prometheus text"
+                               % line)
+        name = m.group(1)
+        family = re.sub(r"(_bucket|_sum|_count)$", "", name.split("{")[0])
+        if family not in typed and name.split("{")[0] not in typed:
+            raise RuntimeError("exposition sample %r has no TYPE line"
+                               % name)
+        samples[name] = float(m.group(5))
+    return samples
+
+
+def _profiled(run, path):
+    """``run()`` inside a profiler window (``profiler_set_state("run")``
+    ... ``dump_profile()`` to ``path``); returns its result and the dump's
+    events."""
+    from mxnet_tpu_torch import profiler
+
+    profiler.profiler_set_config(filename=path)
+    profiler.profiler_set_state("run")
+    try:
+        out = run()
+    finally:
+        profiler.profiler_set_state("stop")
+    with open(profiler.dump_profile()) as f:
+        events = json.load(f)["traceEvents"]
+    return out, events
+
+
+def _event_counts(events, parts, cat):
+    """{name: events of category ``cat`` whose name holds one of
+    ``parts[name]``}."""
+    return {k: sum(1 for e in events if e.get("cat") == cat and any(
+        p in e.get("name", "") for p in ps)) for k, ps in parts.items()}
+
+
+def _host_spans(events, domain, name):
+    return [e for e in events if e.get("cat") == domain
+            and e.get("name") == name and e.get("ph") == "X"]
+
+
+def _deadline_bundle(gen, model, cfg, serve, prompt, work):
+    """A stream whose deadline passes before it is served (timeout 0,
+    beside one served stream of 2 tokens), with ``MXNET_FLIGHT_DIR`` a
+    fresh directory: it must fail with ``deadline_exceeded`` and leave
+    exactly one ``deadline_miss`` bundle naming its trace."""
+    from mxnet_tpu_torch.serving import ServingError
+    from mxnet_tpu_torch.telemetry import context as tctx
+
+    flight_dir = os.path.join(work, "flight")
+    was = os.environ.get("MXNET_FLIGHT_DIR")
+    os.environ["MXNET_FLIGHT_DIR"] = flight_dir
+    try:
+        config = gen.GenerateConfig(
+            num_heads=cfg["heads"], num_kv_heads=cfg["kv_heads"],
+            slots=serve["slots"], max_context=serve["max_context"],
+            prefill_buckets=serve["prefill_buckets"], max_new_tokens=2,
+            eos_id=None, paged=False, kv_dtype="f32", capture=False,
+            quant_weights="", spec=False)
+        sched = gen.DecodeScheduler(model, config)
+        sched.start()
+        trace = tctx.mint(request_id="deadline")
+        try:
+            served = sched.submit(prompt)
+            late = sched.submit(prompt, timeout_ms=0.0, trace=trace)
+            served_tokens = served.tokens(timeout=600)
+            try:
+                late.tokens(timeout=600)
+                code = None
+            except ServingError as e:
+                code = e.code
+        finally:
+            sched.stop()
+    finally:
+        if was is None:
+            os.environ.pop("MXNET_FLIGHT_DIR", None)
+        else:
+            os.environ["MXNET_FLIGHT_DIR"] = was
+    files = sorted(os.listdir(flight_dir)) if os.path.isdir(flight_dir) \
+        else []
+    bundle = {}
+    if len(files) == 1:
+        with open(os.path.join(flight_dir, files[0])) as f:
+            bundle = json.load(f)
+    if code != "deadline_exceeded" or len(served_tokens) != 2 or \
+            len(files) != 1 or bundle.get("trigger") != "deadline_miss" or \
+            bundle.get("trace_id") != trace.trace_id:
+        raise RuntimeError(
+            "serve_trace: the late stream ended %r and left bundles %s "
+            "(trigger %r, trace %s), want deadline_exceeded and one "
+            "deadline_miss bundle of trace %s"
+            % (code, files, bundle.get("trigger"), bundle.get("trace_id"),
+               trace.trace_id))
+    return {"code": code, "bundles": files, "trigger": bundle["trigger"],
+            "victim_spans": (bundle.get("victim") or {}).get("n_spans")}
+
+
+def _span_cost_us(telemetry, calls=20000):
+    """Host µs of one span (enter and exit, two arguments) with its domain
+    on, and with it off (the shared no-op), each the median of 5 runs of
+    ``calls``; the recorded events are dropped."""
+    def per_call(on):
+        times = []
+        for _ in range(5):
+            if on:
+                telemetry.enable_spans("serving")
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                with telemetry.span("cost", domain="serving", rows=4,
+                                    spec=0):
+                    pass
+            times.append((time.perf_counter() - t0) / calls * 1e6)
+            telemetry.disable_spans()
+            telemetry.reset()
+        return float(np.median(times))
+
+    return {"on": per_call(True), "off": per_call(False)}
+
+
+def _profiled_launches(torch, run, counters, parts, work, name, on_card):
+    """``run()`` under the profiler: each counter's launches beside the
+    kernel events of its kernels in the dump (printed, not gated)."""
+    _fresh(torch, on_card)
+    _zero(counters)
+    _, events = _profiled(run, os.path.join(work, name + ".json"))
+    launches = _count(counters)
+    seen = _event_counts(events, parts, "kernel")
+    return {k: {"launches": launches[k], "events": seen[k]}
+            for k in parts}
+
+
+def phase_serve_trace(cfg=LM, serve=SERVE, device=None, seed=SEED,
+                      kernel_event=FA_EVENT, train=TRAIN, resnet=RESNET):
+    """The traced serve path at full width: ``serve``'s traffic through
+    the unpaged scheduler with the decode step captured, five times:
+    spans off, spans on, inside a profiler window (``profiler_set_state``
+    / ``dump_profile``), spans off and on again. Gates: (1) the same tokens in
+    every run; (2) the same captured path (warm-ups, one capture, a replay
+    a later step) in every run; (3) the dump parses and holds one
+    ``decode.prefill`` and one ``serving.queued`` span a request and one
+    ``decode.step`` a scheduler step, each stream's trace id on its queued
+    span and in the ``trace_ids`` of every step it shared; (4) the dump's
+    ``kernel_event`` events (category, part of the name: the flash
+    forward's CUDA kernels on the card) as many as the flash launch
+    counter rose in the window; (5) the registry's exposition parses as
+    Prometheus text and ``kv_bytes``, ``decode_tokens_total`` (its rise),
+    ``decode_spec_accept_rate`` and ``decode_tokens_per_step`` read the
+    scheduler's stats; (6) a stream that misses its deadline writes one
+    flight bundle. Prints the step ms of each run and the spans' cost a
+    step; then (not gated) the train phase's run (``train``) and
+    ResNet-50's epoch (``resnet``) under the profiler, each kernel's
+    events beside its launch counter. Returns the flash launches."""
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serving import generate as gen
+    from mxnet_tpu_torch.telemetry import context as tctx
+
+    t0 = time.monotonic()
+    params = lm_arg_params(cfg, seed)
+    spec = gen.DecodeSpec(num_heads=cfg["heads"],
+                          num_kv_heads=cfg["kv_heads"])
+    model = gen.DecodeModel.from_arg_params(params, spec, device=device)
+    on_card = model.device.type == "cuda"
+    prompts = serve_prompts(cfg, serve, seed)
+    n = len(prompts)
+    result = {"phase": "serve_trace", "requests": n,
+              "prompt_lens": [len(p) for p in prompts],
+              "max_new_tokens": serve["max_new_tokens"]}
+    if on_card:
+        result["gpu"] = nvidia_smi()
+    work = tempfile.mkdtemp(prefix="serve_trace_")
+    tokens_total = telemetry.registry.counter("decode_tokens_total")
+    try:
+        def serve_run(traces=None):
+            return _serve_streams(gen, model, cfg, serve, prompts,
+                                  capture=True, traces=traces,
+                                  together=True)
+
+        def spans_run():
+            telemetry.enable_spans("all")
+            try:
+                run = serve_run([tctx.mint() for _ in prompts])
+            finally:
+                telemetry.disable_spans()
+            recorded = telemetry.drain_events()
+            run["step_spans_ms"] = [e[4] / 1e6 for e in recorded
+                                    if e[1] == "decode.step"
+                                    and e[2] == "serving"]
+            run["events"] = len(recorded)
+            return run
+
+        # 1. spans off and on, the profiled window, off and on again
+        runs = {"off": serve_run(), "spans": spans_run()}
+        traces = [tctx.mint(request_id="serve%d" % i) for i in range(n)]
+        before = tokens_total.value
+        runs["profiled"], events = _profiled(
+            lambda: serve_run(traces), os.path.join(work, "serve.json"))
+        rose = tokens_total.value - before
+        samples = parse_exposition(telemetry.registry.exposition())
+        runs["off_again"] = serve_run()
+        runs["spans_again"] = spans_run()
+        traced = runs["profiled"]
+        failures = []
+
+        # gates 1-2: tokens and the captured path
+        for name, run in runs.items():
+            if run["tokens"] != runs["off"]["tokens"]:
+                failures.append("the %s run's tokens differ from the "
+                                "spans-off run's" % name)
+            _require_decode_capture("serve_trace " + name, run["stats"],
+                                    on_card)
+        paths = {name: {k: run["stats"][k] for k in (
+            "steps", "warmup_calls", "captures", "replays")}
+            for name, run in runs.items()}
+        if len({tuple(p.values()) for p in paths.values()}) != 1:
+            failures.append("the runs took other paths: %s" % paths)
+
+        # gate 3: the host spans
+        steps = traced["stats"]["steps"]
+        counts = {k: len(_host_spans(events, "serving", k)) for k in (
+            "serving.queued", "serving.dispatch", "decode.prefill",
+            "decode.step")}
+        want = {"serving.queued": n, "serving.dispatch": n,
+                "decode.prefill": n, "decode.step": steps}
+        if counts != want:
+            failures.append("the dump holds spans %s, want %s"
+                            % (counts, want))
+        queued = [e["args"]["trace_id"] for e in
+                  _host_spans(events, "serving", "serving.queued")]
+        shared = {}
+        for e in _host_spans(events, "serving", "decode.step"):
+            for tid in e.get("args", {}).get("trace_ids", ()):
+                shared[tid] = shared.get(tid, 0) + 1
+        for i, tr in enumerate(traces):
+            rode = len(traced["tokens"][i]) - 1
+            if queued.count(tr.trace_id) != 1 or \
+                    shared.get(tr.trace_id) != rode:
+                failures.append(
+                    "stream %d's trace is on %d queued spans and %s steps, "
+                    "want 1 and %d" % (i, queued.count(tr.trace_id),
+                                       shared.get(tr.trace_id), rode))
+
+        # gate 4: the kernel's device events against its launch counter
+        cat, part = kernel_event
+        seen = _event_counts(events, {"flash": (part,)}, cat)["flash"]
+        if seen != traced["launches"] or seen == 0:
+            failures.append("the dump holds %d %s events of %r, the flash "
+                            "counter rose by %d" % (seen, cat, part,
+                                                    traced["launches"]))
+
+        # gate 5: the gauges against stats()
+        st = traced["stats"]
+        gauges = {"kv_bytes": samples.get("kv_bytes"),
+                  "decode_tokens_total": rose,
+                  "decode_spec_accept_rate": samples.get(
+                      "decode_spec_accept_rate"),
+                  "decode_tokens_per_step": samples.get(
+                      "decode_tokens_per_step")}
+        stated = {"kv_bytes": st["kv_bytes"],
+                  "decode_tokens_total": sum(len(t) for t in
+                                             traced["tokens"]),
+                  "decode_spec_accept_rate": st["decode_spec_accept_rate"],
+                  "decode_tokens_per_step": st["decode_tokens_per_step"]}
+        if gauges != stated:
+            failures.append("gauges %s, stats %s" % (gauges, stated))
+
+        # gate 6: a deadline miss writes one flight bundle
+        deadline = _deadline_bundle(gen, model, cfg, serve,
+                                    min(prompts, key=len), work)
+        if failures:
+            raise RuntimeError("serve_trace: " + "; ".join(failures))
+
+        step_ms = {name: run["decode_ms_per_step"]
+                   for name, run in runs.items()}
+        off_ms = (step_ms["off"] + step_ms["off_again"]) / 2
+        on_ms = (step_ms["spans"] + step_ms["spans_again"]) / 2
+        span_ms = [e["dur"] / 1e3 for e in
+                   _host_spans(events, "serving", "decode.step")]
+        result.update({
+            "tokens_equal": True, "paths": paths, "spans": counts,
+            "trace_ids_fan_out": True,
+            "flash_events": seen, "flash_launches": traced["launches"],
+            "kernel_event": list(kernel_event),
+            "dump_events": len(events),
+            "gauges": gauges,
+            "deadline": deadline,
+            "step_ms": step_ms,
+            "span_overhead_us": (on_ms - off_ms) * 1e3,
+            "profiled_overhead_us": (step_ms["profiled"] - off_ms) * 1e3,
+            "span_overhead_predicted_us": SPAN_OVERHEAD_PREDICTED_US,
+            "decode_step_span_ms_median": {
+                "profiled": float(np.median(span_ms)),
+                "spans": float(np.median(runs["spans"]["step_spans_ms"])),
+                "spans_again": float(np.median(
+                    runs["spans_again"]["step_spans_ms"]))},
+            "off_spread_us": abs(step_ms["off"] - step_ms["off_again"])
+            * 1e3,
+            "events_per_step": runs["spans"]["events"]
+            / runs["spans"]["stats"]["steps"],
+            "span_host_us": _span_cost_us(telemetry)})
+        del model
+
+        # the train and resnet runs under the profiler (printed only)
+        counters = _counters()
+        profiled = {"train": _profiled_launches(
+            torch, lambda: _train_run(torch, cfg, train, device, seed, True,
+                                      on_card, counters),
+            counters, TRAIN_EVENTS, work, "train", on_card)}
+        rcounters = _resnet_counters()
+
+        def resnet_epoch():
+            mod, it, init = resnet_setup(resnet, resnet["batch"],
+                                         resnet["batches"], device, seed,
+                                         compute_dtype=resnet["dtype"])
+            mod.fit(it, **fit_args(resnet, init))
+            if on_card:
+                torch.cuda.synchronize()
+
+        profiled["resnet"] = _profiled_launches(
+            torch, resnet_epoch, rcounters, RESNET_EVENTS, work, "resnet",
+            on_card)
+        result["profiled_runs"] = profiled
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    result["seconds"] = time.monotonic() - t0
+    emit(result)
+    return sum(run["launches"] for run in runs.values())
 
 
 def _counters():
@@ -3745,6 +4198,7 @@ def main():
     serve_launches, serve_tokens = phase_serve()
     paged_launches = phase_serve_paged(eager_tokens=serve_tokens)
     spec_launches = phase_serve_spec()
+    trace_launches = phase_serve_trace()
     train = phase_train()
     resnet = phase_resnet()
     lstm = phase_lstm()
@@ -3755,10 +4209,11 @@ def main():
         "name": "flash_attention_fwd", "route": "cuda", "source": FA_SRC,
         "replaces": FA_REPLACES,
         "launches": serve_launches + paged_launches + spec_launches
-        + train["flash_attention_fwd"],
+        + trace_launches + train["flash_attention_fwd"],
         "launches_by_phase": {"serve": serve_launches,
                               "serve_paged": paged_launches,
                               "serve_spec": spec_launches,
+                              "serve_trace": trace_launches,
                               "train": train["flash_attention_fwd"]},
         "max_abs_err": max(worst.values()), "max_err": worst,
         "dtype": "float32", "shape": t["shape"], "ms": t["ms"],

@@ -30,11 +30,14 @@ caller's grid and block; and the bucketed recurrent LM as MXNet's
 dropout, ``rnn.BucketSentenceIter``, ``module.BucketingModule``, and the
 checkpoints (``nd.save`` / ``nd.load``, symbol JSON, optimizer states,
 ``Module.save_checkpoint`` / ``Module.load``) in the JAX package's files,
-and the reference's through ``interop``.
+and the reference's through ``interop``; and ``telemetry`` (spans, the
+metrics registry, trace context, the flight recorder) with ``profiler``,
+whose dump puts the host spans and the card's kernels on one timeline.
 """
 from . import (autograd, base, callback, context, engine, executor,
                initializer, interop, io, metric, model, models, module,
-               ndarray, operator, optimizer, random, rnn, rtc, symbol)
+               ndarray, operator, optimizer, profiler, random, rnn, rtc,
+               symbol, telemetry)
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
@@ -46,5 +49,5 @@ __version__ = "0.9.5-torch.5"
 __all__ = ["MXNetError", "autograd", "base", "callback", "context", "cpu",
            "default_device", "engine", "executor", "gpu", "initializer",
            "interop", "io", "metric", "mod", "model", "models", "module",
-           "nd", "ndarray", "operator", "optimizer", "random", "rnn", "rtc",
-           "sym", "symbol"]
+           "nd", "ndarray", "operator", "optimizer", "profiler", "random",
+           "rnn", "rtc", "sym", "symbol", "telemetry"]

@@ -18,6 +18,12 @@ variable a path): ``async_write=True`` returns at once and the write
 overlaps training; a reader waits with :func:`wait_for_file`, and a failed
 write raises there or at the next file write. The native engine,
 capture/replay and trace-and-fuse are not ported yet.
+
+Telemetry (domain ``engine``, as the reference's): each op runs inside a
+span named for the op, with its queue wait (``queue_us``, push to start)
+and its variable lists; :func:`wait_for_all` and :meth:`Fence.wait` are
+spans of their own; the registry's ``engine_pending_ops`` gauge reads
+the queue's depth and never creates an engine.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import threading
 import traceback
 from typing import Optional, Sequence
 
+from . import telemetry as _telemetry
 from .base import MXNetError
 
 
@@ -52,6 +59,23 @@ class PythonEngine:
             finally:
                 self._queue.task_done()
 
+    @staticmethod
+    def _traced(fn, name, const_vars, mutable_vars):
+        """``fn`` inside its engine-domain span, or ``fn`` itself when the
+        domain is off at push time (the span's queue wait starts there)."""
+        if not _telemetry.enabled("engine"):
+            return fn
+        t_q = _telemetry.clock_ns()
+        const_vars, mutable_vars = list(const_vars), list(mutable_vars)
+
+        def run():
+            with _telemetry.span(
+                    name, domain="engine",
+                    queue_us=(_telemetry.clock_ns() - t_q) // 1000,
+                    const_vars=const_vars, mutable_vars=mutable_vars):
+                fn()
+        return run
+
     def new_variable(self) -> int:
         with self._var_lock:
             self._next += 1
@@ -62,6 +86,7 @@ class PythonEngine:
 
     def push(self, fn, const_vars=(), mutable_vars=(), priority=0,
              name="op"):
+        fn = self._traced(fn, name, const_vars, mutable_vars)
         if self._queue is not None:
             self._queue.put(fn)
             return
@@ -79,6 +104,10 @@ class PythonEngine:
     def wait_for_all(self):
         if self._queue is not None:
             self._queue.join()
+
+    def pending(self) -> int:
+        """Ops queued or running."""
+        return self._queue.unfinished_tasks if self._queue is not None else 0
 
 
 _engine: Optional[PythonEngine] = None
@@ -118,7 +147,8 @@ def wait_for_var(var):
 
 
 def wait_for_all():
-    get().wait_for_all()
+    with _telemetry.span("engine.wait_for_all", domain="engine"):
+        get().wait_for_all()
 
 
 class Fence:
@@ -135,7 +165,10 @@ class Fence:
 
     def wait(self, timeout: Optional[float] = None) -> "Fence":
         """Block for the barrier; raises MXNetError on timeout."""
-        if not self._event.wait(timeout):
+        with _telemetry.span("engine.fence.wait", domain="engine",
+                             n_vars=self.n_vars):
+            reached = self._event.wait(timeout)
+        if not reached:
             raise MXNetError(
                 "engine fence over %d var(s) not reached after %.3fs"
                 % (self.n_vars, timeout))
@@ -206,3 +239,11 @@ def wait_for_file(path: str):
         err = _file_errs.pop(apath, None)
     if err is not None:
         raise err
+
+
+# queue depth for the metrics registry: the callback reads the module
+# global at scrape time and never creates an engine itself
+_telemetry.registry.gauge(
+    "engine_pending_ops",
+    fn=lambda: _engine.pending() if _engine is not None else 0,
+    help="ops queued or running on the host dependency engine")

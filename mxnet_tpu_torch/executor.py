@@ -35,6 +35,18 @@ a step does. A captured step registers that generator with its graph:
 the warm-up calls draw eagerly, the capture draws nothing, and each replay
 draws from the offset the eager step would have reached, so captured and
 eager steps equal each other bit for bit and no mask repeats.
+
+Telemetry (domain ``executor``, the reference's names): ``forward`` and
+``backward`` run inside ``executor.forward`` / ``executor.backward``
+spans, and each call of a train step inside ``executor.train_step``: the
+host side of the eager step or of the graph's replay, never inside what
+is captured. A train step's first call sets the ``train_param_bytes`` /
+``train_grad_bytes`` / ``train_opt_bytes`` gauges (``stage="0"``: one
+device, nothing sharded) from its tensors' sizes, with no device read.
+One divergence: the reference's training ``backward`` is one fused
+forward-and-backward program, so its ``Module.fit`` records no
+``executor.forward`` for a training batch; the port's training forward
+is its own graph run and records one.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ import numpy as np
 import torch
 
 from . import random as _random
+from . import telemetry as _telemetry
 from .base import MXNetError
 from .context import resolve_device
 from .ndarray import NDArray, _as_torch_dtype
@@ -196,22 +209,24 @@ class Executor:
                 self.arg_dict[k][:] = v
         self._pending = None
         aux_values = {n: a._data for n, a in self.aux_dict.items()}
-        if is_train:
-            leaves = {n: a._data.detach().requires_grad_()
-                      for n, a in self.arg_dict.items()
-                      if self.grad_req[n] != "null"}
-            values = {n: leaves.get(n, a._data)
-                      for n, a in self.arg_dict.items()}
-            with torch.enable_grad():
-                outs, aux_up = self._run_graph(values, aux_values, True)
-            self._pending = (leaves, outs)
-            with torch.no_grad():
-                for n, v in aux_up.items():
-                    self.aux_dict[n]._data.copy_(v)
-        else:
-            values = {n: a._data for n, a in self.arg_dict.items()}
-            with torch.no_grad():
-                outs, _ = self._run_graph(values, aux_values, False)
+        with _telemetry.span("executor.forward", domain="executor",
+                             is_train=bool(is_train)):
+            if is_train:
+                leaves = {n: a._data.detach().requires_grad_()
+                          for n, a in self.arg_dict.items()
+                          if self.grad_req[n] != "null"}
+                values = {n: leaves.get(n, a._data)
+                          for n, a in self.arg_dict.items()}
+                with torch.enable_grad():
+                    outs, aux_up = self._run_graph(values, aux_values, True)
+                self._pending = (leaves, outs)
+                with torch.no_grad():
+                    for n, v in aux_up.items():
+                        self.aux_dict[n]._data.copy_(v)
+            else:
+                values = {n: a._data for n, a in self.arg_dict.items()}
+                with torch.no_grad():
+                    outs, _ = self._run_graph(values, aux_values, False)
         self.outputs = [NDArray(o.detach()) for o in outs]
         return self.outputs
 
@@ -232,20 +247,21 @@ class Executor:
         pairs = [(o, h) for o, h in zip(outs, heads) if o.requires_grad]
         names = list(leaves)
         grads = [None] * len(names)
-        if pairs and names:
-            grads = torch.autograd.grad(
-                [o for o, _ in pairs], [leaves[n] for n in names],
-                [h for _, h in pairs], allow_unused=True)
-        with torch.no_grad():
-            for n, g in zip(names, grads):
-                buf = self.grad_dict[n]._data
-                if self.grad_req[n] == "add":
-                    if g is not None:
-                        buf.add_(g)
-                elif g is None:
-                    buf.zero_()
-                else:
-                    buf.copy_(g)
+        with _telemetry.span("executor.backward", domain="executor"):
+            if pairs and names:
+                grads = torch.autograd.grad(
+                    [o for o, _ in pairs], [leaves[n] for n in names],
+                    [h for _, h in pairs], allow_unused=True)
+            with torch.no_grad():
+                for n, g in zip(names, grads):
+                    buf = self.grad_dict[n]._data
+                    if self.grad_req[n] == "add":
+                        if g is not None:
+                            buf.add_(g)
+                    elif g is None:
+                        buf.zero_()
+                    else:
+                        buf.copy_(g)
         return self.outputs
 
     def forward_backward(self, out_grads=None, **kwargs):
@@ -410,6 +426,7 @@ class _TrainStep:
         self.captures = 0
         self.replays = 0
         self.eager_calls = 0
+        self._gauges_set = False
 
     def stats(self):
         return {"path": "captured" if self._use_graph else "eager",
@@ -556,7 +573,34 @@ class _TrainStep:
         self.replays += 1
         return [o.clone() for o in self._graph_outs]
 
+    def _set_gauges(self):
+        """The reference's per-device byte gauges at ZeRO stage 0 (one
+        device, nothing sharded): the parameters, their gradients (as
+        many bytes) and the optimizer states, from the tensors' sizes."""
+        pb = sum(t.numel() * t.element_size() for t in self._params.values())
+        ob = sum(t.numel() * t.element_size() for t in self._states[0]
+                 if isinstance(t, torch.Tensor))
+        lbl = {"stage": "0"}
+        reg = _telemetry.registry
+        reg.gauge("train_param_bytes", labels=lbl,
+                  help="per-chip parameter bytes held through one train "
+                       "step (layout-implied)").set(pb)
+        reg.gauge("train_grad_bytes", labels=lbl,
+                  help="per-chip gradient bytes at the reduction "
+                       "boundary (layout-implied)").set(pb)
+        reg.gauge("train_opt_bytes", labels=lbl,
+                  help="per-chip optimizer-state bytes at rest "
+                       "(measured)").set(ob)
+        self._gauges_set = True
+
     def __call__(self, params, states, data_values=None, *extra):
+        # the host side of one step: the eager step, or the copy-in and
+        # the graph's replay (never inside the captured body)
+        with _telemetry.span("executor.train_step", domain="executor",
+                             chain=self._chain, sharded=False, stage=0):
+            return self._call(params, states, data_values, *extra)
+
+    def _call(self, params, states, data_values, *extra):
         exe = self._exe
         for n, v in (data_values or {}).items():
             if n not in self._data_names:
@@ -564,6 +608,8 @@ class _TrainStep:
                                  "argument of the graph" % n)
             exe.arg_dict[n][:] = v
         extra = self._own(params, states, extra)
+        if not self._gauges_set:
+            self._set_gauges()
         if self._use_graph:
             key = self._key_of(extra)
             if key != self._key:

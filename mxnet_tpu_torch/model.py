@@ -6,7 +6,13 @@ the kvstore policy ``_create_kvstore`` and the local update
 ``_update_params``, and the checkpoints ``save_checkpoint`` /
 ``load_checkpoint`` (the symbol's JSON and an ``nd.save`` blob of
 ``arg:`` / ``aux:`` arrays, readable by the JAX package). kvstores and
-``FeedForward`` are not ported: a kvstore that would exist raises.
+``FeedForward`` are not ported: a kvstore that would exist raises (the
+reference's ``model.update_params_on_kvstore`` span comes with them).
+
+Telemetry (domain ``executor``): the update runs inside a
+``model.update_params`` span, and a checkpoint's host snapshot inside
+``model.checkpoint_snapshot`` (the blob's write is an engine op with a
+span of its own).
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from collections import namedtuple
 from . import engine
 from . import ndarray as nd
 from . import symbol as sym_mod
+from . import telemetry
 from .base import MXNetError
 
 BatchEndParam = namedtuple("BatchEndParams",
@@ -43,14 +50,16 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
     without a gradient array (fixed) are skipped."""
     if kvstore is not None:
         raise MXNetError("updates through a kvstore are not ported")
-    pairs = []
-    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
-                                                      grad_arrays)):
-        if grad_list[0] is None:
-            continue
-        for k, (w, g) in enumerate(zip(arg_list, grad_list)):
-            pairs.append((index * num_device + k, g, w))
-    updater.update_all(pairs)
+    with telemetry.span("model.update_params", domain="executor",
+                        n_params=len(param_arrays)):
+        pairs = []
+        for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                          grad_arrays)):
+            if grad_list[0] is None:
+                continue
+            for k, (w, g) in enumerate(zip(arg_list, grad_list)):
+                pairs.append((index * num_device + k, g, w))
+        updater.update_all(pairs)
 
 
 def split_param_dict(save_dict, fname="params"):
@@ -67,16 +76,23 @@ def split_param_dict(save_dict, fname="params"):
     return arg_params, aux_params
 
 
-def write_params(fname, arg_params, aux_params, async_write=False,
-                 name="checkpoint_write"):
-    """Write ``fname`` as ``nd.save`` of the ``arg:`` / ``aux:`` dict,
-    atomically (a temporary file, then ``os.replace``), through
-    ``engine.push_file_write``. The arrays are copied to the host first,
-    so an asynchronous write holds the values of the call."""
-    save_dict = {"%s:%s" % (kind, k): nd.NDArray(
+def _snapshot(arg_params, aux_params):
+    """The ``arg:`` / ``aux:`` dict of host copies of the arrays."""
+    return {"%s:%s" % (kind, k): nd.NDArray(
         v._data.detach().to("cpu", copy=True))
         for kind, params in (("arg", arg_params), ("aux", aux_params))
         for k, v in params.items()}
+
+
+def write_params(fname, arg_params, aux_params, async_write=False,
+                 name="checkpoint_write", save_dict=None):
+    """Write ``fname`` as ``nd.save`` of the ``arg:`` / ``aux:`` dict,
+    atomically (a temporary file, then ``os.replace``), through
+    ``engine.push_file_write``. The arrays are copied to the host first
+    (or ``save_dict`` holds those copies), so an asynchronous write holds
+    the values of the call."""
+    if save_dict is None:
+        save_dict = _snapshot(arg_params, aux_params)
 
     def _write():
         nd.save(fname + ".tmp", save_dict)
@@ -93,7 +109,11 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
     if symbol is not None:
         symbol.save("%s-symbol.json" % prefix)
     param_name = "%s-%04d.params" % (prefix, epoch)
-    write_params(param_name, arg_params, aux_params, async_write)
+    with telemetry.span("model.checkpoint_snapshot", domain="executor",
+                        epoch=epoch, n_params=len(arg_params)):
+        save_dict = _snapshot(arg_params, aux_params)
+    write_params(param_name, arg_params, aux_params, async_write,
+                 save_dict=save_dict)
     logging.info("Saved checkpoint to \"%s\"%s", param_name,
                  " (async)" if async_write else "")
 

@@ -32,14 +32,25 @@ def _symmetric_dtype(out_type: str) -> torch.dtype:
                      % (out_type,))
 
 
+def true_divide(num, den):
+    """``num / den`` as a division of two tensors, either of which may be
+    given as a Python number. PyTorch divides a CUDA tensor by a Python
+    number as a product with the number's reciprocal (one ulp off for
+    about one value in twenty), and a Python number by any tensor as the
+    tensor's reciprocal times the number, on every device; the reference
+    divides. A number is made a tensor like the other operand first, so
+    the card and the CPU both divide."""
+    if not isinstance(num, torch.Tensor):
+        num = torch.full_like(den, num)
+    elif not isinstance(den, torch.Tensor):
+        den = torch.full_like(num, den)
+    return num / den
+
+
 def symmetric_scale(amax, qmax: float):
-    """``max(amax, 1e-12) / qmax`` in f32, a true division on every device.
-    PyTorch divides a CUDA tensor by a Python number as a product with
-    the number's reciprocal, which lands one ulp off for about one value in
-    twenty; a divisor tensor keeps the card's scales equal to the CPU's and
-    the reference's ``amax / qmax``."""
-    a = torch.clamp(amax, min=1e-12).to(torch.float32)
-    return a / torch.full_like(a, qmax)
+    """``max(amax, 1e-12) / qmax`` in f32, a true division on every device
+    (:func:`true_divide`), equal to the reference's ``amax / qmax``."""
+    return true_divide(torch.clamp(amax, min=1e-12).to(torch.float32), qmax)
 
 
 def quantize_symmetric(data, out_type: str = "int8", axis=None):
@@ -84,7 +95,7 @@ def _quantize(attrs, data, min_range, max_range):
         qmax = SYMMETRIC_QMAX[out_type]
         return q, -scale * qmax, scale * qmax
     qmax = 255.0
-    scale = qmax / (max_range - min_range)
+    scale = true_divide(qmax, max_range - min_range)
     q = torch.clamp(torch.round((data - min_range) * scale), 0, qmax)
     return q.to(torch.uint8), min_range, max_range
 
@@ -98,6 +109,6 @@ def _dequantize(attrs, data, min_range, max_range):
     if data.dtype in (torch.int8, torch.float8_e4m3fn):
         qmax = SYMMETRIC_QMAX["int8" if data.dtype == torch.int8
                               else "fp8_e4m3"]
-        return dequantize_symmetric(data, max_range / qmax)
-    scale = (max_range - min_range) / 255.0
+        return dequantize_symmetric(data, true_divide(max_range, qmax))
+    scale = true_divide(max_range - min_range, 255.0)
     return data.to(torch.float32) * scale + min_range

@@ -237,8 +237,15 @@ alias("SliceChannel", "split")
 def _embedding(attrs, data, weight):
     """Table lookup. The ids (float, as the reference feeds them) are cast
     to int64, so ``data`` gets no gradient; the weight's gradient is the
-    scatter-add of the output gradient at the ids."""
-    return torch.nn.functional.embedding(data.long(), weight)
+    scatter-add of the output gradient at the ids. Ids outside [0, n)
+    follow the JAX package's ``jnp.take``: -n <= i < 0 reads row n + i,
+    and any other id a NaN row, whose gradient reaches no row."""
+    n = weight.shape[0]
+    ids = data.long()
+    ids = torch.where(ids < 0, ids + n, ids)
+    inside = (ids >= 0) & (ids < n)
+    out = torch.nn.functional.embedding(torch.where(inside, ids, 0), weight)
+    return out.masked_fill(~inside.unsqueeze(-1), float("nan"))
 
 
 @defop("one_hot", arg_names=("indices",),

@@ -16,9 +16,9 @@ its pass over a ``DecodeModel``:
   through ``quantized_matmul`` (``serving/generate/model.py`` ``_mm``).
 
 Nothing here runs unless a config asks for it, and a model without
-``_scale`` entries computes exactly as before. The reference's gauge
-``quant_params_bytes`` belongs to its telemetry, which is not ported: the
-bytes are a plain counter here. ``QuantizedPredictor``,
+``_scale`` entries computes exactly as before. The bytes held in
+quantized weights are the registry's ``quant_params_bytes{dtype}`` gauge
+(and :func:`quant_params_bytes`). ``QuantizedPredictor``,
 ``quantize_predictor`` and ``quantizable_weights`` wait for ``predict.py``.
 """
 from __future__ import annotations
@@ -30,6 +30,7 @@ from typing import Dict, Optional
 
 import torch
 
+from . import telemetry as _telemetry
 from .base import MXNetError
 from .ops.contrib import dequantize_symmetric, quantize_symmetric
 
@@ -101,6 +102,11 @@ _params_bytes: Dict[str, int] = {}
 def _account_params_bytes(dtype: str, nbytes: int):
     with _bytes_lock:
         _params_bytes[dtype] = _params_bytes.get(dtype, 0) + int(nbytes)
+        total = _params_bytes[dtype]
+    _telemetry.registry.gauge(
+        "quant_params_bytes", labels={"dtype": dtype},
+        help="bytes held in quantized weight arrays, by target dtype"
+    ).set(total)
 
 
 def quant_params_bytes() -> Dict[str, int]:

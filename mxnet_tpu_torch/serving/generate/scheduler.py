@@ -33,9 +33,25 @@ The scheduler's ``_cond`` is never held across an engine push or fence;
 ``TokenStream._cond`` and the cache managers' ``_lock`` are leaves taken
 under it.
 
-Not ported: telemetry spans and gauges, the flight recorder, the
-reference's ``replicas`` (one cache per replica, for the multi-device
-``InferenceServer``) and its engine-wide capture
+Telemetry, under the reference's names (domain ``serving``): the spans
+``serving.queued`` (submit to admission), ``decode.prefill`` (with
+``decode.cow_fork`` inside a paged prefill that forks), ``serving.dispatch``
+(push to first token) and, a scheduler step, ``decode.step`` with every
+co-resident stream's ``trace_ids``. The step span runs on the engine
+worker around the step and the read of its logits, the read the step
+already waits on, so it covers the device's work; with the step captured
+it wraps the host side of the replay, never the captured body. The
+registry's counters and gauges (tokens, occupancy, KV bytes, pool blocks,
+prefix reuse, accept rate, tokens a step) are set by the scheduler loop,
+never read through a callback, so a second scheduler in the process never
+reads a dead one's values; each scheduler's ``start`` sets its own. A
+finished stream feeds ``serving_request_latency_ms`` (its trace id the
+exemplar) and the flight recorder, and a deadline miss writes a flight
+bundle. A stream's trace is the ``trace`` given to :meth:`submit`, else
+the submitting thread's ``telemetry.context.current_context()``.
+
+Not ported: the reference's ``replicas`` (one cache per replica, for the
+multi-device ``InferenceServer``) and its engine-wide capture
 (``MXNET_ENGINE_CAPTURE``, ``engine.CapturedSequence``).
 """
 from __future__ import annotations
@@ -51,7 +67,11 @@ import numpy as np
 
 from ... import engine as _engine
 from ... import quant as _quant
+from ... import telemetry as _telemetry
+from ...telemetry import context as _trace_context
+from ...telemetry import flight as _flight
 from ..batcher import ServingError
+from ..metrics import latency_histogram as _latency_histogram
 from .kv_cache import KVCacheManager
 from .model import DecodeModel
 from .paged import PagedKVCacheManager
@@ -213,6 +233,41 @@ class DecodeScheduler:
         self.step_tokens = 0      # tokens emitted by step iterations
         self.drafted_tokens = 0   # draft lanes that could be accepted
         self.accepted_tokens = 0  # draft lanes the target accepted
+        reg = _telemetry.registry
+        kv = self.kv_dtype
+        self._m_tokens = reg.counter(
+            "decode_tokens_total", help="tokens emitted by decode streams")
+        # gauges are get-or-create and process-wide: set explicitly (never
+        # fn=), so no callback outlives this scheduler
+        self._m_occ = reg.gauge(
+            "decode_batch_occupancy_pct",
+            help="decode slots occupied, % (mean over replicas)")
+        self._m_kv = reg.gauge(
+            "kv_bytes", help="bytes held in decode KV slabs")
+        self._m_kv_dtype = reg.gauge(
+            "kv_bytes", labels={"dtype": kv},
+            help="bytes held in decode KV slabs")
+        self._m_blocks_free = reg.gauge(
+            "kv_blocks_free", labels={"decode_kv_dtype": kv},
+            help="free KV blocks in the paged pool (sum over replicas)")
+        self._m_blocks_total = reg.gauge(
+            "kv_blocks_total", labels={"decode_kv_dtype": kv},
+            help="usable KV blocks in the paged pool (sum over replicas)")
+        self._m_prefix_hits = reg.counter(
+            "decode_prefix_hits_total",
+            help="admissions that reused a shared KV prefix")
+        self._m_prefix_saved = reg.counter(
+            "decode_prefix_tokens_saved_total",
+            help="prompt tokens served from shared prefix blocks "
+                 "instead of being re-prefilled")
+        self._m_accept_rate = reg.gauge(
+            "decode_spec_accept_rate",
+            help="speculative drafts accepted by the target model, "
+                 "fraction of drafted tokens (0 when spec is off)")
+        self._m_tokens_per_step = reg.gauge(
+            "decode_tokens_per_step",
+            help="tokens emitted per sequence per decode iteration "
+                 "(vanilla decode: exactly 1.0)")
 
     # --- lifecycle --------------------------------------------------------
     def start(self):
@@ -223,8 +278,20 @@ class DecodeScheduler:
         if self.config.paged:
             self.cache = PagedKVCacheManager(
                 self.programs, prefix_share=self.config.prefix_share)
+            self._m_blocks_total.set(self.cache.blocks_total())
+            self._m_blocks_free.set(self.cache.blocks_free())
         else:
             self.cache = KVCacheManager(self.programs)
+            self._m_blocks_total.set(0)
+            self._m_blocks_free.set(0)
+        kv_total = self.cache.kv_bytes()
+        self._m_kv.set(kv_total)
+        self._m_kv_dtype.set(kv_total)
+        # this scheduler's values from its start: a gauge an earlier
+        # scheduler set must not read as this one's
+        self._m_occ.set(0.0)
+        self._m_accept_rate.set(0.0)
+        self._m_tokens_per_step.set(0.0)
         self._thread = threading.Thread(target=self._loop,
                                         name="decode-scheduler", daemon=True)
         self._thread.start()
@@ -265,6 +332,7 @@ class DecodeScheduler:
             _engine.fence([self.cache.var]).wait()
             _engine.delete_variable(self.cache.var)
         self.cache = None
+        self._m_occ.set(0.0)
 
     # --- submission -------------------------------------------------------
     def submit(self, prompt: Sequence[int],
@@ -276,7 +344,9 @@ class DecodeScheduler:
                trace=None) -> TokenStream:
         """Queue one prompt. ``temperature`` 0 (default) is greedy; > 0
         samples from the softmax with a per-stream RandomState seeded by
-        ``seed``. ``request_id`` rides on the TokenStream."""
+        ``seed``. ``request_id`` rides on the TokenStream and on the
+        decode spans; ``trace`` (else the thread's current trace context)
+        stamps the stream's spans and its flight record."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ServingError("empty prompt", code="too_large")
@@ -295,7 +365,9 @@ class DecodeScheduler:
         deadline = None if timeout_ms is None \
             else time.monotonic() + timeout_ms / 1000.0
         stream = TokenStream(len(prompt), max_new, deadline,
-                             request_id=request_id, trace=trace)
+                             request_id=request_id,
+                             trace=(trace if trace is not None else
+                                    _trace_context.current_context()))
         temperature = float(temperature)
         rng = np.random.RandomState(seed) if temperature > 0.0 else None
         with self._cond:
@@ -326,6 +398,16 @@ class DecodeScheduler:
             self._expire_and_cancel()
             self._admit_waiting()
             self._step_all()
+            cache = self.cache
+            self._m_occ.set(cache.occupancy_pct())
+            if self.config.paged:
+                self._m_blocks_free.set(cache.blocks_free())
+            if self.seq_steps:
+                self._m_tokens_per_step.set(
+                    self.step_tokens / self.seq_steps)
+            if self.drafted_tokens:
+                self._m_accept_rate.set(
+                    self.accepted_tokens / self.drafted_tokens)
 
     def _expire_and_cancel(self):
         now = time.monotonic()
@@ -344,9 +426,12 @@ class DecodeScheduler:
             self._queue = keep
         for s in cancelled:
             s._finish("cancelled")
+            self._stream_end(s, ok=True, code="cancelled")
         for s in expired:
             s._fail(ServingError("expired before a decode slot freed",
                                  code="deadline_exceeded"))
+            self._stream_end(s, ok=False, code="deadline_exceeded",
+                             queued=True)
         # active sequences: retire cancelled/expired before the next step
         for a in list(self._active.values()):
             if a.stream.cancelled:
@@ -356,6 +441,31 @@ class DecodeScheduler:
                     "deadline exceeded mid-stream",
                     code="deadline_exceeded"))
 
+    def _stream_end(self, stream: TokenStream, ok: bool,
+                    code: Optional[str] = None, queued: bool = False):
+        """Observability tail of one finished stream: the registry's
+        latency histogram (the trace id its exemplar), the flight
+        recorder's completed-request ring, and the deadline-miss bundle.
+        Called with no scheduler lock held."""
+        lat_ms = (time.monotonic() - stream.submitted) * 1e3
+        tr = stream.trace
+        if queued and tr is not None and _telemetry.enabled("serving"):
+            # a stream that died waiting never got its queued span: stamp
+            # one now, so its flight timeline is whole
+            _telemetry.complete("serving.queued", domain="serving",
+                                start_ns=int(stream.submitted * 1e9),
+                                tokens=stream.prompt_len, error=code,
+                                **tr.child().stamps())
+        if ok:
+            _latency_histogram().observe(
+                lat_ms, exemplar=tr.trace_id if tr is not None else None)
+        _flight.request_end(tr, ok=ok, code=code, latency_ms=lat_ms,
+                            kind="generate", request_id=stream.request_id)
+        if code == "deadline_exceeded":
+            _flight.on_anomaly("deadline_miss", tr,
+                               request_id=stream.request_id,
+                               latency_ms=lat_ms, kind="generate")
+
     def _retire(self, a: _Active, reason: Optional[str] = None,
                 error: Optional[ServingError] = None):
         self.cache.free(a.slot)
@@ -363,8 +473,10 @@ class DecodeScheduler:
             self._active.pop(a.slot, None)
         if error is not None:
             a.stream._fail(error)
+            self._stream_end(a.stream, ok=False, code=error.code)
         else:
             a.stream._finish(reason or "eos")
+            self._stream_end(a.stream, ok=True, code=reason or "eos")
 
     def _admit_waiting(self):
         """Prefill waiting prompts into free slots (unpaged) / free blocks
@@ -372,8 +484,11 @@ class DecodeScheduler:
         slot insert; paged: the one paged prefill, which may run only the
         suffix after a shared prefix and fork a shared boundary block
         first), fenced as a group so fresh sequences join the very next
-        step."""
-        admitted = []         # (active, holder)
+        step. A traced stream's ``serving.queued`` span closes here; its
+        ``serving.dispatch`` span runs from the push to its first token,
+        the parent of the ``decode.prefill`` span the engine worker
+        records."""
+        admitted = []         # (active, holder, dispatch context, push ns)
         cache = self.cache
         while True:
             with self._cond:
@@ -388,31 +503,51 @@ class DecodeScheduler:
             # build the bucket's prefill program here (scheduler thread)
             # so the engine op never mutates the program dict
             self.programs.ensure_prefill(len(plan.suffix))
+            if plan.ctx_len:
+                self._m_prefix_hits.inc()
+                self._m_prefix_saved.inc(plan.ctx_len)
+            tr = stream.trace
+            dctx, stamps = None, {"request_id": stream.request_id}
+            if tr is not None and _telemetry.enabled("serving"):
+                _telemetry.complete("serving.queued", domain="serving",
+                                    start_ns=int(stream.submitted * 1e9),
+                                    tokens=len(prompt),
+                                    **tr.child().stamps())
+                dctx = tr.child()
+                stamps = dctx.child().stamps()
             holder: Dict[str, object] = {}
             admitted.append((_Active(stream, plan.slot, 0, 0,
-                                     temperature=temp, rng=rng), holder))
+                                     temperature=temp, rng=rng), holder,
+                             dctx, _telemetry.clock_ns()))
 
-            def op(plan=plan, holder=holder):
+            def op(plan=plan, holder=holder, stamps=stamps):
                 progs = self.programs
+                args = dict(tokens=len(plan.suffix), **stamps)
+                if self.config.paged:
+                    args["reused"] = plan.ctx_len
                 try:
-                    if self.config.paged:
-                        last = progs.paged_prefill(
-                            cache.k_slab, cache.v_slab, plan.table,
-                            plan.ctx_len, plan.suffix, plan.fork_src,
-                            plan.fork_dst, ks_slab=cache.k_scale,
-                            vs_slab=cache.v_scale)
-                    else:
-                        last, *kv_new = progs.prefill(plan.suffix)
-                        if len(kv_new) == 4:    # int8 KV: + scale rows
-                            progs.admit(cache.k_slab, cache.v_slab,
-                                        kv_new[0], kv_new[1], plan.slot,
-                                        ks_slab=cache.k_scale,
-                                        vs_slab=cache.v_scale,
-                                        ks_new=kv_new[2], vs_new=kv_new[3])
+                    with _telemetry.span("decode.prefill", domain="serving",
+                                         **args):
+                        if not self.config.paged:
+                            last, *kv_new = progs.prefill(plan.suffix)
+                            if len(kv_new) == 4:    # int8 KV: + scale rows
+                                progs.admit(cache.k_slab, cache.v_slab,
+                                            kv_new[0], kv_new[1], plan.slot,
+                                            ks_slab=cache.k_scale,
+                                            vs_slab=cache.v_scale,
+                                            ks_new=kv_new[2],
+                                            vs_new=kv_new[3])
+                            else:
+                                progs.admit(cache.k_slab, cache.v_slab,
+                                            kv_new[0], kv_new[1], plan.slot)
+                        elif plan.forked:
+                            with _telemetry.span(
+                                    "decode.cow_fork", domain="serving",
+                                    src=plan.fork_src, dst=plan.fork_dst):
+                                last = self._paged_prefill(plan)
                         else:
-                            progs.admit(cache.k_slab, cache.v_slab,
-                                        kv_new[0], kv_new[1], plan.slot)
-                    holder["logits"] = last.float().cpu().numpy()
+                            last = self._paged_prefill(plan)
+                        holder["logits"] = last.float().cpu().numpy()
                 except Exception as e:      # noqa: BLE001 — reported below
                     holder["error"] = e
 
@@ -420,17 +555,32 @@ class DecodeScheduler:
         if not admitted:
             return
         _engine.fence([cache.var]).wait()
-        for a, holder in admitted:
+        for a, holder, dctx, t0 in admitted:
             err = holder.get("error")
             if err is not None:
                 cache.free(a.slot)
                 a.stream._fail(ServingError(
                     "prefill failed: %s" % err, code="dispatch_error"))
+                self._stream_end(a.stream, ok=False, code="dispatch_error")
                 continue
+            if dctx is not None:
+                _telemetry.complete("serving.dispatch", domain="serving",
+                                    start_ns=t0, kind="prefill", replica=0,
+                                    **dctx.stamps())
             with self._cond:
                 self._active[a.slot] = a
             self._emit(a, sample_token(holder["logits"], a.temperature,
                                        a.rng))
+
+    def _paged_prefill(self, plan):
+        """The paged prefill of ``plan`` (engine worker): the copy-on-write
+        fork, attention over the cached prefix and the suffix's scatter,
+        in place; returns the last position's logits."""
+        cache = self.cache
+        return self.programs.paged_prefill(
+            cache.k_slab, cache.v_slab, plan.table, plan.ctx_len,
+            plan.suffix, plan.fork_src, plan.fork_dst,
+            ks_slab=cache.k_scale, vs_slab=cache.v_scale)
 
     def _emit(self, a: _Active, token: int,
               length: Optional[int] = None) -> bool:
@@ -442,6 +592,7 @@ class DecodeScheduler:
         a.last_token = token
         a.generated += 1
         a.stream._emit(token)
+        self._m_tokens.inc()
         eos = self.config.eos_id
         if eos is not None and token == eos:
             self._retire(a, reason="eos")
@@ -480,19 +631,33 @@ class DecodeScheduler:
         # rows are all-trash: they write block 0 and read nothing unmasked)
         tables = cache.step_arrays()[1] if self.config.paged else None
         holder: Dict[str, object] = {}
+        # batch-level span: every co-resident stream's trace, so each
+        # request's tree shows the steps it shared
+        stamps = {}
+        if _telemetry.enabled("serving"):
+            tids = [a.stream.trace.trace_id for a in actives
+                    if a.stream.trace is not None]
+            if tids:
+                stamps = {"trace_ids": tids,
+                          "span_id": _trace_context.mint_span_id()}
 
         def op():
             scales = {"ks_slab": cache.k_scale, "vs_slab": cache.v_scale}
             try:
-                if tables is not None:
-                    logits = self.programs.decode(
-                        cache.k_slab, cache.v_slab, tables, lengths, tokens,
-                        **scales)
-                else:
-                    logits = self.programs.decode(
-                        cache.k_slab, cache.v_slab, lengths, tokens,
-                        **scales)
-                holder["logits"] = logits.float().cpu().numpy()
+                # the host side of the step (a replay, when captured) and
+                # the read of its logits, which waits for the card
+                with _telemetry.span("decode.step", domain="serving",
+                                     rows=int((lengths > 0).sum()),
+                                     **stamps):
+                    if tables is not None:
+                        logits = self.programs.decode(
+                            cache.k_slab, cache.v_slab, tables, lengths,
+                            tokens, **scales)
+                    else:
+                        logits = self.programs.decode(
+                            cache.k_slab, cache.v_slab, lengths, tokens,
+                            **scales)
+                    holder["logits"] = logits.float().cpu().numpy()
             except Exception as e:      # noqa: BLE001 — reported below
                 holder["error"] = e
 

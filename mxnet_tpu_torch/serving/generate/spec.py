@@ -21,8 +21,12 @@ keeps acceptance inside capacity and, paged, inside the admission
 reservation, so no stream allocates a block mid-stream.
 
 One engine op an iteration runs the k draft steps, the verify and the
-acceptance; the scheduler fences it, then truncates and emits. The
-reference's replicas, telemetry spans and engine capture are not ported.
+acceptance; the scheduler fences it, then truncates and emits. The op
+runs inside the iteration's ``decode.step`` span (``spec=k``), the draft
+steps inside ``decode.draft`` and the verify inside ``decode.verify``
+(domain ``serving``, the reference's names), each around the host side of
+its calls and the reads of their logits. The reference's replicas and
+engine capture are not ported.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from ... import engine as _engine
+from ... import telemetry as _telemetry
 from ..batcher import ServingError
 
 
@@ -148,8 +153,10 @@ class SpecDecoder:
 
         def op():
             try:
-                holder["res"] = self._speculate(cache, n0, t0, keff, tables,
-                                                samplers, active)
+                with _telemetry.span("decode.step", domain="serving",
+                                     rows=int(active.sum()), spec=k):
+                    holder["res"] = self._speculate(cache, n0, t0, keff,
+                                                    tables, samplers, active)
             except Exception as e:      # noqa: BLE001 — reported below
                 holder["error"] = e
 
@@ -192,35 +199,37 @@ class SpecDecoder:
         wtok[:, 0] = t0
         qprobs: Dict[Tuple[int, int], np.ndarray] = {}
         cur = t0.copy()
-        for j in range(k):
-            # a row near capacity parks its tail drafts on the last
-            # position (the verify rewrites it; keff keeps anything
-            # accepted below capacity)
-            lens_j = np.where(active, np.minimum(n0 + j, cap - 1), 0)
-            if tables is not None:
-                out = programs.decode(cache.k_slab, cache.v_slab, tables,
-                                      lens_j, cur, **scales)
-            else:
-                out = programs.decode(cache.k_slab, cache.v_slab, lens_j,
-                                      cur, **scales)
-            logits = _logits_np(out)
-            cur = logits.argmax(axis=-1).astype(np.int64)
-            for slot, (temp, rng) in sorted(samplers.items()):
-                # draw only for lanes the row can accept: the others stay
-                # argmax, so the stream's generator does not drift
-                if j < int(keff[slot]):
-                    q = _softmax64(logits[slot], temp)
-                    qprobs[(slot, j)] = q
-                    cur[slot] = _draw(q, rng)
-            wtok[:, j + 1] = cur
+        with _telemetry.span("decode.draft", domain="serving", k=k):
+            for j in range(k):
+                # a row near capacity parks its tail drafts on the last
+                # position (the verify rewrites it; keff keeps anything
+                # accepted below capacity)
+                lens_j = np.where(active, np.minimum(n0 + j, cap - 1), 0)
+                if tables is not None:
+                    out = programs.decode(cache.k_slab, cache.v_slab,
+                                          tables, lens_j, cur, **scales)
+                else:
+                    out = programs.decode(cache.k_slab, cache.v_slab,
+                                          lens_j, cur, **scales)
+                logits = _logits_np(out)
+                cur = logits.argmax(axis=-1).astype(np.int64)
+                for slot, (temp, rng) in sorted(samplers.items()):
+                    # draw only for lanes the row can accept: the others
+                    # stay argmax, so the stream's generator does not drift
+                    if j < int(keff[slot]):
+                        q = _softmax64(logits[slot], temp)
+                        qprobs[(slot, j)] = q
+                        cur[slot] = _draw(q, rng)
+                wtok[:, j + 1] = cur
         vlens = np.where(active, n0, 0)
-        if tables is not None:
-            out = programs.verify(cache.k_slab, cache.v_slab, tables, vlens,
-                                  wtok, **scales)
-        else:
-            out = programs.verify(cache.k_slab, cache.v_slab, vlens, wtok,
-                                  **scales)
-        vlogits = _logits_np(out)                     # (slots, W, V)
+        with _telemetry.span("decode.verify", domain="serving", window=W):
+            if tables is not None:
+                out = programs.verify(cache.k_slab, cache.v_slab, tables,
+                                      vlens, wtok, **scales)
+            else:
+                out = programs.verify(cache.k_slab, cache.v_slab, vlens,
+                                      wtok, **scales)
+            vlogits = _logits_np(out)                 # (slots, W, V)
         res: Dict[int, Tuple[int, int, int, List[int]]] = {}
         for slot in np.nonzero(active)[0]:
             slot = int(slot)

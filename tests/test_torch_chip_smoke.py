@@ -1372,3 +1372,140 @@ def test_profile_generate_arms_build_and_step_on_the_cpu(arm):
                                          TINY["vocab"])
     else:
         assert verify is None
+
+
+# the host's stand-in for the flash forward's CUDA events: its plain
+# version inside a profiler region of this name (CPU activity)
+CPU_FA_EVENT = ("user_annotation", "flash_fwd_plain")
+
+
+def _annotate_plain_flash(monkeypatch):
+    """Run the (counted) plain flash forward inside a record_function, so
+    the profiler's CPU activity holds one event a launch, as the card's
+    CUDA activity holds one kernel event a launch."""
+    import torch
+
+    plain = fa.flash_attention_plain
+
+    def annotated(*args, **kw):
+        with torch.profiler.record_function(CPU_FA_EVENT[1]):
+            return plain(*args, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention_plain", annotated)
+
+
+@pytest.fixture
+def _flight_reset():
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.telemetry import flight
+
+    flight.reset()
+    telemetry.disable_spans()
+    telemetry.reset()
+    yield
+    flight.reset()
+    telemetry.disable_spans()
+    telemetry.reset()
+
+
+def test_serve_trace_phase_on_cpu(monkeypatch, capsys, _flight_reset):
+    """Every gate of the phase on the host (the device half is the CPU
+    activity of the annotated plain flash forward), and the train and
+    resnet runs under the profiler."""
+    _count_plain_calls(monkeypatch)
+    _annotate_plain_flash(monkeypatch)
+    launches = cs.phase_serve_trace(TINY, TINY_SERVE, device="cpu",
+                                    kernel_event=CPU_FA_EVENT,
+                                    train=TINY_TRAIN, resnet=TINY_RESNET)
+    n = len(TINY_SERVE["prompt_lens"])
+    assert launches == 5 * n * TINY["layers"]
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "serve_trace" and line["tokens_equal"]
+    steps = line["paths"]["profiled"]["steps"]
+    assert line["spans"] == {"serving.queued": n, "serving.dispatch": n,
+                             "decode.prefill": n, "decode.step": steps}
+    assert line["flash_events"] == line["flash_launches"] == \
+        n * TINY["layers"]
+    assert line["gauges"]["decode_tokens_total"] == \
+        n * TINY_SERVE["max_new_tokens"]
+    assert line["gauges"]["decode_tokens_per_step"] == 1.0
+    assert line["deadline"]["trigger"] == "deadline_miss"
+    assert len(line["deadline"]["bundles"]) == 1
+    assert set(line["profiled_runs"]) == {"train", "resnet"}
+    assert set(line["profiled_runs"]["train"]) == set(cs.TRAIN_EVENTS)
+    train = line["profiled_runs"]["train"]
+    assert train["flash_attention_fwd"]["launches"] > 0
+
+
+def test_serve_trace_phase_fails_without_the_device_events(
+        monkeypatch, _flight_reset):
+    """Launches counted with no event in the device half: gate 4 must
+    refuse."""
+    _count_plain_calls(monkeypatch)
+    with pytest.raises(RuntimeError, match="the dump holds 0"):
+        cs.phase_serve_trace(TINY, TINY_SERVE, device="cpu",
+                             kernel_event=CPU_FA_EVENT, train=TINY_TRAIN,
+                             resnet=TINY_RESNET)
+
+
+def test_serve_trace_phase_refuses_a_span_inside_the_captured_step(
+        monkeypatch, _flight_reset):
+    """The control: ``decode.step`` recorded inside the captured callable
+    instead of around its replay. A captured step runs that Python at its
+    two warm-up calls and its capture only, which the host emulates here
+    (the callable's body runs unspanned from the fourth call on), so the
+    dump holds fewer step spans than steps and the phase must refuse."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serving.generate import programs
+    from mxnet_tpu_torch.serving.generate import scheduler
+
+    _count_plain_calls(monkeypatch)
+    _annotate_plain_flash(monkeypatch)
+    real_span = telemetry.span
+
+    class _NoStepSpan:
+        """The scheduler's telemetry, without its own step span."""
+
+        def __getattr__(self, name):
+            return getattr(telemetry, name)
+
+        @staticmethod
+        def span(name, domain="app", **args):
+            if name == "decode.step":
+                return telemetry.tracer._NOOP
+            return real_span(name, domain, **args)
+
+    monkeypatch.setattr(scheduler, "_telemetry", _NoStepSpan())
+    init = programs._DecodeStep.__init__
+
+    def spanned_init(self, fn, device, capture, name="decode step"):
+        calls = []
+
+        def captured_body(*args):
+            calls.append(1)
+            if len(calls) > programs.CAPTURE_WARMUP + 1:
+                return fn(*args)            # a replay runs no Python
+            with real_span("decode.step", domain="serving"):
+                return fn(*args)
+
+        init(self, captured_body, device, capture, name)
+
+    monkeypatch.setattr(programs._DecodeStep, "__init__", spanned_init)
+    with pytest.raises(RuntimeError, match=r"'decode.step': 3"):
+        cs.phase_serve_trace(TINY, TINY_SERVE, device="cpu",
+                             kernel_event=CPU_FA_EVENT, train=TINY_TRAIN,
+                             resnet=TINY_RESNET)
+
+
+def test_parse_exposition_reads_samples_and_refuses_other_text():
+    text = ("# HELP kv_bytes bytes\n# TYPE kv_bytes gauge\nkv_bytes 4096\n"
+            "# HELP h h\n# TYPE h histogram\n"
+            'h_bucket{le="1"} 2 # {trace_id="ab"} 0.5 1700000000.25\n'
+            'h_bucket{le="+Inf"} 3\nh_sum 4.5\nh_count 3\n')
+    assert cs.parse_exposition(text) == {
+        "kv_bytes": 4096.0, 'h_bucket{le="1"}': 2.0,
+        'h_bucket{le="+Inf"}': 3.0, "h_sum": 4.5, "h_count": 3.0}
+    for bad in ("kv_bytes four\n", "untyped 1\n",
+                '# TYPE x gauge\nx{le=1} 2\n'):
+        with pytest.raises(RuntimeError):
+            cs.parse_exposition(bad)

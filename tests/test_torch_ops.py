@@ -223,3 +223,21 @@ def test_nd_namespace_runs_ops_with_out_and_arithmetic():
     assert nd.array(np.arange(3), ctx="cpu").dtype == np.int64
     assert nd.array([1, 2], ctx="cpu", dtype="bfloat16").dtype == \
         torch.bfloat16
+
+
+def test_embedding_out_of_range_ids():
+    """Ids outside [0, input_dim) as the JAX package's ``jnp.take`` reads
+    them: -n <= i < 0 is row n + i, anything else a NaN row; in the
+    weight's gradient those ids add nothing and negative ones land on row
+    n + i. Exact, NaN in the same places."""
+    ids = np.array([[-4, -1, 0], [2, 3, 7]], np.float32)
+    weight = np.random.RandomState(3).randn(3, 5).astype(np.float32)
+    attrs = {"input_dim": 3, "output_dim": 5}
+    want_out, want_grad = _jax_run("Embedding", [ids, weight], attrs, [1], 9)
+    got_out, got_grad = _torch_run("Embedding", [ids, weight], attrs, [1], 9)
+    nan_rows = np.isnan(want_out[0]).all(-1)
+    assert nan_rows.tolist() == [[True, False, False], [False, True, True]]
+    np.testing.assert_array_equal(got_out[0], want_out[0])
+    np.testing.assert_array_equal(got_out[0][0, 1], weight[2])
+    np.testing.assert_array_equal(got_grad[0], want_grad[0])
+    assert np.isfinite(got_grad[0]).all()

@@ -115,6 +115,63 @@ def test_int8_scales_are_a_true_division_on_every_device(monkeypatch):
     quantized_matmul(torch.ones(2, 16), q, s, "int8")
     tmodel._quantize_kv(torch.ones(1, 2, 3, 4))
     assert calls == [127.0, 448.0, 127.0, 127.0]
+    # dequantize divides max_range by qmax (int8, fp8) and the uint8 range
+    # by 255 through true_divide, a division by a tensor on every device
+    divides = []
+    real_divide = contrib.true_divide
+
+    def counted_divide(num, den):
+        divides.append((type(num).__name__, den if isinstance(den, float)
+                        else type(den).__name__))
+        return real_divide(num, den)
+
+    monkeypatch.setattr(contrib, "true_divide", counted_divide)
+    op = treg.get_op("dequantize")
+    lo, hi = torch.tensor([-1.3]), torch.tensor([2.7])
+    for data in (torch.ones(4, dtype=torch.int8),
+                 torch.ones(4).to(torch.float8_e4m3fn),
+                 torch.ones(4, dtype=torch.uint8)):
+        out = op.impl(op.parse_attrs({}), (data, lo, hi), (),
+                      treg.OpContext())[0][0]
+        assert out.dtype == torch.float32
+    assert divides == [("Tensor", 127.0), ("Tensor", 448.0),
+                       ("Tensor", 255.0)]
+    x = torch.from_numpy(amax)
+    np.testing.assert_array_equal(real_divide(x, 255.0).numpy(),
+                                  amax / np.float32(255))
+    np.testing.assert_array_equal(real_divide(255.0, x).numpy(),
+                                  np.float32(255) / amax)
+
+
+def _uint8_quantize(reg, x, lo, hi, jax_side):
+    return np.asarray(_run_op(reg, "quantize", [x, lo, hi],
+                              {"out_type": "uint8"}, jax_side)[0])
+
+
+def test_uint8_quantize_scale_is_a_true_division():
+    """``255 / (max_range - min_range)`` divides, as the reference does;
+    ``Tensor.__rtruediv__`` would take the reciprocal times 255, an ulp off
+    for a quarter of ranges, and a value that lands within an ulp of
+    k + 0.5 then rounds to the other neighbour. The range of the example
+    (lo -1.3079847, hi 0.087778695, x -0.98778015: 59, not 58) and seeded
+    ranges with inputs at every k + 0.5 of each: exact."""
+    lo = np.array([-1.3079847], np.float32)
+    hi = np.array([0.087778695], np.float32)
+    x = np.array([-0.98778015], np.float32)
+    assert _uint8_quantize(jreg, x, lo, hi, True).tolist() == [59]
+    assert _uint8_quantize(treg, x, lo, hi, False).tolist() == [59]
+    rng = np.random.RandomState(21)
+    for _ in range(40):
+        lo = -rng.rand(1).astype(np.float32) * 3
+        hi = rng.rand(1).astype(np.float32) * 3
+        scale = np.float32(255) / (hi - lo)
+        # inputs whose scaled value sits at each k + 0.5, where one ulp of
+        # the scale moves the rounding
+        x = ((np.arange(255, dtype=np.float32) + 0.5) / scale + lo)             .astype(np.float32)
+        x = np.concatenate([x, rng.uniform(lo, hi, 64).astype(np.float32)])
+        np.testing.assert_array_equal(
+            _uint8_quantize(treg, x, lo, hi, False),
+            _uint8_quantize(jreg, x, lo, hi, True))
 
 
 def test_dtype_names_and_config_validation():
