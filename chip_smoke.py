@@ -100,6 +100,32 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    step, the spans' cost a step beside its prediction, and (not gated)
    the train phase's run and ResNet-50's epoch under the profiler, each
    kernel's events beside its launch counter.
+3e. ``serve_fixed`` — the fixed-shape serving stack
+   (``mxnet_tpu_torch/tools/serve_fixed.py``): (1) the serve phase's LM
+   with its SoftmaxOutput head through ``predict.Predictor`` at (1, 512),
+   reshaped to (4, 512) and (1, 2048) on the same weight tensors, each
+   bind one CUDA graph (2 warm-ups, 1 capture, a replay a forward): the
+   replays equal the eager forward (MXNET_CUDA_GRAPH=0) bit for bit,
+   exactly 4 flash launches a kernel-running forward, the card within
+   SERVE_ATOL of the port's CPU Predictor (argmax equal past
+   PAGED_MARGIN); (2) ResNet-50 (1000 classes, 3 x 224 x 224, f32)
+   behind ``InferenceServer`` (buckets 1-32, 5 ms window, 2 replicas on
+   the card, zero-copy pinned staging, every bucket bound at start): one
+   replica's binds beside the other's serving; 8 clients sending 96
+   requests of 1-4 images through the ``rr`` and ``least_loaded``
+   routers (every request answered, occupancy > 1, binds <= 6 x 2, each
+   result within RESNET_PREDICT_TOL of the request alone through a
+   Predictor on the card, two of the CPU's), a burst under a 1 ms
+   deadline (some ``deadline_exceeded``, the queue drains) and an int8
+   weight arm (RESNET_INT8_TOL of f32); requests/s, p50 / p99 latency and
+   peak memory with the graphs' pools; (3) the LM behind
+   ``InferenceServer(..., decode=GenerateConfig(...))`` with 2 replicas,
+   the decode step captured, the serve phase's six prompts: its
+   ``predict()`` refused (not batch-major), every stream the serve
+   phase's (a near-tie allowed), exactly 24 flash launches, each
+   replica's captured path, every slot free, ``generate()`` =
+   ``submit_stream()``; then the flash forward at the Predictor's shapes
+   against its plain version, timed beside SDPA and its bound.
 4. ``train``   — the same LM trained as bench.py trains it: first 2 SGD
    steps at 1 x 256 through ``simple_bind`` -> ``forward``/``backward``
    -> ``optimizer.Updater``, f32, no TF32, on the card and on the port's
@@ -183,6 +209,7 @@ Then the card's ``nvidia-smi`` name/power-limit line and, last, the
 ``{"ok": true, "device": ...}`` line. Exits non-zero without a CUDA card.
 """
 import contextlib
+import faulthandler
 import functools
 import gc
 import json
@@ -200,9 +227,9 @@ import numpy as np
 from mxnet_tpu_torch.tools.lm import LM, SERVE, SERVE_PAGED, SERVE_SPEC, \
     SEED, TRAIN, cuda_graph, expected_prefix_counts, forced_arms, \
     forced_unpaged, forced_verify, forced_verify_paged, lm_arg_params, \
-    lm_feed, lm_param_shapes, lm_train_executor, lm_train_setup, \
-    lm_train_step, lm_update, lm_updater, nvidia_smi, paged_prompts, \
-    serve_prompts
+    lm_feed, lm_param_shapes, lm_predict_symbol, lm_train_executor, \
+    lm_train_setup, lm_train_step, lm_update, lm_updater, nvidia_smi, \
+    paged_prompts, serve_prompts
 from mxnet_tpu_torch.tools.lstm_lm import LSTM_LM, STEP_SHAPES, STEP_TOL, \
     lstm_setup, lstm_steps
 from mxnet_tpu_torch.tools.lstm_lm import fit_args as lstm_fit_args
@@ -210,6 +237,7 @@ from mxnet_tpu_torch.tools import lstm_bucketing as lb
 from mxnet_tpu_torch.tools.lstm_bucketing import BUCKETING
 from mxnet_tpu_torch.tools.resnet import RESNET, change_err, fit_args, \
     resnet_setup, wgrad_convs
+from mxnet_tpu_torch.tools.serve_fixed import SERVE_FIXED
 
 H100 = {"bf16_flops": 989e12, "f32_flops": 67e12, "int8_ops": 1979e12,
         "bytes_per_s": 3.35e12}
@@ -367,6 +395,21 @@ SPEC_INT8_ACCEPT_PREDICTED = 0.65
 QUANT_WEIGHTS_SPREAD = {"int8": 0.10994094610214233,
                         "fp8": 0.2456832230091095}
 QUANT_WEIGHTS_TOL = {k: 1.5 * v for k, v in QUANT_WEIGHTS_SPREAD.items()}
+# serve_fixed, ResNet-50 behind InferenceServer: each request's outputs
+# (softmax probabilities) within RESNET_PREDICT_TOL of the same request
+# alone through a Predictor on the card (and, for two, on the CPU), = 1.5 x
+# the f32-to-f64 distance tools/resnet_predict_spread.py measures over the
+# same requests: the larger of its run on the CPU (2.84e-10, the H100
+# host's 8 cores) and on the card (4.29e-10: the card's f32 convolutions
+# sit farther from f64 than the CPU's); the int8 arm within
+# RESNET_INT8_TOL = 1.5 x that tool's int8-to-f32 distance (the same on
+# both), the same top-1 wherever the f32 margin exceeds 2 x
+# RESNET_INT8_TOL (PERF.md)
+RESNET_PREDICT_SPREAD_CPU = 2.844717174495248e-10
+RESNET_PREDICT_SPREAD = max(RESNET_PREDICT_SPREAD_CPU, 4.2879703585595175e-10)
+RESNET_PREDICT_TOL = 1.5 * RESNET_PREDICT_SPREAD
+RESNET_INT8_SPREAD = 2.5051413103938103e-06
+RESNET_INT8_TOL = 1.5 * RESNET_INT8_SPREAD
 # quantized_matmul on the card against its CPU path on the same operands:
 # the int8-activation path bit for bit (int32 sums are exact); dequant on
 # load within QMM_F32_RTOL of the largest |output| (f32) or one bf16 ulp
@@ -434,6 +477,8 @@ RESNET_EVENTS = {"conv_wgrad_partial": ("conv_wgrad_wgmma_kernel",
 # spans-on overhead a captured decode step, predicted before the first
 # chip run (PERF.md): about four spans a step at a few microseconds each
 SPAN_OVERHEAD_PREDICTED_US = 50
+# the whole script's watchdog (s): its time limit is 1200 s
+WATCHDOG_S = 1100
 # a sample line of the Prometheus text format (name, labels, value, and an
 # optional OpenMetrics exemplar)
 PROM_SAMPLE = re.compile(
@@ -2405,7 +2450,8 @@ def _qmm_timing(torch, cfg):
             "library": "torch._int_mm (cuBLASLt int8, int32 results)"}
 
 
-def _spec_vs_vanilla(gen, model, conf, prompts, got, want, kv_dtype):
+def _spec_vs_vanilla(gen, model, conf, prompts, got, want, kv_dtype,
+                     what="the speculative stream"):
     """Streams ``got`` against ``want`` (vanilla, same KV layout and
     type): equal, or the first difference at a position where the vanilla
     logits' top-2 margin (teacher-forced, unpaged, ``kv_dtype``) is at
@@ -2426,9 +2472,9 @@ def _spec_vs_vanilla(gen, model, conf, prompts, got, want, kv_dtype):
         margin = float(top[0] - top[1])
         if margin > PAGED_MARGIN:
             raise RuntimeError(
-                "prompt %d: the speculative stream leaves the vanilla one "
-                "at token %d, where the vanilla top-2 margin is %g (> %g)"
-                % (i, pos, margin, PAGED_MARGIN))
+                "prompt %d: %s leaves the vanilla one at token %d, where "
+                "the vanilla top-2 margin is %g (> %g)"
+                % (i, what, pos, margin, PAGED_MARGIN))
         near_ties.append({"prompt": i, "position": pos, "margin": margin})
     return near_ties
 
@@ -3011,6 +3057,593 @@ def phase_serve_trace(cfg=LM, serve=SERVE, device=None, seed=SEED,
     result["seconds"] = time.monotonic() - t0
     emit(result)
     return sum(run["launches"] for run in runs.values())
+
+
+def _note(msg):
+    """A progress line of the serve_fixed phase on stderr (the phase's
+    result is one line on stdout at its end)."""
+    print("serve_fixed: %s" % msg, file=sys.stderr, flush=True)
+
+
+def _lm_feed(cfg, bt, seed):
+    """Seeded token ids at (B, T) and a zero label (the head's label, an
+    input neither package infers through its Reshape)."""
+    ids = np.random.RandomState(seed).randint(0, cfg["vocab"], bt)
+    return {"data": ids.astype(np.float32),
+            "softmax_label": np.zeros(bt, np.float32)}
+
+
+def _lm_shapes(bt):
+    return {"data": tuple(bt), "softmax_label": tuple(bt)}
+
+
+def _forward_calls(preds):
+    """Forwards that ran kernels: warm-ups, replays and eager calls (a
+    capture runs none)."""
+    return sum(p.warmup_calls + p.replays + p.eager_calls for p in preds)
+
+
+def _require_predictor_capture(what, p, on_card):
+    """A predictor bound on the card took the captured path: two warm-ups,
+    one capture, a replay a forward; on the CPU it ran eagerly."""
+    st = p.capture_stats()
+    if not on_card:
+        if st["path"] != "eager" or st["captures"]:
+            raise RuntimeError("%s: path %s on the CPU" % (what, st))
+        return st
+    if (st["path"], st["warmup_calls"], st["captures"],
+            st["eager_calls"]) != ("captured", 2, 1, 0) or not st["replays"]:
+        raise RuntimeError("%s did not take the captured path: %s"
+                           % (what, st))
+    return st
+
+
+def _flash_at(torch, b, t, cfg, gen):
+    """The flash forward at a Predictor shape (f32, causal, the (B, T, H,
+    D) views MultiHeadAttention passes): kernel against plain, then timed
+    beside the plain version, SDPA and its bound."""
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    h, hkv, d = cfg["heads"], cfg["kv_heads"], cfg["d_model"] // cfg["heads"]
+    q, k, v = _qkv(torch, b, h, hkv, t, t, d, "float32", gen, False)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    atol, rtol = TOL["float32"]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+    err = float((got - want).abs().max())
+    kernel = functools.partial(fa.flash_attention, q, k, v, causal=True)
+    library = _sdpa(torch, q, k, v)
+    bound_ms, bound_by = attention_bound(b, h, hkv, t, t, d, True,
+                                         "float32")
+    out = {"shape": [b, h, hkv, t, t, d], "dtype": "float32",
+           "causal": True, "layout": LAYOUTS[False], "max_abs_err": err,
+           "ms": time_ms(torch, kernel),
+           "device_ms": device_ms(torch, kernel),
+           "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+               q, k, v, causal=True), reps=10),
+           "library_ms": time_ms(torch, library),
+           "library_device_ms": device_ms(torch, library),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_predictor_part(torch, cfg, fixed, device, ref_device, seed,
+                       on_card):
+    """(1) bench.py's LM with its SoftmaxOutput head through
+    ``predict.Predictor``: bound at the first of ``fixed["lm_shapes"]``,
+    reshaped to the others (the same weight tensors); each forward's
+    outputs, the flash launches (the LM's layers a kernel-running
+    forward), the captured path and, with the forward eager
+    (MXNET_CUDA_GRAPH=0, reshapes of the same weights), the same outputs
+    bit for bit; the card against the port's CPU Predictor at the first
+    shape (SERVE_ATOL, the argmax where the CPU's top-2 margin exceeds
+    PAGED_MARGIN)."""
+    from mxnet_tpu_torch import predict
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    params = lm_arg_params(cfg, seed)
+    sym = lm_predict_symbol(cfg).tojson()
+    shapes = [tuple(bt) for bt in fixed["lm_shapes"]]
+    feeds = [_lm_feed(cfg, bt, seed + 20 + i) for i, bt in enumerate(shapes)]
+    fa.flash_attention.launches = 0
+    c0 = predict.compile_count()
+    base = predict.Predictor(sym, params, _lm_shapes(shapes[0]),
+                             device=device)
+    _note("LM bound at %s" % (shapes[0],))
+    preds = [base] + [base.reshape(_lm_shapes(bt)) for bt in shapes[1:]]
+    shared = all(q._arg_params[n]._data.data_ptr()
+                 == base._arg_params[n]._data.data_ptr()
+                 for q in preds for n in base._arg_params)
+    if not shared:
+        raise RuntimeError("serve_fixed: a reshape copied the LM's weights")
+    outs, ms = [], {}
+    for bt, p, f in zip(shapes, preds, feeds):
+        o = p.forward(**f)[0]
+        want = (bt[0] * bt[1], cfg["vocab"])
+        if tuple(o.shape) != want:
+            raise RuntimeError("serve_fixed: the LM at %s gave %s, want %s"
+                               % (bt, o.shape, want))
+        outs.append(o._data.cpu().numpy())
+        if on_card:
+            ms["%dx%d" % bt] = time_ms(torch, lambda: p.forward(**f), reps=5,
+                                       warmup=1)
+    with cuda_graph(False):
+        eager = [base.reshape(_lm_shapes(bt)) for bt in shapes]
+    eager_ms = {}
+    for bt, e, f, o in zip(shapes, eager, feeds, outs):
+        got = e.forward(**f)[0]._data.cpu().numpy()
+        if not np.array_equal(got, o):
+            raise RuntimeError(
+                "serve_fixed: the LM's captured forward at %s differs from "
+                "the eager one by %g" % (bt, float(np.abs(got - o).max())))
+        if on_card:
+            eager_ms["%dx%d" % bt] = time_ms(torch, lambda: e.forward(**f),
+                                             reps=5, warmup=1)
+    launches = fa.flash_attention.launches
+    binds = predict.compile_count() - c0
+    paths = [_require_predictor_capture("the LM Predictor at %s" % (bt,), p,
+                                        on_card)
+             for bt, p in zip(shapes, preds)]
+    want = cfg["layers"] * _forward_calls(preds + eager)
+    if launches != want:
+        raise RuntimeError("serve_fixed: the LM Predictors launched the "
+                           "flash kernel %d times, want %d (%d layers a "
+                           "kernel-running forward)" % (launches, want,
+                                                        cfg["layers"]))
+    if binds != 2 * len(shapes):
+        raise RuntimeError("serve_fixed: %d binds for %d Predictors"
+                           % (binds, 2 * len(shapes)))
+    # the card against the port's CPU path at the first shape
+    ref = predict.Predictor(sym, params, _lm_shapes(shapes[0]),
+                            device=ref_device)
+    want_out = ref.forward(**feeds[0])[0].asnumpy()
+    err = float(np.abs(outs[0] - want_out).max())
+    top = np.sort(want_out, axis=-1)
+    margin = top[:, -1] - top[:, -2]
+    flips = int(((outs[0].argmax(-1) != want_out.argmax(-1))
+                 & (margin > PAGED_MARGIN)).sum())
+    if err > SERVE_ATOL or flips:
+        raise RuntimeError("serve_fixed: the LM Predictor on the card lies "
+                           "%g from the CPU's (> %g), or its argmax differs "
+                           "at %d positions past the margin" %
+                           (err, SERVE_ATOL, flips))
+    del preds, eager, base, ref
+    return {"shapes": [list(bt) for bt in shapes],
+            "output_shapes": [list(o.shape) for o in outs],
+            "weights_shared": True, "binds": binds,
+            "captured_vs_eager": {"bit_for_bit": True},
+            "paths": paths, "flash_launches": launches,
+            "card_vs_cpu": {"shape": list(shapes[0]), "max_abs_err": err,
+                            "atol": SERVE_ATOL,
+                            "positions_within_margin": int(
+                                (margin <= PAGED_MARGIN).sum())},
+            "forward_ms_captured": ms, "forward_ms_eager": eager_ms}
+
+
+def _resnet_server(resnet, fixed, params, device, router, warm=True,
+                   quant=""):
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.tools.resnet import resnet_symbol
+
+    cfg = serving.ServingConfig(
+        buckets=fixed["buckets"], max_delay_ms=fixed["max_delay_ms"],
+        replicas=fixed["replicas"], router=router, zero_copy=True,
+        warm=warm, timeout_ms=fixed["timeout_ms"], queue_depth=256,
+        quant_weights=quant)
+    return serving.InferenceServer(
+        resnet_symbol(resnet), params, {"data": tuple(resnet["image"])},
+        config=cfg, devices=[device] * fixed["replicas"])
+
+
+def _fixed_traffic(srv, images, clients, wait_s):
+    """``clients`` threads, client c sending requests c, c + clients, ...
+    one after another; returns (results, latencies ms, wall s, errors)."""
+    n = len(images)
+    results, lats, errors = [None] * n, [None] * n, []
+
+    def client(c):
+        for i in range(c, n, clients):
+            try:
+                req = srv.submit(data=images[i])
+                results[i] = req.get(wait_s)[0]
+                lats[i] = req.latency_ms
+            except Exception as e:  # noqa: BLE001 — gated below
+                errors.append((i, repr(e)))
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(max(0.0, t0 + wait_s - time.monotonic()))
+    if any(t.is_alive() for t in threads):
+        errors.append((None, "clients still waiting after %g s" % wait_s))
+    return results, lats, time.monotonic() - t0, errors
+
+
+def _arm_report(srv, lats, wall, n, torch, on_card):
+    m = dict(srv.metrics.get_name_value())
+    return {"requests": n, "requests_per_s": n / wall, "wall_s": wall,
+            "latency_ms_p50": float(np.percentile(lats, 50)),
+            "latency_ms_p99": float(np.percentile(lats, 99)),
+            "mean_batch_occupancy": m["mean_batch_occupancy"],
+            "padding_efficiency": m["padding_efficiency"],
+            "batches": m["batches"],
+            "replica_dispatches": srv.replica_dispatch_counts(),
+            **_peak_reserved(torch, on_card)}
+
+
+def _peak_reserved(torch, on_card):
+    """Peak bytes allocated and reserved since the last reset: a graph's
+    private pool is reserved memory, so the reserved peak counts every
+    bucket's graph."""
+    if not on_card:
+        return {}
+    return {"max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_reserved": torch.cuda.max_memory_reserved()}
+
+
+def _concurrent_bind_and_serve(srv, x, want, wait_s):
+    """Replica 1 binds its ladder (a capture a bucket) on one thread while
+    replica 0's bucket-1 executor serves ``x`` on another, each result
+    copied to the host: no capture error, every result ``want`` bit for
+    bit, and forwards that ran while the binds did."""
+    rep0, rep1 = srv._replicas[0], srv._replicas[1]
+    exe = rep0.cache.get(1)
+    errors, served, window = [], [], {}
+    binding = threading.Event()
+
+    def bind():
+        try:
+            window["start"] = time.monotonic()
+            binding.set()
+            rep1.cache.warm()
+        except Exception as e:  # noqa: BLE001 — gated below
+            errors.append(("bind", repr(e)))
+        finally:
+            window["end"] = time.monotonic()
+            binding.set()
+
+    def serve():
+        binding.wait(wait_s)
+        try:
+            while "end" not in window:
+                t = time.monotonic()
+                got = exe.forward(data=x)[0]._data.cpu().numpy()
+                served.append((t, np.array_equal(got, want)))
+        except Exception as e:  # noqa: BLE001 — gated below
+            errors.append(("serve", repr(e)))
+
+    threads = [threading.Thread(target=f, daemon=True) for f in (bind, serve)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(wait_s)
+    during = [ok for t, ok in served
+              if window.get("start", 0) <= t <= window.get("end", 0)]
+    if errors or any(t.is_alive() for t in threads) or not during \
+            or not all(ok for _, ok in served):
+        raise RuntimeError("serve_fixed: replica 1's binds beside replica "
+                           "0's serving: errors %s, %d forwards during the "
+                           "binds, all equal %s" % (
+                               errors, len(during),
+                               all(ok for _, ok in served)))
+    return {"forwards_during_binds": len(during),
+            "bind_s": window["end"] - window["start"],
+            "replica1_binds": rep1.cache.stats()["compiles"]}
+
+
+def _resnet_part(torch, resnet, fixed, device, ref_device, seed, on_card,
+                 predict_tol, int8_tol):
+    """(2) bench.py's ResNet-50 behind ``InferenceServer``: ``fixed``'s
+    ladder, window and two replicas on one card, zero-copy, every bucket
+    bound at start; its traffic through a round-robin and a least-loaded
+    arm (every request answered, occupancy > 1, binds within buckets x
+    replicas, each result within ``predict_tol`` of the request alone
+    through a Predictor on the card, two within it of the CPU's), the
+    binds of one replica beside the other's serving, a burst under a
+    1 ms deadline (some fail ``deadline_exceeded``, the queue drains), and
+    an int8-weight arm (within ``int8_tol`` of the f32 results, the same
+    top-1 wherever the f32 margin exceeds 2 x ``int8_tol``)."""
+    from mxnet_tpu_torch import predict, serving
+    from mxnet_tpu_torch.tools.resnet import resnet_params, resnet_symbol
+    from mxnet_tpu_torch.tools.serve_fixed import request_images, \
+        request_sizes
+
+    params = resnet_params(resnet, seed)
+    sizes = request_sizes(fixed, seed)
+    images = request_images(resnet, sizes, seed)
+    wait_s = fixed["timeout_ms"] / 1e3
+    sym = resnet_symbol(resnet).tojson()
+    budget = len(fixed["buckets"]) * fixed["replicas"]
+    # each request alone through a Predictor on the card, at its own batch
+    alone = {}
+    for r in sorted(set(sizes)):
+        alone[r] = predict.Predictor(sym, params,
+                                     {"data": (r,) + tuple(resnet["image"])},
+                                     device=device)
+    want = [alone[x.shape[0]].forward(data=x)[0]._data.cpu().numpy()
+            for x in images]
+    arms, results = {}, {}
+    for router in ("rr", "least_loaded"):
+        _fresh(torch, on_card)
+        c0 = predict.compile_count()
+        srv = _resnet_server(resnet, fixed, params, device, router,
+                             warm=router != "rr")
+        _note("%s server bound" % router)
+        extra = {}
+        try:
+            if router == "rr":
+                one = sizes.index(1)
+                extra["concurrent_binds"] = _concurrent_bind_and_serve(
+                    srv, images[one], want[one], wait_s)
+                srv.warm()
+            if not srv._started:
+                srv.start()
+            if not srv.ready():
+                raise RuntimeError("serve_fixed: the server is not ready "
+                                   "after warm")
+            _note("%s traffic" % router)
+            got, lats, wall, errors = _fixed_traffic(
+                srv, images, fixed["clients"], wait_s)
+            report = _arm_report(srv, [x for x in lats if x is not None],
+                                 wall, len(images), torch, on_card)
+            _note("%s traffic done in %.3f s" % (router, wall))
+            if router == "least_loaded":
+                extra["burst"] = _deadline_burst(srv, images, fixed, wait_s)
+        finally:
+            srv.stop()
+        binds = predict.compile_count() - c0
+        missing = [i for i, g in enumerate(got) if g is None]
+        if errors or missing:
+            raise RuntimeError("serve_fixed %s: %d requests unanswered: %s"
+                               % (router, len(missing), errors[:3]))
+        if not report["mean_batch_occupancy"] > 1.0:
+            raise RuntimeError("serve_fixed %s: mean occupancy %g, want > 1"
+                               % (router, report["mean_batch_occupancy"]))
+        if binds > budget:
+            raise RuntimeError("serve_fixed %s: %d binds, want <= %d"
+                               % (router, binds, budget))
+        errs = [float(np.abs(g - w).max()) for g, w in zip(got, want)]
+        if max(errs) > predict_tol:
+            raise RuntimeError(
+                "serve_fixed %s: request %d lies %g from its forward alone "
+                "on the card (> %g)" % (router, int(np.argmax(errs)),
+                                        max(errs), predict_tol))
+        arms[router] = dict(report, binds=binds,
+                            max_abs_err_vs_alone=max(errs), **extra)
+        results[router] = got
+        del srv
+    # two requests, the card against the CPU
+    cpu_errs = []
+    for i in range(fixed["cpu_checks"]):
+        ref = predict.Predictor(sym, params, {"data": images[i].shape},
+                                device=ref_device)
+        cpu = ref.forward(data=images[i])[0].asnumpy()
+        cpu_errs.append(float(np.abs(results["rr"][i] - cpu).max()))
+    if max(cpu_errs) > predict_tol:
+        raise RuntimeError("serve_fixed: a request lies %g from the CPU's "
+                           "Predictor (> %g)" % (max(cpu_errs), predict_tol))
+    # int8 weights
+    _fresh(torch, on_card)
+    srv = _resnet_server(resnet, fixed, params, device, "least_loaded",
+                         quant="int8")
+    try:
+        srv.start()
+        got, lats, wall, errors = _fixed_traffic(srv, images,
+                                                 fixed["clients"], wait_s)
+        report = _arm_report(srv, [x for x in lats if x is not None], wall,
+                             len(images), torch, on_card)
+    finally:
+        srv.stop()
+    if errors or any(g is None for g in got):
+        raise RuntimeError("serve_fixed int8: unanswered requests: %s"
+                           % errors[:3])
+    f32 = results["rr"]
+    errs = [float(np.abs(g - w).max()) for g, w in zip(got, f32)]
+    flips = 0
+    for g, w in zip(got, f32):
+        top = np.sort(w, axis=-1)
+        flips += int(((g.argmax(-1) != w.argmax(-1))
+                      & (top[:, -1] - top[:, -2] > 2 * int8_tol)).sum())
+    if max(errs) > int8_tol or flips:
+        raise RuntimeError("serve_fixed int8: outputs %g from f32 (> %g), "
+                           "or %d top-1 flips past the margin"
+                           % (max(errs), int8_tol, flips))
+    arms["int8"] = dict(report, max_abs_err_vs_f32=max(errs),
+                        top1_margin=2 * int8_tol)
+    del srv, alone
+    return {"images": list(resnet["image"]), "classes": resnet["classes"],
+            "requests": len(images), "images_total": int(sum(sizes)),
+            "buckets": list(fixed["buckets"]),
+            "replicas": fixed["replicas"], "bind_budget": budget,
+            "predict_tol": predict_tol, "int8_tol": int8_tol,
+            "cpu_checks_max_abs_err": cpu_errs, "arms": arms}
+
+
+def _deadline_burst(srv, images, fixed, wait_s):
+    """``fixed["burst"]`` one-image requests at ``burst_timeout_ms``, sent
+    back to back: some fail ``deadline_exceeded`` (at submit, reject-early,
+    or in the queue); then a request without a deadline is answered and
+    the queue is empty."""
+    codes, reqs = {}, []
+    x = images[0][:1]
+    for _ in range(fixed["burst"]):
+        try:
+            reqs.append(srv.submit(data=x,
+                                   timeout_ms=fixed["burst_timeout_ms"]))
+        except Exception as e:  # noqa: BLE001 — counted by code
+            code = getattr(e, "code", repr(e))
+            codes[code] = codes.get(code, 0) + 1
+    for r in reqs:
+        try:
+            r.get(wait_s)
+            codes["ok"] = codes.get("ok", 0) + 1
+        except Exception as e:  # noqa: BLE001 — counted by code
+            code = getattr(e, "code", repr(e))
+            codes[code] = codes.get(code, 0) + 1
+    after = srv.submit(data=x, timeout_ms=0).get(wait_s)
+    depth = srv._former.depth()
+    if not codes.get("deadline_exceeded") or depth or after[0].shape[0] != 1 \
+            or set(codes) - {"ok", "deadline_exceeded"}:
+        raise RuntimeError("serve_fixed burst: codes %s, queue depth %d "
+                           "after" % (codes, depth))
+    return {"burst": fixed["burst"],
+            "timeout_ms": fixed["burst_timeout_ms"], "codes": codes,
+            "queue_depth_after": depth}
+
+
+def _generate_part(torch, cfg, serve, fixed, device, seed, on_card,
+                   serve_tokens):
+    """(3) The LM behind ``InferenceServer(..., decode=GenerateConfig(...))``
+    with ``fixed["replicas"]`` replicas, the decode step captured,
+    ``serve``'s traffic: the fixed path refuses the LM's (B*T, V) output
+    (batch-major); every stream ``max_new_tokens`` long, equal to the serve
+    phase's (``serve_tokens``) but that a first difference may fall where
+    that run's top-2 margin is <= PAGED_MARGIN; exactly a flash launch a
+    prompt and layer; each replica the captured path; every slot free at
+    the end; and ``generate()`` the tokens of ``submit_stream()``. The
+    fixed path's binds and refused forward launch the flash kernel too:
+    the LM's layers a kernel-running forward."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    from mxnet_tpu_torch.serving import generate as gen
+
+    params = lm_arg_params(cfg, seed)
+    prompts = serve_prompts(cfg, serve, seed)
+    t = fixed["decode_example_len"]
+    decode = serving.GenerateConfig(
+        num_heads=cfg["heads"], num_kv_heads=cfg["kv_heads"],
+        slots=serve["slots"], max_context=serve["max_context"],
+        prefill_buckets=serve["prefill_buckets"],
+        max_new_tokens=serve["max_new_tokens"], eos_id=None, capture=True)
+    config = serving.ServingConfig(buckets=(1,), max_delay_ms=1.0,
+                                   replicas=fixed["replicas"],
+                                   timeout_ms=fixed["timeout_ms"])
+    wait_s = fixed["timeout_ms"] / 1e3
+    _fresh(torch, on_card)
+    l0 = fa.flash_attention.launches
+    srv = serving.InferenceServer(
+        lm_predict_symbol(cfg), params, _lm_shapes((t,)), config=config,
+        decode=decode, devices=[device] * fixed["replicas"])
+    bases = [rep.cache._base for rep in srv._replicas]
+    try:
+        srv.start()
+        f = _lm_feed(cfg, (1, t), seed + 30)
+        try:
+            srv.submit(**f).get(wait_s)
+            refused = None
+        except serving.ServingError as e:
+            refused = e
+        if refused is None or "batch-major" not in str(refused):
+            raise RuntimeError("serve_fixed: the LM's predict() was not "
+                               "refused as not batch-major: %r" % refused)
+        fixed_launches = fa.flash_attention.launches - l0
+        t0 = time.monotonic()
+        streams = [srv.submit_stream(p) for p in prompts]
+        tokens = [s.tokens(wait_s) for s in streams]
+        wall = time.monotonic() - t0
+        launches = fa.flash_attention.launches - l0 - fixed_launches
+        stats = srv.decode_stats()
+        busy = [c.active_slots() for c in srv._decode.caches]
+        again = srv.generate(prompts[0], timeout_ms=fixed["timeout_ms"])
+        model = srv._decode.model
+        memory = _peak_reserved(torch, on_card)
+    finally:
+        srv.stop()
+    want_len = serve["max_new_tokens"]
+    if any(len(x) != want_len for x in tokens):
+        raise RuntimeError("serve_fixed generate: stream lengths %s, want "
+                           "%d" % ([len(x) for x in tokens], want_len))
+    near = _spec_vs_vanilla(gen, model, serve, prompts, tokens, serve_tokens,
+                            "float32", what="the served stream")
+    want = len(prompts) * cfg["layers"]
+    want_fixed = cfg["layers"] * _forward_calls(bases)
+    if launches != want or fixed_launches != want_fixed:
+        raise RuntimeError("serve_fixed generate: %d flash launches in the "
+                           "traffic, want %d; %d in the fixed path, want %d"
+                           % (launches, want, fixed_launches, want_fixed))
+    reps = stats["replica"]
+    for i, st in enumerate(reps):
+        if not on_card:
+            ok = st["path"] == "eager"
+        else:
+            ok = (st["path"], st["warmup_calls"], st["captures"],
+                  st["replays"]) == ("captured", 2, 1, st["steps"] - 2)
+        if not ok:
+            raise RuntimeError("serve_fixed generate: replica %d did not take "
+                               "the %s decode path: %s" % (
+                                   i, "captured" if on_card else "eager", st))
+    if any(busy):
+        raise RuntimeError("serve_fixed generate: slots still taken: %s"
+                           % busy)
+    if again != tokens[0]:
+        raise RuntimeError("serve_fixed generate: generate() gave %s, the "
+                           "stream %s" % (again[:8], tokens[0][:8]))
+    total = sum(len(x) for x in tokens)
+    return {"prompts": len(prompts), "replicas": fixed["replicas"],
+            "flash_launches": launches,
+            "fixed_path_flash_launches": fixed_launches,
+            "steps": stats["steps"],
+            "replica_paths": reps, "near_ties": near,
+            "equal_to_serve": sum(a == b for a, b in zip(tokens,
+                                                          serve_tokens)),
+            "tokens_per_s": total / wall, "wall_s": wall,
+            "refused_predict": str(refused), **memory}
+
+
+def phase_serve_fixed(cfg=LM, serve=SERVE, fixed=SERVE_FIXED, resnet=RESNET,
+                      device=None, ref_device="cpu", seed=SEED,
+                      serve_tokens=None, predict_tol=RESNET_PREDICT_TOL,
+                      int8_tol=RESNET_INT8_TOL):
+    """The fixed-shape serving stack at full width on one card: (1) the LM
+    Predictor (:func:`_lm_predictor_part`), (2) ResNet-50 behind
+    ``InferenceServer`` (:func:`_resnet_part`), (3) the LM's ``generate()``
+    through the same server class (:func:`_generate_part`); then the flash
+    forward at the Predictor's shapes against its plain version, timed.
+    ``device`` None = the card. Returns the flash launches of the phase's
+    main path."""
+    import torch
+
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    from mxnet_tpu_torch.serving import generate as gen
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    if serve_tokens is None:
+        spec = gen.DecodeSpec(num_heads=cfg["heads"],
+                              num_kv_heads=cfg["kv_heads"])
+        serve_tokens = _serve_streams(
+            gen, gen.DecodeModel.from_arg_params(lm_arg_params(cfg, seed),
+                                                 spec, device=device),
+            cfg, serve, serve_prompts(cfg, serve, seed))["tokens"]
+    fa.flash_attention.launches = 0
+    lm = _lm_predictor_part(torch, cfg, fixed, device, ref_device, seed,
+                            on_card)
+    lm_launches = fa.flash_attention.launches
+    _note("LM Predictor done")
+    res = _resnet_part(torch, resnet, fixed, device, ref_device, seed,
+                       on_card, predict_tol, int8_tol)
+    if fa.flash_attention.launches != lm_launches:
+        raise RuntimeError("serve_fixed: ResNet-50 launched the flash kernel")
+    _note("ResNet-50 server done")
+    generate = _generate_part(torch, cfg, serve, fixed, device, seed,
+                              on_card, serve_tokens)
+    launches = fa.flash_attention.launches
+    _note("generate done")
+    timings = {}
+    if on_card:
+        gen_t = torch.Generator(device="cuda").manual_seed(seed)
+        for bt in fixed["lm_shapes"]:
+            timings["%dx%d" % tuple(bt)] = _flash_at(torch, bt[0], bt[1],
+                                                     cfg, gen_t)
+    result = {"phase": "serve_fixed", "lm_predictor": lm, "resnet": res,
+              "generate": generate, "flash_launches": launches,
+              "flash_at_predictor_shapes": timings}
+    emit(result)
+    return launches, timings
 
 
 def _counters():
@@ -4185,6 +4818,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    # a run that outlives WATCHDOG_S prints every thread's stack and
+    # exits non-zero, before the caller's limit cuts it silently
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     # the reference products run in full f32: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4199,6 +4835,8 @@ def main():
     paged_launches = phase_serve_paged(eager_tokens=serve_tokens)
     spec_launches = phase_serve_spec()
     trace_launches = phase_serve_trace()
+    fixed_launches, fixed_timings = phase_serve_fixed(
+        serve_tokens=serve_tokens)
     train = phase_train()
     resnet = phase_resnet()
     lstm = phase_lstm()
@@ -4209,18 +4847,20 @@ def main():
         "name": "flash_attention_fwd", "route": "cuda", "source": FA_SRC,
         "replaces": FA_REPLACES,
         "launches": serve_launches + paged_launches + spec_launches
-        + trace_launches + train["flash_attention_fwd"],
+        + trace_launches + fixed_launches + train["flash_attention_fwd"],
         "launches_by_phase": {"serve": serve_launches,
                               "serve_paged": paged_launches,
                               "serve_spec": spec_launches,
                               "serve_trace": trace_launches,
+                              "serve_fixed": fixed_launches,
                               "train": train["flash_attention_fwd"]},
         "max_abs_err": max(worst.values()), "max_err": worst,
         "dtype": "float32", "shape": t["shape"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bfloat16": timings["serve"]["bfloat16"], "train": timings["train"],
-        "bfloat16_main": timings["train_main"][TRAIN["dtype"]]}]
+        "bfloat16_main": timings["train_main"][TRAIN["dtype"]],
+        "predictor_shapes": fixed_timings}]
     # the backward runs on the main path only in the train phase: its
     # type and batch head the row
     t = {k: v for k, v in bwd_timings["train_main"].items() if k != "work"}

@@ -32,12 +32,16 @@ checkpoints (``nd.save`` / ``nd.load``, symbol JSON, optimizer states,
 ``Module.save_checkpoint`` / ``Module.load``) in the JAX package's files,
 and the reference's through ``interop``; and ``telemetry`` (spans, the
 metrics registry, trace context, the flight recorder) with ``profiler``,
-whose dump puts the host spans and the card's kernels on one timeline.
+whose dump puts the host spans and the card's kernels on one timeline;
+and the fixed-shape serving stack: ``predict`` (``Predictor``, one CUDA
+graph a bound shape), ``quant`` (``QuantizedPredictor``) and ``serving``
+(``InferenceServer`` with its batch former, bucket cache, staging pool and
+tuner, fronting the generate path too).
 """
 from . import (autograd, base, callback, context, engine, executor,
                initializer, interop, io, metric, model, models, module,
-               ndarray, operator, optimizer, profiler, random, rnn, rtc,
-               symbol, telemetry)
+               ndarray, operator, optimizer, predict, profiler, quant,
+               random, rnn, rtc, serving, symbol, telemetry)
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
@@ -49,5 +53,6 @@ __version__ = "0.9.5-torch.5"
 __all__ = ["MXNetError", "autograd", "base", "callback", "context", "cpu",
            "default_device", "engine", "executor", "gpu", "initializer",
            "interop", "io", "metric", "mod", "model", "models", "module",
-           "nd", "ndarray", "operator", "optimizer", "profiler", "random",
-           "rnn", "rtc", "sym", "symbol", "telemetry"]
+           "nd", "ndarray", "operator", "optimizer", "predict", "profiler",
+           "quant", "random", "rnn", "rtc", "serving", "sym", "symbol",
+           "telemetry"]

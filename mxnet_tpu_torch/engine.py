@@ -16,8 +16,13 @@ conflicted on a variable — but the pushing thread is not blocked.
 Checkpoint files are written through it (:func:`push_file_write`, one
 variable a path): ``async_write=True`` returns at once and the write
 overlaps training; a reader waits with :func:`wait_for_file`, and a failed
-write raises there or at the next file write. The native engine,
-capture/replay and trace-and-fuse are not ported yet.
+write raises there or at the next file write. :func:`push_async` hands the
+op an ``on_complete`` callback and holds its FIFO slot (so its variables)
+until the callback runs, as the reference's ``PythonEngine`` does. A
+variable registered with :func:`track_inflight` has every push that
+names it counted until the op completes (:func:`var_inflight`, the
+serving router's signal). The native engine, capture/replay and
+trace-and-fuse are not ported yet.
 
 Telemetry (domain ``engine``, as the reference's): each op runs inside a
 span named for the op, with its queue wait (``queue_us``, push to start)
@@ -57,6 +62,9 @@ class PythonEngine:
             except Exception:  # never kill the worker loop
                 traceback.print_exc()
             finally:
+                # drop the op now: its closure (a server, its graphs) must
+                # not live until the next push
+                fn = None
                 self._queue.task_done()
 
     @staticmethod
@@ -87,6 +95,20 @@ class PythonEngine:
     def push(self, fn, const_vars=(), mutable_vars=(), priority=0,
              name="op"):
         fn = self._traced(fn, name, const_vars, mutable_vars)
+        self._run(fn)
+
+    def push_async(self, fn, const_vars=(), mutable_vars=(), priority=0,
+                   name="op"):
+        """``fn(on_complete)``; the op completes when ``on_complete`` is
+        called (on any thread), and until then it holds the FIFO."""
+        def run():
+            done = threading.Event()
+            fn(done.set)
+            done.wait()
+
+        self._run(self._traced(run, name, const_vars, mutable_vars))
+
+    def _run(self, fn):
         if self._queue is not None:
             self._queue.put(fn)
             return
@@ -132,14 +154,90 @@ def delete_variable(var):
     get().delete_variable(var)
 
 
+# in-flight accounting: a var registered with track_inflight() has every
+# module-level push / push_async naming it counted at push time and
+# released when the op completes (push: fn returned; push_async: its
+# on_complete ran). Untracked vars cost one dict probe a push.
+_inflight = {}
+_inflight_lock = threading.Lock()
+
+
 def track_inflight(var):
-    """No-op: in-flight accounting belongs to the native engine, which is
-    not ported yet."""
-    del var
+    """Register ``var`` for in-flight accounting (idempotent)."""
+    with _inflight_lock:
+        _inflight.setdefault(int(var), 0)
+
+
+def untrack_inflight(var):
+    """Stop accounting for ``var`` and drop its counter."""
+    with _inflight_lock:
+        _inflight.pop(int(var), None)
+
+
+def var_inflight(var) -> int:
+    """Ops queued or running that name ``var`` (0 if untracked)."""
+    with _inflight_lock:
+        return _inflight.get(int(var), 0)
+
+
+def _inflight_begin(vars_) -> tuple:
+    """Count a push against every tracked var in ``vars_``; the vars
+    counted."""
+    if not _inflight:   # tracking starts before the pushes it counts
+        return ()
+    counted = []
+    with _inflight_lock:
+        for v in vars_:
+            if v in _inflight:
+                _inflight[v] += 1
+                counted.append(v)
+    return tuple(counted)
+
+
+def _inflight_end(counted: tuple):
+    with _inflight_lock:
+        for v in counted:
+            if v in _inflight:
+                _inflight[v] -= 1
 
 
 def push(fn, const_vars=(), mutable_vars=(), priority=0, name="op"):
+    counted = _inflight_begin(tuple(const_vars) + tuple(mutable_vars))
+    if counted:
+        inner = fn
+
+        def fn():
+            try:
+                inner()
+            finally:
+                _inflight_end(counted)
     get().push(fn, const_vars, mutable_vars, priority, name)
+
+
+def push_async(fn, const_vars=(), mutable_vars=(), priority=0, name="op"):
+    """Push ``fn(on_complete)``: the op holds its variables until
+    ``on_complete`` is called."""
+    counted = _inflight_begin(tuple(const_vars) + tuple(mutable_vars))
+    if counted:
+        inner = fn
+
+        def fn(on_complete):
+            released = []   # once: a raising fn may have completed too
+
+            def done():
+                if not released:
+                    released.append(1)
+                    _inflight_end(counted)
+                on_complete()
+
+            try:
+                inner(done)
+            except BaseException:
+                if not released:
+                    released.append(1)
+                    _inflight_end(counted)
+                raise
+    get().push_async(fn, const_vars, mutable_vars, priority, name)
 
 
 def wait_for_var(var):

@@ -14,10 +14,14 @@ launch) and adds it once for each replay:
     graph.replay(); replayed(delta)            # each replay counts once
 
 :func:`counted` registers a wrapper (a function or an object such as an
-``mx.rtc`` kernel) and sets its counts to 0.
+``mx.rtc`` kernel) and sets its counts to 0. Captures in one process run
+one at a time (:func:`capture` holds a process-wide lock), so two
+threads' captures never mix their counts (a launch another thread makes
+meanwhile still would).
 """
 from __future__ import annotations
 
+import threading
 import weakref
 
 _COUNTERS = weakref.WeakSet()
@@ -80,14 +84,19 @@ def replayed(delta, times=1):
             k.launches += d * times
 
 
+_capture_lock = threading.Lock()
+
+
 def capture(record):
     """Run ``record()`` (a graph capture: the wrappers run and count, the
     card launches nothing), restore every counter, and return what one
-    replay of the recording launches, for :func:`replayed`."""
-    before = snapshot()
-    try:
-        record()
-    finally:
-        delta = since(before)
-        replayed(delta, -1)
+    replay of the recording launches, for :func:`replayed`. One capture
+    at a time in the process."""
+    with _capture_lock:
+        before = snapshot()
+        try:
+            record()
+        finally:
+            delta = since(before)
+            replayed(delta, -1)
     return delta

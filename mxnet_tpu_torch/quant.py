@@ -18,18 +18,23 @@ its pass over a ``DecodeModel``:
 Nothing here runs unless a config asks for it, and a model without
 ``_scale`` entries computes exactly as before. The bytes held in
 quantized weights are the registry's ``quant_params_bytes{dtype}`` gauge
-(and :func:`quant_params_bytes`). ``QuantizedPredictor``,
-``quantize_predictor`` and ``quantizable_weights`` wait for ``predict.py``.
+(and :func:`quant_params_bytes`).
+- **Fixed-shape predictors**: :class:`QuantizedPredictor` stores each
+  FullyConnected / Convolution weight (:func:`quantizable_weights`)
+  per-channel int8 / fp8 and widens it inside the forward (inside the
+  captured graph on a card), as the reference dequantizes on load;
+  ``reshape`` shares one quantization across a bucket ladder.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
+from . import predict as predict_mod
 from . import telemetry as _telemetry
 from .base import MXNetError
 from .ops.contrib import dequantize_symmetric, quantize_symmetric
@@ -176,3 +181,96 @@ def quantize_decode_model(model, config: Optional[QuantConfig] = None):
     qm = DecodeModel(params, model.spec)
     qm.quant_act = config.act_dtype
     return qm
+
+
+# --- quantized fixed-shape predictor ---------------------------------------
+def quantizable_weights(symbol) -> List[str]:
+    """Names of the weights feeding FullyConnected / Convolution weight
+    slots, the products' operands worth quantizing (channel axis 0, the
+    (O, I...) orientation of both ops)."""
+    names = []
+    for node in symbol._nodes():
+        if node.is_var or node.op.name not in ("FullyConnected",
+                                               "Convolution"):
+            continue
+        if len(node.inputs) > 1:
+            child, _idx = node.inputs[1]
+            if child.is_var and child.name not in names:
+                names.append(child.name)
+    return names
+
+
+class QuantizedPredictor(predict_mod.Predictor):
+    """A Predictor whose quantizable weights are held as per-channel
+    ``(q, scale)`` pairs and widened to f32 inside the forward (so inside
+    the captured graph on a card): weight bytes shrink 4x, accuracy tracks
+    per-channel PTQ. The f32 weights stay shared with the predictor it was
+    made from; a ``reshape`` shares the quantization too."""
+
+    def __init__(self, symbol_json: str, params,
+                 input_shapes: Dict[str, tuple], dtype="float32",
+                 device=None, qconfig: Optional[QuantConfig] = None):
+        self._qconfig = qconfig or QuantConfig()
+        super().__init__(symbol_json, params, input_shapes, dtype, device)
+
+    def _quantize_params(self):
+        """name -> f32 tensor | {"q", "scale"} for every argument weight,
+        made once and shared across reshapes (the bucket ladder)."""
+        qnames = set(quantizable_weights(self._symbol))
+        qvals: Dict[str, object] = {}
+        qbytes = 0
+        for n, a in self._arg_params.items():
+            w = a._data
+            if n in qnames and w.ndim >= 2:
+                q, scale = quantize_weight(w, self._qconfig.weight_dtype,
+                                           axis=0)
+                qvals[n] = {"q": q, "scale": scale}
+                qbytes += q.numel() * WEIGHT_DTYPES[self._qconfig.weight_dtype]
+            else:
+                qvals[n] = w
+        _account_params_bytes(self._qconfig.weight_dtype, qbytes)
+        return qvals
+
+    def _compile(self):
+        if not hasattr(self, "_qvals"):
+            self._qvals = self._quantize_params()
+        super()._compile()
+
+    def _param_values(self) -> Dict[str, torch.Tensor]:
+        # dequant on load, inside the forward
+        return {n: dequantize_weight(v["q"], v["scale"])
+                if isinstance(v, dict) else v
+                for n, v in self._qvals.items()}
+
+    def _shared(self) -> Dict[str, object]:
+        return dict(super()._shared(), _qconfig=self._qconfig,
+                    _qvals=self._qvals)
+
+    def reshape(self, new_input_shapes: Dict[str, tuple],
+                device=None) -> "QuantizedPredictor":
+        """MXPredReshape sharing the weights and their quantization: a
+        bucket ladder quantizes once. ``device`` must be this
+        predictor's."""
+        if device is not None and predict_mod.resolve_device(device) \
+                != self._device:
+            raise MXNetError("QuantizedPredictor.reshape shares its "
+                             "quantized weights: it binds on its own device")
+        return super().reshape(new_input_shapes)
+
+    def export(self, path: str):
+        raise MXNetError(
+            "QuantizedPredictor.export is not supported — export the f32 "
+            "Predictor and quantize at load time instead")
+
+
+def quantize_predictor(predictor: "predict_mod.Predictor",
+                       config: Optional[QuantConfig] = None
+                       ) -> QuantizedPredictor:
+    """PTQ over an existing Predictor: the same symbol and weights bound
+    as a :class:`QuantizedPredictor` at the same shapes and device."""
+    params = {n: a for n, a in predictor._arg_params.items()}
+    params.update({"aux:%s" % n: a
+                   for n, a in predictor._aux_params.items()})
+    return QuantizedPredictor(
+        predictor._symbol.tojson(), params, predictor._input_shapes,
+        dtype=predictor._dtype, device=predictor._device, qconfig=config)

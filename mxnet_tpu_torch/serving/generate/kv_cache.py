@@ -6,8 +6,9 @@ Counterpart of ``mxnet_tpu/serving/generate/kv_cache.py``.
 C)`` f32 scale slabs) live behind ONE engine variable, and
 every program that touches them (admit, step, both in place) is pushed
 with ``mutable_vars=[var]``, so the engine orders step N+1 after step N
-and after any admits between them. The reference keeps one manager per
-replica; the port serves one replica until ``InferenceServer`` comes.
+and after any admits between them. The scheduler keeps one manager per
+replica, each over its replica's program set (``DecodePrograms.replica``),
+whose decode step (and graph) is its own.
 
 The host-side bookkeeping (which slot belongs to which sequence, each
 row's length) is guarded by ``_lock``, a leaf lock never held across an

@@ -129,6 +129,12 @@ def _kv_dtype(kv_dtype: str) -> torch.dtype:
     return KV_SLAB_DTYPES[kv_dtype]
 
 
+def _host(v):
+    """A host array of ``v`` (an NDArray's in one copy, not element by
+    element)."""
+    return v.asnumpy() if hasattr(v, "asnumpy") else v
+
+
 def params_from_numpy(d: Dict, device=None,
                       dtype="float32") -> Dict[str, torch.Tensor]:
     """The port's stacked params from numpy weights, on ``device``.
@@ -149,8 +155,7 @@ def params_from_numpy(d: Dict, device=None,
                            % (dtype, sorted(_PARAM_DTYPES)))
 
     def tensor(v, name=""):
-        v = v.asnumpy() if hasattr(v, "asnumpy") else v
-        a = np.asarray(v)
+        a = np.asarray(_host(v))
         if str(a.dtype) == "float8_e4m3fn":
             t = torch.from_numpy(np.array(a.view(np.uint8))).view(
                 torch.float8_e4m3fn)
@@ -187,7 +192,7 @@ def params_from_numpy(d: Dict, device=None,
     if n_layers == 0:
         raise ServingError("decode model: no layer0_q_weight in params")
     params = {k: tensor(np.stack([np.asarray(
-        get("layer%d%s" % (i, suffix)), np.float32)
+        _host(get("layer%d%s" % (i, suffix))), np.float32)
         for i in range(n_layers)]))
         for k, suffix in _LAYER_NAMES.items()}
     for k, name in _TOP_NAMES.items():

@@ -16,6 +16,11 @@ reference's compiled step: on a CUDA device the decode step becomes one
 protocol of ``executor.py``'s ``_TrainStep``: warm-up calls on a side
 stream, one capture, then replays). On the CPU the step runs eagerly.
 
+**Replicas** (the scheduler's ``replicas``): :meth:`DecodePrograms.replica`
+makes the program set of one more replica, which shares the models, the
+shapes and the prefill programs and has a decode step (and verify) of its
+own, so its own CUDA graph when captured.
+
 **Speculative decoding** (``spec.py``): ``step_model`` is the draft,
 whose forward is the decode step, and ``enable_verify(W)`` adds the
 TARGET model's verify over a (slots, W) window, a step of its own
@@ -35,6 +40,7 @@ memory) before it returns.
 """
 from __future__ import annotations
 
+import copy
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -208,12 +214,27 @@ class DecodePrograms:
         self.capture = bool(capture)
         self._prefill: Dict[int, Callable] = {}
         self._admit = model.build_admit(self.slots, self.capacity, kv_dtype)
-        self._step = _DecodeStep(
-            _bind(self.step_model, self.step_model.build_decode(
-                self.slots, self.capacity, kv_dtype)),
-            self.device, capture)
+        self._step = self._make_step()
         self._verify: Optional[_DecodeStep] = None
         self.spec_window = 0
+
+    def _make_step(self) -> "_DecodeStep":
+        return _DecodeStep(
+            _bind(self.step_model, self.step_model.build_decode(
+                self.slots, self.capacity, self.kv_dtype)),
+            self.device, self.capture)
+
+    def replica(self) -> "DecodePrograms":
+        """The program set of one more replica: the same models, shapes and
+        prefill programs (one dict, built on the scheduler thread), its
+        own decode step and verify, so its own graphs when captured."""
+        other = copy.copy(self)
+        other._step = self._make_step()
+        other._verify = None
+        if self.spec_window:
+            other.spec_window = 0
+            other.enable_verify(self.spec_window)
+        return other
 
     # --- shapes -----------------------------------------------------------
     def _slab_shapes(self):
@@ -402,12 +423,16 @@ class PagedDecodePrograms(DecodePrograms):
         self.max_blocks = -(-self.capacity // self.block_tokens)
         self.num_blocks = int(num_blocks)        # usable (excludes trash)
         self._prefill: Dict[int, Callable] = {}
-        self._step = _DecodeStep(
-            _bind(self.step_model, self.step_model.build_paged_decode(
-                self.slots, self.block_tokens, self.max_blocks, kv_dtype)),
-            self.device, capture)
+        self._step = self._make_step()
         self._verify: Optional[_DecodeStep] = None
         self.spec_window = 0
+
+    def _make_step(self) -> "_DecodeStep":
+        return _DecodeStep(
+            _bind(self.step_model, self.step_model.build_paged_decode(
+                self.slots, self.block_tokens, self.max_blocks,
+                self.kv_dtype)),
+            self.device, self.capture)
 
     # --- shapes -----------------------------------------------------------
     def _slab_shapes(self):

@@ -1,16 +1,24 @@
 """Orca-style iteration-level scheduler for continuous-batching decode.
 
 Counterpart of ``mxnet_tpu/serving/generate/scheduler.py``. One scheduler
-thread drives one KV cache: each loop iteration it (1) expires/admits
-waiting prompts — each admission is one engine op: unpaged, a prefill
-through the flash-attention kernel plus an admit into the slot row;
-paged, one paged prefill (copy-on-write fork + attention over the cached
-prefix + the suffix's scatter into its blocks) — (2) pushes ONE
-fixed-shape decode step over all slots onto the engine (``mutable_vars=
-[kv var]``, so the engine orders step N+1 after step N and after any
-admits between them), (3) fences, samples on the host, streams tokens
-out, and retires finished sequences. The batch is re-formed every step as
-sequences finish and new ones join mid-flight.
+thread drives every replica's KV cache: each loop iteration it (1)
+expires/admits waiting prompts, each into the replica with the most free
+slots — each admission is one engine op on that replica's kv var:
+unpaged, a prefill through the flash-attention kernel plus an admit into
+the slot row; paged, one paged prefill (copy-on-write fork + attention
+over the cached prefix + the suffix's scatter into its blocks) — (2)
+pushes ONE fixed-shape decode step over all slots of each occupied
+replica onto the engine (``mutable_vars=[kv var]``, so the engine orders
+step N+1 after step N and after any admits between them), (3) fences,
+samples on the host, streams tokens out, and retires finished sequences.
+The batch is re-formed every step as sequences finish and new ones join
+mid-flight.
+
+Replicas (``replicas``, the ``InferenceServer``'s replica count): each
+has its own KV cache manager (slot rows or block pool) and its own decode
+step (``DecodePrograms.replica``), so its own CUDA graph when captured;
+the prefill programs are shared. The gauges sum (blocks, bytes) or
+average (occupancy) over replicas.
 
 Paged KV (``paged=True``: ``block_tokens``, ``num_blocks``,
 ``prefix_share``) drives ``PagedDecodePrograms`` + ``PagedKVCacheManager``:
@@ -50,9 +58,8 @@ exemplar) and the flight recorder, and a deadline miss writes a flight
 bundle. A stream's trace is the ``trace`` given to :meth:`submit`, else
 the submitting thread's ``telemetry.context.current_context()``.
 
-Not ported: the reference's ``replicas`` (one cache per replica, for the
-multi-device ``InferenceServer``) and its engine-wide capture
-(``MXNET_ENGINE_CAPTURE``, ``engine.CapturedSequence``).
+Not ported: the reference's engine-wide capture (``MXNET_ENGINE_CAPTURE``,
+``engine.CapturedSequence``).
 """
 from __future__ import annotations
 
@@ -163,12 +170,13 @@ class _Active:
     """One sequence occupying a slot, with its sampling context
     (temperature 0 = greedy; a private RandomState per stream keeps draws
     deterministic per seed and independent of co-resident streams)."""
-    __slots__ = ("stream", "slot", "last_token", "generated",
+    __slots__ = ("stream", "replica", "slot", "last_token", "generated",
                  "temperature", "rng")
 
-    def __init__(self, stream, slot, last_token, generated,
+    def __init__(self, stream, replica, slot, last_token, generated,
                  temperature=0.0, rng=None):
         self.stream = stream
+        self.replica = replica
         self.slot = slot
         self.last_token = last_token
         self.generated = generated
@@ -177,11 +185,15 @@ class _Active:
 
 
 class DecodeScheduler:
-    """Continuous-batching decode over one model and one KV cache (slot
-    rows or a block pool) on the model's device."""
+    """Continuous-batching decode over one model across ``replicas`` KV
+    caches (slot rows or block pools) on the model's device."""
 
-    def __init__(self, model: DecodeModel, config: GenerateConfig):
+    def __init__(self, model: DecodeModel, config: GenerateConfig,
+                 replicas: int = 1):
         self.config = config
+        self.replicas = int(replicas)
+        if self.replicas < 1:
+            raise ServingError("decode: replicas must be >= 1")
         self.kv_dtype = _quant.normalize_kv_dtype(config.kv_dtype)
         if config.quant_weights and "wq_scale" not in model.params:
             model = _quant.quantize_decode_model(
@@ -220,13 +232,19 @@ class DecodeScheduler:
         if config.spec:
             self.programs.enable_verify(config.spec_tokens + 1)
             self._spec = SpecDecoder(self)
-        self.cache = None      # KVCacheManager | PagedKVCacheManager
+        # a program set a replica: replica 0's is ``programs``
+        self._programs = [self.programs] + [
+            self.programs.replica() for _ in range(self.replicas - 1)]
+        # KVCacheManager | PagedKVCacheManager, one a replica, from start()
+        self.caches: List = []
         self._cond = threading.Condition()
         self._queue: deque = deque()   # (stream, prompt, temperature, rng)
-        self._active: Dict[int, _Active] = {}     # slot -> sequence
+        # (replica, slot) -> sequence
+        self._active: Dict[Tuple[int, int], _Active] = {}
         self._state = "stopped"        # running|draining|stopped
         self._thread: Optional[threading.Thread] = None
         self.steps = 0
+        self.replica_steps = [0] * self.replicas   # steps each replica took
         # speculative accounting (spec off: drafted stays 0 and
         # step_tokens == seq_steps, one token a step)
         self.seq_steps = 0        # per-sequence step iterations
@@ -276,15 +294,18 @@ class DecodeScheduler:
                 return
             self._state = "running"
         if self.config.paged:
-            self.cache = PagedKVCacheManager(
-                self.programs, prefix_share=self.config.prefix_share)
-            self._m_blocks_total.set(self.cache.blocks_total())
-            self._m_blocks_free.set(self.cache.blocks_free())
+            self.caches = [
+                PagedKVCacheManager(p, prefix_share=self.config.prefix_share)
+                for p in self._programs]
+            self._m_blocks_total.set(
+                sum(c.blocks_total() for c in self.caches))
+            self._m_blocks_free.set(
+                sum(c.blocks_free() for c in self.caches))
         else:
-            self.cache = KVCacheManager(self.programs)
+            self.caches = [KVCacheManager(p) for p in self._programs]
             self._m_blocks_total.set(0)
             self._m_blocks_free.set(0)
-        kv_total = self.cache.kv_bytes()
+        kv_total = sum(c.kv_bytes() for c in self.caches)
         self._m_kv.set(kv_total)
         self._m_kv_dtype.set(kv_total)
         # this scheduler's values from its start: a gauge an earlier
@@ -324,14 +345,16 @@ class DecodeScheduler:
                 leftovers.append(self._queue.popleft()[0])
             actives, self._active = list(self._active.values()), {}
         for a in actives:
-            self.cache.free(a.slot)
+            self.caches[a.replica].free(a.slot)
             leftovers.append(a.stream)
         for s in leftovers:
             s._fail(ServingError("decode scheduler stopped", code=code))
-        if self.cache is not None:
-            _engine.fence([self.cache.var]).wait()
-            _engine.delete_variable(self.cache.var)
-        self.cache = None
+        if self.caches:
+            _engine.fence([c.var for c in self.caches]).wait()
+            for c in self.caches:
+                _engine.untrack_inflight(c.var)
+                _engine.delete_variable(c.var)
+        self.caches = []
         self._m_occ.set(0.0)
 
     # --- submission -------------------------------------------------------
@@ -398,10 +421,11 @@ class DecodeScheduler:
             self._expire_and_cancel()
             self._admit_waiting()
             self._step_all()
-            cache = self.cache
-            self._m_occ.set(cache.occupancy_pct())
+            caches = self.caches
+            self._m_occ.set(sum(c.occupancy_pct() for c in caches)
+                            / len(caches))
             if self.config.paged:
-                self._m_blocks_free.set(cache.blocks_free())
+                self._m_blocks_free.set(sum(c.blocks_free() for c in caches))
             if self.seq_steps:
                 self._m_tokens_per_step.set(
                     self.step_tokens / self.seq_steps)
@@ -468,9 +492,9 @@ class DecodeScheduler:
 
     def _retire(self, a: _Active, reason: Optional[str] = None,
                 error: Optional[ServingError] = None):
-        self.cache.free(a.slot)
+        self.caches[a.replica].free(a.slot)
         with self._cond:
-            self._active.pop(a.slot, None)
+            self._active.pop((a.replica, a.slot), None)
         if error is not None:
             a.stream._fail(error)
             self._stream_end(a.stream, ok=False, code=error.code)
@@ -478,23 +502,37 @@ class DecodeScheduler:
             a.stream._finish(reason or "eos")
             self._stream_end(a.stream, ok=True, code=reason or "eos")
 
+    def _pick_replica(self) -> Optional[int]:
+        """The replica with the most free slots (the first on a tie), or
+        None when every slot is taken."""
+        best, best_free = None, 0
+        for i, c in enumerate(self.caches):
+            free = c.slots - len(c.active_slots())
+            if free > best_free:
+                best, best_free = i, free
+        return best
+
     def _admit_waiting(self):
         """Prefill waiting prompts into free slots (unpaged) / free blocks
-        (paged). Each admission is one engine op on the kv var (prefill ->
-        slot insert; paged: the one paged prefill, which may run only the
-        suffix after a shared prefix and fork a shared boundary block
-        first), fenced as a group so fresh sequences join the very next
-        step. A traced stream's ``serving.queued`` span closes here; its
+        (paged) of the replica with the most free slots. Each admission is
+        one engine op on that replica's kv var (prefill -> slot insert;
+        paged: the one paged prefill, which may run only the suffix after
+        a shared prefix and fork a shared boundary block first), fenced as
+        a group so fresh sequences join the very next step. A traced stream's ``serving.queued`` span closes here; its
         ``serving.dispatch`` span runs from the push to its first token,
         the parent of the ``decode.prefill`` span the engine worker
         records."""
         admitted = []         # (active, holder, dispatch context, push ns)
-        cache = self.cache
+        touched = []
         while True:
+            rep = self._pick_replica()
+            if rep is None:
+                break
             with self._cond:
                 if not self._queue:
                     break
                 stream, prompt, temp, rng = self._queue.popleft()
+            cache = self.caches[rep]
             plan = cache.try_admit(stream, prompt, stream.max_new_tokens)
             if plan is None:      # slots/blocks exhausted — wait for
                 with self._cond:  # retirement, never evict mid-stream
@@ -516,11 +554,13 @@ class DecodeScheduler:
                 dctx = tr.child()
                 stamps = dctx.child().stamps()
             holder: Dict[str, object] = {}
-            admitted.append((_Active(stream, plan.slot, 0, 0,
+            admitted.append((_Active(stream, rep, plan.slot, 0, 0,
                                      temperature=temp, rng=rng), holder,
                              dctx, _telemetry.clock_ns()))
+            if cache.var not in touched:
+                touched.append(cache.var)
 
-            def op(plan=plan, holder=holder, stamps=stamps):
+            def op(plan=plan, holder=holder, stamps=stamps, cache=cache):
                 progs = self.programs
                 args = dict(tokens=len(plan.suffix), **stamps)
                 if self.config.paged:
@@ -544,9 +584,9 @@ class DecodeScheduler:
                             with _telemetry.span(
                                     "decode.cow_fork", domain="serving",
                                     src=plan.fork_src, dst=plan.fork_dst):
-                                last = self._paged_prefill(plan)
+                                last = self._paged_prefill(cache, plan)
                         else:
-                            last = self._paged_prefill(plan)
+                            last = self._paged_prefill(cache, plan)
                         holder["logits"] = last.float().cpu().numpy()
                 except Exception as e:      # noqa: BLE001 — reported below
                     holder["error"] = e
@@ -554,29 +594,28 @@ class DecodeScheduler:
             _engine.push(op, mutable_vars=[cache.var], name="decode.prefill")
         if not admitted:
             return
-        _engine.fence([cache.var]).wait()
+        _engine.fence(touched).wait()
         for a, holder, dctx, t0 in admitted:
             err = holder.get("error")
             if err is not None:
-                cache.free(a.slot)
+                self.caches[a.replica].free(a.slot)
                 a.stream._fail(ServingError(
                     "prefill failed: %s" % err, code="dispatch_error"))
                 self._stream_end(a.stream, ok=False, code="dispatch_error")
                 continue
             if dctx is not None:
                 _telemetry.complete("serving.dispatch", domain="serving",
-                                    start_ns=t0, kind="prefill", replica=0,
-                                    **dctx.stamps())
+                                    start_ns=t0, kind="prefill",
+                                    replica=a.replica, **dctx.stamps())
             with self._cond:
-                self._active[a.slot] = a
+                self._active[(a.replica, a.slot)] = a
             self._emit(a, sample_token(holder["logits"], a.temperature,
                                        a.rng))
 
-    def _paged_prefill(self, plan):
-        """The paged prefill of ``plan`` (engine worker): the copy-on-write
-        fork, attention over the cached prefix and the suffix's scatter,
-        in place; returns the last position's logits."""
-        cache = self.cache
+    def _paged_prefill(self, cache, plan):
+        """The paged prefill of ``plan`` into ``cache`` (engine worker):
+        the copy-on-write fork, attention over the cached prefix and the
+        suffix's scatter, in place; returns the last position's logits."""
         return self.programs.paged_prefill(
             cache.k_slab, cache.v_slab, plan.table, plan.ctx_len,
             plan.suffix, plan.fork_src, plan.fork_dst,
@@ -601,7 +640,7 @@ class DecodeScheduler:
             self._retire(a, reason="max_tokens")
             return False
         if length is None:
-            length = self.cache.length(a.slot)
+            length = self.caches[a.replica].length(a.slot)
         if length >= self.programs.capacity:
             # the next step would write at kv position == capacity (the
             # write position IS the current length)
@@ -610,90 +649,113 @@ class DecodeScheduler:
         return True
 
     def _step_all(self):
-        """One decode step over all slots when any is occupied: push the
-        step op, fence, then sample/stream on the host. With ``spec`` the
-        iteration is ``SpecDecoder``'s (the same push / fence / emit, 1..k+1
-        tokens a sequence)."""
+        """One decode step on every replica with occupied slots: push each
+        replica's step op, fence them together, then sample/stream on the
+        host. With ``spec`` the iteration is ``SpecDecoder``'s (the same
+        push / fence / emit, 1..k+1 tokens a sequence)."""
         if self._spec is not None:
             self._spec.step_all()
             return
-        cache = self.cache
         with self._cond:
-            actives = list(self._active.values())
-        if not actives:
-            return
-        lengths = np.zeros(cache.slots, np.int64)
-        tokens = np.zeros(cache.slots, np.int64)
-        for a in actives:
-            lengths[a.slot] = cache.length(a.slot)
-            tokens[a.slot] = a.last_token
-        # paged rows read and write kv through their block tables (freed
-        # rows are all-trash: they write block 0 and read nothing unmasked)
-        tables = cache.step_arrays()[1] if self.config.paged else None
-        holder: Dict[str, object] = {}
-        # batch-level span: every co-resident stream's trace, so each
-        # request's tree shows the steps it shared
-        stamps = {}
-        if _telemetry.enabled("serving"):
-            tids = [a.stream.trace.trace_id for a in actives
-                    if a.stream.trace is not None]
-            if tids:
-                stamps = {"trace_ids": tids,
-                          "span_id": _trace_context.mint_span_id()}
-
-        def op():
-            scales = {"ks_slab": cache.k_scale, "vs_slab": cache.v_scale}
-            try:
-                # the host side of the step (a replay, when captured) and
-                # the read of its logits, which waits for the card
-                with _telemetry.span("decode.step", domain="serving",
-                                     rows=int((lengths > 0).sum()),
-                                     **stamps):
-                    if tables is not None:
-                        logits = self.programs.decode(
-                            cache.k_slab, cache.v_slab, tables, lengths,
-                            tokens, **scales)
-                    else:
-                        logits = self.programs.decode(
-                            cache.k_slab, cache.v_slab, lengths, tokens,
-                            **scales)
-                    holder["logits"] = logits.float().cpu().numpy()
-            except Exception as e:      # noqa: BLE001 — reported below
-                holder["error"] = e
-
-        _engine.push(op, mutable_vars=[cache.var], name="decode.step")
-        _engine.fence([cache.var]).wait()
-        self.steps += 1
-        err = holder.get("error")
-        if err is not None:
-            # a failed in-place step may leave the slabs half written:
-            # rebuild the cache (and recapture) rather than step on that
-            # state
+            by_rep: Dict[int, List[_Active]] = {}
+            for (rep, _slot), a in sorted(self._active.items()):
+                by_rep.setdefault(rep, []).append(a)
+        stepped = []          # (replica, [active...], holder)
+        for rep, actives in sorted(by_rep.items()):
+            cache = self.caches[rep]
+            lengths = np.zeros(cache.slots, np.int64)
+            tokens = np.zeros(cache.slots, np.int64)
             for a in actives:
-                self._retire(a, error=ServingError(
-                    "decode step failed: %s" % err, code="dispatch_error"))
-            cache.reset()
+                lengths[a.slot] = cache.length(a.slot)
+                tokens[a.slot] = a.last_token
+            # paged rows read and write kv through their block tables
+            # (freed rows are all-trash: they write block 0 and read
+            # nothing unmasked)
+            tables = cache.step_arrays()[1] if self.config.paged else None
+            holder: Dict[str, object] = {}
+            stepped.append((rep, actives, holder))
+            # batch-level span: every co-resident stream's trace, so each
+            # request's tree shows the steps it shared
+            stamps = {}
+            if _telemetry.enabled("serving"):
+                tids = [a.stream.trace.trace_id for a in actives
+                        if a.stream.trace is not None]
+                if tids:
+                    stamps = {"trace_ids": tids,
+                              "span_id": _trace_context.mint_span_id()}
+
+            def op(cache=cache, lengths=lengths, tokens=tokens,
+                   tables=tables, holder=holder, stamps=stamps):
+                scales = {"ks_slab": cache.k_scale, "vs_slab": cache.v_scale}
+                progs = cache.programs
+                try:
+                    # the host side of the step (a replay, when captured)
+                    # and the read of its logits, which waits for the card
+                    with _telemetry.span("decode.step", domain="serving",
+                                         rows=int((lengths > 0).sum()),
+                                         **stamps):
+                        if tables is not None:
+                            logits = progs.decode(
+                                cache.k_slab, cache.v_slab, tables, lengths,
+                                tokens, **scales)
+                        else:
+                            logits = progs.decode(
+                                cache.k_slab, cache.v_slab, lengths, tokens,
+                                **scales)
+                        holder["logits"] = logits.float().cpu().numpy()
+                except Exception as e:      # noqa: BLE001 — reported below
+                    holder["error"] = e
+
+            _engine.push(op, mutable_vars=[cache.var], name="decode.step")
+        if not stepped:
             return
-        logits = holder["logits"]
-        for a in actives:
-            cache.advance(a.slot)
-            self.seq_steps += 1
-            self.step_tokens += 1
-            self._emit(a, sample_token(logits[a.slot], a.temperature, a.rng))
+        _engine.fence([self.caches[rep].var for rep, _, _ in stepped]).wait()
+        self.steps += 1
+        for rep, actives, holder in stepped:
+            self.replica_steps[rep] += 1
+            cache = self.caches[rep]
+            err = holder.get("error")
+            if err is not None:
+                # a failed in-place step may leave the slabs half written:
+                # rebuild the replica's cache (and recapture) rather than
+                # step on that state
+                for a in actives:
+                    self._retire(a, error=ServingError(
+                        "decode step failed: %s" % err,
+                        code="dispatch_error"))
+                cache.reset()
+                continue
+            logits = holder["logits"]
+            for a in actives:
+                cache.advance(a.slot)
+                self.seq_steps += 1
+                self.step_tokens += 1
+                self._emit(a, sample_token(logits[a.slot], a.temperature,
+                                           a.rng))
 
     # --- introspection ----------------------------------------------------
+    def capture_stats(self) -> List[Dict[str, object]]:
+        """Each replica's decode-step path (``DecodePrograms.capture_stats``
+        of its program set) and the steps it took."""
+        return [dict(p.capture_stats(), steps=n)
+                for p, n in zip(self._programs, self.replica_steps)]
+
     def stats(self) -> Dict[str, object]:
-        """Steps, queue and batch, the KV type and bytes, the weights'
-        quantization, the speculative counters and accept rate, the decode
-        step's path with its warm-up calls, captures and replays (with
-        spec, the verify's too), and (paged) the pool and the prefix
-        counters."""
+        """Steps, queue and batch, the KV type and bytes (all replicas),
+        the weights' quantization, the speculative counters and accept
+        rate, the decode step's path with its warm-up calls, captures and
+        replays (summed over replicas; each replica's under ``"replica"``
+        when there are several; with spec, the verify's too), and (paged)
+        the pools and the prefix counters, summed."""
         with self._cond:
             queued = len(self._queue)
             active = len(self._active)
-        cap = self.programs.capture_stats()
+        caps = self.capture_stats()
+        cap = caps[0]
         st = {"steps": self.steps, "queued": queued, "active": active,
-              "kv_dtype": self.kv_dtype, "kv_bytes": self.programs.kv_bytes(),
+              "replicas": self.replicas,
+              "kv_dtype": self.kv_dtype,
+              "kv_bytes": self.programs.kv_bytes() * self.replicas,
               "quant_weights": self.config.quant_weights or "off",
               "seq_steps": self.seq_steps,
               "step_tokens": self.step_tokens,
@@ -710,18 +772,25 @@ class DecodeScheduler:
               "spec": "%s k=%d" % (self.config.spec_draft,
                                    self.config.spec_tokens)
               if self.config.spec else "off",
-              "decode_path": cap["path"],
-              "warmup_calls": cap["warmup_calls"],
-              "captures": cap["captures"], "replays": cap["replays"]}
+              "decode_path": cap["path"]}
+        for k in ("warmup_calls", "captures", "replays"):
+            st[k] = sum(c[k] for c in caps)
         if "verify" in cap:
-            st.update({"verify_" + k: v for k, v in cap["verify"].items()
-                       if k != "eager_calls"})
-        cache = self.cache
-        if self.config.paged and cache is not None:
-            st.update(blocks_total=cache.blocks_total(),
-                      blocks_free=cache.blocks_free(),
-                      blocks_peak=cache.blocks_peak,
-                      prefix_hits=cache.prefix_hits,
-                      prefix_tokens_saved=cache.prefix_tokens_saved,
-                      cow_forks=cache.cow_forks)
+            for k, v in cap["verify"].items():
+                if k == "path":
+                    st["verify_path"] = v
+                elif k != "eager_calls":
+                    st["verify_" + k] = sum(c["verify"][k] for c in caps)
+        if self.replicas > 1:
+            st["replica"] = caps
+        caches = self.caches
+        if self.config.paged and caches:
+            st.update(
+                blocks_total=sum(c.blocks_total() for c in caches),
+                blocks_free=sum(c.blocks_free() for c in caches),
+                blocks_peak=sum(c.blocks_peak for c in caches),
+                prefix_hits=sum(c.prefix_hits for c in caches),
+                prefix_tokens_saved=sum(c.prefix_tokens_saved
+                                        for c in caches),
+                cow_forks=sum(c.cow_forks for c in caches))
         return st

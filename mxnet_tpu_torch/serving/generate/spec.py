@@ -25,8 +25,9 @@ acceptance; the scheduler fences it, then truncates and emits. The op
 runs inside the iteration's ``decode.step`` span (``spec=k``), the draft
 steps inside ``decode.draft`` and the verify inside ``decode.verify``
 (domain ``serving``, the reference's names), each around the host side of
-its calls and the reads of their logits. The reference's replicas and
-engine capture are not ported.
+its calls and the reads of their logits. With several replicas each has
+its op (on its own program set and cache); one fence covers them. The
+reference's engine capture is not ported.
 """
 from __future__ import annotations
 
@@ -120,77 +121,90 @@ class SpecDecoder:
         self.k = int(sched.config.spec_tokens)
 
     def step_all(self):
-        """One iteration over the occupied slots: ONE engine op (k draft
-        steps, the verify and the acceptance), one fence, then the commit:
-        truncate each row to its accepted length and emit 1..k+1 tokens."""
+        """One iteration over the occupied slots of every replica: ONE
+        engine op a replica (k draft steps, the verify and the
+        acceptance), one fence over them, then the commit: truncate each
+        row to its accepted length and emit 1..k+1 tokens."""
         sched = self.sched
-        cache = sched.cache
         k = self.k
         cap = sched.programs.capacity
         with sched._cond:
-            actives = sorted(sched._active.values(), key=lambda a: a.slot)
-        if not actives:
-            return
-        n0 = np.zeros(cache.slots, np.int64)
-        t0 = np.zeros(cache.slots, np.int64)
-        keff = np.zeros(cache.slots, np.int64)
-        for a in actives:
-            n0[a.slot] = cache.length(a.slot)
-            t0[a.slot] = a.last_token
-            # emit at most keff + 1 tokens: within max_new_tokens, within
-            # capacity and (paged) the admission reservation, so accepted
-            # positions never need a block try_admit did not reserve
-            remaining = a.stream.max_new_tokens - a.generated
-            keff[a.slot] = max(0, min(k, remaining - 1,
-                                      cap - 1 - int(n0[a.slot])))
-        active = n0 > 0
-        tables = cache.step_arrays()[1] if sched.config.paged else None
-        # each row's sampling context, used inside the op: the scheduler
-        # fences before it touches these streams again
-        samplers = {a.slot: (a.temperature, a.rng) for a in actives
-                    if a.temperature > 0.0 and a.rng is not None}
-        holder: Dict[str, object] = {}
-
-        def op():
-            try:
-                with _telemetry.span("decode.step", domain="serving",
-                                     rows=int(active.sum()), spec=k):
-                    holder["res"] = self._speculate(cache, n0, t0, keff,
-                                                    tables, samplers, active)
-            except Exception as e:      # noqa: BLE001 — reported below
-                holder["error"] = e
-
-        _engine.push(op, mutable_vars=[cache.var], name="decode.step")
-        _engine.fence([cache.var]).wait()
-        sched.steps += 1
-        err = holder.get("error")
-        if err is not None:
-            # a failed in-place iteration may leave the slabs half written:
-            # rebuild the cache (the vanilla recovery)
+            by_rep: Dict[int, list] = {}
+            for (rep, _slot), a in sorted(sched._active.items()):
+                by_rep.setdefault(rep, []).append(a)
+        stepped = []          # (replica, [active...], holder)
+        for rep, actives in sorted(by_rep.items()):
+            cache = sched.caches[rep]
+            n0 = np.zeros(cache.slots, np.int64)
+            t0 = np.zeros(cache.slots, np.int64)
+            keff = np.zeros(cache.slots, np.int64)
             for a in actives:
-                sched._retire(a, error=ServingError(
-                    "decode step failed: %s" % err, code="dispatch_error"))
-            cache.reset()
+                n0[a.slot] = cache.length(a.slot)
+                t0[a.slot] = a.last_token
+                # emit at most keff + 1 tokens: within max_new_tokens,
+                # within capacity and (paged) the admission reservation,
+                # so accepted positions never need a block try_admit did
+                # not reserve
+                remaining = a.stream.max_new_tokens - a.generated
+                keff[a.slot] = max(0, min(k, remaining - 1,
+                                          cap - 1 - int(n0[a.slot])))
+            active = n0 > 0
+            tables = cache.step_arrays()[1] if sched.config.paged else None
+            # each row's sampling context, used inside the op: the
+            # scheduler fences before it touches these streams again
+            samplers = {a.slot: (a.temperature, a.rng) for a in actives
+                        if a.temperature > 0.0 and a.rng is not None}
+            holder: Dict[str, object] = {}
+            stepped.append((rep, actives, holder))
+
+            def op(cache=cache, n0=n0, t0=t0, keff=keff, tables=tables,
+                   samplers=samplers, active=active, holder=holder):
+                try:
+                    with _telemetry.span("decode.step", domain="serving",
+                                         rows=int(active.sum()), spec=k):
+                        holder["res"] = self._speculate(
+                            cache, n0, t0, keff, tables, samplers, active)
+                except Exception as e:      # noqa: BLE001 — reported below
+                    holder["error"] = e
+
+            _engine.push(op, mutable_vars=[cache.var], name="decode.step")
+        if not stepped:
             return
-        res = holder["res"]
-        for a in actives:
-            base, kk, acc, emitted = res[a.slot]
-            # the cache holds target k/v through base + acc (the verify
-            # wrote the window): a rejection is this one host edit
-            cache.truncate(a.slot, base + 1 + acc)
-            sched.seq_steps += 1
-            sched.step_tokens += len(emitted)
-            sched.drafted_tokens += kk
-            sched.accepted_tokens += acc
-            for m, tok in enumerate(emitted):
-                if not sched._emit(a, tok, length=base + 1 + m):
-                    break
+        _engine.fence([sched.caches[rep].var for rep, _, _ in stepped]).wait()
+        sched.steps += 1
+        for rep, actives, holder in stepped:
+            sched.replica_steps[rep] += 1
+            cache = sched.caches[rep]
+            err = holder.get("error")
+            if err is not None:
+                # a failed in-place iteration may leave the slabs half
+                # written: rebuild the replica's cache (the vanilla
+                # recovery)
+                for a in actives:
+                    sched._retire(a, error=ServingError(
+                        "decode step failed: %s" % err,
+                        code="dispatch_error"))
+                cache.reset()
+                continue
+            res = holder["res"]
+            for a in actives:
+                base, kk, acc, emitted = res[a.slot]
+                # the cache holds target k/v through base + acc (the
+                # verify wrote the window): a rejection is this one edit
+                cache.truncate(a.slot, base + 1 + acc)
+                sched.seq_steps += 1
+                sched.step_tokens += len(emitted)
+                sched.drafted_tokens += kk
+                sched.accepted_tokens += acc
+                for m, tok in enumerate(emitted):
+                    if not sched._emit(a, tok, length=base + 1 + m):
+                        break
 
     def _speculate(self, cache, n0, t0, keff, tables, samplers, active):
         """The device part (engine worker): k draft steps, the verify, the
         acceptance. Every array is (slots,) or (slots, W) whatever the
         occupancy, so each captured step keeps its shapes."""
-        programs = self.sched.programs
+        programs = cache.programs       # the replica's program set
         k = self.k
         cap = programs.capacity
         W = k + 1

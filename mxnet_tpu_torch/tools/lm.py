@@ -62,6 +62,18 @@ def lm_symbol(cfg):
         ffn_dim=cfg["ffn"], num_kv_heads=cfg["kv_heads"], scalar_loss=True)
 
 
+def lm_predict_symbol(cfg):
+    """The LM with its ``SoftmaxOutput`` head: outputs (B*T, vocab)
+    probabilities, the label an input the head does not read at
+    inference."""
+    from .. import models
+
+    return models.get_symbol(
+        "transformer-lm", num_classes=cfg["vocab"], num_layers=cfg["layers"],
+        num_heads=cfg["heads"], model_dim=cfg["d_model"],
+        ffn_dim=cfg["ffn"], num_kv_heads=cfg["kv_heads"])
+
+
 def lm_train_executor(cfg, batch, seq, device=None, compute_dtype=None):
     """The LM bound for training at (batch, seq) on ``device`` (None = the
     card), computing in ``compute_dtype`` (None: f32): (executor, names of

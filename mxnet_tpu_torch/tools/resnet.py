@@ -86,3 +86,30 @@ def wgrad_convs(sym):
     return sum(1 for n in sym._nodes() if not n.is_var
                and n.op.name == "Convolution"
                and tuple(n.attrs["kernel"]) == (3, 3))
+
+
+def resnet_params(cfg, seed=SEED):
+    """Seeded inference weights for ``cfg``'s ResNet as one numpy dict
+    (``arg:`` / ``aux:`` prefixed, the Predictor's form): the run's
+    ``Xavier(factor_type="in", magnitude=2)`` drawn from ``seed`` in
+    ``Module.init_params``' order (sorted names), batch norm's moving
+    means 0 and variances 1."""
+    from .. import initializer, nd
+
+    sym = resnet_symbol(cfg)
+    shapes, _, aux_shapes = sym.infer_shape(
+        data=(1,) + tuple(cfg["image"]), softmax_label=(1,))
+    init = initializer.Xavier(factor_type="in", magnitude=2,
+                              rng=np.random.RandomState(seed))
+    args = dict(zip(sym.list_arguments(), shapes))
+    params = {}
+    for n in sorted(args):
+        if n in ("data", "softmax_label"):
+            continue
+        arr = nd.zeros(args[n], ctx="cpu")
+        init(initializer.InitDesc(n), arr)
+        params["arg:" + n] = arr.asnumpy()
+    for n, s in zip(sym.list_auxiliary_states(), aux_shapes):
+        params["aux:" + n] = np.full(s, 1.0 if n.endswith("var") else 0.0,
+                                     np.float32)
+    return params

@@ -1509,3 +1509,89 @@ def test_parse_exposition_reads_samples_and_refuses_other_text():
                 '# TYPE x gauge\nx{le=1} 2\n'):
         with pytest.raises(RuntimeError):
             cs.parse_exposition(bad)
+
+
+# the fixed-shape serving run, narrow: the LM Predictor at (1, 8), (4, 8),
+# (1, 16); ResNet-18 with the CIFAR stem behind a server of buckets up to
+# 8, two replicas, 24 requests from 4 clients, a burst of 16
+TINY_FIXED = {"lm_shapes": ((1, 8), (4, 8), (1, 16)), "buckets": (1, 2, 4, 8),
+              "max_delay_ms": 5.0, "replicas": 2, "clients": 4,
+              "requests": 24, "rows": (1, 4), "timeout_ms": 10000.0,
+              "burst": 16, "burst_timeout_ms": 1.0, "cpu_checks": 2,
+              "decode_example_len": 8}
+TINY_SERVE_RESNET = {"depth": 18, "classes": 10, "image": (3, 16, 16)}
+
+
+def _tiny_fixed_tols():
+    """1.5 x the tiny ResNet's f32-to-f64 and int8-to-f32 distances over
+    the tiny traffic, as chip_smoke.py's RESNET_PREDICT_TOL and
+    RESNET_INT8_TOL are of the full-width ones."""
+    from mxnet_tpu_torch.tools.resnet_predict_spread import spread
+
+    res = spread(TINY_SERVE_RESNET, TINY_FIXED, cs.SEED)
+    assert res["requests"] == TINY_FIXED["requests"]
+    assert 0 < res["f32_vs_f64"] < 1e-5 and 0 < res["int8_vs_f32"] < 1e-2
+    return 1.5 * res["f32_vs_f64"], 1.5 * res["int8_vs_f32"]
+
+
+def test_serve_fixed_phase_on_cpu(monkeypatch, capsys):
+    """Every part and gate of the phase on the host, where the Predictors
+    and the decode step run eagerly."""
+    _count_plain_calls(monkeypatch)
+    predict_tol, int8_tol = _tiny_fixed_tols()
+    launches, timings = cs.phase_serve_fixed(
+        TINY, TINY_SERVE, TINY_FIXED, TINY_SERVE_RESNET, device="cpu",
+        predict_tol=predict_tol, int8_tol=int8_tol)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "serve_fixed" and timings == {}
+    lm = line["lm_predictor"]
+    # 3 shapes, each a captured-or-eager forward and an eager twin's, 2
+    # layers; then the CPU reference's forward (its plain calls count here)
+    assert lm["flash_launches"] == 2 * 6 and lm["binds"] == 6
+    assert lm["weights_shared"] and lm["captured_vs_eager"]["bit_for_bit"]
+    gen = line["generate"]
+    assert gen["flash_launches"] == 3 * TINY["layers"]
+    assert "batch-major" in gen["refused_predict"]
+    assert len(gen["replica_paths"]) == 2
+    arms = line["resnet"]["arms"]
+    assert set(arms) == {"rr", "least_loaded", "int8"}
+    assert all(arms[a]["mean_batch_occupancy"] > 1 for a in arms)
+    assert arms["rr"]["binds"] <= 8
+    assert arms["rr"]["concurrent_binds"]["forwards_during_binds"] >= 1
+    assert arms["least_loaded"]["burst"]["codes"]["deadline_exceeded"] >= 1
+    assert launches == lm["flash_launches"] + TINY["layers"] \
+        + gen["fixed_path_flash_launches"] + gen["flash_launches"] \
+        + TINY["layers"]
+
+
+def test_serve_fixed_phase_fails_when_the_flash_kernel_is_not_reached():
+    """On the host nothing counts a launch: the phase must refuse."""
+    with pytest.raises(RuntimeError, match="launched the flash kernel 0"):
+        cs.phase_serve_fixed(TINY, TINY_SERVE, TINY_FIXED,
+                             TINY_SERVE_RESNET, device="cpu",
+                             serve_tokens=[[0]] * 3)
+
+
+def test_serve_fixed_phase_fails_when_a_result_leaves_the_tolerance(
+        monkeypatch):
+    """A server whose outputs move by 1e-3 after the forward: the phase
+    refuses at the first arm's per-request check."""
+    from mxnet_tpu_torch.serving import server
+
+    _count_plain_calls(monkeypatch)
+    real = server._host
+    monkeypatch.setattr(server, "_host", lambda o: real(o) + 1e-3)
+    with pytest.raises(RuntimeError, match="from its forward alone"):
+        cs.phase_serve_fixed(TINY, TINY_SERVE, TINY_FIXED,
+                             TINY_SERVE_RESNET, device="cpu",
+                             serve_tokens=[[0]] * 3,
+                             predict_tol=1e-4, int8_tol=1e-2)
+
+
+def test_serve_fixed_tolerances_follow_the_spread_tool():
+    assert cs.RESNET_PREDICT_TOL == 1.5 * cs.RESNET_PREDICT_SPREAD
+    assert cs.RESNET_INT8_TOL == 1.5 * cs.RESNET_INT8_SPREAD
+    from mxnet_tpu_torch.tools.serve_fixed import request_sizes
+
+    sizes = request_sizes(cs.SERVE_FIXED)
+    assert len(sizes) == 96 and set(sizes) == {1, 2, 3, 4}

@@ -214,9 +214,16 @@ def test_module_input_grads_and_fixed_params():
     mod = mt.mod.Module(sym, context="cpu", fixed_param_names=["fc1_bias"])
     mod.bind([("data", (2, 5))], [("softmax_label", (2,))],
              inputs_need_grad=True)
-    mod.init_params(mt.initializer.Uniform(0.5))
+    # its own generator, at a draw with live hidden units: a draw where
+    # every ReLU is dead has a true zero input gradient
+    mod.init_params(mt.initializer.Uniform(
+        0.5, rng=np.random.RandomState(0)))
     mod.init_optimizer(optimizer_params=(("learning_rate", 0.1),))
-    before = mod.get_params()[0]["fc1_bias"].asnumpy().copy()
+    args = mod.get_params()[0]
+    hidden = (np.ones((1, 5)) @ args["fc1_weight"].asnumpy().T
+              + args["fc1_bias"].asnumpy())
+    assert (hidden > 0).any()
+    before = args["fc1_bias"].asnumpy().copy()
     batch = mt.io.DataBatch([mt.nd.array(np.ones((2, 5)), "cpu")],
                             [mt.nd.array(np.array([0.0, 2.0]), "cpu")])
     mod.forward_backward(batch)
