@@ -126,6 +126,34 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    replica's captured path, every slot free, ``generate()`` =
    ``submit_stream()``; then the flash forward at the Predictor's shapes
    against its plain version, timed beside SDPA and its bound.
+3f. ``serve_http`` — the HTTP / SSE front door
+   (``mxnet_tpu_torch.serving.frontend``, ``tools/serve_http.py``) over
+   loopback: (1) ResNet-50 (serve_fixed's, one replica, buckets 1-32, 5
+   ms window, zero-copy) behind ``HttpFrontend``: ``/healthz`` 200 and
+   ``/readyz`` 503 ``warming`` while the ladder is held cold, 200 once
+   warm; 8 closed-loop keep-alive clients sending 96 requests of 1-4
+   images in the b64 form (every answer 200 with its ``x-request-id``,
+   each result within RESNET_PREDICT_TOL of the request alone through a
+   Predictor on the card), the same traffic in-process through
+   ``srv.submit`` (requests/s, p50 / p99 of both and the HTTP hop's
+   share), one request in the JSON and the b64 form bit for bit; (2)
+   admission on a one-bucket (32) ladder with a 400 ms window and 4
+   requests parked in it: a batch-class POST 429 ``shed`` with
+   Retry-After >= 1, an interactive one 200, two HTTP requests parked
+   at ``max_inflight`` 2 and a third 503 ``overloaded``, the counters
+   up by exactly 3 admitted and 2 refused, ``/metrics`` parsed; (3) the
+   serve phase's LM behind the server with 2 decode replicas, the
+   decode step captured: the six prompts as concurrent SSE streams
+   (each the serve phase's, a near-tie allowed; indices 0..31, ``done``
+   with 32 tokens) beside a client that leaves after 4 tokens (its
+   stream cancelled, every slot free), a ``"stream": false`` request
+   equal to its stream, a traced request (``x-trace-id`` echoed, its
+   span tree at ``/debug/requests/<id>``), the six in-process (TTFT and
+   inter-token ms of both), each replica's captured path, exact flash
+   launches (a prompt admitted and layer, plus the fixed path's
+   warm-up forwards); (4) SIGTERM with two streams open: both finish
+   with 32 tokens, ``/readyz`` 503 ``draining`` (or closed), a new POST
+   503 ``shutting_down`` (or refused), the previous handler restored.
 4. ``train``   — the same LM trained as bench.py trains it: first 2 SGD
    steps at 1 x 256 through ``simple_bind`` -> ``forward``/``backward``
    -> ``optimizer.Updater``, f32, no TF32, on the card and on the port's
@@ -166,6 +194,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    perplexity, step times, tokens/s and peak memory; then the epoch again
    with the step eager, equal bit for bit; before it, a line naming what
    holds the card's memory.
+6b. ``seq``   — the sequence ops, the schedulers and the sampling ops:
+   the LSTM LM's body (vocab 10000, embed = hidden = 512, 2 fused layers,
+   seq 35, f32) under a classifier head (``RNN`` output ->
+   ``SequenceMask`` -> ``SequenceLast``, both with lengths, ->
+   ``FullyConnected(10)`` -> ``SoftmaxOutput``; lengths seeded in 1..35;
+   ``tools/seq_classify.py``) through ``Module.fit`` with SGD momentum
+   0.9 under ``FactorScheduler(step=2, factor=0.5)``: (a) 2 batches of 8,
+   card against the CPU, at the lstm phase's gates; (b) 8 batches of 128
+   through the captured fused ``fit_step``: exactly 560 ``lstm_step``
+   launches, each step's lr (read from the step's own buffer) the
+   schedule's, and the run eager on the same parameters bit for bit;
+   (c) ``_arange``, ``_eye``, ``_full``, ``zeros_like`` and the sequence
+   ops bit for bit against the CPU; (d) ``_random_uniform`` / ``normal``
+   / ``gamma`` / ``exponential`` at 2^20 elements: mean and variance
+   within 5 sigma, a seed repeating, two seeds differing.
 7. ``kernel`` rtc — ``mx.rtc``: the JAX package's rtc test kernels (axpy,
    inc, relu, axpy in bf16) as CUDA C compiled by NVRTC, each against its
    mode="torch" twin; the source cache; a syntax error and a refused
@@ -217,6 +260,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -238,6 +282,10 @@ from mxnet_tpu_torch.tools.lstm_bucketing import BUCKETING
 from mxnet_tpu_torch.tools.resnet import RESNET, change_err, fit_args, \
     resnet_setup, wgrad_convs
 from mxnet_tpu_torch.tools.serve_fixed import SERVE_FIXED
+from mxnet_tpu_torch.tools.serve_http import SERVE_HTTP
+from mxnet_tpu_torch.tools.seq_classify import RANDOM_OPS, SEQ, lr_sequence, \
+    moments, seq_setup
+from mxnet_tpu_torch.tools.seq_classify import fit_args as seq_fit_args
 
 H100 = {"bf16_flops": 989e12, "f32_flops": 67e12, "int8_ops": 1979e12,
         "bytes_per_s": 3.35e12}
@@ -3646,6 +3694,662 @@ def phase_serve_fixed(cfg=LM, serve=SERVE, fixed=SERVE_FIXED, resnet=RESNET,
     return launches, timings
 
 
+TRACEPARENT = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01"
+
+
+def _http_note(msg):
+    print("serve_http: %s" % msg, file=sys.stderr, flush=True)
+
+
+def _http_get(port, path, timeout):
+    """(status, payload) of one GET on a fresh connection; (None, the
+    error's name) when the socket refuses it."""
+    from mxnet_tpu_torch.tools import serve_http as sh
+
+    conn = sh.connect(port, timeout)
+    try:
+        st, _, payload, _ = sh.request(conn, "GET", path)
+        return st, payload
+    except OSError as e:
+        return None, type(e).__name__
+    finally:
+        conn.close()
+
+
+def _http_post(port, path, body, headers, timeout):
+    """(status, headers, payload) of one POST on a fresh connection;
+    (None, {}, the error's name) when the socket refuses it."""
+    from mxnet_tpu_torch.tools import serve_http as sh
+
+    conn = sh.connect(port, timeout)
+    try:
+        st, hdrs, payload, _ = sh.request(conn, "POST", path, body, headers)
+        return st, hdrs, payload
+    except OSError as e:
+        return None, {}, type(e).__name__
+    finally:
+        conn.close()
+
+
+def _closed_loop(send, n, clients, wait_s):
+    """``clients`` threads, client c running ``send(i, state)`` for i = c,
+    c + clients, ... one after another (``state``: the client's own dict,
+    where a client keeps its connection); returns (results, client-side
+    latency ms of each, wall s, errors)."""
+    results, lats, errors = [None] * n, [None] * n, []
+
+    def client(c):
+        state = {}
+        try:
+            for i in range(c, n, clients):
+                t0 = time.monotonic()
+                try:
+                    results[i] = send(i, state)
+                except Exception as e:  # noqa: BLE001 — gated by caller
+                    errors.append((i, repr(e)))
+                lats[i] = (time.monotonic() - t0) * 1e3
+        finally:
+            if "conn" in state:
+                state["conn"].close()
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(max(0.0, t0 + wait_s - time.monotonic()))
+    if any(t.is_alive() for t in threads):
+        errors.append((None, "clients still waiting after %g s" % wait_s))
+    return results, lats, time.monotonic() - t0, errors
+
+
+def _host_median(fn, reps=20):
+    """Median host seconds of one ``fn()`` call."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def _latency_report(lats, wall):
+    return {"requests": len(lats), "requests_per_s": len(lats) / wall,
+            "wall_s": wall,
+            "latency_ms_p50": float(np.percentile(lats, 50)),
+            "latency_ms_p99": float(np.percentile(lats, 99))}
+
+
+def _http_predict_part(torch, resnet, http, device, seed, on_card,
+                       predict_tol):
+    """(1) ResNet-50 behind ``InferenceServer`` behind ``HttpFrontend``:
+    readiness while the ladder is held cold, then warm; ``http``'s
+    closed-loop keep-alive clients in the b64 form (every request 200 with
+    its ``x-request-id`` echoed, each result within ``predict_tol`` of the
+    request alone through a Predictor on ``device``); the same traffic
+    in-process through ``srv.submit``; one request alone in the JSON and
+    the b64 form, bit for bit."""
+    from mxnet_tpu_torch import predict, serving
+    from mxnet_tpu_torch.serving.frontend import FrontendConfig, \
+        HttpFrontend, routes
+    from mxnet_tpu_torch.tools import serve_http as sh
+    from mxnet_tpu_torch.tools.resnet import resnet_params, resnet_symbol
+    from mxnet_tpu_torch.tools.serve_fixed import request_images, \
+        request_sizes
+
+    params = resnet_params(resnet, seed)
+    sizes = request_sizes(http, seed)
+    images = request_images(resnet, sizes, seed)
+    wait_s = http["timeout_ms"] / 1e3
+    sym = resnet_symbol(resnet)
+    alone = {r: predict.Predictor(sym.tojson(), params,
+                                  {"data": (r,) + tuple(resnet["image"])},
+                                  device=device)
+             for r in sorted(set(sizes))}
+    want = [alone[x.shape[0]].forward(data=x)[0]._data.cpu().numpy()
+            for x in images]
+    del alone
+    _fresh(torch, on_card)
+    srv = serving.InferenceServer(
+        sym, params, {"data": tuple(resnet["image"])},
+        config=serving.ServingConfig(
+            buckets=http["buckets"], max_delay_ms=http["max_delay_ms"],
+            replicas=http["replicas"], zero_copy=True,
+            timeout_ms=http["timeout_ms"], queue_depth=256),
+        devices=[device] * http["replicas"])
+    fe = HttpFrontend(srv, FrontendConfig(host="127.0.0.1", port=0))
+    # hold the ladder cold until /readyz has been read once
+    cold = threading.Event()
+    real_warm = srv.warm
+
+    def held_warm():
+        cold.wait(wait_s)
+        real_warm()
+
+    srv.warm = held_warm
+    failures = []
+    try:
+        fe.start(wait_ready=False)
+        port = fe.port
+        health = _http_get(port, "/healthz", wait_s)
+        warming = _http_get(port, "/readyz", wait_s)
+        cold.set()
+        t0 = time.monotonic()
+        while _http_get(port, "/readyz", wait_s)[0] != 200:
+            if time.monotonic() - t0 > wait_s:
+                raise RuntimeError("serve_http: /readyz not 200 within %g s"
+                                   % wait_s)
+            time.sleep(0.01)
+        warm_s = time.monotonic() - t0
+        if health != (200, {"status": "ok"}) or \
+                warming != (503, {"status": "warming"}):
+            failures.append("before the warm-up /healthz gave %s and "
+                            "/readyz %s" % (health, warming))
+        _http_note("ResNet-50 ladder warm in %.3f s" % warm_s)
+        # each body serialized before the clock starts: the clients share
+        # this process (and its interpreter lock) with the server
+        bodies = [json.dumps({"inputs": {"data": sh.b64_array(x)},
+                              "encoding": "b64"}).encode() for x in images]
+
+        def send(i, state):
+            if "conn" not in state:
+                state["conn"] = sh.connect(port, wait_s)
+            st, hdrs, payload, _ = sh.request(
+                state["conn"], "POST", "/v1/predict", bodies[i],
+                {"x-request-id": "http-%d" % i})
+            return st, hdrs.get("x-request-id"), payload
+
+        got, lats, wall, errors = _closed_loop(send, len(images),
+                                               http["clients"], wait_s)
+        over_http = _latency_report(lats, wall)
+        _http_note("HTTP traffic done in %.3f s" % wall)
+
+        def send_inproc(i, state):
+            return srv.submit(data=images[i]).get(wait_s)[0]
+
+        inproc, in_lats, in_wall, in_errors = _closed_loop(
+            send_inproc, len(images), http["clients"], wait_s)
+        in_process = _latency_report(in_lats, in_wall)
+        # one request alone in both forms
+        one = sizes.index(1)
+        x = images[one]
+        forms = {}
+        for form, body in (("json", {"inputs": {"data": x.tolist()}}),
+                           ("b64", {"inputs": {"data": sh.b64_array(x)},
+                                    "encoding": "b64"})):
+            t_enc = time.monotonic()
+            raw = json.dumps(body).encode()
+            enc_s = time.monotonic() - t_enc
+            conn = sh.connect(port, wait_s)
+            try:
+                st, _, payload, secs = sh.request(conn, "POST",
+                                                  "/v1/predict", raw)
+            finally:
+                conn.close()
+            out = payload["outputs"][0] if st == 200 else None
+            forms[form] = (st, np.asarray(out, np.float32) if form == "json"
+                           else sh.from_b64(out), secs, enc_s, len(raw))
+        # the server's host work a b64 body of one image, alone: the JSON
+        # parse and the base64 decode the handler runs under the
+        # interpreter lock
+        raw = bodies[one]
+        parsed = routes.parse_json_body(raw)
+        decode_ms = {
+            "json_loads": 1e3 * _host_median(
+                lambda: routes.parse_json_body(raw)),
+            "b64_decode": 1e3 * _host_median(
+                lambda: routes.parse_predict_inputs(parsed))}
+    finally:
+        fe.stop()
+    bad = [(i, g[0] if g else None) for i, g in enumerate(got)
+           if g is None or g[0] != 200 or g[1] != "http-%d" % i]
+    if errors or in_errors or bad:
+        failures.append("%d HTTP requests failed or lost their id (%s), "
+                        "errors %s / %s" % (len(bad), bad[:3], errors[:3],
+                                            in_errors[:3]))
+        raise RuntimeError("serve_http predict: " + "; ".join(failures))
+    outs = [sh.from_b64(g[2]["outputs"][0]) for g in got]
+    errs = [float(np.abs(o - w).max()) for o, w in zip(outs, want)]
+    in_errs = [float(np.abs(o - w).max()) for o, w in zip(inproc, want)]
+    if max(errs + in_errs) > predict_tol:
+        failures.append("a result lies %g from its request alone (> %g)"
+                        % (max(errs + in_errs), predict_tol))
+    if forms["json"][0] != 200 or forms["b64"][0] != 200 or \
+            not np.array_equal(forms["json"][1], forms["b64"][1]):
+        failures.append("the JSON and b64 forms of one request differ")
+    if failures:
+        raise RuntimeError("serve_http predict: " + "; ".join(failures))
+    p50, in_p50 = over_http["latency_ms_p50"], in_process["latency_ms_p50"]
+    return {"requests": len(images), "images_total": int(sum(sizes)),
+            "buckets": list(http["buckets"]), "replicas": http["replicas"],
+            "clients": http["clients"], "warm_s": warm_s,
+            "readyz_before_warm": warming[1], "over_http": over_http,
+            "in_process": in_process,
+            "http_hop_share_p50": (p50 - in_p50) / p50,
+            "max_abs_err_vs_alone": max(errs),
+            "in_process_max_abs_err_vs_alone": max(in_errs),
+            "predict_tol": predict_tol,
+            "host_decode_ms_one_image": decode_ms,
+            "json_vs_b64": {"bit_for_bit": True, "image_bytes": int(x.nbytes),
+                            **{"%s_%s" % (f, k): v for f in forms for k, v in
+                               (("exchange_ms", forms[f][2] * 1e3),
+                                ("client_encode_ms", forms[f][3] * 1e3),
+                                ("body_bytes", forms[f][4]))}}}
+
+
+def _http_admission_part(torch, resnet, http, device, seed, on_card):
+    """(2) Admission made deterministic: ``http["admission"]``'s one-bucket
+    ladder and long window with requests parked in it: a batch-class POST
+    shed with 429 and Retry-After >= 1, an interactive one answered, then
+    ``max_inflight`` HTTP requests parked and one more refused with 503
+    ``overloaded``; the counters rise by exactly the admitted and refused;
+    /metrics parses."""
+    from mxnet_tpu_torch import serving, telemetry
+    from mxnet_tpu_torch.serving.frontend import FrontendConfig, \
+        HttpFrontend
+    from mxnet_tpu_torch.tools import serve_http as sh
+    from mxnet_tpu_torch.tools.resnet import resnet_params, resnet_symbol
+
+    adm = http["admission"]
+    wait_s = http["timeout_ms"] / 1e3
+    x = np.random.RandomState(seed + 40).uniform(
+        -1, 1, (1,) + tuple(resnet["image"])).astype(np.float32)
+    body = {"inputs": {"data": sh.b64_array(x)}}
+    _fresh(torch, on_card)
+    srv = serving.InferenceServer(
+        resnet_symbol(resnet), resnet_params(resnet, seed),
+        {"data": tuple(resnet["image"])},
+        config=serving.ServingConfig(
+            buckets=adm["buckets"], max_delay_ms=adm["max_delay_ms"],
+            queue_depth=adm["queue_depth"], replicas=1, zero_copy=True,
+            timeout_ms=http["timeout_ms"]),
+        devices=[device])
+    fe = HttpFrontend(srv, FrontendConfig(
+        host="127.0.0.1", port=0, max_inflight=adm["max_inflight"],
+        shed_pct=adm["shed_pct"]))
+
+    def counts():
+        m = dict(telemetry.registry.get_name_value())
+        return m.get("http_requests_total", 0), m.get("http_shed_total", 0)
+
+    try:
+        fe.start(wait_ready=True, ready_timeout_s=wait_s)
+        port = fe.port
+        before = counts()
+        parked = [srv.submit(data=x) for _ in range(adm["parked"])]
+        shed = _http_post(port, "/v1/predict", body,
+                          {"x-priority": "batch"}, wait_s)
+        interactive = _http_post(port, "/v1/predict", body, {}, wait_s)
+        for r in parked:
+            r.get(wait_s)
+        held = {}
+        threads = [threading.Thread(
+            target=lambda k=k: held.__setitem__(k, _http_post(
+                port, "/v1/predict", body, {}, wait_s)), daemon=True)
+            for k in range(adm["max_inflight"])]
+        for t in threads:
+            t.start()
+        t0 = time.monotonic()
+        while fe.admission.inflight() < adm["max_inflight"]:
+            if time.monotonic() - t0 > wait_s:
+                raise RuntimeError("serve_http admission: %d requests never "
+                                   "in flight" % adm["max_inflight"])
+            time.sleep(0.001)
+        over = _http_post(port, "/v1/predict", body, {}, wait_s)
+        for t in threads:
+            t.join(wait_s)
+        after = counts()
+        st, text = _http_get(port, "/metrics", wait_s)
+    finally:
+        fe.stop()
+    samples = parse_exposition(text.decode("utf-8"))
+    admitted = 1 + adm["max_inflight"]
+    refused = 2
+    failures = []
+    if shed[0] != 429 or shed[2]["error"]["code"] != "shed" or \
+            int(shed[1].get("retry-after", 0)) < 1:
+        failures.append("the batch-class POST gave %s %s" % shed[:2])
+    if interactive[0] != 200:
+        failures.append("the interactive POST gave %s" % interactive[0])
+    if over[0] != 503 or over[2]["error"]["code"] != "overloaded" or \
+            int(over[1].get("retry-after", 0)) < 1:
+        failures.append("the POST past max_inflight gave %s %s" % over[:2])
+    if any(held.get(k, (None,))[0] != 200
+           for k in range(adm["max_inflight"])):
+        failures.append("the parked HTTP requests gave %s" % held)
+    if (after[0] - before[0], after[1] - before[1]) != (admitted, refused):
+        failures.append("http_requests_total / http_shed_total rose by %s, "
+                        "want %s" % ((after[0] - before[0],
+                                      after[1] - before[1]),
+                                     (admitted, refused)))
+    if st != 200 or "http_requests_total" not in samples:
+        failures.append("/metrics gave %s without http_requests_total" % st)
+    if failures:
+        raise RuntimeError("serve_http admission: " + "; ".join(failures))
+    return {"shed": {"status": shed[0], "code": shed[2]["error"]["code"],
+                     "retry_after_s": int(shed[1]["retry-after"])},
+            "overloaded": {"status": over[0],
+                           "code": over[2]["error"]["code"],
+                           "retry_after_s": int(over[1]["retry-after"])},
+            "admitted": admitted, "refused": refused,
+            "metrics_samples": len(samples), **{k: adm[k] for k in (
+                "buckets", "max_delay_ms", "queue_depth", "shed_pct",
+                "parked", "max_inflight")}}
+
+
+def _sse_checks(what, events, n):
+    """The SSE framing gates of one stream: indices 0..n-1 and a last
+    ``done`` event with ``tokens: n``; returns its tokens."""
+    toks = [d["token"] for e, d in events if e == "token"]
+    idx = [d["index"] for e, d in events if e == "token"]
+    if idx != list(range(n)) or not events or events[-1][0] != "done" or \
+            events[-1][1].get("tokens") != n:
+        raise RuntimeError("serve_http %s: indices %s..., last event %s"
+                           % (what, idx[:3], events[-1] if events else None))
+    return toks
+
+
+def _stream_timing(times, events):
+    """(TTFT ms, median inter-token ms) of one stream from its events'
+    arrival seconds."""
+    tt = [t for t, (e, _) in zip(times, events) if e == "token"]
+    gaps = [(b - a) * 1e3 for a, b in zip(tt, tt[1:])]
+    return tt[0] * 1e3, float(np.median(gaps))
+
+
+def _http_generate_part(torch, cfg, serve, http, device, seed, on_card,
+                        serve_tokens):
+    """(3) The serve phase's LM behind the server with ``decode=...``
+    (``http["decode_replicas"]`` replicas, the decode step captured)
+    behind ``HttpFrontend``: the serve phase's prompts as concurrent SSE
+    streams beside a client that leaves after ``disconnect_after`` tokens;
+    a ``"stream": false`` request; a traced request; the same prompts
+    in-process; then (4) the SIGTERM drain with ``drain_streams`` streams
+    open. Gates in the docstring of phase 3f; returns the record and the
+    flash launches of the part."""
+    from mxnet_tpu_torch import serving, telemetry
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    from mxnet_tpu_torch.serving import generate as gen
+    from mxnet_tpu_torch.serving.frontend import FrontendConfig, \
+        HttpFrontend
+    from mxnet_tpu_torch.tools import serve_http as sh
+
+    params = lm_arg_params(cfg, seed)
+    prompts = serve_prompts(cfg, serve, seed)
+    n_new = serve["max_new_tokens"]
+    t = http["decode_example_len"]
+    wait_s = http["timeout_ms"] / 1e3
+    reps = http["decode_replicas"]
+    decode = serving.GenerateConfig(
+        num_heads=cfg["heads"], num_kv_heads=cfg["kv_heads"],
+        slots=serve["slots"], max_context=serve["max_context"],
+        prefill_buckets=serve["prefill_buckets"], max_new_tokens=n_new,
+        eos_id=None, capture=True)
+    _fresh(torch, on_card)
+    l0 = fa.flash_attention.launches
+    srv = serving.InferenceServer(
+        lm_predict_symbol(cfg), params, _lm_shapes((t,)),
+        config=serving.ServingConfig(buckets=(1,), max_delay_ms=1.0,
+                                     replicas=reps,
+                                     timeout_ms=http["timeout_ms"]),
+        decode=decode, devices=[device] * reps)
+    bases = [rep.cache._base for rep in srv._replicas]
+    streams = {}
+    real_submit = srv.submit_stream
+
+    def keep(*a, **kw):
+        s = real_submit(*a, **kw)
+        streams[kw.get("request_id")] = s
+        return s
+
+    srv.submit_stream = keep
+    fe = HttpFrontend(srv, FrontendConfig(host="127.0.0.1", port=0))
+    prev = signal.getsignal(signal.SIGTERM)
+    failures = []
+    try:
+        fe.start(wait_ready=True, ready_timeout_s=wait_s)
+        port = fe.port
+        # (a) the six streams and a client that leaves
+        results = {}
+
+        def run(key, body, **kw):
+            results[key] = sh.sse(port, body, timeout=wait_s, **kw)
+
+        short = min(range(len(prompts)), key=lambda i: len(prompts[i]))
+        jobs = [(("sse", i), {"prompt": p}, {"headers": {
+            "x-request-id": "sse-%d" % i}}) for i, p in enumerate(prompts)]
+        jobs.append((("gone",), {"prompt": prompts[short],
+                                 "max_new_tokens": http["disconnect_tokens"]},
+                     {"headers": {"x-request-id": "gone"},
+                      "stop_after": http["disconnect_after"]}))
+        threads = [threading.Thread(target=run, args=j[:2], kwargs=j[2],
+                                    daemon=True) for j in jobs]
+        t0 = time.monotonic()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(wait_s)
+        sse_wall = time.monotonic() - t0
+        if any(th.is_alive() for th in threads):
+            raise RuntimeError("serve_http generate: a stream still open "
+                               "after %g s" % wait_s)
+        tokens, timing = [], []
+        for i in range(len(prompts)):
+            st, hdrs, events, times = results[("sse", i)]
+            if st != 200 or hdrs.get("x-request-id") != "sse-%d" % i:
+                raise RuntimeError("serve_http generate: stream %d gave %s"
+                                   % (i, st))
+            tokens.append(_sse_checks("stream %d" % i, events, n_new))
+            timing.append(_stream_timing(times, events))
+        deadline = time.monotonic() + wait_s
+        gone = streams["gone"]
+        while not gone.done or srv.decode_stats()["active"]:
+            if time.monotonic() > deadline:
+                raise RuntimeError("serve_http generate: the left stream "
+                                   "still decoding: %s" % srv.decode_stats())
+            time.sleep(0.005)
+        gone_tokens = len(gone._tokens)
+        busy = [c.active_slots() for c in srv._decode.caches]
+        if gone.finish_reason != "cancelled" or \
+                gone_tokens >= http["disconnect_tokens"] or any(busy):
+            failures.append("the left stream ended %r after %d tokens; "
+                            "slots taken %s" % (gone.finish_reason,
+                                                gone_tokens, busy))
+        # (b) "stream": false
+        st, _, body = _http_post(port, "/v1/generate",
+                                 {"prompt": prompts[0], "stream": False},
+                                 {}, wait_s)
+        if st != 200 or body["tokens"] != tokens[0]:
+            failures.append("the stream-false request gave %s %s"
+                            % (st, str(body)[:120]))
+        # (c) a traced request: its trace id echoed, its span tree served
+        telemetry.enable_spans("serving")
+        try:
+            st, hdrs, events, _ = sh.sse(
+                port, {"prompt": prompts[0]}, timeout=wait_s,
+                headers={"traceparent": TRACEPARENT,
+                         "x-request-id": "traced"})
+            tree, t1 = (None, None), time.monotonic()
+            while tree[0] != 200 and time.monotonic() - t1 < wait_s:
+                tree = _http_get(port, "/debug/requests/traced", wait_s)
+                time.sleep(0.01)
+        finally:
+            telemetry.disable_spans()
+        trace_id = TRACEPARENT.split("-")[1]
+        names = set()
+
+        def walk(spans):
+            for s in spans:
+                names.add(s["name"])
+                walk(s.get("children") or [])
+
+        if tree[0] == 200:
+            walk(tree[1]["spans"])
+        if st != 200 or hdrs.get("x-trace-id") != trace_id or \
+                _sse_checks("traced", events, n_new) != tokens[0] or \
+                tree[0] != 200 or tree[1]["trace_id"] != trace_id or \
+                not {"serving.queued", "decode.step"} <= names:
+            failures.append("the traced request: %s, x-trace-id %s, tree %s "
+                            "with spans %s" % (st, hdrs.get("x-trace-id"),
+                                               tree[0], sorted(names)))
+        # (d) the same prompts in-process
+        recs = [{"times": [], "tokens": []} for _ in prompts]
+
+        def consume(i):
+            t_send = time.monotonic()
+            for tok in srv.submit_stream(prompts[i]):
+                recs[i]["times"].append(time.monotonic() - t_send)
+                recs[i]["tokens"].append(tok)
+
+        threads = [threading.Thread(target=consume, args=(i,), daemon=True)
+                   for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(wait_s)
+        in_timing = [(r["times"][0] * 1e3, float(np.median(
+            np.diff(r["times"]) * 1e3))) for r in recs]
+        stats = srv.decode_stats()
+        model = srv._decode.model
+        # (4) SIGTERM drain with streams open
+        fe.install_signal_handlers()
+        first = threading.Event()
+        drained = {}
+
+        def drain_client(k):
+            drained[k] = sh.sse(port, {"prompt": prompts[k]},
+                                timeout=wait_s,
+                                on_event=lambda ev: first.set())
+
+        threads = [threading.Thread(target=drain_client, args=(k,),
+                                    daemon=True)
+                   for k in range(http["drain_streams"])]
+        for th in threads:
+            th.start()
+        if not first.wait(wait_s):
+            raise RuntimeError("serve_http drain: no token before SIGTERM")
+        signal.raise_signal(signal.SIGTERM)
+        t1 = time.monotonic()
+        ready = _http_get(port, "/readyz", wait_s)
+        while ready[0] == 200 and time.monotonic() - t1 < wait_s:
+            time.sleep(0.001)
+            ready = _http_get(port, "/readyz", wait_s)
+        refused = _http_post(port, "/v1/generate", {"prompt": prompts[0]},
+                             {}, wait_s)
+        for th in threads:
+            th.join(wait_s)
+        stopped = fe._stopped.wait(wait_s)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+        fe.stop()
+    launches = fa.flash_attention.launches - l0
+    if not stopped or any(th.is_alive() for th in threads):
+        failures.append("the drain did not finish within %g s" % wait_s)
+    for k in range(http["drain_streams"]):
+        st, _, events, _ = drained.get(k, (None, None, [], []))
+        if st != 200:
+            failures.append("drain stream %d gave %s" % (k, st))
+        else:
+            _sse_checks("drain stream %d" % k, events, n_new)
+    if not (ready == (503, {"status": "draining"}) or ready[0] is None):
+        failures.append("/readyz during the drain gave %s" % (ready,))
+    if not ((refused[0] == 503 and refused[2]["error"]["code"]
+             == "shutting_down") or refused[0] is None):
+        failures.append("a POST during the drain gave %s" % (refused[:1],))
+    # flash launches: the LM's layers a prompt admitted, plus the fixed
+    # path's forwards of the ladder's warm-up
+    admitted = len(prompts) + 1 + 1 + 1 + len(prompts) \
+        + http["drain_streams"]
+    want = cfg["layers"] * (admitted + _forward_calls(bases))
+    if launches != want:
+        failures.append("%d flash launches, want %d = %d layers x (%d "
+                        "prompts admitted + %d fixed-path forwards)"
+                        % (launches, want, cfg["layers"], admitted,
+                           _forward_calls(bases)))
+    for i, rs in enumerate(stats["replica"]):
+        ok = rs["path"] == "eager" if not on_card else (
+            (rs["path"], rs["warmup_calls"], rs["captures"],
+             rs["replays"]) == ("captured", 2, 1, rs["steps"] - 2))
+        if not ok:
+            failures.append("replica %d did not take the %s decode path: "
+                            "%s" % (i, "captured" if on_card else "eager",
+                                    rs))
+    if failures:
+        raise RuntimeError("serve_http generate: " + "; ".join(failures))
+    near = _spec_vs_vanilla(gen, model, serve, prompts, tokens, serve_tokens,
+                            "float32", what="the SSE stream")
+    in_near = _spec_vs_vanilla(gen, model, serve, prompts,
+                               [r["tokens"] for r in recs], serve_tokens,
+                               "float32", what="the in-process stream")
+    return {"prompts": len(prompts), "replicas": reps,
+            "sse": {"ttft_ms": [x[0] for x in timing],
+                    "inter_token_ms": [x[1] for x in timing],
+                    "wall_s": sse_wall},
+            "in_process": {"ttft_ms": [x[0] for x in in_timing],
+                           "inter_token_ms": [x[1] for x in in_timing]},
+            "near_ties": near, "in_process_near_ties": in_near,
+            "equal_to_serve": sum(a == b for a, b in zip(tokens,
+                                                          serve_tokens)),
+            "disconnect": {"after_tokens": http["disconnect_after"],
+                           "server_tokens": gone_tokens,
+                           "finish_reason": gone.finish_reason},
+            "drain": {"streams": http["drain_streams"],
+                      "readyz": ready[1] if ready[0] else "closed",
+                      "new_post": refused[0] or "refused"},
+            "replica_paths": stats["replica"],
+            "flash_launches": launches,
+            "flash_arithmetic": "%d layers x (%d SSE + 1 left + 1 stream-"
+                                "false + 1 traced + %d in-process + %d "
+                                "drain prompts + %d fixed-path forwards)"
+                                % (cfg["layers"], len(prompts), len(prompts),
+                                   http["drain_streams"],
+                                   _forward_calls(bases))}, launches
+
+
+def phase_serve_http(cfg=LM, serve=SERVE, http=SERVE_HTTP, resnet=RESNET,
+                     device=None, seed=SEED, serve_tokens=None,
+                     predict_tol=RESNET_PREDICT_TOL):
+    """The HTTP / SSE front door at full width on one card over loopback:
+    (1) ResNet-50 predict (:func:`_http_predict_part`), (2) admission
+    (:func:`_http_admission_part`), (3) generate over SSE and (4) the
+    SIGTERM drain (:func:`_http_generate_part`). ``device`` None = the
+    card. Returns the flash launches of the phase."""
+    import torch
+
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+    from mxnet_tpu_torch.serving import generate as gen
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    if serve_tokens is None:
+        spec = gen.DecodeSpec(num_heads=cfg["heads"],
+                              num_kv_heads=cfg["kv_heads"])
+        serve_tokens = _serve_streams(
+            gen, gen.DecodeModel.from_arg_params(lm_arg_params(cfg, seed),
+                                                 spec, device=device),
+            cfg, serve, serve_prompts(cfg, serve, seed))["tokens"]
+    fa.flash_attention.launches = 0
+    predict_part = _http_predict_part(torch, resnet, http, device, seed,
+                                      on_card, predict_tol)
+    _http_note("predict done")
+    admission = _http_admission_part(torch, resnet, http, device, seed,
+                                     on_card)
+    _http_note("admission done")
+    if fa.flash_attention.launches:
+        raise RuntimeError("serve_http: ResNet-50 launched the flash kernel")
+    generate, launches = _http_generate_part(torch, cfg, serve, http, device,
+                                             seed, on_card, serve_tokens)
+    _http_note("generate and drain done")
+    if fa.flash_attention.launches != launches or not launches:
+        raise RuntimeError("serve_http: launched the flash kernel %d times"
+                           % fa.flash_attention.launches)
+    result = {"phase": "serve_http", "predict": predict_part,
+              "admission": admission, "generate": generate,
+              "flash_launches": launches}
+    emit(result)
+    return launches
+
+
 def _counters():
     """The train phase's counters: name -> wrappers whose launches sum
     under it (the fused updates' scalar and device-lr entry points are one
@@ -3976,10 +4680,10 @@ def resnet_wgrad_launches(per_step, steps, repacks=False):
             "conv_wgrad_repack": 2 * per_step * steps if repacks else 0}
 
 
-def _fit_timed(torch, mod, it, kwargs, on_card):
+def _fit_timed(torch, mod, it, kwargs, on_card, also=None):
     """``mod.fit(it, **kwargs)`` with a synchronized time and the metric
-    after each batch: (ms from each batch's end to the next's, the first
-    batch's ms, the metrics)."""
+    after each batch (then ``also(param)``, outside the time): (ms from
+    each batch's end to the next's, the first batch's ms, the metrics)."""
     times, metrics = [], []
 
     def record(param):
@@ -3988,6 +4692,8 @@ def _fit_timed(torch, mod, it, kwargs, on_card):
         times.append(time.perf_counter())
         metrics.append({k: float(v) for k, v in
                         param.eval_metric.get_name_value()})
+        if also is not None:
+            also(param)
 
     t0 = time.perf_counter()
     mod.fit(it, batch_end_callback=record, **kwargs)
@@ -4362,6 +5068,147 @@ def phase_lstm(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
         result["start_memory_allocated"] = start_memory
     emit(result)
     return {"fit": fit_launches, "score": score_launches}
+
+
+def _seq_deterministic(torch, device, ref_device, seed):
+    """(c) The deterministic ops on ``device`` against ``ref_device``, bit
+    for bit: ``_arange`` (with ``repeat``), ``_eye``, ``_full``,
+    ``zeros_like`` and the three sequence ops with lengths on seeded
+    (T, B, C) data."""
+    from mxnet_tpu_torch import nd
+
+    rng = np.random.RandomState(seed + 50)
+    x = rng.uniform(-1, 1, (35, 16, 64)).astype(np.float32)
+    lens = rng.randint(0, 36, 16).astype(np.float32)
+    cases = {
+        "_arange": lambda ctx: nd._arange(start=-3, stop=7, step=0.25,
+                                          repeat=3, ctx=ctx),
+        "_eye": lambda ctx: nd._eye(N=300, M=200, k=-7, ctx=ctx),
+        "_full": lambda ctx: nd._full(shape=(64, 1000), value=0.1, ctx=ctx),
+        "zeros_like": lambda ctx: nd.zeros_like(nd.array(x, ctx=ctx)),
+    }
+    for op in ("SequenceReverse", "SequenceMask", "SequenceLast"):
+        cases[op] = lambda ctx, op=op: getattr(nd, op)(
+            nd.array(x, ctx=ctx), nd.array(lens, ctx=ctx),
+            use_sequence_length=True)
+    out = {}
+    for name, make in cases.items():
+        got, want = make(device).asnumpy(), make(ref_device).asnumpy()
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise RuntimeError("seq phase: %s on the card differs from the "
+                               "CPU's" % name)
+        out[name] = list(got.shape)
+    return out
+
+
+def _seq_random(torch, cfg, device, seed):
+    """(d) Each sampling op at ``random_elements`` elements on ``device``:
+    mean and variance within 5 sigma of its distribution's, one seed
+    drawing twice the same values, two seeds different ones."""
+    from mxnet_tpu_torch import nd, random
+
+    n = cfg["random_elements"]
+    out = {}
+    for name, attrs in RANDOM_OPS:
+        def draw(s):
+            random.seed(s)
+            return getattr(nd, name)(shape=(n,), ctx=device,
+                                     **attrs).asnumpy()
+
+        a, b, c = draw(seed), draw(seed), draw(seed + 1)
+        mean, var, m4 = moments(name, attrs)
+        d = a.astype(np.float64)
+        z_mean = (d.mean() - mean) / np.sqrt(var / n)
+        z_var = (d.var() - var) / np.sqrt((m4 - var * var) / n)
+        if abs(z_mean) > 5 or abs(z_var) > 5 or not np.array_equal(a, b) \
+                or np.array_equal(a, c) or a.dtype != np.float32:
+            raise RuntimeError(
+                "seq phase: %s drew mean %g (z %g), variance %g (z %g), "
+                "seed repeats %s, seeds differ %s" % (
+                    name, d.mean(), z_mean, d.var(), z_var,
+                    np.array_equal(a, b), not np.array_equal(a, c)))
+        out[name] = {"mean": float(d.mean()), "want_mean": mean,
+                     "z_mean": float(z_mean), "variance": float(d.var()),
+                     "want_variance": var, "z_variance": float(z_var)}
+    return out
+
+
+def phase_seq(cfg=SEQ, device=None, ref_device="cpu", seed=SEED):
+    """The sequence ops, the schedulers and the sampling ops on the card:
+    the sequence classifier of ``tools/seq_classify.py`` (the LSTM LM's
+    body under SequenceMask -> SequenceLast -> FullyConnected ->
+    SoftmaxOutput) through ``Module.fit`` with SGD momentum under
+    ``FactorScheduler``: (a) card against ``ref_device`` at the lstm
+    phase's gates; (b) ``batches`` batches through the captured fused
+    ``fit_step`` with exact ``lstm_step`` launches, each step's lr (read
+    from the step's own buffer) the schedule's, and the same run eager
+    landing on the same parameters bit for bit; (c) the deterministic ops
+    bit for bit against the CPU; (d) the sampling ops' moments and seeds.
+    ``device`` None = the card. Returns the fit's lstm_step launches."""
+    import torch
+    from mxnet_tpu_torch.ops.kernels import lstm as kl
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    cb, cs = cfg["check_batch"], cfg["check_steps"]
+    check = _lstm_check(
+        "seq check", cfg, cs,
+        [lambda dev=dev: seq_setup(cfg, cb, cs, dev, seed)
+         for dev in (device, ref_device)], fit_args=seq_fit_args)
+
+    def setup():
+        return seq_setup(cfg, cfg["batch"], cfg["batches"], device, seed)
+
+    _fresh(torch, on_card)
+    mod, it, init = setup()
+    lrs = []
+
+    def read_lr(param):
+        # the lr the step's graph reads: its own buffer, copied in from
+        # the value the schedule gave this step
+        lrs.append(float(mod._fused_fit["step"]._extra[0][0]))
+
+    kl.lstm_step.launches = 0
+    step_ms, first_ms, metrics = _fit_timed(
+        torch, mod, it, seq_fit_args(cfg, init), on_card, also=read_lr)
+    launches = kl.lstm_step.launches
+    stats = mod.fit_step_stats()
+    state = _host_state(mod)
+    memory = _peak(torch, on_card)
+    del mod
+    steps = cfg["batches"]
+    want_lrs = [float(np.float32(x)) for x in lr_sequence(cfg, steps)]
+    failures = []
+    if launches != lstm_steps(cfg, steps):
+        failures.append("launched lstm_step %d times, want %d" % (
+            launches, lstm_steps(cfg, steps)))
+    if lrs != want_lrs:
+        failures.append("the steps read lr %s, the schedule gives %s"
+                        % (lrs, want_lrs))
+    ppl = [m["Perplexity"] for m in metrics]
+    if len(metrics) != steps or not all(np.isfinite(ppl)):
+        failures.append("%d batches, perplexity %s" % (len(metrics), ppl))
+    if failures:
+        raise RuntimeError("seq phase: " + "; ".join(failures))
+    _require_captured("seq", [stats], on_card)
+    eager = _eager_twin(torch, setup, lambda i: seq_fit_args(cfg, i),
+                        on_card, state, "seq phase")
+    deterministic = _seq_deterministic(torch, device, ref_device, seed)
+    sampled = _seq_random(torch, cfg, device, seed)
+    median_ms = _steady_ms(step_ms, on_card)
+    result = {"phase": "seq", "vocab": cfg["vocab"], "embed": cfg["embed"],
+              "hidden": cfg["hidden"], "layers": cfg["layers"],
+              "seq": cfg["seq"], "classes": cfg["classes"],
+              "batch": cfg["batch"], "batches": steps, "dtype": "float32",
+              "path": stats["path"], "steps": stats, "check": check,
+              "metrics": metrics, "lr": lrs, "first_batch_ms": first_ms,
+              "step_ms": step_ms, "median_step_ms": median_ms,
+              "sequences_per_s": cfg["batch"] / median_ms * 1e3,
+              "eager": eager, "captured_vs_eager": {"bit_for_bit": True},
+              "launches": {"fit": launches},
+              "deterministic_bit_for_bit": deterministic,
+              "random": sampled, **memory}
+    emit(result)
+    return launches
 
 
 def phase_custom(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
@@ -4837,9 +5684,11 @@ def main():
     trace_launches = phase_serve_trace()
     fixed_launches, fixed_timings = phase_serve_fixed(
         serve_tokens=serve_tokens)
+    http_launches = phase_serve_http(serve_tokens=serve_tokens)
     train = phase_train()
     resnet = phase_resnet()
     lstm = phase_lstm()
+    seq_launches = phase_seq()
     custom = phase_custom()
     bucketing = phase_bucketing()
     t = timings["serve"]["float32"]
@@ -4847,12 +5696,14 @@ def main():
         "name": "flash_attention_fwd", "route": "cuda", "source": FA_SRC,
         "replaces": FA_REPLACES,
         "launches": serve_launches + paged_launches + spec_launches
-        + trace_launches + fixed_launches + train["flash_attention_fwd"],
+        + trace_launches + fixed_launches + http_launches
+        + train["flash_attention_fwd"],
         "launches_by_phase": {"serve": serve_launches,
                               "serve_paged": paged_launches,
                               "serve_spec": spec_launches,
                               "serve_trace": trace_launches,
                               "serve_fixed": fixed_launches,
+                              "serve_http": http_launches,
                               "train": train["flash_attention_fwd"]},
         "max_abs_err": max(worst.values()), "max_err": worst,
         "dtype": "float32", "shape": t["shape"], "ms": t["ms"],
@@ -4926,10 +5777,11 @@ def main():
     rows.append({
         "name": "lstm_step", "route": "cuda", "source": LSTM_SRC,
         "replaces": LSTM_REPLACES,
-        "launches": lstm["fit"] + lstm["score"] + bucketing["lstm_step"]
-        + bucketing["capture_lstm_step"],
+        "launches": lstm["fit"] + lstm["score"] + seq_launches
+        + bucketing["lstm_step"] + bucketing["capture_lstm_step"],
         "launches_by_phase": {"lstm_fit": lstm["fit"],
                               "lstm_score": lstm["score"],
+                              "seq": seq_launches,
                               "bucketing": bucketing["lstm_step"],
                               "bucketing_capture":
                                   bucketing["capture_lstm_step"]},

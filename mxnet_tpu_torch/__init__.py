@@ -36,11 +36,14 @@ whose dump puts the host spans and the card's kernels on one timeline;
 and the fixed-shape serving stack: ``predict`` (``Predictor``, one CUDA
 graph a bound shape), ``quant`` (``QuantizedPredictor``) and ``serving``
 (``InferenceServer`` with its batch former, bucket cache, staging pool and
-tuner, fronting the generate path too).
+tuner, fronting the generate path too) behind ``serving.frontend``'s HTTP
+/ SSE front door; and the sequence ops (``SequenceMask`` / ``Last`` /
+``Reverse``, ``softmax_cross_entropy``), the creation and sampling ops and
+``lr_scheduler``.
 """
 from . import (autograd, base, callback, context, engine, executor,
-               initializer, interop, io, metric, model, models, module,
-               ndarray, operator, optimizer, predict, profiler, quant,
+               initializer, interop, io, lr_scheduler, metric, model, models,
+               module, ndarray, operator, optimizer, predict, profiler, quant,
                random, rnn, rtc, serving, symbol, telemetry)
 from . import module as mod
 from . import ndarray as nd
@@ -52,7 +55,8 @@ __version__ = "0.9.5-torch.5"
 
 __all__ = ["MXNetError", "autograd", "base", "callback", "context", "cpu",
            "default_device", "engine", "executor", "gpu", "initializer",
-           "interop", "io", "metric", "mod", "model", "models", "module",
+           "interop", "io", "lr_scheduler", "metric", "mod", "model",
+           "models", "module",
            "nd", "ndarray", "operator", "optimizer", "predict", "profiler",
            "quant", "random", "rnn", "rtc", "serving", "sym", "symbol",
            "telemetry"]

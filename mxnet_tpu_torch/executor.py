@@ -191,11 +191,11 @@ class Executor:
         """The graph on ``values`` in the compute type: f32 in, f32 out."""
         cd = self._compute_dtype
         if cd is None:
-            return self._eval_fn(values, aux_values, is_train)
+            return self._eval_fn(values, aux_values, is_train, self._device)
         f32 = torch.float32
         outs, aux_up = self._eval_fn(
             _cast(values, cd, f32, self._index_only),
-            _cast(aux_values, cd, f32), is_train)
+            _cast(aux_values, cd, f32), is_train, self._device)
         return ([o.to(f32) if o.dtype == cd else o for o in outs],
                 _cast(aux_up, f32, cd))
 

@@ -435,6 +435,16 @@ def full(shape, val, ctx=None, dtype=None) -> NDArray:
     return _filled(val, shape, ctx, dtype)
 
 
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
+           dtype="float32") -> NDArray:
+    """numpy's ``arange(start, stop, step)`` in ``dtype``, each value
+    ``repeat`` times, on ``ctx`` (default: the card)."""
+    out = np.arange(start, stop, step, dtype=np.dtype(dtype))
+    if repeat != 1:
+        out = np.repeat(out, repeat)
+    return array(out, ctx=ctx, dtype=dtype)
+
+
 def empty(shape, ctx=None, dtype=None) -> NDArray:
     """Zero-filled, like the reference's ``empty``."""
     return zeros(shape, ctx, dtype)

@@ -24,12 +24,15 @@ constructed with ``decode=GenerateConfig(...)``.
         out = req.get(timeout=1.0)
     print(srv.metrics.get_name_value())
 
-The reference's HTTP / SSE front end (``serving.frontend``) is not ported
-yet.
+The ``frontend`` subpackage is the HTTP/1.1 front door over the server:
+``POST /v1/predict``, ``POST /v1/generate`` (SSE), ``/metrics``,
+``/healthz`` / ``/readyz``, admission control and SIGTERM drain
+(``HttpFrontend(srv, FrontendConfig(port=8080)).start()``).
 """
 from .batcher import (PRIORITY_BATCH, PRIORITY_INTERACTIVE, BatchFormer,
                       Request, ServingError)
 from .bucket_cache import BucketCache
+from .frontend import FrontendConfig, HttpFrontend
 from .generate import (DecodeModel, DecodePrograms, DecodeScheduler,
                        DecodeSpec, GenerateConfig, KVCacheManager,
                        PagedDecodePrograms, PagedKVCacheManager,
@@ -41,6 +44,7 @@ from .tuner import BucketTuner
 
 __all__ = [
     "BatchFormer", "Request", "ServingError", "BucketCache",
+    "FrontendConfig", "HttpFrontend",
     "PRIORITY_INTERACTIVE", "PRIORITY_BATCH",
     "ServingBatchEndParam", "ServingMetrics", "InferenceServer",
     "ServingConfig", "create_server", "StagingPool", "BucketTuner",

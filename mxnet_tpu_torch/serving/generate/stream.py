@@ -21,7 +21,8 @@ from ..batcher import ServingError
 
 class TokenStream:
     """Consumer handle for one streaming generate request. ``trace`` is
-    kept as an inert attribute (request tracing is not ported yet)."""
+    the request's trace context (``telemetry.context``): the scheduler
+    stamps it on the request's spans and its flight-recorder entry."""
 
     def __init__(self, prompt_len: int, max_new_tokens: int,
                  deadline: Optional[float] = None,

@@ -342,20 +342,21 @@ class Symbol:
 
     # --- evaluation -------------------------------------------------------
     def build_eval(self):
-        """fn(arg_values, aux_values, is_train) -> (outputs, aux_updates):
-        runs the graph's operators in topological order on the given
-        tensors. Differentiable with autograd when called with grad
-        enabled."""
+        """fn(arg_values, aux_values, is_train, device=None) -> (outputs,
+        aux_updates): runs the graph's operators in topological order on
+        the given tensors, on ``device`` (None: the first argument's).
+        Differentiable with autograd when called with grad enabled."""
         nodes = self._nodes()
         entries = self._entries
         # per-node state that lives as long as this evaluator (OpContext.memo)
         memos = {id(node): {} for node in nodes if not node.is_var}
 
-        def eval_fn(arg_values, aux_values, is_train):
+        def eval_fn(arg_values, aux_values, is_train, device=None):
             env: Dict[Tuple[int, int], Any] = {}
             aux_updates: Dict[str, Any] = {}
-            first = next(iter(arg_values.values()), None)
-            device = None if first is None else first.device
+            if device is None:
+                first = next(iter(arg_values.values()), None)
+                device = None if first is None else first.device
             for node in nodes:
                 if node.is_var:
                     src = aux_values if node.is_aux else arg_values
@@ -505,6 +506,16 @@ def ones(shape, dtype="float32", **kwargs) -> Symbol:
     """A symbol of ones (the ``_ones`` op)."""
     return _create_symbol(get_op("_ones"), [], {"shape": shape,
                                                  "dtype": dtype},
+                          kwargs.get("name"))
+
+
+def arange(start, stop=None, step=1.0, repeat=1, dtype="float32",
+           **kwargs) -> Symbol:
+    """A symbol of ``start + i * step`` (the ``_arange`` op), each value
+    ``repeat`` times, made on the device of the graph that runs it."""
+    return _create_symbol(get_op("_arange"), [],
+                          {"start": start, "stop": stop, "step": step,
+                           "repeat": repeat, "dtype": dtype},
                           kwargs.get("name"))
 
 

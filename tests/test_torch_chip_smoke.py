@@ -1595,3 +1595,83 @@ def test_serve_fixed_tolerances_follow_the_spread_tool():
 
     sizes = request_sizes(cs.SERVE_FIXED)
     assert len(sizes) == 96 and set(sizes) == {1, 2, 3, 4}
+
+
+# the front door's run, narrow: the tiny ResNet's ladder, 16 requests from
+# 4 clients; the admission arm's one bucket of 8 (4 parked stay below it);
+# a client that leaves a 16-token stream after 2 tokens
+TINY_HTTP = dict(cs.SERVE_HTTP, buckets=(1, 2, 4, 8), clients=4,
+                 requests=16, timeout_ms=20000.0,
+                 admission=dict(cs.SERVE_HTTP["admission"], buckets=(8,)),
+                 decode_example_len=8, disconnect_after=2,
+                 disconnect_tokens=16)
+
+
+def test_serve_http_phase_on_cpu(monkeypatch, capsys):
+    """Every part and gate of the phase on the host: predict over HTTP
+    and in-process, admission, generate over SSE with a client that
+    leaves, the traced request and the SIGTERM drain."""
+    _count_plain_calls(monkeypatch)
+    predict_tol, _ = _tiny_fixed_tols()
+    launches = cs.phase_serve_http(TINY, TINY_SERVE, TINY_HTTP,
+                                   TINY_SERVE_RESNET, device="cpu",
+                                   predict_tol=predict_tol)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "serve_http"
+    pred = line["predict"]
+    assert pred["readyz_before_warm"] == {"status": "warming"}
+    assert pred["requests"] == 16 and pred["json_vs_b64"]["bit_for_bit"]
+    adm = line["admission"]
+    assert (adm["shed"]["status"], adm["overloaded"]["status"]) == (429, 503)
+    assert adm["shed"]["retry_after_s"] >= 1
+    gen = line["generate"]
+    n = len(TINY_SERVE["prompt_lens"])
+    # on the host the fixed path's bind runs no forward: a flash call a
+    # layer for each prompt admitted, 3 SSE + 1 left + 1 stream-false + 1
+    # traced + 3 in-process + 2 drained
+    assert launches == gen["flash_launches"] == TINY["layers"] * (
+        n + 3 + n + TINY_HTTP["drain_streams"])
+    assert gen["disconnect"]["finish_reason"] == "cancelled"
+    assert gen["disconnect"]["server_tokens"] < 16
+    assert len(gen["replica_paths"]) == 2
+    assert gen["drain"]["new_post"] in (503, "refused")
+
+
+def test_serve_http_phase_fails_when_the_flash_kernel_is_not_reached():
+    """On the host nothing counts a launch: the phase must refuse."""
+    with pytest.raises(RuntimeError, match="flash launches"):
+        cs.phase_serve_http(TINY, TINY_SERVE, TINY_HTTP, TINY_SERVE_RESNET,
+                            device="cpu", serve_tokens=[[0]] * 3,
+                            predict_tol=1e-3)
+
+
+# the sequence classifier, narrow
+TINY_SEQ = dict(cs.SEQ, vocab=50, embed=16, hidden=16, seq=5, batch=4,
+                batches=4, check_batch=2, random_elements=1 << 14)
+
+
+def test_seq_phase_on_cpu(monkeypatch, capsys):
+    """The whole phase on the host: the check, the scheduled run (eager
+    here) with its lr read from the step's buffer, the eager twin, the
+    deterministic ops against themselves and the sampling ops."""
+    _count_plain_calls(monkeypatch)
+    launches = cs.phase_seq(TINY_SEQ, device="cpu")
+    assert launches == 2 * 5 * 4
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "seq" and line["path"] == "eager"
+    assert line["lr"] == [float(np.float32(x))
+                          for x in (0.1, 0.1, 0.05, 0.05)]
+    assert set(line["random"]) == {r[0] for r in cs.RANDOM_OPS}
+    assert "SequenceReverse" in line["deterministic_bit_for_bit"]
+
+
+def test_seq_phase_fails_when_lstm_step_is_not_reached():
+    """On the host nothing counts a launch: the phase must refuse."""
+    with pytest.raises(RuntimeError, match="launched lstm_step 0 times"):
+        cs.phase_seq(TINY_SEQ, device="cpu")
+
+
+def test_seq_phase_launch_arithmetic_is_560_and_the_schedule_halves():
+    assert cs.lstm_steps(cs.SEQ, cs.SEQ["batches"]) == 560
+    assert cs.lr_sequence(cs.SEQ, 8) == [0.1, 0.1, 0.05, 0.05, 0.025,
+                                         0.025, 0.0125, 0.0125]
