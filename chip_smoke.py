@@ -194,6 +194,30 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    perplexity, step times, tokens/s and peak memory; then the epoch again
    with the step eager, equal bit for bit; before it, a line naming what
    holds the card's memory.
+6a. ``zoo``   — the rest of training (``tools/zoo.py``): the lstm
+   phase's LM under every optimizer of the reference's registry (SGD,
+   NAG, ccSGD, DCASGD, Adam, AdaGrad, RMSProp plain and centered,
+   AdaDelta, Ftrl, SGLD, Test): (1) 2 batches of 8, card against the CPU
+   at the lstm gates for each, SGLD held to its definition instead (one
+   update at g = 0 adds N(0, lr) over the embedding's 5.12 M elements,
+   mean and variance within 5 sigma, seeds repeat and differ); (2) 8
+   batches of 128 through ``Module.fit`` each: NAG, RMSProp x 2,
+   AdaGrad, AdaDelta and ccSGD (momentum 0.9) through the captured fused
+   step, each against its eager twin bit for bit; Ftrl, SGLD, DCASGD and
+   Test through the Updater ("has no pure rule"); every fit exactly 560
+   ``lstm_step`` launches, ccSGD's ``sgd_mom_update_lr`` 4 parameters x
+   8; (3) the LM as a ``SequentialModule`` (embedding + fused LSTM, then
+   FC + SoftmaxOutput with ``take_labels``) against the single Module at
+   the lstm gates, its 8 batches of 128 (``sgd_mom_update`` 32), and a
+   ``PythonLossModule`` head against the CPU; (4) ``Monitor(2)`` on 4
+   batches of 8: every internal output and argument on batches 1 and 3,
+   none on 2 and 4, card = CPU within MONITOR_RTOL, the fused step off
+   for "monitor install", lstm_step 420; (5) ``FeedForward``: fit 2
+   batches, predict and score against the CPU, save / load / predict bit
+   for bit; (6) Orthogonal, MSRAPrelu, Bilinear, Mixed, Load, ``clip``,
+   ``sign``, ``moveaxis``, ``onehot_encode`` bit for bit, ``norm`` within
+   NORM_RTOL, F1 / MAE / MSE / RMSE equal. Prints each optimizer's
+   captured and eager step ms and peak memory beside the card.
 6b. ``seq``   — the sequence ops, the schedulers and the sampling ops:
    the LSTM LM's body (vocab 10000, embed = hidden = 512, 2 fused layers,
    seq 35, f32) under a classifier head (``RNN`` output ->
@@ -286,6 +310,8 @@ from mxnet_tpu_torch.tools.serve_http import SERVE_HTTP
 from mxnet_tpu_torch.tools.seq_classify import RANDOM_OPS, SEQ, lr_sequence, \
     moments, seq_setup
 from mxnet_tpu_torch.tools.seq_classify import fit_args as seq_fit_args
+from mxnet_tpu_torch.tools import zoo
+from mxnet_tpu_torch.tools.zoo import ZOO
 
 H100 = {"bf16_flops": 989e12, "f32_flops": 67e12, "int8_ops": 1979e12,
         "bytes_per_s": 3.35e12}
@@ -408,6 +434,21 @@ BUCKET_STEP = (BUCKETING["batch"], BUCKETING["hidden"])
 # f32 orders of summation while a wrong kernel moves updates by order 1
 LSTM_UPDATE = 1e-4
 LSTM_PPL = 1e-6
+# zoo phase: Monitor's statistics (norm / sqrt(size) of each array) card
+# against the CPU, relative; nd.norm card against the CPU, relative (f32
+# sums in another order: ~sqrt(n) ulps of 6e-8 at 36k elements)
+MONITOR_RTOL = 1e-5
+NORM_RTOL = 1e-5
+# zoo phase, card vs CPU: a run whose f32-against-f64 perplexity spread
+# after a batch of the check (``python3 -m mxnet_tpu_torch.tools.
+# lstm_spread zoo``, on the card machine's CPU) exceeds LSTM_PPL / 1.5 is
+# gated at 1.5 x that spread (Ftrl: its |z| > lamda1 threshold keeps few,
+# small weights, whose relative rounding it magnifies)
+ZOO_PPL_SPREAD = {"ftrl": 1.5975279102102806e-06}
+
+
+def zoo_ppl_tol(run):
+    return max(LSTM_PPL, 1.5 * ZOO_PPL_SPREAD.get(run, 0.0))
 RTC_SRC = "mxnet_tpu_torch/tools/rtc_softmax.py"
 RTC_REPLACES = "mxnet_tpu/rtc.py:77"
 # serve and serve_paged phases: the served logits against the plain path
@@ -4942,13 +4983,14 @@ def memory_holders(torch, top=8):
             "untracked_bytes": allocated - live}
 
 
-def _lstm_check(what, cfg, cs, setups, fit_args=lstm_fit_args):
+def _lstm_check(what, cfg, cs, setups, fit_args=lstm_fit_args,
+                ppl_tol=LSTM_PPL):
     """Fit the LSTM LM of each of the two ``setups`` (each returns a fresh
     (module, iterator, initializer)) for its ``cs`` batches with
     ``fit_args(cfg, init)``, and hold the first run against the second:
     after each batch, each parameter's update within LSTM_UPDATE and the
-    perplexity within LSTM_PPL; the initial weights equal. Raises naming
-    ``what``; returns the record."""
+    perplexity within ``ppl_tol`` (LSTM_PPL); the initial weights equal.
+    Raises naming ``what``; returns the record."""
     runs = []
     for setup in setups:
         mod, it, init = setup()
@@ -4970,9 +5012,9 @@ def _lstm_check(what, cfg, cs, setups, fit_args=lstm_fit_args):
         if not u[worst] <= LSTM_UPDATE:
             failures.append("batch-%d update of %s off by %g (tol %g)"
                             % (b + 1, worst, u[worst], LSTM_UPDATE))
-        if not p <= LSTM_PPL:
+        if not p <= ppl_tol:
             failures.append("batch-%d perplexity off by %g (tol %g)"
-                            % (b + 1, p, LSTM_PPL))
+                            % (b + 1, p, ppl_tol))
     if len(got_m) != cs or len(ref_m) != cs:
         failures.append("%d / %d batches recorded, want %d"
                         % (len(got_m), len(ref_m), cs))
@@ -4981,7 +5023,7 @@ def _lstm_check(what, cfg, cs, setups, fit_args=lstm_fit_args):
     return {"batch": batch, "batches": cs, "metrics": got_m,
             "ref_metrics": ref_m, "perplexity_rel_err": ppl,
             "update_err": upd,
-            "tol": {"update": LSTM_UPDATE, "perplexity": LSTM_PPL}}
+            "tol": {"update": LSTM_UPDATE, "perplexity": ppl_tol}}
 
 
 def phase_lstm(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
@@ -5068,6 +5110,448 @@ def phase_lstm(cfg=LSTM_LM, device=None, ref_device="cpu", seed=SEED):
         result["start_memory_allocated"] = start_memory
     emit(result)
     return {"fit": fit_launches, "score": score_launches}
+
+
+def _check_summary(check, optimizer):
+    """The part of an :func:`_lstm_check` record a zoo line keeps."""
+    return {"optimizer": optimizer, "batch": check["batch"],
+            "batches": check["batches"], "tol": check["tol"],
+            "perplexity_rel_err": check["perplexity_rel_err"],
+            "update_err_worst": [max(u.values()) for u in
+                                 check["update_err"]],
+            "metrics": check["metrics"]}
+
+
+def _sgld_definition(cfg, device, seed):
+    """SGLD on ``device`` held to its definition: one update at g = 0 and
+    wd = 0 of a (vocab, embed) weight of zeros adds N(0, lr): mean and
+    variance within 5 sigma; one seed twice the same, two seeds
+    different."""
+    from mxnet_tpu_torch import nd, optimizer
+    from mxnet_tpu_torch import random as mrand
+
+    lr, shape = cfg["sgld_lr"], (cfg["vocab"], cfg["embed"])
+
+    def step(s):
+        mrand.seed(s)
+        w = nd.zeros(shape, ctx=device)
+        optimizer.get_updater(optimizer.create("sgld", learning_rate=lr))(
+            0, nd.zeros(shape, ctx=device), w)
+        return w.asnumpy().astype(np.float64)
+
+    a, b, c = step(seed), step(seed), step(seed + 1)
+    mean, var, s_mean, s_var = zoo.sgld_moments(a.size, lr)
+    z_mean, z_var = (a.mean() - mean) / s_mean, (a.var() - var) / s_var
+    if abs(z_mean) > 5 or abs(z_var) > 5 or not np.array_equal(a, b) \
+            or np.array_equal(a, c):
+        raise RuntimeError(
+            "zoo phase: SGLD's noise has mean %g (z %g), variance %g (z %g, "
+            "want lr %g), seed repeats %s, seeds differ %s"
+            % (a.mean(), z_mean, a.var(), z_var, lr, np.array_equal(a, b),
+               not np.array_equal(a, c)))
+    return {"elements": int(a.size), "lr": lr, "mean": float(a.mean()),
+            "z_mean": float(z_mean), "variance": float(a.var()),
+            "z_variance": float(z_var)}
+
+
+def _zoo_counters():
+    from mxnet_tpu_torch.ops.kernels import fused_update as fu
+    from mxnet_tpu_torch.ops.kernels import lstm as kl
+
+    return {"lstm_step": (kl.lstm_step,),
+            "sgd_mom_update": (fu.sgd_mom_update,),
+            "sgd_mom_update_lr": (fu.sgd_mom_update_lr,)}
+
+
+def _launched(counters, before):
+    now = _count(counters)
+    return {k: now[k] - before[k] for k in now}
+
+
+def _zoo_fit(torch, setup, kwargs, on_card, counters, want, what):
+    """One ``Module.fit`` of ``setup()``'s module with ``kwargs`` (one
+    epoch), its launches held to ``want`` exactly and every batch's
+    perplexity finite; (record, host state)."""
+    _fresh(torch, on_card)
+    mod, it, init = setup()
+    before = _count(counters)
+    step_ms, first_ms, metrics = _fit_timed(torch, mod, it, kwargs(init),
+                                            on_card)
+    launches = _launched(counters, before)
+    stats = mod.fit_step_stats() if hasattr(mod, "fit_step_stats") else {
+        "path": "unfused", "reason": type(mod).__name__}
+    state = _host_state(mod)
+    memory = _peak(torch, on_card)
+    del mod
+    ppl = [m["Perplexity"] for m in metrics]
+    if launches != want:
+        raise RuntimeError("zoo phase: %s launched %s, want %s"
+                           % (what, launches, want))
+    if not metrics or not all(np.isfinite(ppl)):
+        raise RuntimeError("zoo phase: %s perplexity %s" % (what, ppl))
+    return {"path": stats["path"], "steps": stats, "metrics": metrics,
+            "step_ms": step_ms, "first_batch_ms": first_ms,
+            "launches": launches, **memory}, state
+
+
+def _monitored_fit(cfg, device, seed, counters):
+    """``Module.fit`` of ``monitor_batches`` batches at ``check_batch``
+    with a ``Monitor(monitor_interval)`` (the default norm statistic):
+    (each batch's ``toc`` reports, the fused step's stats, launches, the
+    names a monitored batch must report)."""
+    from mxnet_tpu_torch import Monitor
+
+    mod, it, init = lstm_setup(cfg, cfg["check_batch"],
+                               cfg["monitor_batches"], device, seed)
+    mon = Monitor(cfg["monitor_interval"])
+    reports, toc = [], mon.toc
+
+    def recorded():
+        out = toc()
+        reports.append(out)
+        return out
+
+    mon.toc = recorded
+    before = _count(counters)
+    mod.fit(it, monitor=mon, **zoo.fit_args(cfg, init, "sgd"))
+    names = (mod.symbol.get_internals().list_outputs()
+             + mod.symbol.list_arguments())
+    return reports, mod.fit_step_stats(), _launched(counters, before), names
+
+
+def _monitor_checks(cfg, device, ref_device, seed, counters):
+    """(4) Monitor: every matching internal output and argument reported
+    on each monitored batch and none on the others, card = CPU within
+    MONITOR_RTOL, the fused step off for "monitor install", and the
+    monitored forwards' extra lstm_step launches exact."""
+    got, stats, launches, names = _monitored_fit(cfg, device, seed,
+                                                 counters)
+    ref, _, _, _ = _monitored_fit(cfg, ref_device, seed, counters)
+    batches, interval = cfg["monitor_batches"], cfg["monitor_interval"]
+    monitored = [k for k in range(batches) if k % interval == 0]
+    failures = []
+    if stats.get("reason") != "monitor install":
+        failures.append("the fused step's reason is %s" % stats)
+    for k, (g, r) in enumerate(zip(got, ref)):
+        if k not in monitored:
+            if g:
+                failures.append("batch %d (inactive) reported %d stats"
+                                % (k, len(g)))
+            continue
+        if [x[1] for x in g] != names or [x[0] for x in g] != [k + 1] * len(
+                names):
+            failures.append("batch %d reported %s, want step %d and %s"
+                            % (k, [x[:2] for x in g], k + 1, names))
+            continue
+        gv = np.array([float(x[2]) for x in g])
+        rv = np.array([float(x[2]) for x in r])
+        if not np.allclose(gv, rv, rtol=MONITOR_RTOL, atol=0.0):
+            bad = int(np.argmax(np.abs(gv - rv) / np.maximum(np.abs(rv),
+                                                             1e-30)))
+            failures.append("batch %d: %s = %r on the card, %r on the CPU"
+                            % (k, names[bad], gv[bad], rv[bad]))
+    want = lstm_steps(cfg, batches + len(monitored))
+    if len(got) != batches or launches["lstm_step"] != want:
+        failures.append("%d reports, %d lstm_step launches (want %d, %d)"
+                        % (len(got), launches["lstm_step"], batches, want))
+    if failures:
+        raise RuntimeError("zoo phase monitor: " + "; ".join(failures))
+    return {"interval": interval, "batches": batches,
+            "monitored_batches": monitored, "stats_a_batch": len(names),
+            "steps": stats, "launches": launches,
+            "stats": {n: float(x[2]) for n, x in zip(names, got[0])},
+            "rtol": MONITOR_RTOL}
+
+
+def _feedforward_checks(torch, cfg, device, ref_device, seed):
+    """(5) FeedForward: fit ``feedforward_batches`` batches, predict and
+    score, card against the CPU; then save, load and predict again on the
+    card, bit for bit."""
+    import tempfile
+
+    from mxnet_tpu_torch import FeedForward, initializer, io, metric
+    from mxnet_tpu_torch.tools.lstm_lm import lstm_data, lstm_symbol
+
+    batch = cfg["check_batch"]
+    x, y = lstm_data(cfg, batch, cfg["feedforward_batches"], seed + 1)
+    _, params = zoo.optimizer_run("sgd")
+
+    def labelled():
+        # the labels' shape must be bound: the symbol reshapes them
+        return io.NDArrayIter(x, y, batch_size=batch)
+
+    out = {}
+    for dev in (device, ref_device):
+        ff = FeedForward(lstm_symbol(cfg), ctx=dev, num_epoch=1,
+                         initializer=initializer.Xavier(
+                             rng=np.random.RandomState(seed)),
+                         numpy_batch_size=batch, **params)
+        ff.fit(x, y, eval_metric=metric.Perplexity(ignore_label=None))
+        out[dev] = (ff, ff.predict(labelled()),
+                    ff.score(x, y, eval_metric=metric.Perplexity(
+                        ignore_label=None)))
+    (ff, pred, score), (_, ref_pred, ref_score) = out[device], out[
+        ref_device]
+    pred_err = change_err(pred, ref_pred)
+    score_err = abs(score - ref_score) / ref_score
+    work = tempfile.mkdtemp(prefix="zoo-feedforward-")
+    try:
+        ff.save(os.path.join(work, "ff"), 1)
+        loaded = FeedForward.load(os.path.join(work, "ff"), 1, ctx=device,
+                                  numpy_batch_size=batch)
+        again = loaded.predict(labelled())
+        files = sorted(os.listdir(work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    failures = []
+    if not pred_err <= LSTM_UPDATE or not score_err <= LSTM_PPL:
+        failures.append("predict %g from the CPU's (tol %g), score %g (tol "
+                        "%g)" % (pred_err, LSTM_UPDATE, score_err, LSTM_PPL))
+    if not np.array_equal(again, pred):
+        failures.append("predict after save / load differs by %g"
+                        % float(np.abs(again - pred).max()))
+    if failures:
+        raise RuntimeError("zoo phase FeedForward: " + "; ".join(failures))
+    return {"batches": cfg["feedforward_batches"], "batch": batch,
+            "predict_shape": list(pred.shape), "predict_rel_err": pred_err,
+            "score": score, "score_rel_err": score_err,
+            "save_load_predict_bit_for_bit": True, "files": files}
+
+
+def _zoo_small_parts(device, ref_device, seed):
+    """(6) The new initializers, ops and metrics on ``device`` against
+    ``ref_device``: initializers, clip, sign, moveaxis and onehot_encode
+    bit for bit; norm within NORM_RTOL (its sums in another order); F1,
+    MAE, MSE and RMSE equal."""
+    from mxnet_tpu_torch import initializer, metric, nd
+    from mxnet_tpu_torch.initializer import InitDesc
+
+    rng = np.random.RandomState(seed + 60)
+    x = rng.uniform(-2, 2, (64, 33, 17)).astype(np.float32)
+    ids = rng.randint(0, 40, 300).astype(np.float32)
+    saved = {"arg:w_weight": nd.array(x[:8, :5, 0], ctx="cpu")}
+    inits = {
+        "Orthogonal": (lambda: initializer.Orthogonal(
+            rng=np.random.RandomState(seed)), "fc_weight", (64, 48)),
+        "Orthogonal_normal": (lambda: initializer.Orthogonal(
+            rand_type="normal", rng=np.random.RandomState(seed)),
+            "fc_weight", (32, 3, 4, 4)),
+        "MSRAPrelu": (lambda: initializer.MSRAPrelu(
+            rng=np.random.RandomState(seed)), "conv_weight", (16, 8, 3, 3)),
+        "Bilinear": (lambda: initializer.Bilinear(), "up_weight",
+                     (4, 1, 8, 8)),
+        "Mixed": (lambda: initializer.Mixed(
+            [".*bias", ".*"], [initializer.Constant(0.5),
+                               initializer.Uniform(
+                                   rng=np.random.RandomState(seed))]),
+            "fc_weight", (20, 10)),
+        "Load": (lambda: initializer.Load(saved), "w_weight", (8, 5)),
+    }
+    out, failures = {}, []
+    for name, (make, pname, shape) in inits.items():
+        got, want = (nd.zeros(shape, ctx=d) for d in (device, ref_device))
+        make()(InitDesc(pname), got)
+        make()(InitDesc(pname), want)
+        if not np.array_equal(got.asnumpy(), want.asnumpy()):
+            failures.append("initializer %s" % name)
+        out[name] = list(shape)
+    ops = {
+        "clip": lambda d: nd.clip(nd.array(x, ctx=d), a_min=-0.5,
+                                  a_max=0.75),
+        "sign": lambda d: nd.sign(nd.array(x, ctx=d)),
+        "moveaxis": lambda d: nd.moveaxis(nd.array(x, ctx=d), 0, 2),
+        "onehot_encode": lambda d: nd.onehot_encode(
+            nd.array(ids, ctx=d), nd.zeros((300, 40), ctx=d)),
+    }
+    for name, fn in ops.items():
+        if not np.array_equal(fn(device).asnumpy(), fn(ref_device).asnumpy()):
+            failures.append("op %s" % name)
+        out[name] = "bit for bit"
+    norms = {}
+    for axis in (None, 1, (0, 2)):
+        for ord_ in (1, 2):
+            got = nd.norm(nd.array(x, ctx=device), ord=ord_,
+                          axis=axis).asnumpy()
+            want = nd.norm(nd.array(x, ctx=ref_device), ord=ord_,
+                           axis=axis).asnumpy()
+            err = float(np.max(np.abs(got - want) / np.abs(want)))
+            norms["ord%d axis %s" % (ord_, axis)] = err
+            if not err <= NORM_RTOL:
+                failures.append("norm ord %d axis %s off by %g"
+                                % (ord_, axis, err))
+    out["norm_rel_err"] = norms
+    pred2 = rng.uniform(0, 1, (50, 2)).astype(np.float32)
+    lab2 = rng.randint(0, 2, 50).astype(np.float32)
+    reg = rng.uniform(-1, 1, (50, 1)).astype(np.float32)
+    lab_reg = rng.uniform(-1, 1, 50).astype(np.float32)
+    metrics = {}
+    for name, (lab, pred) in (("f1", (lab2, pred2)), ("mae", (lab_reg, reg)),
+                              ("mse", (lab_reg, reg)),
+                              ("rmse", (lab_reg, reg))):
+        vals = []
+        for d in (device, ref_device):
+            m = metric.create(name)
+            m.update([nd.array(lab, ctx=d)], [nd.array(pred, ctx=d)])
+            vals.append(float(m.get()[1]))
+        if vals[0] != vals[1]:
+            failures.append("metric %s %r against %r" % (name, *vals))
+        metrics[name] = vals[0]
+    out["metrics"] = metrics
+    if failures:
+        raise RuntimeError("zoo phase small parts differ on the card: "
+                           + ", ".join(failures))
+    return out
+
+
+def phase_zoo(cfg=ZOO, device=None, ref_device="cpu", seed=SEED):
+    """The rest of training on the card (``tools/zoo.py``): the LSTM LM
+    under every optimizer of the reference's registry. (1) Card against
+    ``ref_device`` (2 batches of ``check_batch``) at the lstm gates for
+    every optimizer but SGLD, which is held to its definition instead; (2)
+    the full-width run, ``batches`` batches of ``batch`` through
+    ``Module.fit``: the pure-rule optimizers through the captured fused
+    step, each against its eager twin bit for bit, the others through the
+    Updater ("has no pure rule"), each fit exactly 560 ``lstm_step``
+    launches and ccSGD's ``sgd_mom_update_lr`` launches the parameters x
+    batches; (3) ``SequentialModule`` (body + head) equal to the single
+    Module, its run, and the ``PythonLossModule`` head against the CPU;
+    (4) ``Monitor``; (5) ``FeedForward``; (6) the initializers, ops and
+    metrics. ``device`` None = the card. Returns the launches of (2)-(5)."""
+    import torch
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch import optimizer as mopt
+    from mxnet_tpu_torch.executor import CAPTURE_WARMUP
+    from mxnet_tpu_torch.tools.lstm_lm import lstm_symbol
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    card = nvidia_smi() if on_card else None
+    cb, cs = cfg["check_batch"], cfg["check_steps"]
+
+    def module_setup(dev, batch, batches):
+        return lambda: lstm_setup(cfg, batch, batches, dev, seed)
+
+    def chain_setup(dev, batch, batches, loss=False):
+        def setup():
+            mod = zoo.chain(cfg, dev, loss=loss)
+            it = zoo.zoo_iter(cfg, batch, batches, seed + 1)
+            init = initializer.Xavier(rng=np.random.RandomState(seed))
+            mod.bind(it.provide_data, it.provide_label)
+            mod.init_params(init)
+            return mod, it, init
+        return setup
+
+    # 1. card vs the port's CPU path, each optimizer
+    t0 = time.perf_counter()
+    checks = {}
+    for run, name, params in zoo.OPTIMIZERS:
+        if run == "sgld":
+            continue
+        check = _lstm_check(
+            "zoo check %s" % run, cfg, cs,
+            [module_setup(dev, cb, cs) for dev in (device, ref_device)],
+            fit_args=lambda c, i, run=run: zoo.fit_args(c, i, run),
+            ppl_tol=zoo_ppl_tol(run))
+        checks[run] = _check_summary(check, dict(params, name=name))
+    checks["sgld"] = {"optimizer": dict(zoo.optimizer_run("sgld")[1],
+                                        name="sgld"),
+                      "definition": _sgld_definition(cfg, device, seed)}
+    check_s = time.perf_counter() - t0
+
+    # 2. the full-width runs: the main path from here to (5)
+    counters = _zoo_counters()
+    _zero(counters)
+    t1 = time.perf_counter()
+    steps, per_fit = cfg["batches"], lstm_steps(cfg, cfg["batches"])
+    n_params = len(lstm_symbol(cfg).list_arguments()) - 2  # data, label
+    runs = {}
+    for run in zoo.CAPTURED + zoo.UPDATER:
+        name, params = zoo.optimizer_run(run)
+        setup = module_setup(device, cfg["batch"], steps)
+
+        def kwargs(init, run=run):
+            return zoo.fit_args(cfg, init, run)
+
+        want = {"lstm_step": per_fit, "sgd_mom_update": 0,
+                "sgd_mom_update_lr": n_params * steps if run == "ccsgd"
+                else 0}
+        rec, state = _zoo_fit(torch, setup, kwargs, on_card, counters, want,
+                              run)
+        rec["optimizer"] = dict(params, name=name)
+        st = rec["steps"]
+        if run in zoo.CAPTURED:
+            if st["path"] == "unfused":
+                raise RuntimeError("zoo phase: %s has a pure rule but took "
+                                   "the Updater path (%s)" % (run, st))
+            _require_captured("zoo %s" % run, [st], on_card)
+            before = _count(counters)
+            eager = _eager_twin(torch, setup, kwargs, on_card, state,
+                                "zoo %s" % run)
+            eager["launches"] = _launched(counters, before)
+            if eager["launches"] != want:
+                raise RuntimeError("zoo phase: %s's eager twin launched %s, "
+                                   "want %s" % (run, eager["launches"],
+                                                want))
+            rec["eager"] = eager
+            rec["captured_vs_eager"] = {"bit_for_bit": True}
+            rec["median_step_ms"] = _steady_ms(rec["step_ms"], on_card)
+        else:
+            reason = "%s has no pure rule" % type(mopt.create(name)).__name__
+            if st != {"path": "unfused", "reason": reason}:
+                raise RuntimeError("zoo phase: %s took %s, want the "
+                                   "Updater path for %r" % (run, st, reason))
+            rec["median_step_ms"] = float(np.median(rec["step_ms"]))
+        runs[run] = rec
+        emit({"phase": "zoo_step", "optimizer": run, "path": st["path"],
+              "median_step_ms": rec["median_step_ms"],
+              "eager_median_step_ms": rec.get("eager", {}).get(
+                  "median_step_ms"),
+              "max_memory_allocated": rec.get("max_memory_allocated"),
+              "card": card})
+    run_s = time.perf_counter() - t1
+
+    # 3. SequentialModule: the chain against the single Module, its run,
+    # the PythonLossModule head against the CPU
+    chain_check = _lstm_check(
+        "zoo SequentialModule vs Module", cfg, cs,
+        [chain_setup(device, cb, cs), module_setup(device, cb, cs)],
+        fit_args=lambda c, i: zoo.fit_args(c, i, "sgd", batch=cb))
+    chain_run, _ = _zoo_fit(
+        torch, chain_setup(device, cfg["batch"], steps),
+        lambda i: zoo.fit_args(cfg, i, "sgd", batch=cfg["batch"]),
+        on_card, counters, {"lstm_step": per_fit,
+                            "sgd_mom_update": n_params * steps,
+                            "sgd_mom_update_lr": 0}, "the SequentialModule")
+    chain_run["median_step_ms"] = float(np.median(chain_run["step_ms"]))
+    loss_check = _lstm_check(
+        "zoo PythonLossModule chain", cfg, cs,
+        [chain_setup(dev, cb, cs, loss=True) for dev in (device,
+                                                          ref_device)],
+        fit_args=lambda c, i: zoo.fit_args(c, i, "sgd", batch=cb,
+                                           metric=zoo.logit_perplexity()))
+
+    # 4. Monitor; 5. FeedForward
+    monitor = _monitor_checks(cfg, device, ref_device, seed, counters)
+    feedforward = _feedforward_checks(torch, cfg, device, ref_device, seed)
+    launches = _count(counters)
+    # 6. the small parts
+    small = _zoo_small_parts(device, ref_device, seed)
+    if not launches["lstm_step"] or not launches["sgd_mom_update_lr"]:
+        raise RuntimeError("zoo phase launched %s" % launches)
+    result = {"phase": "zoo", "vocab": cfg["vocab"], "embed": cfg["embed"],
+              "hidden": cfg["hidden"], "layers": cfg["layers"],
+              "seq": cfg["seq"], "batch": cfg["batch"], "batches": steps,
+              "dtype": "float32", "capture_warmup": CAPTURE_WARMUP,
+              "checks": checks, "check_s": check_s, "runs": runs,
+              "run_s": run_s,
+              "sequential": {"vs_module": _check_summary(chain_check,
+                                                         "sgd"),
+                             "run": chain_run,
+                             "python_loss_vs_cpu": _check_summary(
+                                 loss_check, "sgd")},
+              "monitor": monitor, "feedforward": feedforward,
+              "small_parts": small, "launches": launches}
+    emit(result)
+    return launches
 
 
 def _seq_deterministic(torch, device, ref_device, seed):
@@ -5688,6 +6172,7 @@ def main():
     train = phase_train()
     resnet = phase_resnet()
     lstm = phase_lstm()
+    zoo_launches = phase_zoo()
     seq_launches = phase_seq()
     custom = phase_custom()
     bucketing = phase_bucketing()
@@ -5737,6 +6222,10 @@ def main():
             # the Updater's scalar entry, and the captured step's lr entry
             by_phase["bucketing"] = bucketing[kind]
             by_phase["bucketing_capture"] = bucketing[kind + "_lr"]
+        if kind in zoo_launches:
+            # ccSGD's captured runs (lr entry) and the SequentialModule's
+            # Updater (scalar entry)
+            by_phase["zoo"] = zoo_launches[kind] + zoo_launches[kind + "_lr"]
         rows.append({
             "name": kind, "route": "cuda", "source": UPDATE_SRC,
             "replaces": UPDATE_REPLACES[kind],
@@ -5777,10 +6266,12 @@ def main():
     rows.append({
         "name": "lstm_step", "route": "cuda", "source": LSTM_SRC,
         "replaces": LSTM_REPLACES,
-        "launches": lstm["fit"] + lstm["score"] + seq_launches
-        + bucketing["lstm_step"] + bucketing["capture_lstm_step"],
+        "launches": lstm["fit"] + lstm["score"] + zoo_launches["lstm_step"]
+        + seq_launches + bucketing["lstm_step"]
+        + bucketing["capture_lstm_step"],
         "launches_by_phase": {"lstm_fit": lstm["fit"],
                               "lstm_score": lstm["score"],
+                              "zoo": zoo_launches["lstm_step"],
                               "seq": seq_launches,
                               "bucketing": bucketing["lstm_step"],
                               "bucketing_capture":

@@ -39,24 +39,38 @@ graph a bound shape), ``quant`` (``QuantizedPredictor``) and ``serving``
 tuner, fronting the generate path too) behind ``serving.frontend``'s HTTP
 / SSE front door; and the sequence ops (``SequenceMask`` / ``Last`` /
 ``Reverse``, ``softmax_cross_entropy``), the creation and sampling ops and
-``lr_scheduler``.
+``lr_scheduler``; and the rest of training: the optimizer zoo, ``Monitor``,
+``SequentialModule`` / ``PythonModule`` / ``PythonLossModule``,
+``FeedForward`` and the reference's top-level names (``Variable``,
+``Group``, ``Context``, ``seed``, ...).
 """
 from . import (autograd, base, callback, context, engine, executor,
                initializer, interop, io, lr_scheduler, metric, model, models,
-               module, ndarray, operator, optimizer, predict, profiler, quant,
-               random, rnn, rtc, serving, symbol, telemetry)
+               module, monitor, ndarray, operator, optimizer, predict,
+               profiler, quant, random, rnn, rtc, serving, symbol, telemetry)
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
+from .attribute import AttrScope
 from .base import MXNetError
-from .context import cpu, default_device, gpu
+from .context import (Context, cpu, cpu_pinned, current_context,
+                      default_device, gpu, num_devices)
+from .executor import Executor
+from .initializer import init_registry
+from .model import FeedForward
+from .monitor import Monitor
+from .name import NameManager, Prefix
+from .random import seed
+from .symbol import Group, Variable
 
 __version__ = "0.9.5-torch.5"
 
-__all__ = ["MXNetError", "autograd", "base", "callback", "context", "cpu",
-           "default_device", "engine", "executor", "gpu", "initializer",
-           "interop", "io", "lr_scheduler", "metric", "mod", "model",
-           "models", "module",
-           "nd", "ndarray", "operator", "optimizer", "predict", "profiler",
-           "quant", "random", "rnn", "rtc", "serving", "sym", "symbol",
-           "telemetry"]
+__all__ = ["AttrScope", "Context", "Executor", "FeedForward", "Group",
+           "MXNetError", "Monitor", "NameManager", "Prefix", "Variable",
+           "autograd", "base", "callback", "context", "cpu", "cpu_pinned",
+           "current_context", "default_device", "engine", "executor", "gpu",
+           "init_registry", "initializer", "interop", "io", "lr_scheduler",
+           "metric", "mod", "model", "models", "module", "monitor", "nd",
+           "ndarray", "num_devices", "operator", "optimizer", "predict",
+           "profiler", "quant", "random", "rnn", "rtc", "seed", "serving",
+           "sym", "symbol", "telemetry"]

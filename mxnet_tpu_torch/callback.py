@@ -1,7 +1,8 @@
 """Training callbacks (counterpart of ``mxnet_tpu/callback.py``,
 reference python/mxnet/callback.py): the checkpoint callbacks
 ``module_checkpoint`` and ``do_checkpoint``, ``Speedometer``,
-``log_train_metric`` and ``ProgressBar``."""
+``log_train_metric``, ``ProgressBar`` and
+``LogValidationMetricsCallback``."""
 from __future__ import annotations
 
 import logging
@@ -100,3 +101,15 @@ class ProgressBar:
         percents = math.ceil(100.0 * count / float(self.total))
         prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
         sys.stdout.write("[%s] %s%s\r" % (prog_bar, percents, "%"))
+
+
+class LogValidationMetricsCallback:
+    """Logs each validation metric at an epoch's end (an
+    ``eval_end_callback``)."""
+
+    def __call__(self, param):
+        if not param.eval_metric:
+            return
+        for name, value in param.eval_metric.get_name_value():
+            logging.info("Epoch[%d] Validation-%s=%f", param.epoch, name,
+                         value)

@@ -36,6 +36,13 @@ the warm-up calls draw eagerly, the capture draws nothing, and each replay
 draws from the offset the eager step would have reached, so captured and
 eager steps equal each other bit for bit and no mask repeats.
 
+``set_monitor_callback`` (``Monitor.install``): while the callback is
+active, each ``forward`` first evaluates the graph's internals (every node
+output, arguments included) without gradients and hands each to the
+callback by name, as the reference's executor does. A graph that draws
+runs that evaluation on a saved copy of the generator's state, so the
+forward after it draws what it would have drawn unmonitored.
+
 Telemetry (domain ``executor``, the reference's names): ``forward`` and
 ``backward`` run inside ``executor.forward`` / ``executor.backward``
 spans, and each call of a train step inside ``executor.train_step``: the
@@ -165,6 +172,8 @@ class Executor:
         self._arg_names = arg_names
         self._aux_names = aux_names
         self._eval_fn = symbol.build_eval()
+        self._monitor_cb = None
+        self._internals = None   # (names, evaluator) of the monitored run
         self._index_only = (_index_only_args(symbol)
                             if self._compute_dtype is not None else set())
         self.outputs: List[NDArray] = []
@@ -187,13 +196,15 @@ class Executor:
                 if isinstance(v, tuple) and v and isinstance(v[0], CustomOp)
                 and v[0].copies_to_host]
 
-    def _run_graph(self, values, aux_values, is_train):
-        """The graph on ``values`` in the compute type: f32 in, f32 out."""
+    def _run_graph(self, values, aux_values, is_train, eval_fn=None):
+        """The graph (or ``eval_fn``'s) on ``values`` in the compute type:
+        f32 in, f32 out."""
+        eval_fn = eval_fn or self._eval_fn
         cd = self._compute_dtype
         if cd is None:
-            return self._eval_fn(values, aux_values, is_train, self._device)
+            return eval_fn(values, aux_values, is_train, self._device)
         f32 = torch.float32
-        outs, aux_up = self._eval_fn(
+        outs, aux_up = eval_fn(
             _cast(values, cd, f32, self._index_only),
             _cast(aux_values, cd, f32), is_train, self._device)
         return ([o.to(f32) if o.dtype == cd else o for o in outs],
@@ -209,6 +220,9 @@ class Executor:
                 self.arg_dict[k][:] = v
         self._pending = None
         aux_values = {n: a._data for n, a in self.aux_dict.items()}
+        if self._monitor_cb is not None and getattr(
+                self._monitor_cb, "is_active", lambda: True)():
+            self._run_monitored(aux_values, is_train)
         with _telemetry.span("executor.forward", domain="executor",
                              is_train=bool(is_train)):
             if is_train:
@@ -304,6 +318,34 @@ class Executor:
 
     def print_summary(self):
         return self._symbol.debug_str()
+
+    # --- monitor (reference graph_executor.cc:761-781) ---------------------
+    def set_monitor_callback(self, callback):
+        """``callback(name, NDArray)`` for every internal output of each
+        forward while it is active (``callback.is_active()``, if it has
+        one)."""
+        self._monitor_cb = callback
+
+    def _run_monitored(self, aux_values, is_train):
+        """Evaluate every internal output and report each by name."""
+        if self._internals is None:
+            internals = self._symbol.get_internals()
+            self._internals = (internals.list_outputs(),
+                               internals.build_eval())
+        names, eval_fn = self._internals
+        values = {n: a._data for n, a in self.arg_dict.items()}
+        gen = (_random.generator(self._device)
+               if self._symbol._needs_rng() else None)
+        saved = gen.get_state() if gen is not None else None
+        try:
+            with torch.no_grad():
+                outs, _ = self._run_graph(values, aux_values, is_train,
+                                          eval_fn)
+        finally:
+            if gen is not None:
+                gen.set_state(saved)
+        for name, val in zip(names, outs):
+            self._monitor_cb(name, NDArray(val))
 
     def make_train_step(self, update_fn, chain=1, mesh=None,
                         shard_axis="data"):

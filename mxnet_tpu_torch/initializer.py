@@ -2,8 +2,11 @@
 
 Counterpart of ``mxnet_tpu/initializer.py`` (reference python/mxnet/
 initializer.py) for ``InitDesc``, the name-suffix dispatch of
-``Initializer`` and ``Zero`` / ``One`` / ``Constant`` / ``Uniform`` /
-``Normal`` / ``Xavier`` / ``LSTMBias`` / ``FusedRNN``. Random draws come
+``Initializer``, ``Zero`` / ``One`` / ``Constant`` / ``Uniform`` /
+``Normal`` / ``Orthogonal`` / ``Xavier`` / ``MSRAPrelu`` / ``Bilinear`` /
+``LSTMBias`` / ``FusedRNN`` (by name in ``init_registry``), and ``Mixed``
+(an initializer per name pattern) and ``Load`` (from saved arrays), which
+take a name and an array as the others do. Random draws come
 from numpy, as the reference's do, from the ``rng`` (a
 ``np.random.RandomState``) the caller passes, or numpy's global state when
 it passes none — so one seed gives both packages the same weights, the
@@ -13,6 +16,7 @@ in place.
 from __future__ import annotations
 
 import json
+import re
 
 import numpy as np
 
@@ -60,7 +64,9 @@ class Initializer:
             create(klass, rng=self.rng, **kwargs)(clean, arr)
             return
         name = desc.lower()
-        if name.endswith("bias"):
+        if name.endswith("upsampling"):
+            self._init_bilinear(desc, arr)
+        elif name.endswith("bias"):
             self._init_bias(desc, arr)
         elif name.endswith("beta"):
             arr[:] = 0.0
@@ -74,6 +80,8 @@ class Initializer:
             arr[:] = 0.0
         elif name.endswith("moving_var") or name.endswith("running_var"):
             arr[:] = 1.0
+        elif name.endswith("moving_inv_var") or name.endswith("moving_avg"):
+            arr[:] = 0.0
         else:
             raise MXNetError(
                 "Unknown initialization pattern for %s. Default "
@@ -86,6 +94,18 @@ class Initializer:
     def _init_bias(self, _, arr):
         arr[:] = 0.0
 
+    def _init_bilinear(self, _, arr):
+        """A bilinear upsampling kernel over the last two axes."""
+        shape = arr.shape
+        weight = np.zeros(int(np.prod(shape)), dtype="float32")
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(weight.size):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        arr[:] = weight.reshape(shape)
+
     def _init_parameters(self, _, arr):
         """A fused RNN's packed blob under a generic initializer: a small
         uniform fill, as the reference's (a flat blob hides the matrices
@@ -97,6 +117,8 @@ class Initializer:
 
 register = registry.get_register_func(Initializer, "initializer")
 create = registry.get_create_func(Initializer, "initializer")
+#: lowercased name -> initializer class (the reference's ``init_registry``)
+init_registry = registry._REGISTRY[Initializer]
 
 
 @register
@@ -148,6 +170,28 @@ class Normal(Initializer):
 
 
 @register
+class Orthogonal(Initializer):
+    """``scale`` times the orthogonal factor of the SVD of a uniform(-1, 1)
+    (or, ``rand_type="normal"``, standard normal) (nout, nin) draw."""
+
+    def __init__(self, scale=1.414, rand_type="uniform", rng=None):
+        super().__init__(rng=rng, scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = self._random.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = self._random.normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else v
+        arr[:] = (self.scale * res).reshape(arr.shape).astype(np.float32)
+
+
+@register
 class Xavier(Initializer):
     """Uniform or gaussian with scale sqrt(magnitude / factor), the factor
     being fan_in, fan_out or their mean (``factor_type``)."""
@@ -176,6 +220,24 @@ class Xavier(Initializer):
         else:
             raise ValueError("Unknown random type")
         arr[:] = draw.astype(np.float32)
+
+
+@register
+class MSRAPrelu(Xavier):
+    """Xavier, gaussian, with magnitude 2 / (1 + slope^2) (He et al.)."""
+
+    def __init__(self, factor_type="avg", slope=0.25, rng=None):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2),
+                         rng=rng)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """A bilinear upsampling kernel (a ``Deconvolution``'s weight)."""
+
+    def _init_weight(self, desc, arr):
+        self._init_bilinear(desc, arr)
 
 
 @register
@@ -278,3 +340,50 @@ class FusedRNN(Initializer):
             biases[0::2, h:2 * h] = self.forget_bias  # the bi rows only
         v[p:] = biases.reshape(-1)
         arr[:] = v.reshape(arr.shape)
+
+
+class Mixed:
+    """The initializer of the first of ``patterns`` (regular expressions)
+    that matches a parameter's name."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("Mixed: %d patterns, %d initializers"
+                             % (len(patterns), len(initializers)))
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError("Parameter name %s did not match any pattern"
+                         % name)
+
+
+class Load:
+    """Parameters from saved arrays (a dict, or a file ``nd.load`` reads;
+    ``arg:`` / ``aux:`` prefixes dropped); a name not among them goes to
+    ``default_init``."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        from . import ndarray as nd
+
+        if isinstance(param, str):
+            param = nd.load(param)
+        self.param = {k[4:] if k.startswith(("arg:", "aux:")) else k: v
+                      for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            if tuple(self.param[name].shape) != tuple(arr.shape):
+                raise ValueError("Parameter %s shape mismatch" % name)
+            arr[:] = self.param[name]
+        else:
+            if self.default_init is None:
+                raise ValueError("Cannot init %s: not found and no default"
+                                 % name)
+            self.default_init(name, arr)

@@ -2,11 +2,11 @@
 
 Counterpart of ``mxnet_tpu/metric.py`` (reference python/mxnet/metric.py)
 for ``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``,
-``TopKAccuracy``, ``CrossEntropy``, ``Perplexity``, ``Loss``,
-``CustomMetric`` / ``np`` and ``create``. Metrics read labels and
+``TopKAccuracy``, ``F1`` (binary), ``Perplexity``, ``MAE`` / ``MSE`` /
+``RMSE``, ``CrossEntropy``, ``Loss`` (and its ``Torch`` / ``Caffe``
+names), ``CustomMetric`` / ``np`` and ``create``. Metrics read labels and
 predictions on the host (``asnumpy``): that copy is the one sync point per
-training step, as in the reference. F1 and the regression metrics are not
-ported.
+training step, as in the reference.
 """
 from __future__ import annotations
 
@@ -143,6 +143,33 @@ class TopKAccuracy(EvalMetric):
             self.num_inst += pred.shape[0]
 
 
+class F1(EvalMetric):
+    """F1 of a binary classifier (argmax over axis 1), averaged over
+    batches."""
+
+    def __init__(self, name="f1"):
+        super().__init__(name)
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            pred_label = numpy.argmax(_host(pred), axis=1)
+            label = _host(label).astype("int32")
+            check_label_shapes(label, pred_label, shape=1)
+            if len(numpy.unique(label)) > 2:
+                raise ValueError("F1 currently only supports binary "
+                                 "classification.")
+            tp = float(numpy.sum((pred_label == 1) & (label == 1)))
+            fp = float(numpy.sum((pred_label == 1) & (label == 0)))
+            fn = float(numpy.sum((pred_label == 0) & (label == 1)))
+            precision = tp / (tp + fp) if tp + fp > 0 else 0.0
+            recall = tp / (tp + fn) if tp + fn > 0 else 0.0
+            f1 = (2 * precision * recall / (precision + recall)
+                  if precision + recall > 0 else 0.0)
+            self.sum_metric += f1
+            self.num_inst += 1
+
+
 class Perplexity(EvalMetric):
     """Perplexity, optionally ignoring one label value."""
 
@@ -176,6 +203,52 @@ class Perplexity(EvalMetric):
         self.num_inst += max(num, 1)
 
 
+def _regression_pairs(labels, preds):
+    """(label, pred) host arrays, a 1-D label as a column."""
+    check_label_shapes(labels, preds)
+    for label, pred in zip(labels, preds):
+        label = _host(label)
+        if label.ndim == 1:
+            label = label.reshape(label.shape[0], 1)
+        yield label, _host(pred)
+
+
+class MAE(EvalMetric):
+    """Mean absolute error, averaged over batches."""
+
+    def __init__(self, name="mae"):
+        super().__init__(name)
+
+    def update(self, labels, preds):
+        for label, pred in _regression_pairs(labels, preds):
+            self.sum_metric += numpy.abs(label - pred).mean()
+            self.num_inst += 1
+
+
+class MSE(EvalMetric):
+    """Mean squared error, averaged over batches."""
+
+    def __init__(self, name="mse"):
+        super().__init__(name)
+
+    def update(self, labels, preds):
+        for label, pred in _regression_pairs(labels, preds):
+            self.sum_metric += ((label - pred) ** 2.0).mean()
+            self.num_inst += 1
+
+
+class RMSE(EvalMetric):
+    """Root mean squared error, averaged over batches."""
+
+    def __init__(self, name="rmse"):
+        super().__init__(name)
+
+    def update(self, labels, preds):
+        for label, pred in _regression_pairs(labels, preds):
+            self.sum_metric += numpy.sqrt(((label - pred) ** 2.0).mean())
+            self.num_inst += 1
+
+
 class CrossEntropy(EvalMetric):
     def __init__(self, eps=1e-8, name="cross-entropy"):
         super().__init__(name)
@@ -203,6 +276,21 @@ class Loss(EvalMetric):
         for pred in preds:
             self.sum_metric += _host(pred).sum()
             self.num_inst += pred.size
+
+
+class Torch(Loss):
+    """``Loss`` under the reference's name for its Torch plugin's losses."""
+
+    def __init__(self, name="torch"):
+        super().__init__(name)
+
+
+class Caffe(Loss):
+    """``Loss`` under the reference's name for its Caffe plugin's
+    losses."""
+
+    def __init__(self, name="caffe"):
+        super().__init__(name)
 
 
 class CustomMetric(EvalMetric):
@@ -240,6 +328,7 @@ def np(numpy_feval, name=None, allow_extra_outputs=False):
 
 
 _METRICS = {"acc": Accuracy, "accuracy": Accuracy, "ce": CrossEntropy,
+            "f1": F1, "mae": MAE, "mse": MSE, "rmse": RMSE,
             "top_k_accuracy": TopKAccuracy, "perplexity": Perplexity,
             "loss": Loss}
 

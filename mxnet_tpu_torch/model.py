@@ -5,9 +5,10 @@ python/mxnet/model.py) the one-device training path uses: ``BatchEndParam``,
 the kvstore policy ``_create_kvstore`` and the local update
 ``_update_params``, and the checkpoints ``save_checkpoint`` /
 ``load_checkpoint`` (the symbol's JSON and an ``nd.save`` blob of
-``arg:`` / ``aux:`` arrays, readable by the JAX package). kvstores and
-``FeedForward`` are not ported: a kvstore that would exist raises (the
-reference's ``model.update_params_on_kvstore`` span comes with them).
+``arg:`` / ``aux:`` arrays, readable by the JAX package), and the legacy
+estimator ``FeedForward`` over ``Module``. kvstores are not ported: a
+kvstore that would exist raises (the reference's
+``model.update_params_on_kvstore`` span comes with them).
 
 Telemetry (domain ``executor``): the update runs inside a
 ``model.update_params`` span, and a checkpoint's host snapshot inside
@@ -19,6 +20,8 @@ from __future__ import annotations
 import logging
 import os
 from collections import namedtuple
+
+import numpy as np
 
 from . import engine
 from . import ndarray as nd
@@ -128,3 +131,113 @@ def load_checkpoint(prefix, epoch):
     arg_params, aux_params = split_param_dict(nd.load(param_name),
                                               param_name)
     return symbol, arg_params, aux_params
+
+
+class FeedForward:
+    """The reference's legacy estimator (reference model.py:387), over a
+    ``Module``: ``fit`` trains ``symbol`` on numpy arrays or a data
+    iterator with ``optimizer`` and the optimizer's keyword arguments,
+    ``predict`` and ``score`` evaluate, ``save`` / ``load`` are
+    ``save_checkpoint`` / ``load_checkpoint``. ``ctx`` None is the first
+    CUDA card; one context only."""
+
+    def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None,
+                 optimizer="sgd", initializer=None, numpy_batch_size=128,
+                 arg_params=None, aux_params=None, allow_extra_params=False,
+                 begin_epoch=0, **kwargs):
+        from .initializer import Uniform
+
+        self.symbol = symbol
+        self.ctx = ctx if isinstance(ctx, list) else [ctx]
+        self.num_epoch = num_epoch
+        self.epoch_size = epoch_size
+        self.kwargs = dict(kwargs)
+        self.optimizer = optimizer
+        self.initializer = initializer or Uniform(0.01)
+        self.numpy_batch_size = numpy_batch_size
+        self.arg_params = arg_params
+        self.aux_params = aux_params
+        self.allow_extra_params = allow_extra_params
+        self.begin_epoch = begin_epoch
+        self._module = None
+
+    @staticmethod
+    def load(prefix, epoch, ctx=None, **kwargs):
+        """A FeedForward of a checkpoint's symbol and parameters."""
+        symbol, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        return FeedForward(symbol, ctx=ctx, arg_params=arg_params,
+                           aux_params=aux_params, begin_epoch=epoch,
+                           **kwargs)
+
+    def save(self, prefix, epoch=None):
+        if epoch is None:
+            epoch = self.num_epoch
+        save_checkpoint(prefix, epoch, self.symbol, self.arg_params,
+                        self.aux_params)
+
+    def _init_module(self, data):
+        from .module import Module
+
+        def names(descs):
+            return [getattr(d, "name", None) or d[0] for d in descs or []]
+
+        self._module = Module(self.symbol,
+                              data_names=names(data.provide_data),
+                              label_names=names(data.provide_label),
+                              context=self.ctx)
+
+    def fit(self, X, y=None, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None,
+            kvstore="local", logger=None, work_load_list=None, monitor=None,
+            eval_end_callback=None, eval_batch_end_callback=None):
+        data = self._prepare_data(X, y)
+        self._init_module(data)
+        opt_params = dict(self.kwargs)
+        opt_params.setdefault("learning_rate", 0.01)
+        self._module.fit(
+            data, eval_data=eval_data, eval_metric=eval_metric,
+            epoch_end_callback=epoch_end_callback,
+            batch_end_callback=batch_end_callback, kvstore=kvstore,
+            optimizer=self.optimizer, optimizer_params=opt_params,
+            eval_end_callback=eval_end_callback,
+            eval_batch_end_callback=eval_batch_end_callback,
+            initializer=self.initializer, arg_params=self.arg_params,
+            aux_params=self.aux_params, begin_epoch=self.begin_epoch,
+            num_epoch=self.num_epoch, monitor=monitor)
+        self.arg_params, self.aux_params = self._module.get_params()
+
+    def _bound_module(self, data):
+        """The module, bound for inference on ``data`` if there is none
+        yet."""
+        if self._module is None or not self._module.binded:
+            self._init_module(data)
+            self._module.bind(data.provide_data, data.provide_label,
+                              for_training=False)
+            self._module.init_params(arg_params=self.arg_params,
+                                     aux_params=self.aux_params)
+        return self._module
+
+    def predict(self, X, num_batch=None, return_data=False, reset=True):
+        """The outputs over ``X`` as numpy arrays (one, or a list)."""
+        data = self._prepare_data(X)
+        outs = self._bound_module(data).predict(data, num_batch=num_batch,
+                                                reset=reset)
+        if isinstance(outs, list):
+            return [o.asnumpy() for o in outs]
+        return outs.asnumpy()
+
+    def score(self, X, y=None, eval_metric="acc", num_batch=None,
+              reset=True):
+        """The first value of ``eval_metric`` over ``X``."""
+        data = self._prepare_data(X, y)
+        res = self._bound_module(data).score(data, eval_metric,
+                                             num_batch=num_batch, reset=reset)
+        return res[0][1]
+
+    def _prepare_data(self, X, y=None):
+        from .io import DataIter, NDArrayIter
+
+        if isinstance(X, DataIter):
+            return X
+        return NDArrayIter(X, y, batch_size=min(self.numpy_batch_size,
+                                                np.asarray(X).shape[0]))

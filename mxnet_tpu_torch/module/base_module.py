@@ -5,7 +5,8 @@ python/mxnet/module/base_module.py): bind -> init_params ->
 init_optimizer, then per batch ``fit_step`` (forward_backward + update) and
 ``update_metric``; ``score``, ``predict`` and ``iter_predict`` for
 evaluation; ``save_params`` / ``load_params`` (the ``arg:`` / ``aux:``
-blob of ``model.save_checkpoint``). Monitors are not ported.
+blob of ``model.save_checkpoint``); ``fit(monitor=...)`` installs the
+monitor and calls its ``tic`` / ``toc_print`` around each batch.
 """
 from __future__ import annotations
 
@@ -139,8 +140,6 @@ class BaseModule:
         """The training loop (reference base_module.py:368-520)."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
-        if monitor is not None:
-            raise MXNetError("monitors are not ported")
         from ..initializer import Uniform
 
         if initializer is None:
@@ -148,6 +147,8 @@ class BaseModule:
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -162,8 +163,12 @@ class BaseModule:
             tic = time.time()
             eval_metric.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 self.fit_step(data_batch)
                 self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,
@@ -249,4 +254,10 @@ class BaseModule:
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
+        raise NotImplementedError()
+
+    def install_monitor(self, mon):
+        raise NotImplementedError()
+
+    def get_input_grads(self, merge_multi_context=True):
         raise NotImplementedError()

@@ -223,4 +223,7 @@ class BucketingModule(BaseModule):
         self._curr_module.update_metric(eval_metric, labels)
 
     def install_monitor(self, mon):
-        raise MXNetError("monitors are not ported")
+        """Install ``mon`` on every bucket's module bound so far."""
+        self._require(params=False)
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)

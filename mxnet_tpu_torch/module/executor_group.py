@@ -116,6 +116,9 @@ class DataParallelExecutorGroup:
             if name in self._exec.arg_dict:
                 self._exec.arg_dict[name][:] = val
 
+    def install_monitor(self, mon):
+        mon.install(self._exec)
+
     def get_outputs(self, merge_multi_context=True):
         outs = self._exec.outputs
         return outs if merge_multi_context else [[o] for o in outs]

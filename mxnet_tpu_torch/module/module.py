@@ -20,7 +20,9 @@ same tensors. Per-parameter lr / wd go in as device arrays, uploaded again
 when their contents change (a schedule, Adam's bias correction, an
 in-place ``opt.lr_mult[name] = 2.0``). The reference's conditions apply
 (``MXNET_FUSED_FIT``, no kvstore, a pure rule, no input gradients, every
-parameter's ``grad_req`` "write"), and one of the port's: no Custom op
+parameter's ``grad_req`` "write", no monitor: ``install_monitor`` drops
+the fused step, whose reason then reads "monitor install"), and one of
+the port's: no Custom op
 that copies to the host (a ``NumpyOp``). Otherwise ``fit_step`` runs
 ``forward_backward`` and ``update`` and :meth:`Module.fit_step_stats`
 says why.
@@ -104,6 +106,7 @@ class Module(BaseModule):
         self._fused_reason = None
         # optimizer states init_optimizer loads (Module.load)
         self._preload_opt_states = None
+        self._monitor_installed = False
 
     # --- checkpoints ------------------------------------------------------
     @staticmethod
@@ -419,6 +422,8 @@ class Module(BaseModule):
             reason = "no optimizer"
         elif self._kvstore is not None or self._update_on_kvstore:
             reason = "a kvstore"
+        elif self._monitor_installed:
+            reason = "monitor install"
         elif self._optimizer.pure_rule() is None:
             reason = "%s has no pure rule" % type(self._optimizer).__name__
         elif self.inputs_need_grad:
@@ -437,6 +442,16 @@ class Module(BaseModule):
                            "update": update, "host_checked": False}
         self._fused_reason = None
         return self._fused_fit
+
+    def install_monitor(self, mon):
+        """Install ``mon`` on the executor. A monitor reads every internal
+        output, which no fused step shows it, so the fused step goes and
+        ``fit_step`` runs forward, backward and update (the step updated
+        the executor's tensors in place: nothing to copy back)."""
+        self._check_bound()
+        self._monitor_installed = True
+        self._fused_ineligible("monitor install")
+        self._exec_group.install_monitor(mon)
 
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)

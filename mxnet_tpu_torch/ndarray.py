@@ -121,10 +121,10 @@ class NDArray:
                                  % (other.shape, self.shape))
             other._data.copy_(self._data)
             return other
-        return NDArray(self._data.to(torch.device(other), copy=True))
+        return NDArray(self._data.to(resolve_device(other), copy=True))
 
     def as_in_context(self, ctx) -> "NDArray":
-        if torch.device(ctx) == self.context:
+        if resolve_device(ctx) == self.context:
             return self
         return self.copyto(ctx)
 
@@ -455,6 +455,19 @@ def concatenate(arrays: Sequence[NDArray], axis=0,
     """The arrays joined along ``axis``, as a new array on their device."""
     del always_copy  # torch.cat always copies
     return NDArray(torch.cat([a._data for a in arrays], dim=axis))
+
+
+def moveaxis(tensor: NDArray, source, destination) -> NDArray:
+    """``tensor`` with axis ``source`` moved to ``destination`` (a view)."""
+    return NDArray(torch.movedim(tensor._data, source, destination))
+
+
+def onehot_encode(indices: NDArray, out: NDArray) -> NDArray:
+    """One-hot of ``indices`` into ``out`` (its second axis the depth), in
+    place; returns ``out`` (reference ``_onehot_encode``)."""
+    res = invoke(get_op("one_hot"), [indices], {"depth": out.shape[1]})[0]
+    out[:] = res
+    return out
 
 
 # --- save / load (the checkpoint container, reference ndarray.h:334-343) -----

@@ -4,7 +4,8 @@ Counterpart of ``mxnet_tpu/ops/broadcast_reduce.py`` (reference
 broadcast_reduce_op*.cc): ``sum`` / ``mean`` / ``prod`` / ``max`` / ``min``
 over ``axis`` (None = all, ``exclude`` inverts the set), and the
 ``broadcast_*`` binary family that symbol and NDArray arithmetic compose to,
-and ``broadcast_to``.
+``broadcast_to``, and ``norm`` (L2, or L1 with ``ord=1``; ``Monitor``'s
+default statistic).
 """
 from __future__ import annotations
 
@@ -63,6 +64,20 @@ _reduce("min", _amin)
 alias("sum", "sum_axis")
 alias("max", "max_axis")
 alias("min", "min_axis")
+
+
+@defop("norm", arg_names=("data",),
+       param_spec={"ord": 2, "axis": None, "keepdims": False})
+def _norm(attrs, data):
+    """L2 (or, with ``ord=1``, L1) norm over ``axis`` (None: all), as
+    broadcast_reduce_op_value.cc norm."""
+    axis = _norm_axis(attrs["axis"], data.dim())
+    if axis is None:
+        axis = tuple(range(data.dim()))
+    keep = bool(attrs["keepdims"])
+    if attrs["ord"] == 1:
+        return torch.sum(torch.abs(data), dim=axis, keepdim=keep)
+    return torch.sqrt(torch.sum(torch.square(data), dim=axis, keepdim=keep))
 
 
 def _broadcast_binary(name, fn):

@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/ops/elemwise.py``'s ``_binary`` and
 ``_binary_scalar`` families (reference elemwise_binary_op_basic.cc,
 elemwise_binary_scalar_op*.cc), plus the few unary ops the ported paths
-and the imperative autograd examples use. Gradients come from autograd
+and the imperative autograd examples use (``sign`` and ``clip`` for the
+optimizers and ``Monitor``). Gradients come from autograd
 over the composed graph. Comparison ops return 0/1 in the input's type,
 like the reference.
 """
@@ -83,8 +84,19 @@ _unary("exp", torch.exp)
 _unary("log", torch.log)
 _unary("square", torch.square)
 _unary("sqrt", torch.sqrt)
+_unary("sign", torch.sign)
 _unary("_copy", lambda x: x.clone())
 _unary("BlockGrad", lambda x: x.detach())
+
+
+
+@defop("clip", arg_names=("data",), param_spec={"a_min": 0.0, "a_max": 1.0})
+def _clip(attrs, data):
+    """Clip to [a_min, a_max] (reference matrix_op.cc clip); the bounds
+    are attributes, so ``nd.clip`` takes them by keyword only, as the JAX
+    package's does."""
+    return data.clamp(float(attrs["a_min"]), float(attrs["a_max"]))
+
 
 alias("_copy", "identity")
 alias("BlockGrad", "stop_gradient")

@@ -1,18 +1,30 @@
 """Optimizers.
 
 Counterpart of ``mxnet_tpu/optimizer.py`` (reference python/mxnet/
-optimizer.py) for SGD (with and without momentum) and Adam: the registry,
-the ``Optimizer`` base with lr / wd multipliers (no weight decay by default
-for ``_bias`` / ``_gamma`` / ``_beta``), ``rescale_grad``,
-``clip_gradient`` and an ``lr_scheduler`` hook, and the ``Updater`` a
-training loop calls per parameter. The updates run the registry ops
-``sgd_update`` / ``sgd_mom_update`` / ``adam_update``; the last two are the
-fused CUDA kernels, which update the weight and the state in place. The
-reference's whole-tree jitted ``update_all`` has no counterpart: here
-``update_all`` loops, one kernel launch per parameter. ``Updater.
-get_states`` / ``set_states`` are the JAX package's blob (a pickle of numpy
-arrays by index plus ``__update_counts__``), so optimizer states cross
-between the packages in both directions.
+optimizer.py): the registry, the ``Optimizer`` base with lr / wd
+multipliers (no weight decay by default for ``_bias`` / ``_gamma`` /
+``_beta``), ``rescale_grad``, ``clip_gradient`` and an ``lr_scheduler``
+hook, the ``Updater`` a training loop calls per parameter, and the whole
+zoo: SGD (with and without momentum), NAG, SGLD, ccSGD, DCASGD, Adam,
+AdaGrad, RMSProp (plain and centered), AdaDelta, Ftrl and Test. SGD with
+momentum (ccSGD too) and Adam run the fused CUDA kernels
+``sgd_mom_update`` / ``adam_update``, RMSProp the ``rmsprop_update`` /
+``rmspropalex_update`` ops; the other rules are PyTorch expressions on the
+weight's device, as the JAX package's are ``jnp`` ones. Every update
+writes the weight and the state in place (the reference rebinds new
+arrays): DCASGD and Test therefore copy the weight into their state where
+the JAX package aliases it. The reference's whole-tree jitted
+``update_all`` has no counterpart: here ``update_all`` loops, one update
+per parameter. ``Updater.get_states`` / ``set_states`` are the JAX
+package's blob (a pickle of numpy arrays, tuples of them or None by index
+plus ``__update_counts__``), so optimizer states cross between the
+packages in both directions.
+
+Clipping follows the JAX package on each path: an eager ``update`` of
+NAG, SGLD, DCASGD, AdaGrad, AdaDelta and Ftrl clips whenever
+``clip_gradient`` is not None, a ``pure_rule`` and the update ops only
+when it is > 0. SGLD draws its noise from the weight's device generator
+(``random.generator``), the JAX package from numpy's global state.
 
 The whole training step (``Executor.make_train_step``, ``Module.fit_step``)
 takes each optimizer's ``pure_rule()``: fn(w, g, state, lr, wd) -> (w,
@@ -21,8 +33,10 @@ correction folded in) as 0-d f32 device tensors, so a step captured in a
 CUDA graph reads them where they lie. :class:`FusedUpdate` is that
 step's update over a list of parameters. The rules of SGD with momentum and
 of Adam run the fused kernels' device-lr entry points, in place, and equal
-the ``Updater``'s updates bit for bit. The rest of the reference's zoo
-(NAG, SGLD, AdaGrad, RMSProp, ...) is not ported.
+the ``Updater``'s updates bit for bit; NAG, AdaGrad, RMSProp and AdaDelta
+have rules of their own (PyTorch on tensors, in place), as the JAX
+package's; SGLD, DCASGD, Ftrl and Test have none, so a ``Module`` runs
+them through the ``Updater``.
 """
 from __future__ import annotations
 
@@ -34,6 +48,7 @@ import numpy as np
 import torch
 
 from . import ndarray as nd
+from . import random as _random
 from . import registry
 from .ndarray import NDArray
 from .ops.kernels import fused_update as _fu
@@ -286,6 +301,273 @@ class Adam(Optimizer):
             return w, s
 
         return rule
+
+
+
+def _scaled(grad, rescale, clip, eager):
+    """``rescale * grad``, clamped to [-clip, clip]: by an eager update
+    whenever ``clip`` is set, by a pure rule only when it is > 0 (the JAX
+    package's two paths)."""
+    g = grad * rescale
+    if clip is not None and (eager or clip > 0):
+        g = g.clamp(-clip, clip)
+    return g
+
+
+def _nag_step(w, g, mom, lr, wd, momentum):
+    """NAG on ``w`` (and ``mom``) in place from the scaled gradient."""
+    g = g + wd * w
+    if mom is None:
+        w.sub_(lr * g)
+        return
+    mom.mul_(momentum).add_(g)
+    w.sub_(lr * (g + momentum * mom))
+
+
+def _adagrad_step(w, g, history, lr, wd, eps):
+    history.add_(g * g)
+    w.sub_(lr * (g / torch.sqrt(history + eps) + wd * w))
+
+
+def _adadelta_step(w, g, acc_g, acc_delta, wd, rho, eps):
+    """AdaDelta in place; it takes no learning rate."""
+    acc_g.mul_(rho).add_((1 - rho) * g * g)
+    delta = torch.sqrt(acc_delta + eps) / torch.sqrt(acc_g + eps) * g
+    acc_delta.mul_(rho).add_((1 - rho) * delta * delta)
+    w.copy_(w - delta - wd * w)
+
+
+@register
+class NAG(SGD):
+    """Nesterov accelerated SGD."""
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        g = _scaled(grad._data, self.rescale_grad, self.clip_gradient, True)
+        _nag_step(weight._data, g, None if state is None else state._data,
+                  self._get_lr(index), self._get_wd(index), self.momentum)
+
+    def pure_rule(self):
+        momentum, rescale, clip = (self.momentum, self.rescale_grad,
+                                   self.clip_gradient)
+
+        def rule(w, g, s, lr, wd):
+            _nag_step(w, _scaled(g, rescale, clip, False), s, lr, wd,
+                      momentum)
+            return w, s
+
+        return rule
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: w - lr / 2 * (g + wd * w)
+    plus N(0, lr) noise, drawn on the weight's device from its generator
+    (``random.generator``)."""
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._data
+        g = _scaled(grad._data, self.rescale_grad, self.clip_gradient, True)
+        noise = torch.randn(w.shape, generator=_random.generator(w.device),
+                            device=w.device, dtype=w.dtype) * math.sqrt(lr)
+        w.copy_(w - (lr / 2) * (g + wd * w) + noise)
+
+
+@register
+class ccSGD(SGD):
+    """SGD under the reference's name for its C++ implementation."""
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD. The state is (momentum or None,
+    the weight before the last update): a copy, where the JAX package
+    aliases the array it is about to replace."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return (None, weight.copy())
+        return (_zeros_like_state(weight), weight.copy())
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._data
+        g = _scaled(grad._data, self.rescale_grad, self.clip_gradient, True)
+        mom, previous = state
+        comp = g + wd * w + self.lamda * g * g * (w - previous._data)
+        if mom is not None:
+            mom._data.copy_(self.momentum * mom._data - lr * comp)
+            delta = mom._data
+        else:
+            delta = -lr * comp
+        previous._data.copy_(w)
+        w.add_(delta)
+
+
+@register
+class AdaGrad(Optimizer):
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros_like_state(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        g = _scaled(grad._data, self.rescale_grad, self.clip_gradient, True)
+        _adagrad_step(weight._data, g, state._data, self._get_lr(index),
+                      self._get_wd(index), self.float_stable_eps)
+
+    def pure_rule(self):
+        eps, rescale, clip = (self.float_stable_eps, self.rescale_grad,
+                              self.clip_gradient)
+
+        def rule(w, g, s, lr, wd):
+            _adagrad_step(w, _scaled(g, rescale, clip, False), s, lr, wd,
+                          eps)
+            return w, s
+
+        return rule
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp through the ``rmsprop_update`` op, or with ``centered``
+    (Graves 2013) ``rmspropalex_update``; ``clip_weights`` clamps the
+    weight after each update. Note the optimizer's ``gamma1`` default
+    (0.9) differs from the ops' (0.95), as in the reference."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (_zeros_like_state(weight), _zeros_like_state(weight),
+                    _zeros_like_state(weight))
+        return (_zeros_like_state(weight),)
+
+    def _clip_weights_attr(self):
+        return self.clip_weights if self.clip_weights else -1.0
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        attrs = {"lr": self._get_lr(index), "wd": self._get_wd(index),
+                 "rescale_grad": self.rescale_grad, "gamma1": self.gamma1,
+                 "epsilon": self.epsilon, "clip_gradient": self._clip_attr(),
+                 "clip_weights": self._clip_weights_attr()}
+        if not self.centered:
+            nd.rmsprop_update(weight, grad, state[0], **attrs)
+        else:
+            nd.rmspropalex_update(weight, grad, *state, gamma2=self.gamma2,
+                                  **attrs)
+
+    def pure_rule(self):
+        """The ops' math (``ops/optimizer_ops.py``) with lr and wd as
+        tensors, in place."""
+        from .ops import optimizer_ops as ops
+
+        g1, g2, eps = self.gamma1, self.gamma2, self.epsilon
+        rescale, clip = self.rescale_grad, self._clip_attr()
+        cw, centered = self._clip_weights_attr(), self.centered
+
+        def rule(w, g, s, lr, wd):
+            if centered:
+                ops.rmspropalex(w, g, *s, lr, wd, rescale, clip, g1, g2,
+                                eps, cw)
+            else:
+                ops.rmsprop(w, g, s[0], lr, wd, rescale, clip, g1, eps, cw)
+            return w, s
+
+        return rule
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta; it takes no learning rate."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like_state(weight), _zeros_like_state(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        g = _scaled(grad._data, self.rescale_grad, self.clip_gradient, True)
+        _adadelta_step(weight._data, g, state[0]._data, state[1]._data,
+                       self._get_wd(index), self.rho, self.epsilon)
+
+    def pure_rule(self):
+        rho, eps, rescale, clip = (self.rho, self.epsilon, self.rescale_grad,
+                                   self.clip_gradient)
+
+        def rule(w, g, s, lr, wd):
+            _adadelta_step(w, _scaled(g, rescale, clip, False), s[0], s[1],
+                           wd, rho, eps)
+            return w, s
+
+        return rule
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal on the weight's device (the JAX package computes the
+    last step on the host)."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_zeros_like_state(weight), _zeros_like_state(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._data
+        g = _scaled(grad._data, self.rescale_grad, self.clip_gradient, True)
+        z, n = state[0]._data, state[1]._data
+        sigma = -torch.sqrt(n)
+        n.add_(g * g)
+        sigma = (sigma + torch.sqrt(n)) / lr
+        z.copy_(z + g - sigma * w)
+        l1 = self.lamda1
+        w.copy_(torch.where(
+            z.abs() > l1,
+            -(z - torch.sign(z) * l1) / ((self.beta + torch.sqrt(n)) / lr
+                                         + wd),
+            torch.zeros((), dtype=w.dtype, device=w.device)))
+
+
+@register
+class Test(Optimizer):
+    """The reference's test optimizer: w += rescale * g, and the state a
+    copy of the new weight. It counts no update, as the reference's."""
+
+    def create_state(self, index, weight):
+        return _zeros_like_state(weight)
+
+    def update(self, index, weight, grad, state):
+        weight._data.add_(grad._data * self.rescale_grad)
+        state._data.copy_(weight._data)
 
 
 class Updater:

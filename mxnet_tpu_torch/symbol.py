@@ -12,8 +12,11 @@ it). Graph JSON (:meth:`Symbol.tojson`, :func:`load_json`) is the JAX
 package's own schema or, with ``format="reference"``, the reference
 MXNet's (``interop.py``); a file written by either package builds the
 same graph in the other. An operator that draws (``Dropout``) gets the
-generator of the graph's device (``random.generator``). ``Symbol.grad``
-and the segmented-remat evaluator are not ported.
+generator of the graph's device (``random.generator``).
+:meth:`Symbol.grad` is a symbol whose op differentiates the graph with
+``torch.autograd`` (where the JAX package uses ``jax.grad``);
+:meth:`Symbol.infer_type` propagates types without shapes. The
+segmented-remat evaluator is not ported.
 """
 from __future__ import annotations
 
@@ -28,6 +31,10 @@ from . import random as _random
 from .base import MXNetError, coerce_attr
 from .ndarray import _as_torch_dtype
 from .ops import OP_REGISTRY, OpContext, OpDef, get_op
+
+
+# grad()'s ops, numbered so that each has a name of its own
+_GRAD_OPS = 0
 
 
 class _Node:
@@ -115,6 +122,20 @@ class Symbol:
             n_out = 1 if node.is_var else node.op.get_num_outputs(node.attrs)
             entries.extend((node, i) for i in range(n_out))
         return Symbol(entries)
+
+    def get_children(self) -> Optional["Symbol"]:
+        """The output nodes' inputs as one grouped symbol, in order (a node
+        of several outputs gives its inputs once); None for a
+        variable."""
+        entries, seen = [], set()
+        for node, _ in self._entries:
+            if id(node) not in seen:
+                seen.add(id(node))
+                entries.extend(node.inputs)
+        return Symbol(entries) if entries else None
+
+    def __deepcopy__(self, memo):
+        return self.__copy__()
 
     def __getitem__(self, index):
         if isinstance(index, str):
@@ -219,7 +240,96 @@ class Symbol:
     def __neg__(self):
         return self._binop(-1.0, "broadcast_mul", "_mul_scalar")
 
+    def grad(self, wrt):
+        """A symbol with one output per name in ``wrt``: the gradient of
+        the sum of this symbol's outputs with respect to that argument. It
+        takes this symbol's arguments and aux states. Its op is built for
+        it and not registered, so it has no JSON form."""
+        wrt = [wrt] if isinstance(wrt, str) else list(wrt)
+        base = self.__copy__()
+        arg_names = base.list_arguments()
+        aux_names = base.list_auxiliary_states()
+        missing = [w for w in wrt if w not in arg_names]
+        if missing:
+            raise MXNetError("grad: unknown arguments %s (have %s)"
+                             % (missing, arg_names))
+        eval_fn = base.build_eval()
+
+        def impl(attrs, inputs, aux, ctx):
+            args = dict(zip(arg_names, inputs))
+            if ctx.device is not None and ctx.device.type == "meta":
+                # shape inference: a gradient has its argument's shape
+                return tuple(torch.empty_like(args[w]) for w in wrt), ()
+            create_graph = torch.is_grad_enabled()
+            with torch.enable_grad():
+                leaves = {w: args[w] if args[w].requires_grad
+                          else args[w].detach().requires_grad_()
+                          for w in wrt}
+                outs, _ = eval_fn(dict(args, **leaves),
+                                  dict(zip(aux_names, aux)), ctx.is_train,
+                                  ctx.device)
+                total = outs[0].sum()
+                for o in outs[1:]:
+                    total = total + o.sum()
+                grads = torch.autograd.grad(
+                    total, [leaves[w] for w in wrt], allow_unused=True,
+                    create_graph=create_graph)
+            return tuple(torch.zeros_like(args[w]) if g is None else g
+                         for w, g in zip(wrt, grads)), ()
+
+        gname = _name_mod.current().get(None, "grad")
+        global _GRAD_OPS
+        _GRAD_OPS += 1
+        opdef = OpDef(name="_grad_%s_%d" % (gname, _GRAD_OPS), impl=impl,
+                      arg_names=tuple(arg_names),
+                      aux_names=tuple(aux_names), num_outputs=len(wrt),
+                      output_names=tuple("%s_grad" % w for w in wrt),
+                      needs_rng=base._needs_rng(),
+                      doc="Gradient of %r with respect to %s" % (gname,
+                                                                  wrt))
+        inputs = [Variable(n) for n in arg_names] + [
+            Symbol([(_Node(None, n, {}, [], is_aux=True), 0)])
+            for n in aux_names]
+        return _create_symbol(opdef, inputs, {}, gname,
+                              input_names=arg_names + aux_names)
+
     # --- inference --------------------------------------------------------
+    def infer_type(self, **kwargs):
+        """(argument types, output types, aux types) as numpy dtypes
+        (None where unknown) from the named input types: an op's inputs
+        and outputs take the first known input type, or its ``dtype``
+        attribute (as the reference's InferType)."""
+        known = {k: np.dtype(v) for k, v in kwargs.items()}
+        nodes = self._nodes()
+        dt, var_dt = {}, {}
+        for node in nodes:
+            if not node.is_var:
+                continue
+            d = known.get(node.name)
+            if d is None and "__dtype__" in node.misc_attrs:
+                d = np.dtype(node.misc_attrs["__dtype__"])
+            if d is not None:
+                dt[(id(node), 0)] = var_dt[node.name] = d
+        for node in nodes:
+            if node.is_var:
+                continue
+            in_dts = [dt.get((id(c), i)) for c, i in node.inputs]
+            ref = next((d for d in in_dts if d is not None), None)
+            own = (node.attrs or {}).get("dtype")
+            if ref is None and own is None:
+                continue
+            for (c, i), d in zip(node.inputs, in_dts):
+                if d is None and ref is not None:
+                    dt[(id(c), i)] = ref
+                    if c.is_var:
+                        var_dt[c.name] = ref
+            out_d = np.dtype(own) if own else ref
+            for i in range(node.op.get_num_outputs(node.attrs)):
+                dt[(id(node), i)] = out_d
+        return ([var_dt.get(n) for n in self.list_arguments()],
+                [dt.get((id(n), i)) for n, i in self._entries],
+                [var_dt.get(n) for n in self.list_auxiliary_states()])
+
     def infer_shape(self, **kwargs):
         """(arg shapes, output shapes, aux shapes) from the named input
         shapes; raises if any stays unknown."""

@@ -2,6 +2,7 @@
 CPU.
 
     python3 -m mxnet_tpu_torch.tools.lstm_spread       # from the repo root
+    python3 -m mxnet_tpu_torch.tools.lstm_spread zoo   # each zoo optimizer
 
 Runs the check of ``chip_smoke.py``'s lstm phase (``tools/lstm_lm.py``:
 the full-width fused LSTM LM at ``check_batch`` for ``check_steps``
@@ -13,7 +14,10 @@ check gates on: for each parameter ||update32 - update64|| /
 ||update64|| (its change since the start), and the relative difference of
 the perplexity over the batches so far. Only f32 rounding separates the
 two runs, so this is the spread any two f32 orders of summation (the
-card's and the CPU's) can show. One JSON line per batch.
+card's and the CPU's) can show. One JSON line per batch. With ``zoo``,
+the same for each optimizer run of ``tools/zoo.py`` but SGLD (whose noise
+is drawn, not rounded), in the zoo phase's check: its hyperparameters,
+each line naming its run.
 """
 from __future__ import annotations
 
@@ -27,9 +31,12 @@ from .lstm_lm import LSTM_LM, SEED, lstm_data, lstm_symbol
 from .resnet import change_err
 
 
-def spread(cfg=LSTM_LM, seed=SEED):
-    """Yield one dict per batch: the f32 run against the f64 run."""
+def spread(cfg=LSTM_LM, seed=SEED, run=None):
+    """Yield one dict per batch: the f32 run against the f64 run, under
+    plain SGD at ``cfg["lr"]`` or the optimizer of the ``tools/zoo.py``
+    run ``run``."""
     from .. import initializer, optimizer
+    from .zoo import optimizer_run
 
     sym = lstm_symbol(cfg)
     b, steps = cfg["check_batch"], cfg["check_steps"]
@@ -49,8 +56,11 @@ def spread(cfg=LSTM_LM, seed=SEED):
     for exe in (exe32, exe64):
         for n in names:
             exe.arg_dict[n]._data.copy_(exe32.arg_dict[n]._data)
-        opt = optimizer.SGD(learning_rate=cfg["lr"], rescale_grad=1.0 / b,
-                            param_idx2name=dict(enumerate(names)))
+        name, params = (("sgd", {"learning_rate": cfg["lr"]}) if run is None
+                        else optimizer_run(run))
+        opt = optimizer.create(name, rescale_grad=1.0 / b,
+                               param_idx2name=dict(enumerate(names)),
+                               **params)
         start = {n: exe.arg_dict[n].asnumpy().astype(np.float64)
                  for n in names}
         runs.append((exe, optimizer.Updater(opt), start, [0.0]))
@@ -73,16 +83,22 @@ def spread(cfg=LSTM_LM, seed=SEED):
         tokens = (step + 1) * y[batch].size
         ppl = [float(np.exp(v[0] / tokens)) for v in (nll32, nll64)]
         worst = max(upd, key=upd.get)
-        yield {"batch": step + 1, "update_err": upd,
+        yield {"run": run or "sgd", "batch": step + 1, "update_err": upd,
                "update_err_worst": upd[worst], "worst": worst,
                "perplexity_f32": ppl[0], "perplexity_f64": ppl[1],
                "perplexity_rel_err": abs(ppl[0] - ppl[1]) / ppl[1]}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    from .zoo import ZOO, OPTIMIZERS
+
+    argv = sys.argv[1:] if argv is None else argv
     torch.set_num_threads(min(8, torch.get_num_threads()))
-    for line in spread():
-        print(json.dumps(line), flush=True)
+    runs = ([(ZOO, r) for r, _, _ in OPTIMIZERS if r != "sgld"]
+            if argv[:1] == ["zoo"] else [(LSTM_LM, None)])
+    for cfg, run in runs:
+        for line in spread(cfg, run=run):
+            print(json.dumps(line), flush=True)
     return 0
 
 

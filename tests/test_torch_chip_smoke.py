@@ -1675,3 +1675,113 @@ def test_seq_phase_launch_arithmetic_is_560_and_the_schedule_halves():
     assert cs.lstm_steps(cs.SEQ, cs.SEQ["batches"]) == 560
     assert cs.lr_sequence(cs.SEQ, 8) == [0.1, 0.1, 0.05, 0.05, 0.025,
                                          0.025, 0.0125, 0.0125]
+
+
+# the zoo phase's LM, narrow
+TINY_ZOO = dict(cs.ZOO, vocab=50, embed=16, hidden=16, seq=5, batch=4,
+                batches=4, check_batch=2)
+
+
+def _count_lr_plain_calls(monkeypatch):
+    """Also count the device-lr entry's plain calls as its launches (its
+    plain version calls sgd_mom_update_plain, which _count_plain_calls
+    counts under the scalar entry: that count is taken back)."""
+    plain = fu.sgd_mom_update_lr_plain
+
+    def counted(*args, **kw):
+        _launches.launched(fu.sgd_mom_update_lr, args[0].dtype)
+        out = plain(*args, **kw)
+        fu.sgd_mom_update.launches -= 1
+        return out
+
+    monkeypatch.setattr(fu, "sgd_mom_update_lr_plain", counted)
+
+
+def test_zoo_phase_on_cpu(monkeypatch, capsys):
+    """The whole phase on the host: every optimizer's check, the runs
+    (the pure-rule ones fused, eager here, against their eager twins; the
+    others through the Updater), the SequentialModule and
+    PythonLossModule chains, Monitor, FeedForward and the small parts."""
+    _count_plain_calls(monkeypatch)
+    _count_lr_plain_calls(monkeypatch)
+    launches = cs.phase_zoo(TINY_ZOO, device="cpu")
+    per_fit = 2 * 5 * 4
+    # (2) 6 fused runs, their eager twins and 4 Updater runs; (3) the
+    # chain and the Module at the check's 2 batches, the chain's run, the
+    # loss chain on both devices; (4) the monitored fit (4 batches + 2
+    # monitored evaluations) on both; (5) FeedForward's fit, predict and
+    # score on both, and the predict after load. Here the CPU's runs
+    # count too
+    per_batch = 2 * 5
+    assert launches["lstm_step"] == (16 * per_fit + 3 * per_fit
+                                     + 2 * 6 * per_batch
+                                     + (2 * 6 + 2) * per_batch)
+    # 4 parameters a step: ccSGD's run and twin and the fused Module of
+    # (3) and FeedForward's fits (the lr entry); the chains and the
+    # monitored fits, through the Updater (the scalar entry)
+    assert launches["sgd_mom_update_lr"] == 4 * (2 * 4 + 2 + 2 * 2)
+    assert launches["sgd_mom_update"] == 4 * (2 + 4 + 2 * 2 + 2 * 4)
+    lines = [json.loads(x) for x in
+             capsys.readouterr().out.strip().splitlines()]
+    rec = lines[-1]
+    assert rec["phase"] == "zoo"
+    assert sorted(rec["checks"]) == sorted(r for r, _, _ in cs.zoo.OPTIMIZERS)
+    assert [x["optimizer"] for x in lines if x["phase"] == "zoo_step"] == \
+        list(cs.zoo.CAPTURED + cs.zoo.UPDATER)
+    for run in cs.zoo.CAPTURED:
+        assert rec["runs"][run]["path"] == "eager"
+        assert rec["runs"][run]["captured_vs_eager"]["bit_for_bit"]
+    for run in cs.zoo.UPDATER:
+        assert rec["runs"][run]["steps"]["reason"].endswith(
+            "has no pure rule")
+    assert rec["monitor"]["monitored_batches"] == [0, 2]
+    assert rec["monitor"]["steps"]["reason"] == "monitor install"
+    assert rec["feedforward"]["save_load_predict_bit_for_bit"]
+    assert rec["checks"]["sgld"]["definition"]["elements"] == 50 * 16
+
+
+def test_zoo_phase_fails_when_a_captured_optimizer_takes_the_updater(
+        monkeypatch):
+    """NAG without its pure rule goes down the Updater path: refused."""
+    import mxnet_tpu_torch as mt
+
+    _count_plain_calls(monkeypatch)
+    _count_lr_plain_calls(monkeypatch)
+    monkeypatch.setattr(mt.optimizer.NAG, "pure_rule", lambda self: None)
+    with pytest.raises(RuntimeError, match="nag has a pure rule but took "
+                                           "the Updater path"):
+        cs.phase_zoo(TINY_ZOO, device="cpu")
+
+
+def test_zoo_phase_fails_when_lstm_step_is_not_reached():
+    """On the host nothing counts a launch: the phase must refuse."""
+    with pytest.raises(RuntimeError, match="zoo phase: nag launched"):
+        cs.phase_zoo(TINY_ZOO, device="cpu")
+
+
+def test_zoo_phase_fails_when_the_monitor_reports_an_inactive_batch(
+        monkeypatch):
+    """A Monitor that stays active reports on every batch: refused."""
+    import mxnet_tpu_torch as mt
+
+    _count_plain_calls(monkeypatch)
+    _count_lr_plain_calls(monkeypatch)
+    tic = mt.monitor.Monitor.tic
+
+    def always(self):
+        tic(self)
+        self.activated = True
+
+    monkeypatch.setattr(mt.monitor.Monitor, "tic", always)
+    with pytest.raises(RuntimeError, match=r"batch 1 \(inactive\) reported"):
+        cs.phase_zoo(TINY_ZOO, device="cpu")
+
+
+def test_zoo_phase_launch_arithmetic():
+    """560 lstm_step launches a fit of 8 batches; ccSGD's lr entry 4
+    parameters x 8 batches; the monitored fit 4 + 2 batches' forwards."""
+    assert cs.lstm_steps(cs.ZOO, cs.ZOO["batches"]) == 560
+    from mxnet_tpu_torch.tools.lstm_lm import lstm_symbol
+
+    assert len(lstm_symbol(cs.ZOO).list_arguments()) - 2 == 4
+    assert cs.lstm_steps(cs.ZOO, 4 + 2) == 420
