@@ -183,6 +183,28 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    times, images/s and peak memory; then the epoch again with the fused
    step eager (``MXNET_CUDA_GRAPH=0``): parameters and aux states equal
    bit for bit.
+5a. ``image_zoo`` — the models of MXNet's example/image-classification
+   (``mxnet_tpu_torch/tools/image_zoo.py``): (1) the new core ops
+   (``tools/op_cases.py``'s table at full shapes) on the card against
+   their CPU path: indexing, ordering with ties, rounding, Cast, the
+   logical ops and the moves bit for bit, the rest within ZOO_OP_RTOL,
+   every gradient within
+   ZOO_GRAD_RTOL; (2) conv_wgrad at every eligible 3x3 shape of the seven
+   models at full width, batch 32 (stems of 3 channels at 299, odd sizes
+   with pad 0), bf16 and f32, against its plain version, each shape's
+   route (f32 / wgmma / simt; both bf16 bodies must be reached) and, timed,
+   beside cuDNN's wgrad and its bound; (3) Inception-BN (1000 classes, 3 x
+   224 x 224, bf16, batch 32, 8 batches) through the captured fused
+   ``fit_step``, exact launches (conv_wgrad 31 a step, all on the wgmma
+   route: 248 + 248, repack 496; sgd_mom a parameter a batch), then eager,
+   bit for bit; (4) each of the seven models (alexnet, vgg16, googlenet,
+   inception-bn, inception-v3, inception-resnet-v2, resnext-50) at its
+   published input, f32, 2 batches of 2, card vs CPU at IMAGE_ZOO_GATE x
+   its own f32-vs-f64 distance on the CPU (the largest over 3 seeds),
+   widened by how much farther the card's library convolutions alone lie
+   from f64 (IMAGE_ZOO_WITNESS), Dropout at p = 0 through the JSON, with
+   exact conv_wgrad launches (none for resnext's grouped 3x3). Prints each
+   part's seconds.
 6. ``lstm``    — the fused 2-layer LSTM LM (the repo's widest LSTM record:
    vocab 10000, embed = hidden = 512, seq 35, f32, no TF32;
    ``mxnet_tpu_torch/tools/lstm_lm.py``) trained through ``Module.fit``:
@@ -311,6 +333,9 @@ from mxnet_tpu_torch.tools.seq_classify import RANDOM_OPS, SEQ, lr_sequence, \
     moments, seq_setup
 from mxnet_tpu_torch.tools.seq_classify import fit_args as seq_fit_args
 from mxnet_tpu_torch.tools import zoo
+from mxnet_tpu_torch.tools.image_zoo import IMAGE_ZOO, dead_shifts, \
+    image_cfg, wgrad_shapes, zoo_setup, zoo_symbol
+from mxnet_tpu_torch.tools.op_cases import op_cases
 from mxnet_tpu_torch.tools.zoo import ZOO
 
 H100 = {"bf16_flops": 989e12, "f32_flops": 67e12, "int8_ops": 1979e12,
@@ -395,6 +420,19 @@ TRAIN_BF16_LOSS = 0.6
 # same f32 products (bf16 operands widen exactly) over L = N*OH*OW, up to
 # 100,352 terms, in other orders: a few f32 ulps of the largest sums
 WGRAD_RTOL = 2e-5
+# the terms of ResNet-50's largest wgrad sum (L = 32 * 56 * 56), for which
+# WGRAD_RTOL holds; a longer sum's f32 rounding grows as the square root
+# of its terms (wgrad_rtol)
+WGRAD_RTOL_TERMS = 32 * 56 * 56
+
+
+def wgrad_rtol(terms):
+    """conv_wgrad's gate (of max |dW|) for sums of ``terms`` products:
+    WGRAD_RTOL up to ResNet-50's longest sum, then growing as
+    sqrt(terms)."""
+    return WGRAD_RTOL * max(1.0, math.sqrt(terms / WGRAD_RTOL_TERMS))
+
+
 # (input H, C = K, stride) of ResNet-50's 3x3 convolutions -> how many of
 # each one step runs (3 + 1 + 3 + 1 + 5 + 1 + 2 = 16)
 RESNET_WGRAD = {(56, 64, 1): 3, (56, 128, 2): 1, (28, 128, 1): 3,
@@ -445,6 +483,62 @@ NORM_RTOL = 1e-5
 # gated at 1.5 x that spread (Ftrl: its |z| > lamda1 threshold keeps few,
 # small weights, whose relative rounding it magnifies)
 ZOO_PPL_SPREAD = {"ftrl": 1.5975279102102806e-06}
+
+
+# image_zoo phase, card vs the port's CPU path (each of the seven models,
+# 2 batches of 2, f32, Dropout at p = 0): the resnet check's gates, each
+# at IMAGE_ZOO_GATE x that model's f32-vs-f64 distance on the CPU, the
+# largest over 3 seeds (IMAGE_ZOO_SPREAD: ``python3 -m
+# mxnet_tpu_torch.tools.image_zoo_spread`` on the card machine's CPU),
+# after batch 1 (the worst update but for the dead shifts, the worst aux
+# change) and after batches 1 and 2 (the cross-entropy), each widened by
+# the model's IMAGE_ZOO_WITNESS where it exceeds 1: how much farther from
+# f64 the library's f32 convolutions lie on the card (cuDNN) than on the
+# CPU over the model's own convolution calls, the largest of the forward,
+# dX and dW ratios, measured without the port (``image_zoo_spread
+# --witness`` on the card; PERF.md). The cross-entropy's gate is
+# at least IMAGE_ZOO_CE_FLOOR, about 3.5 ulps of an f32 cross-entropy near
+# 6.9 (the metric's own resolution)
+IMAGE_ZOO_GATE = 1.5
+IMAGE_ZOO_CE_FLOOR = 4 * 2.0 ** -24
+IMAGE_ZOO_SPREAD = {
+    "alexnet": {
+        "update": 0.0028486414124155477, "aux": 0.0,
+        "ce": (1.6991735654704696e-08, 2.726250164201693e-07)},
+    "vgg16": {
+        "update": 0.006246602466928887, "aux": 0.0,
+        "ce": (4.8042826349639246e-08, 2.4580626732362034e-08)},
+    "googlenet": {
+        "update": 0.005885466620669831, "aux": 0.0,
+        "ce": (2.9544754333265565e-08, 2.2610283014236122e-08)},
+    "inception-bn": {
+        "update": 0.0261327235789029, "aux": 7.0687396111397956e-06,
+        "ce": (1.6380520238286315e-07, 0.0022391260737797355)},
+    "inception-v3": {
+        "update": 0.04373015704367453, "aux": 2.2265085954758954e-05,
+        "ce": (2.368150675539085e-07, 0.006171068180415605)},
+    "inception-resnet-v2": {
+        "update": 0.0378220780103155, "aux": 2.998110723984614e-05,
+        "ce": (2.2702663294135004e-07, 0.0030121412090460507)},
+    "resnext-50": {
+        "update": 0.026753049803989855, "aux": 3.2321451530391084e-05,
+        "ce": (1.9806044397669357e-06, 0.0023749777448621966)},
+}
+IMAGE_ZOO_WITNESS = {
+    "alexnet": 3.0042834677273413,
+    "vgg16": 3.9855396169971042,
+    "googlenet": 1.9502664257960076,
+    "inception-bn": 2.1509733070923875,
+    "inception-v3": 2.4920103244088487,
+    "inception-resnet-v2": 1.9104542027056515,
+    "resnext-50": 1.2957730866515609,
+}
+# image_zoo phase, the new ops on the card against their CPU path: a
+# "close" op's outputs (libm, sums in another order) within ZOO_OP_RTOL
+# of the largest output; every gradient (scatter-adds, sums) within
+# ZOO_GRAD_RTOL of its largest entry
+ZOO_OP_RTOL = 1e-5
+ZOO_GRAD_RTOL = 1e-5
 
 
 def zoo_ppl_tol(run):
@@ -661,11 +755,13 @@ def update_bound(kind, elements, item=4):
     return elements * per / H100["bytes_per_s"] * 1e3, "bytes"
 
 
-def wgrad_bound(n, h, c, k, ksz, stride, dtype):
-    """Least time (ms) for one dW of a (ksz, stride, SAME pad) conv: 2 flops
-    per (output position, c, k, tap), and x and dy read plus dW (f32)
-    written once."""
-    oh = (h + 2 * ((ksz - 1) // 2) - ksz) // stride + 1
+def wgrad_bound(n, h, c, k, ksz, stride, dtype, pad=None):
+    """Least time (ms) for one dW of a (ksz, stride, pad) conv on square
+    images (pad None: SAME, (ksz - 1) // 2): 2 flops per (output position,
+    c, k, tap), and x and dy read plus dW (f32) written once."""
+    if pad is None:
+        pad = (ksz - 1) // 2
+    oh = (h + 2 * pad - ksz) // stride + 1
     flops = 2 * n * oh * oh * c * k * ksz * ksz
     item = 4 if dtype == "float32" else 2
     nbytes = item * (n * h * h * c + n * oh * oh * k) + 4 * ksz * ksz * c * k
@@ -4811,6 +4907,85 @@ def _change_errs(before, after, ref_before, ref_after):
             for n in ref_after}
 
 
+def _fit_check(setup, kwargs, device, ref_device, tol, what,
+               counters=None, exact_zero=()):
+    """One ``Module.fit`` epoch of ``setup(dev)`` (module, iterator,
+    initializer) on ``device`` and on ``ref_device`` from the same
+    weights and batches (``kwargs(init)`` its fit arguments). Gates, as the
+    resnet check's: after batch 1 each parameter's update within
+    ``tol["update"]`` of the reference's (L2 of the difference over the
+    L2 of the update), each aux state's change within ``tol["aux"]``, the
+    accuracy equal; the cross-entropy after batch b within
+    ``tol["ce"][b - 1]`` (relative). The parameters of ``exact_zero``
+    (zero gradient in exact arithmetic, ``image_zoo.dead_shifts``) are
+    left out of the update gate; their largest difference of change is
+    recorded. ``counters`` are counted over the device's fit alone: their
+    launches are returned beside the record."""
+    runs, launches = [], None
+    for dev in (device, ref_device):
+        mod, it, init = setup(dev)
+        if counters is not None and not runs:
+            _zero(counters)
+        runs.append(_fit_recorded(mod, it, init, kwargs(init)))
+        if counters is not None and len(runs) == 1:
+            launches = _count(counters)
+        del mod
+    (got_s, got_m), (ref_s, ref_m) = runs
+    init_err = max(float(np.abs(got_s[0][0][n] - ref_s[0][0][n]).max())
+                   for n in ref_s[0][0])
+    steps = len(ref_m)
+    upd = [{n: e for n, e in _change_errs(
+        got_s[0][0], got_s[b][0], ref_s[0][0], ref_s[b][0]).items()
+        if n not in exact_zero} for b in range(1, steps + 1)]
+    aux = [_change_errs(got_s[0][1], got_s[b][1], ref_s[0][1], ref_s[b][1])
+           for b in range(1, steps + 1)]
+    ce = [abs(g["cross-entropy"] - r["cross-entropy"]) / r["cross-entropy"]
+          for g, r in zip(got_m, ref_m)]
+    failures = []
+    if init_err != 0.0:
+        failures.append("initial weights differ by %g" % init_err)
+    worst_upd = max(upd[0], key=upd[0].get)
+    if not upd[0][worst_upd] <= tol["update"]:
+        failures.append("batch-1 update of %s off by %g (tol %g)"
+                        % (worst_upd, upd[0][worst_upd], tol["update"]))
+    if aux[0]:
+        worst_aux = max(aux[0], key=aux[0].get)
+        if not aux[0][worst_aux] <= tol["aux"]:
+            failures.append("batch-1 change of %s off by %g (tol %g)"
+                            % (worst_aux, aux[0][worst_aux], tol["aux"]))
+    if got_m[0]["accuracy"] != ref_m[0]["accuracy"]:
+        failures.append("batch-1 accuracy %s vs %s" % (
+            got_m[0]["accuracy"], ref_m[0]["accuracy"]))
+    for b, (err, t) in enumerate(zip(ce, tol["ce"])):
+        if not err <= t:
+            failures.append("batch-%d cross-entropy off by %g (tol %g)"
+                            % (b + 1, err, t))
+    if failures:
+        raise RuntimeError("%s: %s" % (what, "; ".join(failures)))
+    wgrad_names = [n for n in upd[0] if ref_s[0][0][n].ndim == 4
+                   and ref_s[0][0][n].shape[-2:] == (3, 3)]
+    record = {"batches": steps,
+              "metrics": got_m, "ref_metrics": ref_m, "ce_rel_err": ce,
+              "update_err": [{"worst": max(u.values()),
+                              "worst_name": max(u, key=u.get),
+                              "median": float(np.median(list(u.values()))),
+                              "worst_3x3_weight": max(
+                                  [u[n] for n in wgrad_names] or [0.0])}
+                             for u in upd],
+              "aux_err": [{"worst": max(a.values()),
+                           "median": float(np.median(list(a.values())))}
+                          if a else {} for a in aux],
+              "tol": tol}
+    if exact_zero:
+        record["exact_zero"] = {
+            "parameters": len(exact_zero),
+            "max_abs_change_diff": max(float(np.abs(
+                (got_s[-1][0][n] - got_s[0][0][n])
+                - (ref_s[-1][0][n] - ref_s[0][0][n])).max())
+                for n in exact_zero)}
+    return record if counters is None else (record, launches)
+
+
 def phase_resnet(cfg=RESNET, device=None, ref_device="cpu", seed=SEED):
     """ResNet-50 through ``Module.fit``. ``device`` None = the card; the
     card-vs-reference check runs the same weights and batches on
@@ -4818,69 +4993,43 @@ def phase_resnet(cfg=RESNET, device=None, ref_device="cpu", seed=SEED):
     import torch
 
     # 1. card vs the port's CPU path: same init, same 2 batches of 2
-    cb, cs = cfg["check_batch"], cfg["check_steps"]
-    runs = []
-    for dev in (device, ref_device):
-        mod, it, init = resnet_setup(cfg, cb, cs, dev, seed)
-        runs.append(_fit_recorded(mod, it, init, fit_args(cfg, init)))
-    (got_s, got_m), (ref_s, ref_m) = runs
-    init_err = max(float(np.abs(got_s[0][0][n] - ref_s[0][0][n]).max())
-                   for n in ref_s[0][0])
-    upd = [_change_errs(got_s[0][0], got_s[b][0], ref_s[0][0], ref_s[b][0])
-           for b in (1, 2)]
-    aux = [_change_errs(got_s[0][1], got_s[b][1], ref_s[0][1], ref_s[b][1])
-           for b in (1, 2)]
-    ce = [abs(g["cross-entropy"] - r["cross-entropy"]) / r["cross-entropy"]
-          for g, r in zip(got_m, ref_m)]
-    failures = []
-    if init_err != 0.0:
-        failures.append("initial weights differ by %g" % init_err)
-    worst_upd = max(upd[0], key=upd[0].get)
-    if not upd[0][worst_upd] <= RESNET_UPDATE:
-        failures.append("batch-1 update of %s off by %g (tol %g)"
-                        % (worst_upd, upd[0][worst_upd], RESNET_UPDATE))
-    worst_aux = max(aux[0], key=aux[0].get)
-    if not aux[0][worst_aux] <= RESNET_AUX:
-        failures.append("batch-1 change of %s off by %g (tol %g)"
-                        % (worst_aux, aux[0][worst_aux], RESNET_AUX))
-    if got_m[0]["accuracy"] != ref_m[0]["accuracy"]:
-        failures.append("batch-1 accuracy %s vs %s" % (
-            got_m[0]["accuracy"], ref_m[0]["accuracy"]))
-    for b, (err, tol) in enumerate(zip(ce, RESNET_CE)):
-        if not err <= tol:
-            failures.append("batch-%d cross-entropy off by %g (tol %g)"
-                            % (b + 1, err, tol))
-    if failures:
-        raise RuntimeError("resnet check: " + "; ".join(failures))
-    wgrad_names = [n for n in upd[0] if ref_s[0][0][n].shape[-2:] == (3, 3)]
-    check = {"batch": cb, "batches": cs, "metrics": got_m,
-             "ref_metrics": ref_m, "ce_rel_err": ce,
-             "update_err": [{"worst": max(u.values()),
-                             "worst_name": max(u, key=u.get),
-                             "median": float(np.median(list(u.values()))),
-                             "worst_3x3_weight": max(
-                                 u[n] for n in wgrad_names)} for u in upd],
-             "aux_err": [{"worst": max(a.values()),
-                          "median": float(np.median(list(a.values())))}
-                         for a in aux],
-             "tol": {"update": RESNET_UPDATE, "aux": RESNET_AUX,
-                     "ce": RESNET_CE}}
-    del runs, got_s, ref_s
+    check = _fit_check(
+        lambda dev: resnet_setup(cfg, cfg["check_batch"], cfg["check_steps"],
+                                 dev, seed),
+        lambda init: fit_args(cfg, init), device, ref_device,
+        {"update": RESNET_UPDATE, "aux": RESNET_AUX, "ce": RESNET_CE},
+        "resnet check")
+
+    check = dict(check, batch=cfg["check_batch"])
 
     # 2. the run: one epoch of `batches` batches of `batch`, in bench.py's
     # compute type, through the captured fused step
     on_card = device is None or torch.device(device).type == "cuda"
+    run, launches = _captured_fit(
+        torch, lambda: resnet_setup(cfg, cfg["batch"], cfg["batches"],
+                                    device, seed, compute_dtype=cfg["dtype"]),
+        lambda init: fit_args(cfg, init), cfg, on_card, "resnet")
+    emit(dict({"phase": "resnet", "depth": cfg["depth"],
+               "classes": cfg["classes"], "image": list(cfg["image"])},
+              **run, check=check))
+    return launches
 
-    def setup():
-        return resnet_setup(cfg, cfg["batch"], cfg["batches"], device, seed,
-                            compute_dtype=cfg["dtype"])
 
+def _captured_fit(torch, setup, kwargs, cfg, on_card, phase):
+    """One epoch of ``Module.fit`` of ``setup()`` through the captured
+    fused step, then its eager twin (bit for bit, :func:`_eager_twin`).
+    Gates: exact launches (every conv_wgrad call of each step, all of
+    ``cfg["dtype"]``, with two repacks a call in bf16 on the card: every
+    shape of the resnet and image_zoo runs takes the wgmma route; one
+    ``sgd_mom_update`` a parameter and batch), a finite cross-entropy
+    after every batch, the captured path taken on the card. Returns the
+    run's record and its launches."""
     mod, it, init = setup()
     counters = _resnet_counters()
     _fresh(torch, on_card)
     _zero(counters)
-    step_ms, first_ms, metrics = _fit_timed(torch, mod, it,
-                                            fit_args(cfg, init), on_card)
+    step_ms, first_ms, metrics = _fit_timed(torch, mod, it, kwargs(init),
+                                            on_card)
     launches, types = _count(counters), _types(counters)
     memory = _peak(torch, on_card)
     stats = mod.fit_step_stats()
@@ -4893,36 +5042,296 @@ def phase_resnet(cfg=RESNET, device=None, ref_device="cpu", seed=SEED):
         per_step, steps, on_card and cfg["dtype"] == "bfloat16"),
         sgd_mom_update=n_params * steps)
     if launches != want:
-        raise RuntimeError("resnet phase launched %s, want %s"
-                           % (launches, want))
-    _require_types("resnet", types, launches, cfg["dtype"],
+        raise RuntimeError("%s phase launched %s, want %s"
+                           % (phase, launches, want))
+    _require_types(phase, types, launches, cfg["dtype"],
                    ["conv_wgrad_partial"])
     ce_run = [m["cross-entropy"] for m in metrics]
     if len(metrics) != steps or not all(np.isfinite(ce_run)):
-        raise RuntimeError("resnet phase: %d batches, cross-entropy %s"
-                           % (len(metrics), ce_run))
-    _require_captured("resnet", [stats], on_card)
+        raise RuntimeError("%s phase: %d batches, cross-entropy %s"
+                           % (phase, len(metrics), ce_run))
+    _require_captured(phase, [stats], on_card)
     del mod
-    eager = _eager_twin(torch, setup, lambda i: fit_args(cfg, i), on_card,
-                        state, "resnet phase")
+    eager = _eager_twin(torch, setup, kwargs, on_card, state,
+                        "%s phase" % phase)
     median_ms = _steady_ms(step_ms, on_card)
-    result = {"phase": "resnet", "depth": cfg["depth"],
-              "classes": cfg["classes"], "image": list(cfg["image"]),
-              "batch": cfg["batch"], "batches": steps,
-              "dtype": cfg["dtype"], "path": stats["path"], "steps": stats,
-              "parameters": n_params,
-              "elements": int(sum(a.size for a in args.values())),
-              "aux_states": len(aux),
-              "wgrad_convs_per_step": per_step, "check": check,
-              "metrics": metrics, "first_batch_ms": first_ms,
-              "step_ms": step_ms, "median_step_ms": median_ms,
-              "images_per_s": cfg["batch"] / median_ms * 1e3,
-              "eager": dict(eager, images_per_s=cfg["batch"]
-                            / eager["median_step_ms"] * 1e3),
-              "captured_vs_eager": {"bit_for_bit": True},
-              "launches": launches, "launches_by_type": types, **memory}
-    emit(result)
-    return launches
+    return {"batch": cfg["batch"], "batches": steps,
+            "dtype": cfg["dtype"], "path": stats["path"], "steps": stats,
+            "parameters": n_params,
+            "elements": int(sum(a.size for a in args.values())),
+            "aux_states": len(aux),
+            "wgrad_convs_per_step": per_step,
+            "metrics": metrics, "first_batch_ms": first_ms,
+            "step_ms": step_ms, "median_step_ms": median_ms,
+            "images_per_s": cfg["batch"] / median_ms * 1e3,
+            "eager": dict(eager, images_per_s=cfg["batch"]
+                          / eager["median_step_ms"] * 1e3),
+            "captured_vs_eager": {"bit_for_bit": True},
+            "launches": launches, "launches_by_type": types,
+            **memory}, launches
+
+
+# --- image_zoo ---------------------------------------------------------------
+def _run_op(torch, op, arrays, aux_arrays, attrs, diff, cot_seed, device):
+    """One registry op on ``device`` (training mode): its outputs, its
+    aux updates and, for ``diff``, the vector-Jacobian product of the
+    first output at a seeded cotangent; all as host arrays (f32 for
+    bfloat16)."""
+    from mxnet_tpu_torch.ops import registry as treg
+
+    top = treg.get_op(op)
+    parsed = top.parse_attrs(dict(attrs))
+    xs = [torch.tensor(a, device=device) for a in arrays]
+    for i in diff:
+        xs[i].requires_grad_()
+    aux = tuple(torch.tensor(a, device=device) for a in aux_arrays)
+    outs, aux_up = top.impl(parsed, tuple(xs), aux,
+                            treg.OpContext(True, torch.device(device)))
+
+    def host(t):
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+    grads = []
+    if diff:
+        cot = np.random.RandomState(cot_seed).randn(*outs[0].shape)
+        grads = [host(g) for g in torch.autograd.grad(
+            outs[0], [xs[i] for i in diff],
+            torch.tensor(cot, dtype=outs[0].dtype, device=device))]
+    return [host(o) for o in outs] + [host(a) for a in aux_up], grads
+
+
+def _zoo_ops_check(torch, device, ref_device, seed):
+    """Each case of ``tools/op_cases.py`` at full shapes on ``device``
+    against ``ref_device``: an ``exact`` case's outputs bit for bit
+    (indexing, ordering with ties, rounding, Cast, the logical ops, the
+    pads, crops and moves), any other's within ZOO_OP_RTOL of the
+    reference's largest output (libm and summation order differ); every
+    gradient within ZOO_GRAD_RTOL of its largest entry (scatter-adds and
+    sums in another order). Returns {case: max |error|} of outputs and
+    gradients."""
+    errs, failures = {}, []
+    for k, (name, (op, makers, attrs, diff, exact, aux)) in enumerate(
+            sorted(op_cases(big=True).items())):
+        kind = "exact" if exact else "close"
+        rng = np.random.RandomState(seed + k)
+        arrays = [m(rng) for m in makers]
+        aux_arrays = [m(rng) for m in aux]
+        # the cotangent's own seed: one equal to the inputs' would draw
+        # the data again, and a norm's gradient at a cotangent along its
+        # input is all cancellation
+        cot_seed = rng.randint(1 << 30)
+        got, got_g = _run_op(torch, op, arrays, aux_arrays, attrs, diff,
+                             cot_seed, device)
+        want, want_g = _run_op(torch, op, arrays, aux_arrays, attrs, diff,
+                               cot_seed, ref_device)
+        out_err = grad_err = 0.0
+        for g, w in zip(got, want):
+            if g.shape != w.shape:
+                failures.append("%s: shape %s vs %s" % (name, g.shape,
+                                                        w.shape))
+                continue
+            if kind == "exact":
+                if not np.array_equal(g, w, equal_nan=True):
+                    failures.append("%s: not bit for bit" % name)
+            fin = np.isfinite(w)
+            err = float(np.abs(g - w)[fin].max()) if fin.any() else 0.0
+            out_err = max(out_err, err)
+            if not np.array_equal(np.isfinite(g), fin):
+                failures.append("%s: finite at other places" % name)
+            elif kind == "close" and not err <= ZOO_OP_RTOL * float(
+                    np.abs(w[fin]).max()):
+                failures.append("%s: off by %g of max %g" % (
+                    name, err, float(np.abs(w[fin]).max())))
+        for g, w in zip(got_g, want_g):
+            err = float(np.abs(g - w).max())
+            grad_err = max(grad_err, err)
+            if not err <= ZOO_GRAD_RTOL * max(float(np.abs(w).max()), 1e-30):
+                failures.append("%s: gradient off by %g of max %g" % (
+                    name, err, float(np.abs(w).max())))
+        errs[name] = {"kind": kind, "max_abs_err": out_err,
+                      "grad_max_abs_err": grad_err}
+    if failures:
+        raise RuntimeError("image_zoo ops: " + "; ".join(failures))
+    return errs
+
+
+def zoo_tol(name, spread=None, witness=None):
+    """The image_zoo check's gates for model ``name``: IMAGE_ZOO_GATE x its
+    CPU f32-vs-f64 distances (``spread``, default IMAGE_ZOO_SPREAD) x the
+    larger of 1 and its witness ratio (``witness``, default
+    IMAGE_ZOO_WITNESS), the cross-entropy's at least IMAGE_ZOO_CE_FLOOR."""
+    s = (spread or IMAGE_ZOO_SPREAD)[name]
+    scale = IMAGE_ZOO_GATE * max(1.0, (witness or IMAGE_ZOO_WITNESS)[name])
+    return {"update": scale * s["update"], "aux": scale * s["aux"],
+            "ce": tuple(max(scale * c, IMAGE_ZOO_CE_FLOOR)
+                        for c in s["ce"])}
+
+
+def zoo_wgrad_shapes(cfg):
+    """{(n, h, w, c, k, stride, pad): {model: calls a step}} of every
+    conv_wgrad call of one full-width step of each of ``cfg["check"]``'s
+    models at ``cfg["wgrad_batch"]``."""
+    shapes = {}
+    for name, side in cfg["check"].items():
+        for key, count in wgrad_shapes(zoo_symbol(name, cfg["classes"]),
+                                       (3, side, side),
+                                       cfg["wgrad_batch"]).items():
+            shapes.setdefault(key, {})[name] = count
+    return shapes
+
+
+def _zoo_wgrad(torch, cfg, device, on_card, seed):
+    """conv_wgrad at every shape of :func:`zoo_wgrad_shapes`, bf16 and f32,
+    on the NHWC views of NCHW tensors as the Convolution op passes them:
+    against its plain version in f64 (``wgrad_rtol`` of max |dW|: the
+    kernel's own f32 rounding over up to 1.6 M terms), two calls equal,
+    each case's route named; on the card each timed beside the plain
+    version and cuDNN's wgrad (CUDA events), with its bound. Fails unless
+    the bf16 shapes reach both the wgmma and the simt bodies and the f32
+    ones the f32 body. Returns (rows, worst error by type)."""
+    from mxnet_tpu_torch.ops.kernels import conv_wgrad as cw
+
+    gen = torch.Generator(device=device).manual_seed(seed + 29)
+    rows, worst, routes = [], {}, {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for (n, h, w, c, k, stride, pad), models in sorted(
+                zoo_wgrad_shapes(cfg).items()):
+            oh, ow = cw.out_size(h, 3, stride, pad), cw.out_size(w, 3, stride,
+                                                                pad)
+            x = torch.randn(n, c, h, w, generator=gen, device=device).to(dt)
+            dy = torch.randn(n, k, oh, ow, generator=gen,
+                             device=device).to(dt)
+            xv, dv = x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1)
+            p = cw.plan_of(xv, dv, 3, stride, pad)
+            fn = cw.wgrad if dtype == "float32" else cw.conv_wgrad
+            got = fn(xv, dv, 3, stride, pad)
+            again = fn(xv, dv, 3, stride, pad)
+            want = cw.conv_wgrad_plain(xv.double(), dv.double(), 3, stride,
+                                       pad)
+            err = float((got.double() - want).abs().max())
+            rel = err / float(want.abs().max())
+            case = [n, h, w, c, k, stride, pad]
+            tol = wgrad_rtol(n * oh * ow)
+            if not rel <= tol:
+                raise RuntimeError("conv_wgrad %s %s (%s route): error %g of "
+                                   "max |dW| (tol %g)" % (dtype, case,
+                                                          p.route, rel, tol))
+            if not torch.equal(got, again):
+                raise RuntimeError("conv_wgrad %s %s (%s route): two calls "
+                                   "differ" % (dtype, case, p.route))
+            row = {"shape": case, "dtype": dtype, "per_step": models,
+                   "route": p.route, "kernel": p.kernel, "bn": p.bn,
+                   "splits": p.splits, "max_abs_err": err,
+                   "err_of_max": rel, "tol_of_max": tol}
+            if on_card:
+                bound_ms, bound_by = wgrad_bound(n, h, c, k, 3, stride,
+                                                 dtype, pad)
+                row.update(
+                    ms=time_ms(torch, lambda: fn(xv, dv, 3, stride, pad),
+                               reps=10),
+                    plain_ms=time_ms(torch, lambda: cw.conv_wgrad_plain(
+                        xv, dv, 3, stride, pad), reps=5, warmup=1),
+                    library_ms=time_ms(torch, lambda: torch.nn.grad.
+                                       conv2d_weight(x, (k, c, 3, 3), dy,
+                                                     stride=stride,
+                                                     padding=pad), reps=10),
+                    bound_ms=bound_ms, bound_by=bound_by)
+            rows.append(row)
+            routes.setdefault(dtype, set()).add(p.route)
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            del x, dy, xv, dv, got, again, want
+    if routes != {"bfloat16": {"wgmma", "simt"}, "float32": {"f32"}}:
+        raise RuntimeError("image_zoo conv_wgrad shapes took the routes %s"
+                           % routes)
+    return rows, worst
+
+
+def wgrad_step_of(rows, model, dtype):
+    """Each timing of ``rows`` (:func:`_zoo_wgrad`) summed over one step
+    of ``model`` in ``dtype``: a shape's row times its calls a step."""
+    mine = [r for r in rows if r["dtype"] == dtype and model in
+            r["per_step"]]
+    return {key: sum(r[key] * r["per_step"][model] for r in mine)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")
+            if all(key in r for r in mine)}
+
+
+def phase_image_zoo(cfg=IMAGE_ZOO, device=None, ref_device="cpu", seed=SEED,
+                    spread=None, witness=None):
+    """The image-classification zoo (``tools/image_zoo.py``): the new ops
+    card vs CPU; conv_wgrad at every eligible 3x3 shape of the seven
+    models; Inception-BN trained at full width, bf16, through the captured
+    fit step and its eager twin; each of the seven models card vs CPU.
+    ``device`` None = the card; ``spread`` and ``witness`` the checks'
+    yardsticks (:func:`zoo_tol`)."""
+    import torch
+
+    t0 = time.perf_counter()
+    on_card = device is None or torch.device(device).type == "cuda"
+    dev = "cuda" if device is None else device
+    seconds = {}
+    ops = _zoo_ops_check(torch, dev, ref_device, seed)
+    seconds["ops"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    rows, wgrad_worst = _zoo_wgrad(torch, cfg, dev, on_card, seed)
+    seconds["conv_wgrad"] = time.perf_counter() - t1
+
+    # the main run: every conv_wgrad call takes the wgmma route in bf16
+    # (the launch arithmetic counts two repacks a call)
+    main = cfg["main"]
+    from mxnet_tpu_torch.ops.kernels import conv_wgrad as cw
+
+    main_shapes = wgrad_shapes(zoo_symbol(main["model"], main["classes"]),
+                               main["image"], main["batch"])
+    off = [s for s in main_shapes if cw.plan(*s[:4], s[4], 3, s[5], s[6],
+                                             "bfloat16").route != "wgmma"]
+    if off:
+        raise RuntimeError("image_zoo: %s shapes %s do not take the wgmma "
+                           "route" % (main["model"], off))
+    t1 = time.perf_counter()
+    _fresh(torch, on_card)
+    run, launches = _captured_fit(
+        torch, lambda: zoo_setup(main["model"], main, main["batch"],
+                                 main["batches"], device, seed,
+                                 compute_dtype=main["dtype"]),
+        lambda init: fit_args(main, init), main, on_card, "image_zoo")
+    seconds["main"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    checks, check_launches = {}, {}
+    for name, side in cfg["check"].items():
+        mcfg = image_cfg(cfg, side)
+        sym = zoo_symbol(name, cfg["classes"])
+        _fresh(torch, on_card)
+        checks[name], got = _fit_check(
+            lambda d, _n=name, _c=mcfg: zoo_setup(
+                _n, _c, cfg["check_batch"], cfg["check_steps"], d, seed),
+            lambda init, _c=mcfg: fit_args(_c, init), device, ref_device,
+            zoo_tol(name, spread, witness), "image_zoo check of %s" % name,
+            counters=_resnet_counters(), exact_zero=dead_shifts(sym))
+        calls = wgrad_convs(sym) * cfg["check_steps"]
+        if (got["conv_wgrad_partial"], got["conv_wgrad_reduce"]) != \
+                (calls, calls):
+            raise RuntimeError("image_zoo check of %s launched conv_wgrad "
+                               "%s, want %d + %d" % (name, got, calls,
+                                                     calls))
+        check_launches[name] = got
+    seconds["check"] = time.perf_counter() - t1
+    seconds["phase"] = time.perf_counter() - t0
+    emit({"phase": "image_zoo", "model": main["model"],
+          "classes": main["classes"], "image": list(main["image"]), **run,
+          "wgrad_step": {dtype: wgrad_step_of(rows, main["model"], dtype)
+                         for dtype in ("bfloat16", "float32")},
+          "checks": checks, "check_launches": check_launches,
+          "ops": ops, "wgrad_shapes": rows,
+          "wgrad_max_abs_err": wgrad_worst, "seconds": seconds})
+    check_sum = {k: sum(c[k] for c in check_launches.values())
+                 for k in ("conv_wgrad_partial", "conv_wgrad_reduce")}
+    return {"main": launches, "check": check_sum, "wgrad": rows,
+            "wgrad_max_abs_err": wgrad_worst}
 
 
 def _reset_peak(torch):
@@ -6171,6 +6580,7 @@ def main():
     http_launches = phase_serve_http(serve_tokens=serve_tokens)
     train = phase_train()
     resnet = phase_resnet()
+    image_zoo = phase_image_zoo()
     lstm = phase_lstm()
     zoo_launches = phase_zoo()
     seq_launches = phase_seq()
@@ -6218,6 +6628,7 @@ def main():
         by_phase = {"train": train[kind]}
         if kind in resnet:
             by_phase["resnet"] = resnet[kind]
+            by_phase["image_zoo"] = image_zoo["main"][kind]
         if kind in bucketing:
             # the Updater's scalar entry, and the captured step's lr entry
             by_phase["bucketing"] = bucketing[kind]
@@ -6241,14 +6652,22 @@ def main():
             "library_ms": None, "library_note": t["library_note"]})
     # the resnet phase's type heads the row
     t = wgrad_step[RESNET["dtype"]]
+    wgrad_parts = ("conv_wgrad_partial", "conv_wgrad_reduce",
+                   "conv_wgrad_repack")
+    wgrad_by_phase = {
+        "resnet": sum(resnet[k] for k in wgrad_parts),
+        "image_zoo": sum(image_zoo["main"][k] for k in wgrad_parts),
+        "image_zoo_check": sum(image_zoo["check"].values())}
     rows.append({
         "name": "conv_wgrad", "route": "cuda", "source": WGRAD_SRC,
         "replaces": WGRAD_REPLACES,
-        "launches": resnet["conv_wgrad_partial"]
-        + resnet["conv_wgrad_reduce"] + resnet["conv_wgrad_repack"],
-        "launches_by_kernel": {"partial": resnet["conv_wgrad_partial"],
-                               "reduce": resnet["conv_wgrad_reduce"],
-                               "repack": resnet["conv_wgrad_repack"]},
+        "launches": sum(wgrad_by_phase.values()),
+        "launches_by_phase": wgrad_by_phase,
+        "launches_by_kernel": {
+            part: resnet["conv_wgrad_" + part]
+            + image_zoo["main"]["conv_wgrad_" + part]
+            + image_zoo["check"].get("conv_wgrad_" + part, 0)
+            for part in ("partial", "reduce", "repack")},
         "max_abs_err": max(wgrad_worst.values()), "max_err": wgrad_worst,
         "dtype": RESNET["dtype"],
         "shape": "the 16 3x3 convolutions of one ResNet-50 step at batch 32",
@@ -6261,7 +6680,9 @@ def main():
         "library_device_ms": t["library_device_ms"],
         "library": "torch.nn.grad.conv2d_weight (cuDNN wgrad, no TF32)",
         "float32": wgrad_step["float32"],
-        "per_shape": wgrad_timings})
+        "per_shape": wgrad_timings,
+        "image_zoo_max_err": image_zoo["wgrad_max_abs_err"],
+        "image_zoo_shapes": image_zoo["wgrad"]})
     t = lstm_timings["float32"]
     rows.append({
         "name": "lstm_step", "route": "cuda", "source": LSTM_SRC,

@@ -1,13 +1,13 @@
 """Attention and normalization math in plain PyTorch.
 
-Counterpart of ``mxnet_tpu/ops/attention.py``: the ``LayerNorm`` and
-``MultiHeadAttention`` operators, rotary embedding, the reference
-attention math (f32 logits and softmax whatever the input type), the
-grouped-query form that never repeats K/V, the decode step's
+Counterpart of ``mxnet_tpu/ops/attention.py``: the ``LayerNorm``,
+``RMSNorm`` and ``MultiHeadAttention`` operators, rotary embedding, the
+reference attention math (f32 logits and softmax whatever the input
+type), the grouped-query form that never repeats K/V, the decode step's
 length-masked attention over a KV cache (int8 caches widened through
 their per-position scales) and the paged prefill's attention over a
-cached prefix. Masked logits take
-``finfo(float32).min`` as in the reference, not ``-inf``.
+cached prefix. Masked logits take ``finfo(float32).min`` as in the
+reference, not ``-inf``.
 """
 from __future__ import annotations
 
@@ -25,6 +25,18 @@ def _layer_norm_op(attrs, data, gamma, beta):
     ax = int(attrs["axis"]) % data.dim()
     x = data.movedim(ax, -1)
     return layer_norm(x, gamma, beta, attrs["eps"]).movedim(-1, ax)
+
+
+@defop("RMSNorm", arg_names=("data", "gamma"),
+       param_spec={"axis": -1, "eps": 1e-6})
+def _rms_norm(attrs, data, gamma):
+    """Root-mean-square normalization over ``axis``, no centering:
+    ``x * rsqrt(mean(x^2) + eps) * gamma``."""
+    ax = int(attrs["axis"]) % data.dim()
+    ms = (data * data).mean(dim=ax, keepdim=True)
+    bshape = tuple(data.shape[ax] if i == ax else 1
+                   for i in range(data.dim()))
+    return data * torch.rsqrt(ms + attrs["eps"]) * gamma.reshape(bshape)
 
 
 @defop("MultiHeadAttention", arg_names=("query", "key", "value"),

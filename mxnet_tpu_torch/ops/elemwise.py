@@ -1,15 +1,20 @@
-"""Elementwise binary and binary-with-scalar operators.
+"""Elementwise binary, binary-with-scalar and unary operators.
 
-Counterpart of ``mxnet_tpu/ops/elemwise.py``'s ``_binary`` and
-``_binary_scalar`` families (reference elemwise_binary_op_basic.cc,
-elemwise_binary_scalar_op*.cc), plus the few unary ops the ported paths
-and the imperative autograd examples use (``sign`` and ``clip`` for the
-optimizers and ``Monitor``). Gradients come from autograd
-over the composed graph. Comparison ops return 0/1 in the input's type,
-like the reference.
+Counterpart of ``mxnet_tpu/ops/elemwise.py`` (reference
+elemwise_binary_op_basic.cc, elemwise_binary_scalar_op*.cc,
+elemwise_unary_op.cc and the SimpleOp unary math ops), with ``Cast``,
+``smooth_l1`` and the variadic ``add_n``. Gradients come from autograd
+over the composed graph. Comparison and logical ops return 0/1 in the
+input's type, like the reference.
+
+Where the JAX package and MXNet 0.9 differ, the port follows the JAX
+package: ``round`` and ``rint`` round half to even, and ``gamma`` is
+``exp(lgamma(x))``, which drops the sign of Gamma at negative
+non-integers.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .registry import alias, defop
@@ -69,6 +74,7 @@ _binary_scalar("_power_scalar", torch.pow)
 _binary_scalar("_rpower_scalar", lambda x, s: torch.pow(s, x))
 _binary_scalar("_maximum_scalar", lambda x, s: x.clamp(min=s))
 _binary_scalar("_minimum_scalar", lambda x, s: x.clamp(max=s))
+_binary_scalar("_hypot_scalar", lambda x, s: torch.hypot(x, x.new_tensor(s)))
 _binary_scalar("_equal_scalar", _cmp(torch.eq))
 _binary_scalar("_not_equal_scalar", _cmp(torch.ne))
 _binary_scalar("_greater_scalar", _cmp(torch.gt))
@@ -76,18 +82,73 @@ _binary_scalar("_greater_equal_scalar", _cmp(torch.ge))
 _binary_scalar("_lesser_scalar", _cmp(torch.lt))
 _binary_scalar("_lesser_equal_scalar", _cmp(torch.le))
 
-# --- unary -------------------------------------------------------------------
-_unary("negative", torch.neg)
-_unary("abs", torch.abs)
-_unary("relu", torch.relu)
-_unary("exp", torch.exp)
-_unary("log", torch.log)
-_unary("square", torch.square)
-_unary("sqrt", torch.sqrt)
-_unary("sign", torch.sign)
-_unary("_copy", lambda x: x.clone())
-_unary("BlockGrad", lambda x: x.detach())
+# --- unary (reference elemwise_unary_op.cc + the SimpleOp registry) ---------
+def _cbrt(x):
+    """The real cube root, negative for x < 0 (``jnp.cbrt``; PyTorch has
+    none, and ``x ** (1 / 3)`` is NaN below 0)."""
+    return torch.sign(x) * x.abs().pow(1.0 / 3.0)
 
+
+for _n, _fn in (
+        ("negative", torch.neg), ("abs", torch.abs), ("sign", torch.sign),
+        ("rint", torch.round), ("round", torch.round), ("ceil", torch.ceil),
+        ("floor", torch.floor), ("trunc", torch.trunc), ("fix", torch.trunc),
+        ("square", torch.square), ("sqrt", torch.sqrt),
+        ("rsqrt", torch.rsqrt), ("cbrt", _cbrt),
+        ("rcbrt", lambda x: 1.0 / _cbrt(x)),
+        ("exp", torch.exp), ("log", torch.log), ("log10", torch.log10),
+        ("log2", torch.log2), ("log1p", torch.log1p), ("expm1", torch.expm1),
+        ("sin", torch.sin), ("cos", torch.cos), ("tan", torch.tan),
+        ("arcsin", torch.asin), ("arccos", torch.acos),
+        ("arctan", torch.atan), ("sinh", torch.sinh), ("cosh", torch.cosh),
+        ("tanh", torch.tanh), ("arcsinh", torch.asinh),
+        ("arccosh", torch.acosh), ("arctanh", torch.atanh),
+        ("degrees", torch.rad2deg), ("radians", torch.deg2rad),
+        ("gamma", lambda x: torch.exp(torch.lgamma(x))),
+        ("gammaln", torch.lgamma), ("reciprocal", lambda x: 1.0 / x),
+        ("relu", torch.relu), ("sigmoid", torch.sigmoid),
+        ("softsign", lambda x: x / (1.0 + x.abs())), ("erf", torch.erf),
+        ("erfinv", torch.erfinv),
+        ("logical_not", lambda x: (x == 0).to(x.dtype)),
+        ("_copy", lambda x: x.clone()), ("BlockGrad", lambda x: x.detach()),
+        # a plain identity, gradient and all (not MakeLoss)
+        ("make_loss", lambda x: x.clone())):
+    _unary(_n, _fn)
+
+
+def torch_dtype(name):
+    """The torch dtype of a numpy type name, ``"bfloat16"`` included."""
+    if name == "bfloat16":
+        return torch.bfloat16
+    return getattr(torch, str(np.dtype(name)))
+
+
+@defop("Cast", arg_names=("data",), param_spec={"dtype": "float32"})
+def _cast(attrs, data):
+    """Cast to ``dtype`` (reference elemwise_unary_op.cc Cast): the float
+    types, bfloat16 and the integer types (toward zero)."""
+    return data.to(torch_dtype(attrs["dtype"]))
+
+
+@defop("smooth_l1", arg_names=("data",), param_spec={"scalar": 1.0})
+def _smooth_l1(attrs, data):
+    """Smooth L1 (Huber) with sigma = ``scalar``: 0.5 (sigma x)^2 where
+    |x| < 1 / sigma^2, else |x| - 0.5 / sigma^2 (reference
+    elemwise_binary_scalar_op_extended.cc smooth_l1)."""
+    s2 = float(attrs["scalar"]) ** 2
+    absx = data.abs()
+    return torch.where(absx < 1.0 / s2, 0.5 * s2 * data * data,
+                       absx - 0.5 / s2)
+
+
+@defop("add_n", arg_names=(), variadic=True, param_spec={"num_args": 0})
+def _add_n(attrs, *inputs):
+    """The inputs' sum, added left to right (reference elemwise_sum.cc
+    ElementWiseSum)."""
+    out = inputs[0]
+    for x in inputs[1:]:
+        out = out + x
+    return out
 
 
 @defop("clip", arg_names=("data",), param_spec={"a_min": 0.0, "a_max": 1.0})
@@ -100,3 +161,4 @@ def _clip(attrs, data):
 
 alias("_copy", "identity")
 alias("BlockGrad", "stop_gradient")
+alias("add_n", "ElementWiseSum", "_sum")

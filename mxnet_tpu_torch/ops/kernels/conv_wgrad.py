@@ -116,17 +116,19 @@ def _check(x, dy, ksz, stride, pad, types=True):
 
 
 def conv_wgrad_plain(x, dy, ksz, stride=1, pad=None):
-    """Plain PyTorch version of the reference's Pallas kernel, in f32: pad
-    x, take the ksz * ksz shifted, strided views, and one einsum each over
-    (N, OH, OW). Returns f32 HWIO (ksz, ksz, C, K)."""
+    """Plain PyTorch version of the reference's Pallas kernel, in f32 (in
+    f64 for f64 operands, which only the CPU's plain paths pass): pad x,
+    take the ksz * ksz shifted, strided views, and one einsum each over
+    (N, OH, OW). Returns HWIO (ksz, ksz, C, K) in that type."""
     if pad is None:
         pad = (ksz - 1) // 2
     n, h, w, c = x.shape
     _, oh, ow, k = dy.shape
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     hp, wp = oh * stride + ksz - 1, ow * stride + ksz - 1
-    xp = F.pad(x.float(), (0, 0, pad, wp - w - pad, pad, hp - h - pad))
-    dyf = dy.float()
-    out = torch.empty((ksz, ksz, c, k), dtype=torch.float32, device=x.device)
+    xp = F.pad(x.to(acc), (0, 0, pad, wp - w - pad, pad, hp - h - pad))
+    dyf = dy.to(acc)
+    out = torch.empty((ksz, ksz, c, k), dtype=acc, device=x.device)
     for kh in range(ksz):
         for kw in range(ksz):
             xs = xp[:, kh:kh + oh * stride:stride, kw:kw + ow * stride:stride]
@@ -335,7 +337,8 @@ counted(conv_wgrad_reduce)
 
 def wgrad(x, dy, ksz, stride=1, pad=None):
     """dW f32 HWIO (ksz, ksz, C, K) of x (N, H, W, C) and dy (N, OH, OW, K)
-    in their own type (f32 or bf16), without :func:`conv_wgrad`'s cast.
+    in their own type (f32 or bf16; on the CPU also f64, giving f64),
+    without :func:`conv_wgrad`'s cast.
     CPU tensors take the plain version; CUDA tensors launch the partial
     kernel of :func:`plan`'s route (after :func:`repack` on the wgmma
     route) and the reduction kernel."""

@@ -1,12 +1,19 @@
-"""Shape and indexing operators.
+"""Shape, indexing and ordering operators.
 
-Counterpart of the parts of ``mxnet_tpu/ops/matrix.py`` the ported paths
-use (reference src/operator/tensor/matrix_op.cc, indexing_op.cc,
-swapaxis.cc, concat.cc, slice_channel.cc, dot.cc): ``Reshape`` with the
-reference's special codes, ``dot``, ``Flatten``, ``SwapAxis``,
-``expand_dims``, ``slice_axis``, ``Concat``, ``SliceChannel``,
-``Embedding`` and ``one_hot``, and ``quantized_matmul`` (the quantized
-serving path's product). The shape ops return views where torch can.
+Counterpart of ``mxnet_tpu/ops/matrix.py`` (reference
+src/operator/tensor/matrix_op.cc, indexing_op.cc, ordering_op.cc,
+swapaxis.cc, concat.cc, slice_channel.cc, dot.cc, pad.cc): ``Reshape``
+with the reference's special codes, ``dot`` / ``batch_dot``,
+``transpose``, ``Flatten``, ``SwapAxis``, ``expand_dims``, ``slice`` /
+``slice_axis``, ``Concat``, ``SliceChannel``, ``tile``, ``repeat``,
+``reverse``, ``Pad``, ``Embedding``, ``take`` / ``batch_take``,
+``one_hot``, ``sort`` / ``argsort`` / ``topk``, and ``quantized_matmul``
+(the quantized serving path's product). The shape ops return views where
+torch can.
+
+The ordering ops copy the JAX package's: sorts are stable, ``topk`` puts
+the lower index first among equal values, and ``argsort`` / ``topk``
+return indices in the data's type whatever ``dtype`` says.
 """
 from __future__ import annotations
 
@@ -96,6 +103,18 @@ def _dot(attrs, lhs, rhs):
     return torch.tensordot(lhs, rhs, dims=([lhs.dim() - 1], [0]))
 
 
+@defop("batch_dot", arg_names=("lhs", "rhs"),
+       param_spec={"transpose_a": False, "transpose_b": False})
+def _batch_dot(attrs, lhs, rhs):
+    """Batched product over the leading axis (reference dot.cc batch_dot);
+    ``transpose_a`` / ``transpose_b`` swap the last two axes first."""
+    if attrs["transpose_a"]:
+        lhs = lhs.transpose(-1, -2)
+    if attrs["transpose_b"]:
+        rhs = rhs.transpose(-1, -2)
+    return torch.matmul(lhs, rhs)
+
+
 #: ``torch._int_mm`` on a CUDA tensor (cuBLASLt) takes more than 16 rows
 #: and K, N multiples of 8: fewer rows are padded with zero rows to
 #: INT_MM_PAD_ROWS, and the pad is sliced off the result
@@ -163,6 +182,14 @@ def quantized_matmul(x, w, scale, act_dtype="int8"):
     return out.reshape(out_shape)
 
 
+@defop("transpose", arg_names=("data",), param_spec={"axes": ()})
+def _transpose(attrs, data):
+    """Permute the axes (empty ``axes``: reverse them); a view."""
+    axes = tuple(int(a) for a in attrs["axes"]) or \
+        tuple(reversed(range(data.dim())))
+    return data.permute(axes)
+
+
 @defop("Flatten", arg_names=("data",), param_spec={})
 def _flatten(attrs, data):
     """Collapse all but the leading axis."""
@@ -202,6 +229,19 @@ def _slice_axis(attrs, data):
     return data.narrow(ax, begin, max(0, end - begin))
 
 
+@defop("slice", arg_names=("data",), param_spec={"begin": (), "end": ()})
+def _slice(attrs, data):
+    """``data[b0:e0, b1:e1, ...]`` as Python slices (None an open end,
+    negatives from the end), the axes past ``begin`` whole (reference
+    matrix_op.cc slice / crop); a view."""
+    return data[tuple(
+        slice(None if b is None else int(b), None if e is None else int(e))
+        for b, e in zip(attrs["begin"], attrs["end"]))]
+
+
+alias("slice", "crop")
+
+
 @defop("Concat", arg_names=(), variadic=True,
        param_spec={"num_args": 0, "dim": 1}, py_name="concat")
 def _concat(attrs, *inputs):
@@ -231,6 +271,71 @@ def _slice_channel(attrs, data):
 alias("SliceChannel", "split")
 
 
+@defop("repeat", arg_names=("data",), param_spec={"repeats": 1, "axis": None})
+def _repeat(attrs, data):
+    """Repeat each element ``repeats`` times along ``axis`` (None: of the
+    flattened data), as ``np.repeat``."""
+    ax = attrs["axis"]
+    return torch.repeat_interleave(data, int(attrs["repeats"]),
+                                   dim=None if ax is None else int(ax))
+
+
+@defop("tile", arg_names=("data",), param_spec={"reps": ()})
+def _tile(attrs, data):
+    """``np.tile``: ``reps`` shorter than the data's axes is padded with
+    leading 1s, longer adds leading axes."""
+    return torch.tile(data, tuple(int(r) for r in attrs["reps"]))
+
+
+@defop("reverse", arg_names=("data",), param_spec={"axis": ()})
+def _reverse(attrs, data):
+    """Reverse the order along ``axis`` (one or a tuple)."""
+    axes = attrs["axis"]
+    if isinstance(axes, (int, np.integer)):
+        axes = (axes,)
+    return torch.flip(data, dims=tuple(int(a) for a in axes))
+
+
+alias("reverse", "flip")
+
+
+def _pad_index(n, lo, hi, mode, device):
+    """Source index of each position of an axis of ``n`` padded by (lo,
+    hi): ``edge`` repeats the end, ``reflect`` mirrors about it without
+    repeating it (``np.pad``'s modes)."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge" or n == 1:
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    i = torch.remainder(i, period)
+    return torch.where(i >= n, period - i, i)
+
+
+@defop("Pad", arg_names=("data",),
+       param_spec={"mode": "constant", "pad_width": (),
+                   "constant_value": 0.0})
+def _pad(attrs, data):
+    """Pad every axis by (``pad_width[2i]``, ``pad_width[2i + 1]``) with
+    ``constant_value``, or the edge (``edge``), or the mirror image
+    (``reflect``) (reference src/operator/pad.cc). The edge and reflect
+    modes gather along each padded axis: ``F.pad`` takes them only on the
+    last three axes."""
+    pw = [int(p) for p in attrs["pad_width"]]
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(len(pw) // 2)]
+    if attrs["mode"] == "constant":
+        flat = [p for pair in reversed(pairs) for p in pair]
+        return torch.nn.functional.pad(data, flat,
+                                       value=float(attrs["constant_value"]))
+    for ax, (lo, hi) in enumerate(pairs):
+        if lo or hi:
+            data = data.index_select(ax, _pad_index(
+                data.shape[ax], lo, hi, attrs["mode"], data.device))
+    return data
+
+
+alias("Pad", "pad")
+
+
 @defop("Embedding", arg_names=("data", "weight"),
        param_spec={"input_dim": 0, "output_dim": 0, "dtype": "float32"},
        no_grad_inputs=("data",))
@@ -248,6 +353,39 @@ def _embedding(attrs, data, weight):
     return out.masked_fill(~inside.unsqueeze(-1), float("nan"))
 
 
+@defop("take", arg_names=("a", "indices"),
+       param_spec={"axis": 0, "mode": "clip"}, no_grad_inputs=("indices",))
+def _take(attrs, a, indices):
+    """Gather along ``axis`` at ``indices`` (float ids, truncated): the
+    result is a's axes before ``axis``, the indices' shape, a's axes after.
+    An id outside [0, n) clips to 0 or n - 1 (a negative id to 0, not to
+    Python's end-relative row), or wraps modulo n with ``mode="wrap"``.
+    The gradient is a scatter-add (``index_add_``: on the card its atomics
+    add in no fixed order)."""
+    ax = int(attrs["axis"]) % a.dim()
+    n = a.shape[ax]
+    idx = indices.long().reshape(-1)
+    idx = torch.remainder(idx, n) if attrs["mode"] == "wrap" \
+        else idx.clamp(0, n - 1)
+    out = a.index_select(ax, idx)
+    return out.reshape(a.shape[:ax] + indices.shape + a.shape[ax + 1:])
+
+
+@defop("batch_take", arg_names=("a", "indices"), param_spec={},
+       no_grad_inputs=("indices",))
+def _batch_take(attrs, a, indices):
+    """``out[i] = a[i, indices[i]]`` over a (N, M), shaped as
+    ``indices``. As the JAX package's ``take_along_axis``: -M <= id < 0
+    reads M + id, any other id outside [0, M) gives NaN and no
+    gradient."""
+    m = a.shape[1]
+    ids = indices.long().reshape(-1, 1)
+    ids = torch.where(ids < 0, ids + m, ids)
+    inside = (ids >= 0) & (ids < m)
+    out = torch.gather(a, 1, torch.where(inside, ids, 0))
+    return out.masked_fill(~inside, float("nan")).reshape(indices.shape)
+
+
 @defop("one_hot", arg_names=("indices",),
        param_spec={"depth": 0, "on_value": 1.0, "off_value": 0.0,
                    "dtype": "float32"},
@@ -260,3 +398,56 @@ def _one_hot(attrs, indices):
     dtype = getattr(torch, str(np.dtype(attrs["dtype"])))
     on, off = float(attrs["on_value"]), float(attrs["off_value"])
     return hit.to(dtype) * (on - off) + off
+
+
+# --- ordering (reference ordering_op.cc) -------------------------------------
+@defop("sort", arg_names=("data",), param_spec={"axis": -1, "is_ascend": True})
+def _sort(attrs, data):
+    """Sorted along ``axis`` (None: the flattened data), ascending, or
+    its reverse with ``is_ascend=False``."""
+    ax = attrs["axis"]
+    if ax is None:
+        data, ax = data.reshape(-1), -1
+    out = torch.sort(data, dim=int(ax), stable=True).values
+    return out if attrs["is_ascend"] else torch.flip(out, dims=(int(ax),))
+
+
+@defop("argsort", arg_names=("data",),
+       param_spec={"axis": -1, "is_ascend": True, "dtype": "float32"})
+def _argsort(attrs, data):
+    """The stable ascending order's indices along ``axis`` (None: of the
+    flattened data); descending is the ascending order of ``-data``, so
+    ties stay in index order either way. Indices in the data's type."""
+    ax = attrs["axis"]
+    if ax is None:
+        data, ax = data.reshape(-1), -1
+    key = data if attrs["is_ascend"] else -data
+    return torch.argsort(key, dim=int(ax), stable=True).to(data.dtype)
+
+
+@defop("topk", arg_names=("data",),
+       param_spec={"axis": -1, "k": 1, "ret_typ": "indices",
+                   "is_ascend": False, "dtype": "float32"},
+       num_outputs=lambda attrs: 2 if attrs.get("ret_typ") == "both" else 1)
+def _topk(attrs, data):
+    """The ``k`` largest (``is_ascend``: smallest) along ``axis``, the
+    lower index first among equal values (``jax.lax.top_k``'s order; the
+    order of ties of ``torch.topk`` is unspecified on the card, so a
+    stable sort picks them). ``ret_typ``: ``indices`` (in the data's
+    type), ``value``, ``both``, or ``mask`` (1 at the k picked)."""
+    ax = int(attrs["axis"]) % data.dim()
+    k = int(attrs["k"])
+    moved = data.movedim(ax, -1)
+    idx = torch.sort(moved, dim=-1, descending=not attrs["is_ascend"],
+                     stable=True).indices[..., :k]
+    rt = attrs["ret_typ"]
+    if rt == "mask":
+        mask = torch.zeros_like(moved).scatter(-1, idx, 1.0)
+        return mask.movedim(-1, ax)
+    vals = torch.gather(moved, -1, idx).movedim(-1, ax)
+    idxf = idx.movedim(-1, ax).to(data.dtype)
+    if rt == "value":
+        return vals
+    if rt == "both":
+        return vals, idxf
+    return idxf

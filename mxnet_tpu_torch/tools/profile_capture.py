@@ -4,7 +4,9 @@
 
 For each cell of ``chip_smoke.py``'s training phases (``train``: the LM's
 bf16 fused step at ``TRAIN``'s batch through ``make_train_step``;
-``resnet``: ResNet-50's bf16 ``Module.fit_step`` at batch 32; ``lstm`` /
+``resnet``: ResNet-50's bf16 ``Module.fit_step`` at batch 32;
+``image_zoo``: Inception-BN's, the same way (``tools/image_zoo.py``);
+``lstm`` /
 ``custom``: the LSTM LM's ``fit_step`` at batch 128 with the
 ``SoftmaxOutput`` / ``rtc_softmax`` head), first with the step captured
 as a CUDA graph, then eager (``MXNET_CUDA_GRAPH=0``),
@@ -29,10 +31,11 @@ import torch
 
 from . import profile_generate, profile_lstm, profile_module
 
-CELLS = ("train", "resnet", "lstm", "custom")
+CELLS = ("train", "resnet", "image_zoo", "lstm", "custom")
 # each cell's kernel kinds: those of its own profile tool
 KIND = {"train": profile_generate._kind, "resnet": profile_module._kind,
-        "lstm": profile_lstm._kind, "custom": profile_lstm._kind}
+        "image_zoo": profile_module._kind, "lstm": profile_lstm._kind,
+        "custom": profile_lstm._kind}
 
 
 def _emit(obj):
@@ -41,7 +44,7 @@ def _emit(obj):
 
 def _setup(cell):
     """(one training step, its stats) of ``cell``, warmed up."""
-    from . import lm, lstm_lm, resnet, rtc_softmax
+    from . import image_zoo, lm, lstm_lm, resnet, rtc_softmax
 
     if cell == "train":
         exe, names = lm.lm_train_setup(lm.LM, lm.TRAIN)
@@ -54,6 +57,11 @@ def _setup(cell):
         cfg = resnet.RESNET
         mod, it, init = resnet.resnet_setup(
             cfg, cfg["batch"], 4, compute_dtype=cfg["dtype"])
+        kwargs = resnet.fit_args(cfg, init)
+    elif cell == "image_zoo":
+        cfg = image_zoo.IMAGE_ZOO["main"]
+        mod, it, init = image_zoo.zoo_setup(
+            cfg["model"], cfg, cfg["batch"], 4, compute_dtype=cfg["dtype"])
         kwargs = resnet.fit_args(cfg, init)
     else:
         cfg = lstm_lm.LSTM_LM

@@ -81,11 +81,14 @@ def change_err(change, ref_change):
 
 
 def wgrad_convs(sym):
-    """How many convolutions of ``sym`` have a 3x3 window: each launches
-    the conv_wgrad kernels once per step."""
+    """How many convolutions of ``sym`` take their weight gradient from
+    the conv_wgrad kernels (``ops.nn.takes_wgrad``: the 3x3 windows of one
+    group, dilation, stride and pad): each launches them once per
+    step."""
+    from ..ops.nn import takes_wgrad
+
     return sum(1 for n in sym._nodes() if not n.is_var
-               and n.op.name == "Convolution"
-               and tuple(n.attrs["kernel"]) == (3, 3))
+               and n.op.name == "Convolution" and takes_wgrad(n.attrs))
 
 
 def resnet_params(cfg, seed=SEED):

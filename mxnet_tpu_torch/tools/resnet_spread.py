@@ -25,11 +25,14 @@ import torch
 from .resnet import RESNET, SEED, change_err, resnet_data, resnet_symbol
 
 
-def spread(cfg=RESNET, seed=SEED):
-    """Yield one dict per batch: the f32 run against the f64 run."""
+def spread(cfg=RESNET, seed=SEED, sym=None, skip=()):
+    """Yield one dict per batch: the f32 run against the f64 run, of
+    ``sym`` (default ``cfg``'s ResNet) on ``cfg``'s images and classes;
+    the parameters named in ``skip`` (those with a zero gradient in exact
+    arithmetic) are left out of the update measures."""
     from .. import initializer, optimizer
 
-    sym = resnet_symbol(cfg)
+    sym = resnet_symbol(cfg) if sym is None else sym
     b, steps = cfg["check_batch"], cfg["check_steps"]
     shapes = {"data": (b,) + tuple(cfg["image"]), "softmax_label": (b,)}
     names = [n for n in sym.list_arguments() if n not in shapes]
@@ -76,16 +79,17 @@ def spread(cfg=RESNET, seed=SEED):
         (e32, _, (p32, a32)), (e64, _, (p64, a64)) = runs
         upd = {n: change_err(e32.arg_dict[n].asnumpy() - p32[n],
                              e64.arg_dict[n].asnumpy() - p64[n])
-               for n in names}
+               for n in names if n not in skip}
         aux = {n: change_err(e32.aux_dict[n].asnumpy() - a32[n],
                              e64.aux_dict[n].asnumpy() - a64[n])
                for n in e32.aux_dict}
         worst = max(upd, key=upd.get)
+        aux_errs = list(aux.values()) or [0.0]  # a model without aux
         yield {"batch": step + 1, "update_err_median":
                float(np.median(list(upd.values()))),
                "update_err_worst": upd[worst], "worst": worst,
-               "aux_err_median": float(np.median(list(aux.values()))),
-               "aux_err_worst": max(aux.values()),
+               "aux_err_median": float(np.median(aux_errs)),
+               "aux_err_worst": max(aux_errs),
                "ce_f32": ce[0], "ce_f64": ce[1],
                "ce_rel_err": abs(ce[0] - ce[1]) / ce[1]}
 

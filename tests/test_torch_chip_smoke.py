@@ -1785,3 +1785,191 @@ def test_zoo_phase_launch_arithmetic():
 
     assert len(lstm_symbol(cs.ZOO).list_arguments()) - 2 == 4
     assert cs.lstm_steps(cs.ZOO, 4 + 2) == 420
+
+
+# the image_zoo phase, narrow: Inception-BN at 32 x 32 (10 classes, batch
+# 2, 2 batches) for the run, VGG-16 (its stem is a 3x3 on 3 channels: the
+# simt body) at 32 x 32 for the check, the conv_wgrad table at batch 1;
+# the check's gates loose (the CPU against itself)
+TINY_IMAGE_ZOO = dict(cs.IMAGE_ZOO, main=dict(cs.IMAGE_ZOO["main"],
+                                              classes=10, image=(3, 32, 32),
+                                              batch=2, batches=2),
+                      check={"vgg16": 32}, classes=10, wgrad_batch=1)
+TINY_IMAGE_ZOO_SPREAD = {n: {"update": 0.0, "aux": 0.0, "ce": (0.0, 0.0)}
+                   for n in TINY_IMAGE_ZOO["check"]}
+
+
+def test_image_zoo_phase_on_cpu(monkeypatch, capsys):
+    """The phase on the host: every op case, the conv_wgrad table (both
+    bf16 routes reached), the run's exact launches (31 a step) and the
+    check with its conv_wgrad launches."""
+    _count_plain_calls(monkeypatch)
+    out = cs.phase_image_zoo(TINY_IMAGE_ZOO, device="cpu", spread=TINY_IMAGE_ZOO_SPREAD)
+    assert out["main"] == {"conv_wgrad_partial": 62,
+                           "conv_wgrad_reduce": 62,
+                           "conv_wgrad_repack": 0,
+                           "sgd_mom_update": 278 * 2}
+    # VGG-16's 13 routed 3x3 convolutions, 2 batches
+    assert out["check"] == {"conv_wgrad_partial": 26,
+                            "conv_wgrad_reduce": 26}
+    assert {r["route"] for r in out["wgrad"]} == {"wgmma", "simt", "f32"}
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "image_zoo" and line["path"] == "eager"
+    assert set(line["checks"]) == {"vgg16"}
+    assert set(line["ops"]) == set(cs.op_cases(big=True))
+    assert set(line["seconds"]) == {"ops", "conv_wgrad", "main", "check",
+                                    "phase"}
+
+
+def _main_run_only(monkeypatch):
+    """The phase without its op and conv_wgrad tables (tested above)."""
+    monkeypatch.setattr(cs, "_zoo_ops_check", lambda *a: {})
+    monkeypatch.setattr(cs, "_zoo_wgrad", lambda *a: ([], {}))
+
+
+def test_image_zoo_phase_fails_when_conv_wgrad_is_not_reached(monkeypatch):
+    """Nothing counts a launch on the host: the run's gate refuses."""
+    _main_run_only(monkeypatch)
+    with pytest.raises(RuntimeError, match="image_zoo phase launched"):
+        cs.phase_image_zoo(TINY_IMAGE_ZOO, device="cpu", spread=TINY_IMAGE_ZOO_SPREAD)
+
+
+def test_image_zoo_phase_fails_when_the_run_is_eager_on_the_card(
+        monkeypatch):
+    """The card's run must take the captured path: the host's eager run,
+    judged as the card's, fails."""
+    _count_plain_calls(monkeypatch)
+    _main_run_only(monkeypatch)
+    real = cs._require_captured
+    monkeypatch.setattr(cs, "_require_captured",
+                        lambda phase, stats, on_card: real(phase, stats,
+                                                           True))
+    with pytest.raises(RuntimeError, match="image_zoo phase did not take "
+                                           "the captured path"):
+        cs.phase_image_zoo(TINY_IMAGE_ZOO, device="cpu", spread=TINY_IMAGE_ZOO_SPREAD)
+
+
+def test_image_zoo_check_fails_past_its_gate(monkeypatch):
+    """A check whose card run differs from the reference by more than its
+    gate fails: here the reference's learning rate differs."""
+    _count_plain_calls(monkeypatch)
+    real = cs.fit_args
+    calls = []
+
+    def fit_args(cfg, init):
+        calls.append(1)
+        kw = real(cfg, init)
+        if len(calls) % 2 == 0:  # every reference run
+            kw["optimizer_params"] = (("learning_rate", 0.01),) + \
+                kw["optimizer_params"][1:]
+        return kw
+
+    cfg = dict(TINY_IMAGE_ZOO, check={"vgg16": 32})
+    monkeypatch.setattr(cs, "fit_args", fit_args)
+    _main_run_only(monkeypatch)
+    monkeypatch.setattr(cs, "_captured_fit",
+                        lambda *a: ({}, {"conv_wgrad_partial": 0}))
+    tol = {"vgg16": {"update": 1e-3, "aux": 1e-3, "ce": (1.0, 1.0)}}
+    with pytest.raises(RuntimeError, match="image_zoo check of vgg16: "
+                                           "batch-1 update"):
+        cs.phase_image_zoo(cfg, device="cpu", spread=tol)
+
+
+def test_image_zoo_launch_arithmetic():
+    """Inception-BN: 31 routed 3x3 convolutions a step, every one on the
+    wgmma route in bf16 (two repacks a call): 248 + 248 + 496 over 8
+    batches; ResNeXt-50's grouped 3x3 none; the seven models' table holds
+    stems that take the simt body."""
+    from mxnet_tpu_torch.tools.image_zoo import zoo_symbol
+
+    main = cs.IMAGE_ZOO["main"]
+    sym = zoo_symbol(main["model"], main["classes"])
+    assert cs.wgrad_convs(sym) == 31
+    assert cs.resnet_wgrad_launches(31, main["batches"], True) == {
+        "conv_wgrad_partial": 248, "conv_wgrad_reduce": 248,
+        "conv_wgrad_repack": 496}
+    shapes = cs.wgrad_shapes(sym, main["image"], main["batch"])
+    assert sum(shapes.values()) == 31
+    assert all(cw.plan(*s[:5], 3, s[5], s[6], "bfloat16").route == "wgmma"
+               for s in shapes)
+    assert cs.wgrad_convs(zoo_symbol("resnext-50", 1000)) == 0
+    table = cs.zoo_wgrad_shapes(cs.IMAGE_ZOO)
+    assert sum(m.get("inception-bn", 0) for m in table.values()) == 31
+    assert not any("resnext-50" in m for m in table.values())
+    simt = [s for s in table if cw.plan(*s[:5], 3, s[5], s[6],
+                                        "bfloat16").route == "simt"]
+    assert (32, 299, 299, 3, 32, 2, 0) in simt and \
+        (32, 224, 224, 3, 64, 1, 1) in simt
+
+
+def test_image_zoo_gates_rest_on_the_cpu_spread_and_the_witness():
+    """1.5 x the CPU's own f32-vs-f64 distance, widened by the witness
+    ratio where it exceeds 1 (never narrowed); nothing of the card's run
+    enters a gate."""
+    cpu = {"m": {"update": 0.02, "aux": 3e-5, "ce": (1e-7, 2e-3)}}
+    assert cs.zoo_tol("m", cpu, {"m": 0.5}) == {
+        "update": pytest.approx(0.03), "aux": pytest.approx(4.5e-5),
+        "ce": (cs.IMAGE_ZOO_CE_FLOOR, pytest.approx(3e-3))}
+    assert cs.zoo_tol("m", cpu, {"m": 3.0}) == {
+        "update": pytest.approx(0.09), "aux": pytest.approx(1.35e-4),
+        "ce": (pytest.approx(4.5e-7), pytest.approx(9e-3))}
+    for table in (cs.IMAGE_ZOO_SPREAD, cs.IMAGE_ZOO_WITNESS):
+        assert set(table) == set(cs.IMAGE_ZOO["check"])
+    assert not hasattr(cs, "IMAGE_ZOO_CARD_SPREAD")
+    # alexnet's cross-entropy spread lies under the metric's resolution:
+    # its gate is the floor
+    assert cs.zoo_tol("alexnet")["ce"][0] == cs.IMAGE_ZOO_CE_FLOOR
+
+
+def test_image_zoo_spread_and_witness_on_cpu():
+    """tools/image_zoo_spread.py narrow: the spread's largest over seeds
+    is each measure's largest line; the witness covers every convolution
+    call (dW only where the port leaves it to autograd), and with the CPU
+    on both sides its ratio is 1."""
+    from mxnet_tpu_torch.tools import image_zoo_spread as zs
+
+    cfg = dict(cs.IMAGE_ZOO, check={"vgg16": 32, "googlenet": 64},
+               classes=10)
+    lines = [l for seed in (cs.SEED, cs.SEED + 1)
+             for l in zs.zoo_spread("vgg16", cfg, seed)]
+    assert [(l["seed"], l["batch"]) for l in lines] == [
+        (cs.SEED, 1), (cs.SEED, 2), (cs.SEED + 1, 1), (cs.SEED + 1, 2)]
+    top = zs.max_over_seeds(lines)
+    assert top["update"] == max(l["update_err_worst"] for l in lines
+                                if l["batch"] == 1) > 0
+    assert len(top["ce"]) == 2 and top["aux"] == 0.0
+    w = zs.conv_witness("vgg16", cfg, device="cpu")
+    assert w["convolutions"] == 13 and set(w["rms"]["cpu"]) == {"fwd",
+                                                                "dgrad"}
+    assert w["ratio"] == 1.0 and set(w["ratio_by_kind"]["card_native"]
+                                         .values()) == {1.0}
+    assert 0 < w["rms"]["cpu"]["fwd"] < 1e-5
+    w = zs.conv_witness("googlenet", cfg, device="cpu")
+    assert set(w["rms"]["card"]) == {"fwd", "dgrad", "wgrad"}
+
+
+def test_wgrad_gate_grows_as_the_root_of_the_terms():
+    assert cs.wgrad_rtol(32 * 7 * 7) == cs.WGRAD_RTOL
+    assert cs.wgrad_rtol(32 * 56 * 56) == cs.WGRAD_RTOL
+    assert cs.wgrad_rtol(4 * 32 * 56 * 56) == pytest.approx(
+        2 * cs.WGRAD_RTOL)
+
+
+def test_zoo_op_cases_cover_every_new_op():
+    """The card's op check runs the CPU test's table at full shapes: the
+    same cases, ops, differentiable inputs and kinds at both sizes; every
+    new op has a case; the exact kinds are the ops that only move, pick,
+    order or round."""
+    from mxnet_tpu_torch.tools.op_cases import op_cases
+    from test_torch_ops_core import NEW_OPS
+
+    big, small = op_cases(big=True), op_cases()
+    assert [(k, c.op, c.diff, c.exact, len(c.makers), len(c.aux))
+            for k, c in sorted(big.items())] == [
+        (k, c.op, c.diff, c.exact, len(c.makers), len(c.aux))
+        for k, c in sorted(small.items())]
+    assert {c.op for c in big.values()} == set(NEW_OPS)
+    exact = {c.op for c in big.values() if c.exact}
+    assert {"take", "pick", "sort", "argsort", "topk", "round", "Cast",
+            "broadcast_logical_xor", "Pad", "Crop", "slice", "tile",
+            "repeat", "flip", "transpose", "ROIPooling"} <= exact
