@@ -205,6 +205,28 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    from f64 (IMAGE_ZOO_WITNESS), Dropout at p = 0 through the JSON, with
    exact conv_wgrad launches (none for resnext's grouped 3x3). Prints each
    part's seconds.
+5b. ``ssd`` — MXNet's SSD (``tools/ssd.py``; ``ssd-vgg16``, 20 classes,
+   300 x 300, 1,756 anchors): (1) the nine contrib ops (``ctc_loss``,
+   ``fft`` / ``ifft``, ``count_sketch``, the MultiBox ops, ``Proposal``,
+   ``Correlation``) card vs CPU at full shapes, class targets and masks
+   bit for bit, the rest within ZOO_OP_RTOL (count_sketch's atomic sums
+   too); (2) 2 batches of 2 in f32 card vs CPU (``ssd_tol``: 1.5 x the
+   CPU's f32-vs-f64 distance over 3 seeds x SSD_WITNESS), then the
+   matching on the check's boxes (class targets and masks equal but at
+   an IoU within SSD_IOU_MARGIN of 0.5 or two ground truths within
+   SSD_TIE_MARGIN); (3) conv_wgrad at ssd's 20 3x3 shapes at batch 32,
+   bf16 and f32, against its plain version in f64; (4) batch 32, bf16, 8
+   batches through the captured ``fit_step``: conv_wgrad 24 a step, 17 on
+   the wgmma route (two repacks each) and 7 on the simt body (conv1_1,
+   the four class heads of 84 filters, conv8_2 and conv9_2: stride 2 on
+   odd sizes), ``sgd_mom_update_lr`` 54 a step; its eager twin and its
+   ``DevicePrefetchIter`` twin bit for bit (the twin with the same
+   launches); (5) the detection symbol
+   through ``Predictor`` at batch 1 and 8 with the trained weights:
+   replays = eager bit for bit, card vs CPU within SSD_DECODE_ATOL, keep
+   masks equal but after a near tie. Prints step ms, images/s, peak
+   memory, conv_wgrad ms a step by route, detect p50 and each part's
+   seconds.
 6. ``lstm``    — the fused 2-layer LSTM LM (the repo's widest LSTM record:
    vocab 10000, embed = hidden = 512, seq 35, f32, no TF32;
    ``mxnet_tpu_torch/tools/lstm_lm.py``) trained through ``Module.fit``:
@@ -335,7 +357,11 @@ from mxnet_tpu_torch.tools.seq_classify import fit_args as seq_fit_args
 from mxnet_tpu_torch.tools import zoo
 from mxnet_tpu_torch.tools.image_zoo import IMAGE_ZOO, dead_shifts, \
     image_cfg, wgrad_shapes, zoo_setup, zoo_symbol
-from mxnet_tpu_torch.tools.op_cases import op_cases
+from mxnet_tpu_torch.tools.op_cases import CONTRIB_OPS, exact_output, \
+    op_cases
+from mxnet_tpu_torch.tools.ssd import SSD, matching_excused, \
+    nms_explained, ssd_data, ssd_setup, ssd_symbol, ssd_targets
+from mxnet_tpu_torch.tools.ssd import fit_args as ssd_fit_args
 from mxnet_tpu_torch.tools.zoo import ZOO
 
 H100 = {"bf16_flops": 989e12, "f32_flops": 67e12, "int8_ops": 1979e12,
@@ -533,6 +559,27 @@ IMAGE_ZOO_WITNESS = {
     "inception-resnet-v2": 1.9104542027056515,
     "resnext-50": 1.2957730866515609,
 }
+# ssd phase, the card-vs-CPU check of ssd-vgg16 (f32, 2 batches of 2 at
+# 300 x 300): IMAGE_ZOO_GATE x its f32-vs-f64 distance on the card
+# machine's CPU, the largest over 3 seeds (``image_zoo_spread
+# ssd-vgg16``), x SSD_WITNESS where it exceeds 1 (``image_zoo_spread
+# --witness ssd-vgg16`` on the card: the library's f32 convolutions
+# alone); the cross-entropy's and the smooth L1's at least
+# IMAGE_ZOO_CE_FLOOR
+SSD_SPREAD = {"update": 0.0031823994279595647,
+              "ce": (8.923697830972527e-10, 1.8999707874949643e-10),
+              "smooth_l1": (7.144703715672134e-08, 1.6545086389912105e-07)}
+SSD_WITNESS = 3.268515427240454
+# matching and NMS are discontinuous: a class target or mask may differ
+# only at an anchor whose best IoU lies within SSD_IOU_MARGIN of the
+# overlap threshold or whose two best ground truths lie within
+# SSD_TIE_MARGIN; a keep mask only after a choice among scores within
+# SSD_SCORE_MARGIN or at an IoU within SSD_IOU_MARGIN of nms_threshold;
+# the decoded boxes and scores within SSD_DECODE_ATOL
+SSD_IOU_MARGIN = 1e-5
+SSD_TIE_MARGIN = 1e-6
+SSD_SCORE_MARGIN = 1e-6
+SSD_DECODE_ATOL = 1e-5
 # image_zoo phase, the new ops on the card against their CPU path: a
 # "close" op's outputs (libm, sums in another order) within ZOO_OP_RTOL
 # of the largest output; every gradient (scatter-adds, sums) within
@@ -1288,6 +1335,8 @@ def phase_kernel_bwd(torch):
         del q, k, v, o, lse, do, got, want
         torch.cuda.empty_cache()
 
+    lse_cases = _lse_cotangent_checks(torch, fa, gen)
+
     timings = {}
     h, hkv, t, d = 16, 4, 2048, 128
     # batch 4 in both types (the rows of earlier PRs), and the train
@@ -1308,8 +1357,61 @@ def phase_kernel_bwd(torch):
     timings["train_main"]["main_path_max_abs_err"] = main_err
     emit({"phase": "kernel", "kernel": "flash_attention_bwd",
           "instantiations": instantiations, "cases": results,
-          "max_abs_err": worst, "timings": timings})
+          "lse_cotangent": lse_cases, "max_abs_err": worst,
+          "timings": timings})
     return worst, timings
+
+
+def _lse_cotangent_checks(torch, fa, gen):
+    """The logsumexp's cotangent (``FlashAttentionLse``, the reference's
+    ``_flash_with_lse``): for one GQA causal case in each type, both
+    backward kernels with a nonzero g_lse folded into D against the plain
+    backward with the same g_lse (BWD_TOL); a zero g_lse equal to none
+    bit for bit on the kernels; the autograd function's gradients against
+    the plain backward's."""
+    out = []
+    for dtype in ("bfloat16", "float32"):
+        b, h, hkv, tq, tk, d, causal = 2, 8, 2, 256, 256, 128, True
+        q, k, v = _qkv(torch, b, h, hkv, tq, tk, d, dtype, gen, True)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        do = _randn(torch, b, h, tq, d, dtype, gen, True)
+        g_lse = torch.randn(b, h, tq, generator=gen, device="cuda")
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                     g_lse=g_lse)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                            g_lse=g_lse)
+        errs = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            atol, rtol = BWD_TOL[dtype][name]
+            torch.testing.assert_close(g.float(), w.float(), atol=atol,
+                                       rtol=rtol, msg=lambda m, n=name: (
+                                           "lse cotangent %s: %s" % (n, m)))
+            errs[name] = float((g.float() - w.float()).abs().max())
+        none = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        zero = fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                      g_lse=torch.zeros_like(g_lse))
+        if not all(torch.equal(a, z) for a, z in zip(none, zero)):
+            raise RuntimeError("flash backward %s: a zero lse cotangent "
+                               "changed the gradients" % dtype)
+        if all(torch.equal(a, g) for a, g in zip(none, got)):
+            raise RuntimeError("flash backward %s: the lse cotangent did "
+                               "not reach the kernels" % dtype)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out_a, lse_a = fa.FlashAttentionLse.apply(*leaves, causal, None)
+        torch.autograd.backward([out_a, lse_a], [do, g_lse])
+        auto = {}
+        for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+            atol, rtol = BWD_TOL[dtype][name]
+            torch.testing.assert_close(leaf.grad.float(), w.float(),
+                                       atol=atol, rtol=rtol)
+            auto[name] = float((leaf.grad.float() - w.float()).abs().max())
+        out.append({"shape": [b, h, hkv, tq, tk, d], "causal": causal,
+                    "dtype": dtype, "tol": BWD_TOL[dtype],
+                    "max_abs_err": errs, "autograd_max_abs_err": auto,
+                    "zero_cotangent_bit_for_bit": True})
+        del q, k, v, o, lse, do, g_lse, got, want, none, zero, leaves
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_kernel_update(torch):
@@ -5015,22 +5117,48 @@ def phase_resnet(cfg=RESNET, device=None, ref_device="cpu", seed=SEED):
     return launches
 
 
-def _captured_fit(torch, setup, kwargs, cfg, on_card, phase):
+def wgrad_routes(sym, image, batch, dtype):
+    """{route: conv_wgrad calls a step} of ``sym`` on ``batch`` images of
+    ``image`` in ``dtype`` (``conv_wgrad.plan``'s route of each shape)."""
+    from mxnet_tpu_torch.ops.kernels import conv_wgrad as cw
+
+    out = {}
+    for (n, h, w, c, k, stride, pad), count in wgrad_shapes(
+            sym, image, batch).items():
+        route = cw.plan(n, h, w, c, k, 3, stride, pad, dtype).route
+        out[route] = out.get(route, 0) + count
+    return out
+
+
+def _route_counters():
+    from mxnet_tpu_torch.ops.kernels import conv_wgrad as cw
+
+    return {route: (c,) for route, c in cw.partial_by_route.items()}
+
+
+def _captured_fit(torch, setup, kwargs, cfg, on_card, phase,
+                  measure="cross-entropy", twin=None):
     """One epoch of ``Module.fit`` of ``setup()`` through the captured
     fused step, then its eager twin (bit for bit, :func:`_eager_twin`).
     Gates: exact launches (every conv_wgrad call of each step, all of
-    ``cfg["dtype"]``, with two repacks a call in bf16 on the card: every
-    shape of the resnet and image_zoo runs takes the wgmma route; one
-    ``sgd_mom_update`` a parameter and batch), a finite cross-entropy
-    after every batch, the captured path taken on the card. Returns the
-    run's record and its launches."""
+    ``cfg["dtype"]``, on the card on each call's route of ``plan``, with
+    two repacks a call on the wgmma route; one ``sgd_mom_update`` a
+    parameter and batch), a finite ``measure`` after every batch, the
+    captured path taken on the card. ``twin(state, launches)``, run
+    last, returns a further record (another run held to this one's
+    parameters and launches). Returns
+    the run's record and its launches."""
     mod, it, init = setup()
-    counters = _resnet_counters()
+    counters, routes = _resnet_counters(), _route_counters()
     _fresh(torch, on_card)
     _zero(counters)
+    _zero(routes)
     step_ms, first_ms, metrics = _fit_timed(torch, mod, it, kwargs(init),
                                             on_card)
     launches, types = _count(counters), _types(counters)
+    by_route = _count(routes)
+    by_entry = {c.__name__: c.launches
+                for c in counters["sgd_mom_update"]}
     memory = _peak(torch, on_card)
     stats = mod.fit_step_stats()
     steps = cfg["batches"]
@@ -5038,24 +5166,39 @@ def _captured_fit(torch, setup, kwargs, cfg, on_card, phase):
     args, aux = state
     n_params = len(args)
     per_step = wgrad_convs(mod.symbol)
-    want = dict(resnet_wgrad_launches(
-        per_step, steps, on_card and cfg["dtype"] == "bfloat16"),
-        sgd_mom_update=n_params * steps)
+    per_route = wgrad_routes(mod.symbol, cfg["image"], cfg["batch"],
+                             cfg["dtype"])
+    want = dict(resnet_wgrad_launches(per_step, steps),
+                conv_wgrad_repack=2 * per_route.get("wgmma", 0) * steps
+                if on_card and cfg["dtype"] == "bfloat16" else 0,
+                sgd_mom_update=n_params * steps)
     if launches != want:
         raise RuntimeError("%s phase launched %s, want %s"
                            % (phase, launches, want))
+    want_routes = {r: per_route.get(r, 0) * steps if on_card else 0
+                   for r in by_route}
+    if by_route != want_routes:
+        raise RuntimeError("%s phase launched conv_wgrad by route %s, want "
+                           "%s" % (phase, by_route, want_routes))
+    # the captured step reads lr / wd on the card: the device-lr entry
+    want_entry = {"sgd_mom_update": 0,
+                  "sgd_mom_update_lr": n_params * steps}
+    if on_card and by_entry != want_entry:
+        raise RuntimeError("%s phase launched the update by entry %s, want "
+                           "%s" % (phase, by_entry, want_entry))
     _require_types(phase, types, launches, cfg["dtype"],
                    ["conv_wgrad_partial"])
-    ce_run = [m["cross-entropy"] for m in metrics]
+    ce_run = [m[measure] for m in metrics]
     if len(metrics) != steps or not all(np.isfinite(ce_run)):
-        raise RuntimeError("%s phase: %d batches, cross-entropy %s"
-                           % (phase, len(metrics), ce_run))
+        raise RuntimeError("%s phase: %d batches, %s %s"
+                           % (phase, len(metrics), measure, ce_run))
     _require_captured(phase, [stats], on_card)
     del mod
     eager = _eager_twin(torch, setup, kwargs, on_card, state,
                         "%s phase" % phase)
+    extra = {"twin": twin(state, launches)} if twin is not None else {}
     median_ms = _steady_ms(step_ms, on_card)
-    return {"batch": cfg["batch"], "batches": steps,
+    return {**extra, "batch": cfg["batch"], "batches": steps,
             "dtype": cfg["dtype"], "path": stats["path"], "steps": stats,
             "parameters": n_params,
             "elements": int(sum(a.size for a in args.values())),
@@ -5068,7 +5211,49 @@ def _captured_fit(torch, setup, kwargs, cfg, on_card, phase):
                           / eager["median_step_ms"] * 1e3),
             "captured_vs_eager": {"bit_for_bit": True},
             "launches": launches, "launches_by_type": types,
-            **memory}, launches
+            "conv_wgrad_by_route": by_route,
+            "conv_wgrad_routes_per_step": per_route,
+            "sgd_mom_update_by_entry": by_entry, **memory}, launches
+
+
+def _prefetch_twin(torch, setup, kwargs, on_card, want, want_launches,
+                   what, ctx=None):
+    """The captured run of ``setup()`` again, fed through
+    ``DevicePrefetchIter`` (pinned staging, its copy stream, the slot
+    events) over the same ``NDArrayIter``: the parameters must equal
+    ``want`` (the run fed directly) bit for bit and the kernels launch
+    ``want_launches``, through the captured path on the card. Returns its
+    step times."""
+    from mxnet_tpu_torch import io
+
+    _fresh(torch, on_card)
+    mod, it, init = setup()
+    counters = _resnet_counters()
+    _zero(counters)
+    pre = io.DevicePrefetchIter(it, ctx=ctx)
+    try:
+        step_ms, first_ms, _ = _fit_timed(torch, mod, pre, kwargs(init),
+                                          on_card)
+        stats = mod.fit_step_stats()
+        got = _host_state(mod)
+    finally:
+        pre.close()
+    del mod
+    launches = _count(counters)
+    if launches != want_launches:
+        raise RuntimeError("%s: fed through DevicePrefetchIter, launched %s, "
+                           "want %s" % (what, launches, want_launches))
+    _require_captured(what, [stats], on_card)
+    same = _equal_params(got[0], want[0])
+    if not same[0]:
+        raise RuntimeError(
+            "%s: fed through DevicePrefetchIter, %d parameters land off the "
+            "NDArrayIter run's, the worst %s by %g" % (what, same[3],
+                                                       same[2], same[1]))
+    return {"iterator": "DevicePrefetchIter(depth 2)", "path": stats["path"],
+            "steps": stats, "step_ms": step_ms, "first_batch_ms": first_ms,
+            "median_step_ms": _steady_ms(step_ms, on_card),
+            "launches": launches, "bit_for_bit_with_ndarray_iter": True}
 
 
 # --- image_zoo ---------------------------------------------------------------
@@ -5101,19 +5286,25 @@ def _run_op(torch, op, arrays, aux_arrays, attrs, diff, cot_seed, device):
     return [host(o) for o in outs] + [host(a) for a in aux_up], grads
 
 
-def _zoo_ops_check(torch, device, ref_device, seed):
+def _zoo_ops_check(torch, device, ref_device, seed, contrib=False):
     """Each case of ``tools/op_cases.py`` at full shapes on ``device``
-    against ``ref_device``: an ``exact`` case's outputs bit for bit
-    (indexing, ordering with ties, rounding, Cast, the logical ops, the
-    pads, crops and moves), any other's within ZOO_OP_RTOL of the
-    reference's largest output (libm and summation order differ); every
-    gradient within ZOO_GRAD_RTOL of its largest entry (scatter-adds and
-    sums in another order). Returns {case: max |error|} of outputs and
-    gradients."""
+    against ``ref_device``, the core ops' or (``contrib``) the
+    nine contrib ops': an ``exact`` output bit for bit (indexing,
+    ordering with ties, rounding, Cast, the logical ops, the pads, crops
+    and moves, MultiBoxTarget's mask and class targets), any other within
+    ZOO_OP_RTOL of the reference's largest output (libm and summation
+    order differ; a keep mask or class that differs moves a
+    MultiBoxDetection or Proposal row by far more); every gradient within
+    ZOO_GRAD_RTOL of its largest entry (scatter-adds, count_sketch's
+    atomic index_add and sums in another order). Returns {case: max
+    |error|} of outputs and gradients."""
     errs, failures = {}, []
-    for k, (name, (op, makers, attrs, diff, exact, aux)) in enumerate(
-            sorted(op_cases(big=True).items())):
-        kind = "exact" if exact else "close"
+    cases = sorted((k, c) for k, c in op_cases(big=True).items()
+                   if (c.op in CONTRIB_OPS) == contrib)
+    for k, (name, case) in enumerate(cases):
+        op, makers, attrs, diff, exact, aux = case
+        kind = "exact" if exact is True else "close" if not exact \
+            else "exact outputs %s" % (list(exact),)
         rng = np.random.RandomState(seed + k)
         arrays = [m(rng) for m in makers]
         aux_arrays = [m(rng) for m in aux]
@@ -5126,20 +5317,20 @@ def _zoo_ops_check(torch, device, ref_device, seed):
         want, want_g = _run_op(torch, op, arrays, aux_arrays, attrs, diff,
                                cot_seed, ref_device)
         out_err = grad_err = 0.0
-        for g, w in zip(got, want):
+        for i, (g, w) in enumerate(zip(got, want)):
             if g.shape != w.shape:
                 failures.append("%s: shape %s vs %s" % (name, g.shape,
                                                         w.shape))
                 continue
-            if kind == "exact":
-                if not np.array_equal(g, w, equal_nan=True):
-                    failures.append("%s: not bit for bit" % name)
+            bitwise = exact_output(case, i)
+            if bitwise and not np.array_equal(g, w, equal_nan=True):
+                failures.append("%s: output %d not bit for bit" % (name, i))
             fin = np.isfinite(w)
             err = float(np.abs(g - w)[fin].max()) if fin.any() else 0.0
             out_err = max(out_err, err)
             if not np.array_equal(np.isfinite(g), fin):
                 failures.append("%s: finite at other places" % name)
-            elif kind == "close" and not err <= ZOO_OP_RTOL * float(
+            elif not bitwise and not err <= ZOO_OP_RTOL * float(
                     np.abs(w[fin]).max()):
                 failures.append("%s: off by %g of max %g" % (
                     name, err, float(np.abs(w[fin]).max())))
@@ -5181,7 +5372,7 @@ def zoo_wgrad_shapes(cfg):
     return shapes
 
 
-def _zoo_wgrad(torch, cfg, device, on_card, seed):
+def _zoo_wgrad(torch, cfg, device, on_card, seed, shapes=None):
     """conv_wgrad at every shape of :func:`zoo_wgrad_shapes`, bf16 and f32,
     on the NHWC views of NCHW tensors as the Convolution op passes them:
     against its plain version in f64 (``wgrad_rtol`` of max |dW|: the
@@ -5189,7 +5380,8 @@ def _zoo_wgrad(torch, cfg, device, on_card, seed):
     each case's route named; on the card each timed beside the plain
     version and cuDNN's wgrad (CUDA events), with its bound. Fails unless
     the bf16 shapes reach both the wgmma and the simt bodies and the f32
-    ones the f32 body. Returns (rows, worst error by type)."""
+    ones the f32 body. ``shapes``: another table of that form (ssd's).
+    Returns (rows, worst error by type)."""
     from mxnet_tpu_torch.ops.kernels import conv_wgrad as cw
 
     gen = torch.Generator(device=device).manual_seed(seed + 29)
@@ -5197,7 +5389,7 @@ def _zoo_wgrad(torch, cfg, device, on_card, seed):
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         for (n, h, w, c, k, stride, pad), models in sorted(
-                zoo_wgrad_shapes(cfg).items()):
+                (shapes or zoo_wgrad_shapes(cfg)).items()):
             oh, ow = cw.out_size(h, 3, stride, pad), cw.out_size(w, 3, stride,
                                                                 pad)
             x = torch.randn(n, c, h, w, generator=gen, device=device).to(dt)
@@ -5243,7 +5435,7 @@ def _zoo_wgrad(torch, cfg, device, on_card, seed):
             worst[dtype] = max(worst.get(dtype, 0.0), err)
             del x, dy, xv, dv, got, again, want
     if routes != {"bfloat16": {"wgmma", "simt"}, "float32": {"f32"}}:
-        raise RuntimeError("image_zoo conv_wgrad shapes took the routes %s"
+        raise RuntimeError("the conv_wgrad shape table took the routes %s"
                            % routes)
     return rows, worst
 
@@ -5332,6 +5524,296 @@ def phase_image_zoo(cfg=IMAGE_ZOO, device=None, ref_device="cpu", seed=SEED,
                  for k in ("conv_wgrad_partial", "conv_wgrad_reduce")}
     return {"main": launches, "check": check_sum, "wgrad": rows,
             "wgrad_max_abs_err": wgrad_worst}
+
+
+# --- ssd ---------------------------------------------------------------------
+def ssd_tol(spread=None, witness=None):
+    """The ssd check's gates: IMAGE_ZOO_GATE x its CPU f32-vs-f64
+    distances (``spread``, default SSD_SPREAD) x the larger of 1 and its
+    witness ratio (``witness``, default SSD_WITNESS); the cross-entropy's
+    and the smooth L1's at least IMAGE_ZOO_CE_FLOOR."""
+    s = spread or SSD_SPREAD
+    scale = IMAGE_ZOO_GATE * max(1.0, SSD_WITNESS if witness is None
+                                 else witness)
+    return {"update": scale * s["update"],
+            "ce": tuple(max(scale * c, IMAGE_ZOO_CE_FLOOR)
+                        for c in s["ce"]),
+            "smooth_l1": tuple(max(scale * c, IMAGE_ZOO_CE_FLOOR)
+                               for c in s["smooth_l1"])}
+
+
+def _ssd_matching(cfg, device, ref_device, seed):
+    """MultiBoxTarget on the check's labels with the model's anchors, on
+    ``device`` and on ``ref_device``: the class targets and the mask
+    equal but at the anchors a rounding may flip
+    (``ssd.matching_excused``: a best IoU within SSD_IOU_MARGIN of the
+    threshold, two ground truths within SSD_TIE_MARGIN); the location
+    targets of the anchors positive on both within SSD_DECODE_ATOL."""
+    _, labels = ssd_data(cfg, cfg["check_batch"], cfg["check_steps"],
+                         seed + 1)
+    got = ssd_targets(cfg, labels, device)
+    want = ssd_targets(cfg, labels, ref_device)
+    anchors, b = want[0], labels.shape[0]
+    excused = matching_excused(anchors, labels, cfg["overlap_threshold"],
+                               SSD_IOU_MARGIN, SSD_TIE_MARGIN)
+    mask_g, mask_w = (m.reshape(b, -1, 4)[..., 0] for m in (got[2], want[2]))
+    differ = (got[3] != want[3]) | (mask_g != mask_w)
+    if (differ & ~excused).any():
+        raise RuntimeError("ssd matching: %d anchors' targets differ between "
+                           "the devices outside the excused ones"
+                           % int((differ & ~excused).sum()))
+    both = np.repeat(((mask_g > 0) & (mask_w > 0))[..., None], 4,
+                     axis=-1).reshape(b, -1)
+    loc_err = float(np.abs(got[1] - want[1])[both].max()) if both.any() \
+        else 0.0
+    if not loc_err <= SSD_DECODE_ATOL:
+        raise RuntimeError("ssd matching: location targets differ by %g"
+                           % loc_err)
+    return {"anchors": int(anchors.shape[1]),
+            "anchor_max_abs_err": float(np.abs(got[0] - anchors).max()),
+            "positive": int((mask_w > 0).sum()),
+            "excused": int(excused.sum()), "differ": int(differ.sum()),
+            "loc_target_max_abs_err": loc_err}
+
+
+def _ssd_check(cfg, device, ref_device, tol, seed):
+    """ssd-vgg16 card vs CPU: one ``Module.fit`` epoch (``check_steps``
+    batches of ``check_batch``, f32) on ``device`` and on ``ref_device``
+    from the same weights and batches. Gates: each parameter's batch-1
+    update within ``tol["update"]`` of the reference's; the multibox
+    metric's cross-entropy and smooth L1 after each batch within
+    ``tol["ce"]`` / ``tol["smooth_l1"]`` (relative); every conv_wgrad call
+    launched (f32 route on the card); the matching
+    (:func:`_ssd_matching`)."""
+    import torch
+
+    counters, routes = _resnet_counters(), _route_counters()
+    runs = []
+    for dev in (device, ref_device):
+        mod, it, init = ssd_setup(cfg, cfg["check_batch"],
+                                  cfg["check_steps"], dev, seed)
+        if not runs:
+            _zero(counters)
+            _zero(routes)
+        runs.append(_fit_recorded(mod, it, init, ssd_fit_args(cfg, init)))
+        if len(runs) == 1:
+            launches, by_route = _count(counters), _count(routes)
+        calls = wgrad_convs(mod.symbol) * cfg["check_steps"]
+        del mod
+    (got_s, got_m), (ref_s, ref_m) = runs
+    on_card = device is None or torch.device(device).type == "cuda"
+    failures = []
+    if (launches["conv_wgrad_partial"], launches["conv_wgrad_reduce"]) != \
+            (calls, calls) or (on_card and by_route["f32"] != calls):
+        failures.append("conv_wgrad launched %s (by route %s), want %d + %d"
+                        % (launches, by_route, calls, calls))
+    init_err = max(float(np.abs(got_s[0][0][n] - ref_s[0][0][n]).max())
+                   for n in ref_s[0][0])
+    if init_err != 0.0:
+        failures.append("initial weights differ by %g" % init_err)
+    upd = [_change_errs(got_s[0][0], got_s[b][0], ref_s[0][0], ref_s[b][0])
+           for b in range(1, len(ref_m) + 1)]
+    worst = max(upd[0], key=upd[0].get)
+    if not upd[0][worst] <= tol["update"]:
+        failures.append("batch-1 update of %s off by %g (tol %g)"
+                        % (worst, upd[0][worst], tol["update"]))
+    rel = {k: [abs(g[k] - r[k]) / r[k] for g, r in zip(got_m, ref_m)]
+           for k in ("cross-entropy", "smooth_l1")}
+    for k, key in (("cross-entropy", "ce"), ("smooth_l1", "smooth_l1")):
+        for b, (err, t) in enumerate(zip(rel[k], tol[key])):
+            if not err <= t:
+                failures.append("batch-%d %s off by %g (tol %g)"
+                                % (b + 1, k, err, t))
+    if failures:
+        raise RuntimeError("ssd check: " + "; ".join(failures))
+    matching = _ssd_matching(cfg, device, ref_device, seed)
+    return {"batch": cfg["check_batch"], "batches": len(ref_m),
+            "metrics": got_m, "ref_metrics": ref_m,
+            "ce_rel_err": rel["cross-entropy"],
+            "smooth_l1_rel_err": rel["smooth_l1"],
+            "update_err": [{"worst": max(u.values()),
+                            "worst_name": max(u, key=u.get),
+                            "median": float(np.median(list(u.values())))}
+                           for u in upd],
+            "tol": tol, "conv_wgrad": launches,
+            "conv_wgrad_by_route": by_route, "matching": matching}
+
+
+def _ssd_detect_gates(got, want, cls_prob, cfg):
+    """One batch of MultiBoxDetection rows on the card (``got``) against
+    the CPU's (``want``, from ``cls_prob``): scores and boxes of every
+    anchor within SSD_DECODE_ATOL; each image's keep mask equal, or
+    different only after a near-degenerate greedy choice
+    (``ssd.nms_explained``); the class of an anchor kept on both equal,
+    or the CPU's two best classes within SSD_SCORE_MARGIN. Returns the
+    record."""
+    decode = float(np.abs(got[..., 1:] - want[..., 1:]).max())
+    if not decode <= SSD_DECODE_ATOL:
+        raise RuntimeError("ssd detect: scores / boxes differ by %g"
+                           % decode)
+    excused, kept = 0, 0
+    for i in range(want.shape[0]):
+        keep_g, keep_w = got[i, :, 0] >= 0, want[i, :, 0] >= 0
+        kept += int(keep_w.sum())
+        ok, n, first = nms_explained(
+            want[i, :, 2:], want[i, :, 1], want[i, :, 1] > 0.01, keep_g,
+            keep_w, cfg["nms_threshold"], SSD_SCORE_MARGIN, SSD_IOU_MARGIN)
+        if not ok:
+            raise RuntimeError("ssd detect: image %d keeps %d anchors "
+                               "differently, the first at score %.9g, with "
+                               "no near tie above it" % (i, n, first))
+        excused += n
+        both = keep_g & keep_w
+        flips = np.flatnonzero(both & (got[i, :, 0] != want[i, :, 0]))
+        if flips.size:
+            top = np.sort(cls_prob[i, 1:, flips], axis=0)
+            if not ((top[-1] - top[-2]) < SSD_SCORE_MARGIN).all():
+                raise RuntimeError("ssd detect: image %d: %d kept anchors "
+                                   "change class" % (i, flips.size))
+            excused += int(flips.size)
+    return {"decode_max_abs_err": decode, "kept": kept,
+            "excused": excused}
+
+
+def _ssd_detect(torch, cfg, params, device, ref_device, seed, on_card):
+    """The detection symbol (softmax, MultiBoxDetection; its class
+    probabilities as a second output) through ``predict.Predictor`` with
+    the run's trained weights, at each of ``cfg["detect_batches"]``: each
+    bind the captured path, its replays equal the eager forward
+    (MXNET_CUDA_GRAPH=0) bit for bit, the card against the CPU's
+    Predictor under :func:`_ssd_detect_gates`; on the card the forward's
+    ms (p50 of 20)."""
+    from mxnet_tpu_torch import predict
+    from mxnet_tpu_torch import symbol as msym
+
+    det = ssd_symbol(cfg, "detect")
+    group = msym.Group([det, det.get_internals()["cls_prob_output"]])
+    sym = group.tojson()
+    out = {}
+    for b in cfg["detect_batches"]:
+        shape = {"data": (b,) + tuple(cfg["image"])}
+        x = np.random.RandomState(seed + 40 + b).uniform(
+            -1, 1, shape["data"]).astype(np.float32)
+        p = predict.Predictor(sym, params, shape, device=device)
+        runs = [[o._data.cpu().numpy() for o in p.forward(data=x)]
+                for _ in range(4)]
+        with cuda_graph(False):
+            e = p.reshape(shape)
+        eager = [o._data.cpu().numpy() for o in e.forward(data=x)]
+        for r in runs[2:]:
+            if not all(np.array_equal(a, w) for a, w in zip(r, eager)):
+                raise RuntimeError("ssd detect at batch %d: a replay differs "
+                                   "from the eager forward" % b)
+        path = _require_predictor_capture("ssd detect at batch %d" % b, p,
+                                          on_card)
+        ref = predict.Predictor(sym, params, shape, device=ref_device)
+        want, want_prob = (o.asnumpy() for o in ref.forward(data=x))
+        got = runs[-1][0]
+        if got.shape != (b, want.shape[1], 6):
+            raise RuntimeError("ssd detect at batch %d gave %s" % (b,
+                                                                   got.shape))
+        rec = dict(_ssd_detect_gates(got, want, want_prob, cfg),
+                   path=path, replays_equal_eager=True)
+        if on_card:
+            rec["forward_ms_p50"] = time_ms(
+                torch, lambda: p.forward(data=x), reps=20)
+            rec["eager_forward_ms_p50"] = time_ms(
+                torch, lambda: e.forward(data=x), reps=5, warmup=1)
+        out[str(b)] = rec
+        del p, e, ref
+    return out
+
+
+def wgrad_route_step(rows, dtype):
+    """ms, plain_ms, library_ms and bound_ms of one step's conv_wgrad
+    calls (``rows``: :func:`_zoo_wgrad` over ssd's shapes) in ``dtype``,
+    by route."""
+    out = {}
+    for r in rows:
+        if r["dtype"] != dtype or "ms" not in r:
+            continue
+        calls = sum(r["per_step"].values())
+        acc = out.setdefault(r["route"], {"calls": 0})
+        acc["calls"] += calls
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            acc[key] = acc.get(key, 0.0) + r[key] * calls
+    return out
+
+
+def phase_ssd(cfg=SSD, device=None, ref_device="cpu", seed=SEED,
+              spread=None, witness=None):
+    """SSD (``tools/ssd.py``): the nine contrib ops card vs CPU
+    (``tools/op_cases.py`` at full shapes); ssd-vgg16 card
+    vs CPU (:func:`_ssd_check`, gates :func:`ssd_tol` of ``spread`` and
+    ``witness``); conv_wgrad at ssd's 3x3 shapes, bf16 and f32, against
+    its plain version in f64; the run at full width, bf16, through the
+    captured fit step with exact launches (conv_wgrad by route and type,
+    the repacks, ``sgd_mom_update_lr``), its eager twin and its
+    DevicePrefetchIter twin bit for bit (the latter with the same
+    launches); the detection symbol through
+    ``Predictor``. ``device`` None = the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    on_card = device is None or torch.device(device).type == "cuda"
+    dev = "cuda" if device is None else device
+    seconds = {}
+    ops = _zoo_ops_check(torch, dev, ref_device, seed, contrib=True)
+    seconds["ops"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    _fresh(torch, on_card)
+    check = _ssd_check(dict(cfg, dtype="float32"), device, ref_device,
+                       ssd_tol(spread, witness), seed)
+    seconds["check"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    sym = ssd_symbol(cfg)
+    shapes = {key: {cfg["model"]: n} for key, n in wgrad_shapes(
+        sym, cfg["image"], cfg["batch"]).items()}
+    rows, wgrad_worst = _zoo_wgrad(torch, cfg, dev, on_card, seed,
+                                   shapes=shapes)
+    seconds["conv_wgrad"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    _fresh(torch, on_card)
+
+    def setup():
+        return ssd_setup(cfg, cfg["batch"], cfg["batches"], device, seed,
+                         compute_dtype=cfg["dtype"])
+
+    def kwargs(init):
+        return ssd_fit_args(cfg, init)
+
+    trained = {}
+
+    def twin(state, launches):
+        trained["args"] = state[0]
+        return _prefetch_twin(torch, setup, kwargs, on_card, state, launches,
+                              "ssd phase", ctx=None if on_card else dev)
+
+    run, launches = _captured_fit(torch, setup, kwargs, cfg, on_card, "ssd",
+                                  measure="smooth_l1", twin=twin)
+    prefetch = run.pop("twin")
+    seconds["run"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    _fresh(torch, on_card)
+    params = {"arg:" + n: v for n, v in trained["args"].items()}
+    detect = _ssd_detect(torch, cfg, params, device, ref_device, seed,
+                         on_card)
+    seconds["detect"] = time.perf_counter() - t1
+    seconds["phase"] = time.perf_counter() - t0
+    emit({"phase": "ssd", "model": cfg["model"], "classes": cfg["classes"],
+          "image": list(cfg["image"]), "anchors": check["matching"][
+              "anchors"], **run, "prefetch": prefetch,
+          "wgrad_step_by_route": {dtype: wgrad_route_step(rows, dtype)
+                                  for dtype in ("bfloat16", "float32")},
+          "check": check, "detect": detect, "ops": ops,
+          "wgrad_shapes": rows, "wgrad_max_abs_err": wgrad_worst,
+          "seconds": seconds})
+    return {"main": launches, "check": check["conv_wgrad"], "wgrad": rows,
+            "wgrad_max_abs_err": wgrad_worst, "ops": ops}
 
 
 def _reset_peak(torch):
@@ -6581,6 +7063,7 @@ def main():
     train = phase_train()
     resnet = phase_resnet()
     image_zoo = phase_image_zoo()
+    ssd = phase_ssd()
     lstm = phase_lstm()
     zoo_launches = phase_zoo()
     seq_launches = phase_seq()
@@ -6629,6 +7112,7 @@ def main():
         if kind in resnet:
             by_phase["resnet"] = resnet[kind]
             by_phase["image_zoo"] = image_zoo["main"][kind]
+            by_phase["ssd"] = ssd["main"][kind]
         if kind in bucketing:
             # the Updater's scalar entry, and the captured step's lr entry
             by_phase["bucketing"] = bucketing[kind]
@@ -6657,7 +7141,9 @@ def main():
     wgrad_by_phase = {
         "resnet": sum(resnet[k] for k in wgrad_parts),
         "image_zoo": sum(image_zoo["main"][k] for k in wgrad_parts),
-        "image_zoo_check": sum(image_zoo["check"].values())}
+        "image_zoo_check": sum(image_zoo["check"].values()),
+        "ssd": sum(ssd["main"][k] for k in wgrad_parts),
+        "ssd_check": sum(ssd["check"][k] for k in wgrad_parts)}
     rows.append({
         "name": "conv_wgrad", "route": "cuda", "source": WGRAD_SRC,
         "replaces": WGRAD_REPLACES,
@@ -6667,6 +7153,8 @@ def main():
             part: resnet["conv_wgrad_" + part]
             + image_zoo["main"]["conv_wgrad_" + part]
             + image_zoo["check"].get("conv_wgrad_" + part, 0)
+            + ssd["main"]["conv_wgrad_" + part]
+            + ssd["check"]["conv_wgrad_" + part]
             for part in ("partial", "reduce", "repack")},
         "max_abs_err": max(wgrad_worst.values()), "max_err": wgrad_worst,
         "dtype": RESNET["dtype"],
@@ -6682,7 +7170,8 @@ def main():
         "float32": wgrad_step["float32"],
         "per_shape": wgrad_timings,
         "image_zoo_max_err": image_zoo["wgrad_max_abs_err"],
-        "image_zoo_shapes": image_zoo["wgrad"]})
+        "image_zoo_shapes": image_zoo["wgrad"],
+        "ssd_max_err": ssd["wgrad_max_abs_err"], "ssd_shapes": ssd["wgrad"]})
     t = lstm_timings["float32"]
     rows.append({
         "name": "lstm_step", "route": "cuda", "source": LSTM_SRC,

@@ -1,13 +1,14 @@
 """Model zoo: symbolic network definitions, the counterpart of
-``mxnet_tpu/models`` (reference example/image-classification/symbols and
-example/rnn) but for ``ssd-vgg16``, whose detection ops are not ported yet.
+``mxnet_tpu/models`` (reference example/image-classification/symbols,
+example/rnn and example/ssd), every builder key of the JAX package's.
 
-Each builder returns a Symbol whose head is a SoftmaxOutput named
-``softmax``, so every model drops into ``Module.fit`` unchanged.
+Each classifier's head is a SoftmaxOutput named ``softmax``, so it drops
+into ``Module.fit`` unchanged; ``ssd-vgg16`` groups its class
+probabilities, location loss and class targets (``models/ssd.py``).
 Factory: ``get_symbol(name, num_classes=..., **kwargs)``.
 """
 from . import (alexnet, googlenet, inception_bn, inception_resnet_v2,
-               inception_v3, lenet, lstm_lm, mlp, resnet, resnext,
+               inception_v3, lenet, lstm_lm, mlp, resnet, resnext, ssd,
                transformer, vgg)
 
 _BUILDERS = {
@@ -34,6 +35,7 @@ _BUILDERS = {
     "resnext-152": lambda **kw: resnext.get_symbol(num_layers=152, **kw),
     "transformer-lm": transformer.get_symbol,
     "lstm-lm": lstm_lm.get_symbol,
+    "ssd-vgg16": ssd.get_symbol,
 }
 
 

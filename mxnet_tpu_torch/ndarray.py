@@ -108,7 +108,11 @@ class NDArray:
         return self.asnumpy().reshape(())[()]
 
     def astype(self, dtype):
-        return NDArray(self._data.to(_as_torch_dtype(dtype)))
+        """A copy in ``dtype``; a float to an integer type saturates as
+        the ``Cast`` op does."""
+        from .ops.elemwise import saturating_cast
+
+        return NDArray(saturating_cast(self._data, _as_torch_dtype(dtype)))
 
     def copy(self) -> "NDArray":
         return NDArray(self._data.clone())

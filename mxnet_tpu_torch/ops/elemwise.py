@@ -83,14 +83,69 @@ _binary_scalar("_lesser_scalar", _cmp(torch.lt))
 _binary_scalar("_lesser_equal_scalar", _cmp(torch.le))
 
 # --- unary (reference elemwise_unary_op.cc + the SimpleOp registry) ---------
+class _Abs(torch.autograd.Function):
+    """|x| with ``jax.grad(jnp.abs)``'s gradient: g where x >= 0 (at -0
+    too), -g elsewhere (NaN included); ``torch.abs`` gives 0 at 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+class _Cbrt(torch.autograd.Function):
+    """The real cube root, negative below 0 and -0 at -0 (``jnp.cbrt``;
+    PyTorch has none, and ``x ** (1 / 3)`` is NaN below 0), with JAX's
+    gradient g / (3 cbrt(x)^2): +inf at both zeros."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.copysign(x.abs().pow(1.0 / 3.0), x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * ((1.0 / 3.0) * (1.0 / (y * y)))
+
+
+class _Lgamma(torch.autograd.Function):
+    """log|Gamma(x)| with JAX's gradient, digamma(x), which is NaN at both
+    zeros (``torch.digamma`` gives -inf at 0 and +inf at -0)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.lgamma(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        d = torch.digamma(x)
+        return g * torch.where(x == 0, torch.full_like(d, float("nan")), d)
+
+
+def abs_(x):
+    """|x| with the JAX package's gradient at 0 (:class:`_Abs`)."""
+    return _Abs.apply(x)
+
+
 def _cbrt(x):
-    """The real cube root, negative for x < 0 (``jnp.cbrt``; PyTorch has
-    none, and ``x ** (1 / 3)`` is NaN below 0)."""
-    return torch.sign(x) * x.abs().pow(1.0 / 3.0)
+    return _Cbrt.apply(x)
+
+
+def _lgamma(x):
+    return _Lgamma.apply(x)
 
 
 for _n, _fn in (
-        ("negative", torch.neg), ("abs", torch.abs), ("sign", torch.sign),
+        ("negative", torch.neg), ("abs", abs_), ("sign", torch.sign),
         ("rint", torch.round), ("round", torch.round), ("ceil", torch.ceil),
         ("floor", torch.floor), ("trunc", torch.trunc), ("fix", torch.trunc),
         ("square", torch.square), ("sqrt", torch.sqrt),
@@ -104,8 +159,8 @@ for _n, _fn in (
         ("tanh", torch.tanh), ("arcsinh", torch.asinh),
         ("arccosh", torch.acosh), ("arctanh", torch.atanh),
         ("degrees", torch.rad2deg), ("radians", torch.deg2rad),
-        ("gamma", lambda x: torch.exp(torch.lgamma(x))),
-        ("gammaln", torch.lgamma), ("reciprocal", lambda x: 1.0 / x),
+        ("gamma", lambda x: torch.exp(_lgamma(x))),
+        ("gammaln", _lgamma), ("reciprocal", lambda x: 1.0 / x),
         ("relu", torch.relu), ("sigmoid", torch.sigmoid),
         ("softsign", lambda x: x / (1.0 + x.abs())), ("erf", torch.erf),
         ("erfinv", torch.erfinv),
@@ -123,11 +178,31 @@ def torch_dtype(name):
     return getattr(torch, str(np.dtype(name)))
 
 
+def saturating_cast(data, dtype):
+    """``data`` in ``dtype`` as the JAX package converts it: a float to an
+    integer type truncates toward zero, saturates at the type's bounds and
+    sends NaN to 0; every other conversion is ``Tensor.to``'s. The bounds
+    are compared as floats (2^31 is one; 2^31 - 1 is not an f32), every
+    out-of-range value is replaced before the conversion (what a device
+    does with one is its own), and the integer bound selected after."""
+    if not data.is_floating_point() or dtype.is_floating_point \
+            or dtype == torch.bool:
+        return data.to(dtype)
+    info = torch.iinfo(dtype)
+    t = torch.trunc(data)
+    high = t >= float(info.max) + 1.0      # a power of two: exact
+    low = t < float(info.min)
+    out = torch.where(high | low | torch.isnan(t), torch.zeros_like(t),
+                      t).to(dtype)
+    out = torch.where(high, torch.full_like(out, info.max), out)
+    return torch.where(low, torch.full_like(out, info.min), out)
+
+
 @defop("Cast", arg_names=("data",), param_spec={"dtype": "float32"})
 def _cast(attrs, data):
     """Cast to ``dtype`` (reference elemwise_unary_op.cc Cast): the float
-    types, bfloat16 and the integer types (toward zero)."""
-    return data.to(torch_dtype(attrs["dtype"]))
+    types, bfloat16 and the integer types (:func:`saturating_cast`)."""
+    return saturating_cast(data, torch_dtype(attrs["dtype"]))
 
 
 @defop("smooth_l1", arg_names=("data",), param_spec={"scalar": 1.0})

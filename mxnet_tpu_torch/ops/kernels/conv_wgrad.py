@@ -66,6 +66,13 @@ RESIDENT = {(F32, 64): 2, (F32, 128): 1, (F32_TAP, 64): 3,
             (SIMT, 64): 2}
 # rows of L a split sums at least
 MIN_SPLIT_ROWS = 256
+# the wgmma route's longest split: 256 tiles of 64 rows (16,384 rows of L)
+# summed one after another in a block's f32 accumulators. The rounding of
+# that sequential sum grows with its length: on the card SSD's 37 x 37 x
+# 256 and 75 x 75 x 256 shapes, at 395 and 686 tiles a split, lay 1.1-1.2
+# times past conv_wgrad's gate, the image zoo's longest (56 x 56 x 256, at
+# 256) at 0.89 of it
+MAX_SPLIT_UNITS = 256
 # flop/s a route's partial kernel is planned at (not measured: the split
 # plan weighs the reduction's bytes against the products with them)
 RATE = {"f32": 40e12, "wgmma": 400e12, "simt": 20e12}
@@ -136,21 +143,27 @@ def conv_wgrad_plain(x, dy, ksz, stride=1, pad=None):
     return out
 
 
-def pick_splits(tiles, slots, units, step, min_units, reduce_cost=0.0):
+def pick_splits(tiles, slots, units, step, min_units, reduce_cost=0.0,
+                max_units=None):
     """(splits, chunk) of ``units`` of reduction over ``tiles`` output
     blocks on ``slots`` resident blocks: ``chunk`` a multiple of ``step``
-    and at least ``min_units`` (unless the whole is less), no split empty.
+    and at least ``min_units`` (unless the whole is less), at most
+    ``max_units`` where given, no split empty.
     The blocks run in rounds of ``slots``, each block 1/splits of the
     work, and the reduction reads every split's slice again, each
     ``reduce_cost`` of the work: the time goes as
     ceil(tiles * splits / slots) / splits + reduce_cost * splits, from at
     least one round's worth of blocks (a block alone on an SM leaves it
     idle in part). Returns the fewest splits within 5% of the best."""
-    top = max(1, min(units // max(min_units, 1),
-                     4 * _cdiv(slots, tiles) + 1, 65535))
+    least = _cdiv(units, max_units) if max_units else 1
+    top = max(least, min(units // max(min_units, 1),
+                         4 * _cdiv(slots, tiles) + 1, 65535))
     cands = []
-    for want in range(min(top, max(1, slots // tiles)), top + 1):
+    for want in range(max(least, min(top, max(1, slots // tiles))),
+                      top + 1):
         chunk = _cdiv(_cdiv(units, want), step) * step
+        if max_units and chunk > max_units:
+            continue
         s = _cdiv(units, chunk)
         cands.append((_cdiv(tiles * s, slots) / s + reduce_cost * s, s,
                       chunk))
@@ -214,7 +227,8 @@ def plan(n, h, w, c, k, ksz, stride, pad, dtype):
         tiles = _cdiv(ksz * ksz * _cdiv(c, WG_M), WG_GROUPS) * _cdiv(k, bn)
         splits, chunk = pick_splits(tiles, RESIDENT[(WGMMA, bn)] * SMS,
                                     units, 1, MIN_SPLIT_ROWS // WG_ROWS,
-                                    reduce_cost(l, RATE["wgmma"]))
+                                    reduce_cost(l, RATE["wgmma"]),
+                                    MAX_SPLIT_UNITS)
         return Plan("wgmma", WGMMA, bn, (bw, bh, bi), tiles, units, 1,
                     splits, chunk)
     tiles = _cdiv(m, SIMT_TILE) * _cdiv(k, SIMT_TILE)
@@ -311,6 +325,7 @@ def conv_wgrad_partial(x, dy, ksz, stride, pad):
         raise RuntimeError("conv_wgrad partial (%s) launch failed: "
                            "cudaError %d" % (p.route, err))
     launched(conv_wgrad_partial, x.dtype)
+    launched(partial_by_route[p.route], x.dtype)
     return ws
 
 
@@ -333,6 +348,21 @@ def conv_wgrad_reduce(ws, ksz, c):
 
 counted(conv_wgrad_partial)
 counted(conv_wgrad_reduce)
+
+
+class _RouteCount:
+    """The partial kernel's launches on one route (a counter of its own,
+    kept exact across graph replays like every wrapper's)."""
+
+    def __init__(self, route):
+        self.route = route
+
+
+#: route -> the partial kernel's launches on that route (``wgmma``,
+#: ``f32``, ``simt``); each launch also counts in
+#: ``conv_wgrad_partial.launches``
+partial_by_route = {r: counted(_RouteCount(r)) for r in ("wgmma", "f32",
+                                                         "simt")}
 
 
 def wgrad(x, dy, ksz, stride=1, pad=None):

@@ -191,12 +191,15 @@ counted(flash_attention)
 
 
 # --- backward ----------------------------------------------------------------
-def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None):
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None,
+                              g_lse=None):
     """Plain PyTorch version of the reference's Pallas backward, all in f32:
     rebuild p = exp(scale * q.k - lse) from the forward's logsumexp,
-    D = rowsum(dO * O), dV = p^T dO, dS = p * (dO v^T - D),
+    D = rowsum(dO * O) - g_lse, dV = p^T dO, dS = p * (dO v^T - D),
     dQ = scale * dS K, dK = scale * dS^T Q, with dK/dV summed over each
-    GQA group. Returns (dq, dk, dv) of the input types."""
+    GQA group. ``g_lse`` (B, H, Tq), the logsumexp's cotangent, or None
+    (the same result as zeros, bit for bit). Returns (dq, dk, dv) of the
+    input types."""
     b, h, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     g = h // hkv
@@ -206,6 +209,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None):
     p = torch.exp(logits - lse.float().reshape(b, hkv, g, tq, 1))
     do5 = do.float().reshape(b, hkv, g, tq, d)
     dvec = (do5 * o.float().reshape(b, hkv, g, tq, d)).sum(-1, keepdim=True)
+    if g_lse is not None:
+        dvec = dvec - g_lse.float().reshape(b, hkv, g, tq, 1)
     dv = torch.einsum("bkgql,bkgqd->bkld", p, do5)
     dp = torch.einsum("bkgqd,bkld->bkgql", do5, v.float())
     ds = p * (dp - dvec)
@@ -281,12 +286,17 @@ def bwd_operands(q, k, v, do):
             tuple(s for _, plan in planned for s in plan))
 
 
-def _launch_bwd(q, k, v, o, lse, do, causal, scale):
+def _launch_bwd(q, k, v, o, lse, do, causal, scale, g_lse=None):
     (q, k, v, do), strides = bwd_operands(q, k, v, do)
     _check_kernel(q, k, v, backward=True)
     # D = rowsum(dO * O) outside the kernels, as the reference computes it;
-    # in f32 (o is widened inside the product, not copied)
-    dvec = (do.float() * o).sum(-1).contiguous()
+    # in f32 (o is widened inside the product, not copied); the
+    # logsumexp's cotangent folds in here: d lse / d s = p, so dS gains
+    # g_lse * p, which is D - g_lse in the kernels' dS = p * (dP - D)
+    dvec = (do.float() * o).sum(-1)
+    if g_lse is not None:
+        dvec = dvec - g_lse.float()
+    dvec = dvec.contiguous()
     lse = lse.float().contiguous()
     dq = flash_attention_bwd_dq(q, k, v, do, strides, lse, dvec, causal,
                                 scale)
@@ -295,10 +305,13 @@ def _launch_bwd(q, k, v, o, lse, do, causal, scale):
     return dq, dk, dv
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
+def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
+                        g_lse=None):
     """Gradients (dq, dk, dv) of :func:`flash_attention` from its inputs,
-    its output ``o``, its logsumexp ``lse`` (B, H, Tq) f32 and the output
-    gradient ``do``; dk/dv at the narrow (B, Hkv, Tk, D) width. CPU tensors
+    its output ``o``, its logsumexp ``lse`` (B, H, Tq) f32, the output
+    gradient ``do`` and, where the logsumexp is an output too, its
+    gradient ``g_lse`` (B, H, Tq) (None: as zeros, bit for bit); dk/dv at
+    the narrow (B, Hkv, Tk, D) width. CPU tensors
     take the plain version; CUDA tensors launch the dQ kernel, then the
     dK/dV kernel (:func:`flash_attention_bwd_dq`,
     :func:`flash_attention_bwd_dkv`), each counting its own launches."""
@@ -310,6 +323,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
                          "%s and lse (B, H, Tq); got %s %s %s"
                          % (tuple(q.shape), tuple(o.shape), tuple(do.shape),
                             tuple(lse.shape)))
+    if g_lse is not None and (tuple(g_lse.shape) != (b, h, tq)
+                              or g_lse.device != q.device):
+        raise ValueError("flash_attention_bwd: g_lse must be (B, H, Tq) %s "
+                         "on q's device; got %s on %s"
+                         % ((b, h, tq), tuple(g_lse.shape), g_lse.device))
     if o.dtype != q.dtype or do.dtype != q.dtype:
         raise TypeError("flash_attention_bwd: o/do dtypes %s %s differ from "
                         "q's %s" % (o.dtype, do.dtype, q.dtype))
@@ -318,11 +336,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
     if scale is None:
         scale = 1.0 / d ** 0.5
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                                         g_lse)
     if q.device.type != "cuda":
         raise ValueError("flash_attention_bwd: no path for device %s"
                          % q.device)
-    return _launch_bwd(q, k, v, o, lse, do, causal, scale)
+    return _launch_bwd(q, k, v, o, lse, do, causal, scale, g_lse)
 
 
 
@@ -345,4 +364,29 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
                                          ctx.scale)
+        return dq, dk, dv, None, None
+
+
+class FlashAttentionLse(torch.autograd.Function):
+    """Differentiable flash attention with the logsumexp as a second output
+    (the reference's ``_flash_with_lse``, whose lse ring attention merges
+    across shards): ``FlashAttentionLse.apply(q, k, v, causal, scale)``
+    returns (O, lse (B, H, Tq) f32). The backward passes the lse's
+    cotangent to :func:`flash_attention_bwd`, which folds it into the row
+    term D := rowsum(dO * O) - g_lse of both backward kernels; a zero
+    cotangent gives :class:`FlashAttention`'s gradients bit for bit."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
+                                         ctx.scale, g_lse=g_lse)
         return dq, dk, dv, None, None

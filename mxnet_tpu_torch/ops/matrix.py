@@ -425,21 +425,28 @@ def _argsort(attrs, data):
     return torch.argsort(key, dim=int(ax), stable=True).to(data.dtype)
 
 
+def stable_topk(data, k, largest=True):
+    """The indices of the ``k`` largest (``largest=False``: smallest)
+    entries along the last axis, the lower index first among equal values
+    (``jax.lax.top_k``'s order; ``torch.topk``'s order of ties is
+    unspecified on the card, so a stable sort picks them)."""
+    return torch.sort(data, dim=-1, descending=largest,
+                      stable=True).indices[..., :k]
+
+
 @defop("topk", arg_names=("data",),
        param_spec={"axis": -1, "k": 1, "ret_typ": "indices",
                    "is_ascend": False, "dtype": "float32"},
        num_outputs=lambda attrs: 2 if attrs.get("ret_typ") == "both" else 1)
 def _topk(attrs, data):
     """The ``k`` largest (``is_ascend``: smallest) along ``axis``, the
-    lower index first among equal values (``jax.lax.top_k``'s order; the
-    order of ties of ``torch.topk`` is unspecified on the card, so a
-    stable sort picks them). ``ret_typ``: ``indices`` (in the data's
-    type), ``value``, ``both``, or ``mask`` (1 at the k picked)."""
+    lower index first among equal values (:func:`stable_topk`).
+    ``ret_typ``: ``indices`` (in the data's type), ``value``, ``both``, or
+    ``mask`` (1 at the k picked)."""
     ax = int(attrs["axis"]) % data.dim()
     k = int(attrs["k"])
     moved = data.movedim(ax, -1)
-    idx = torch.sort(moved, dim=-1, descending=not attrs["is_ascend"],
-                     stable=True).indices[..., :k]
+    idx = stable_topk(moved, k, largest=not attrs["is_ascend"])
     rt = attrs["ret_typ"]
     if rt == "mask":
         mask = torch.zeros_like(moved).scatter(-1, idx, 1.0)

@@ -153,7 +153,8 @@ def wgrad_shapes(sym, image, batch):
     from ..ops.nn import takes_wgrad
 
     internals = sym.get_internals()
-    _, outs, _ = internals.infer_shape(data=(batch,) + tuple(image))
+    # partial: a detector's label is not needed up to its convolutions
+    _, outs, _ = internals.infer_shape_partial(data=(batch,) + tuple(image))
     shapes = dict(zip(internals.list_outputs(), outs))
     counts = {}
     for node in sym._nodes():

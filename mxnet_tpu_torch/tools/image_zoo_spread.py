@@ -1,10 +1,13 @@
-"""The yardsticks of the image zoo's card-vs-CPU checks.
+"""The yardsticks of the image zoo's and ssd's card-vs-CPU checks.
 
     python3 -m mxnet_tpu_torch.tools.image_zoo_spread [--seeds N] [model ...]
     python3 -m mxnet_tpu_torch.tools.image_zoo_spread --witness [model ...]
 
 For each model of ``tools/image_zoo.py``'s ``IMAGE_ZOO["check"]`` (all by
-default) at its published input, 1000 classes, Dropout at p = 0:
+default) at its published input, 1000 classes, Dropout at p = 0, and for
+``ssd-vgg16`` (``tools/ssd.py``'s check: 300 x 300, 20 classes, batch 2,
+the multibox metric's cross-entropy and smooth L1 in place of the
+cross-entropy, no aux states):
 
 - the spread (the default): the check of ``chip_smoke.py``'s image_zoo
   phase (``check_steps`` batches of ``check_batch``, SGD momentum, Xavier
@@ -45,8 +48,11 @@ import numpy as np
 import torch
 
 from .image_zoo import IMAGE_ZOO, dead_shifts, image_cfg, zoo_symbol
-from .resnet import SEED
+from .resnet import SEED, change_err
 from .resnet_spread import spread
+from .ssd import SSD, MultiBoxMetric, ssd_data, ssd_symbol
+
+SSD_NAME = "ssd-vgg16"
 
 SEEDS = 3
 
@@ -61,6 +67,70 @@ def zoo_spread(name, cfg=IMAGE_ZOO, seed=SEED):
         yield dict(line, model=name, seed=seed)
 
 
+def ssd_spread(cfg=SSD, seed=SEED):
+    """Yield, a batch a dict, ssd's check (``check_steps`` batches of
+    ``check_batch``, SGD momentum, Xavier from ``seed``, the seeded
+    images and boxes of ``tools/ssd.py``) on the CPU in f32 against f64
+    from the same f32 weights: the worst and median parameter update
+    (:func:`resnet.change_err`) and the multibox metric's cross-entropy
+    and smooth L1, each relative to the f64 run's."""
+    from .. import initializer, optimizer
+
+    sym = ssd_symbol(cfg)
+    b, steps = cfg["check_batch"], cfg["check_steps"]
+    x, y = ssd_data(cfg, b, steps, seed + 1)
+    shapes = {"data": (b,) + tuple(cfg["image"]),
+              "label": (b,) + tuple(y.shape[1:])}
+    names = [n for n in sym.list_arguments() if n not in shapes]
+    reqs = {n: ("null" if n in shapes else "write")
+            for n in sym.list_arguments()}
+    init = initializer.Xavier(factor_type="in", magnitude=2,
+                              rng=np.random.RandomState(seed))
+    exe32 = sym.simple_bind("cpu", grad_req=reqs, **shapes)
+    for n in sorted(names):             # Module.init_params' draw order
+        init(initializer.InitDesc(n), exe32.arg_dict[n])
+    exe64 = sym.simple_bind("cpu", grad_req=reqs, type_dict={
+        n: np.float64 for n in sym.list_arguments()}, **shapes)
+    runs = []
+    for exe in (exe32, exe64):
+        for n in names:
+            exe.arg_dict[n]._data.copy_(exe32.arg_dict[n]._data)
+        opt = optimizer.SGD(learning_rate=cfg["lr"],
+                            momentum=cfg["momentum"], wd=cfg["wd"],
+                            rescale_grad=1.0 / b,
+                            param_idx2name=dict(enumerate(names)))
+        start = {n: exe.arg_dict[n].asnumpy().astype(np.float64)
+                 for n in names}
+        runs.append((exe, optimizer.Updater(opt), start))
+    for step in range(steps):
+        measures = []
+        for exe, upd, _ in runs:
+            exe.arg_dict["data"][:] = x[step * b:(step + 1) * b]
+            exe.arg_dict["label"][:] = y[step * b:(step + 1) * b]
+            exe.forward(is_train=True)
+            exe.backward()
+            upd.update_all((i, exe.grad_dict[n], exe.arg_dict[n])
+                           for i, n in enumerate(names))
+            metric = MultiBoxMetric()
+            metric.update(None, exe.outputs)
+            measures.append(dict(metric.get_name_value()))
+        (e32, _, p32), (e64, _, p64) = runs
+        upd = {n: change_err(e32.arg_dict[n].asnumpy() - p32[n],
+                             e64.arg_dict[n].asnumpy() - p64[n])
+               for n in names}
+        worst = max(upd, key=upd.get)
+        m32, m64 = measures
+        yield {"model": SSD_NAME, "seed": seed, "batch": step + 1,
+               "update_err_median": float(np.median(list(upd.values()))),
+               "update_err_worst": upd[worst], "worst": worst,
+               "aux_err_worst": 0.0,
+               "ce_f32": m32["cross-entropy"], "ce_f64": m64["cross-entropy"],
+               "ce_rel_err": abs(m32["cross-entropy"] - m64["cross-entropy"])
+               / m64["cross-entropy"],
+               "smooth_l1_rel_err": abs(m32["smooth_l1"] - m64["smooth_l1"])
+               / m64["smooth_l1"]}
+
+
 def max_over_seeds(lines):
     """The largest of each gated measure over the seeds' lines of one
     model: the worst update and aux change after batch 1, the
@@ -68,17 +138,23 @@ def max_over_seeds(lines):
     ``IMAGE_ZOO_SPREAD``."""
     first = [l for l in lines if l["batch"] == 1]
     steps = max(l["batch"] for l in lines)
-    return {"update": max(l["update_err_worst"] for l in first),
-            "aux": max(l["aux_err_worst"] for l in first),
-            "ce": tuple(max(l["ce_rel_err"] for l in lines
-                            if l["batch"] == b) for b in range(1, steps + 1))}
+    out = {"update": max(l["update_err_worst"] for l in first),
+           "aux": max(l["aux_err_worst"] for l in first),
+           "ce": tuple(max(l["ce_rel_err"] for l in lines
+                           if l["batch"] == b) for b in range(1, steps + 1))}
+    if "smooth_l1_rel_err" in first[0]:
+        out["smooth_l1"] = tuple(max(l["smooth_l1_rel_err"] for l in lines
+                                     if l["batch"] == b)
+                                 for b in range(1, steps + 1))
+    return out
 
 
 def conv_calls(sym, image, batch):
     """Every Convolution of ``sym`` on ``batch`` images of ``image``:
     [(data shape, attrs)], a layer once for each time it occurs."""
     internals = sym.get_internals()
-    _, outs, _ = internals.infer_shape(data=(batch,) + tuple(image))
+    # partial: a detector's label is not needed up to its convolutions
+    _, outs, _ = internals.infer_shape_partial(data=(batch,) + tuple(image))
     shapes = dict(zip(internals.list_outputs(), outs))
     calls = []
     for node in sym._nodes():
@@ -103,15 +179,20 @@ def conv_witness(name, cfg=IMAGE_ZOO, seed=SEED, device="cuda"):
     """The witness of ``name``'s check (module docstring): a dict of the
     root mean square errors by side (``card``, ``card_native``, ``cpu``)
     and kind (``fwd``, ``dgrad``, ``wgrad``), each kind's ratio to the
-    CPU's, ``ratio`` and the worst layers."""
+    CPU's, ``ratio`` and the worst layers. ``ssd-vgg16`` takes
+    ``tools/ssd.py``'s check in place of ``cfg``."""
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_input, conv2d_weight
 
     from ..ops.nn import takes_wgrad, _ntuple
 
-    side = cfg["check"][name]
-    sym = zoo_symbol(name, cfg["classes"])
-    calls = conv_calls(sym, (3, side, side), cfg["check_batch"])
+    if name == SSD_NAME:
+        sym = ssd_symbol(SSD)
+        calls = conv_calls(sym, SSD["image"], SSD["check_batch"])
+    else:
+        side = cfg["check"][name]
+        sym = zoo_symbol(name, cfg["classes"])
+        calls = conv_calls(sym, (3, side, side), cfg["check_batch"])
     rng = np.random.RandomState(seed)
     sums, calls_of = {}, {}
     layers = []
@@ -184,7 +265,8 @@ def main(argv=None) -> int:
             continue
         lines = []
         for seed in range(SEED, SEED + seeds):
-            for line in zoo_spread(name, seed=seed):
+            for line in (ssd_spread(seed=seed) if name == SSD_NAME
+                         else zoo_spread(name, seed=seed)):
                 lines.append(line)
                 print(json.dumps(line), flush=True)
         print(json.dumps({"model": name, "seeds": seeds,

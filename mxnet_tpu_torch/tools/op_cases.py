@@ -1,19 +1,22 @@
-"""The case table of the core ops (the unary families, ``Cast`` and
-``add_n`` of ``elemwise``, the index reductions, ``pick`` and the logical
-broadcasts of ``broadcast_reduce``, the shape, indexing and ordering ops of
-``matrix``, ``RMSNorm``, and the layer heads, norms and spatial ops of
-``nn``), one for both of its checks:
+"""The case table of the core and contrib ops (the unary families,
+``Cast`` and ``add_n`` of ``elemwise``, the index reductions, ``pick`` and
+the logical broadcasts of ``broadcast_reduce``, the shape, indexing and
+ordering ops of ``matrix``, ``RMSNorm``, the layer heads, norms and
+spatial ops of ``nn``, and the nine detection and signal ops of
+``contrib``), one for both of its checks:
 
 - ``tests/test_torch_ops_core.py`` runs each case at its small shapes
   (``op_cases()``) on the CPU against the JAX package's op;
 - ``chip_smoke.py``'s image_zoo phase runs each at full shapes
-  (``op_cases(big=True)``) on the card against the port's CPU path.
+  (``op_cases(big=True)``) on the card against the port's CPU path (the
+  contrib cases in its ssd phase, :data:`CONTRIB_OPS`).
 
 A case names one registry op, its inputs (makers: a
 ``numpy.random.RandomState`` -> an f32 array), its attributes, the inputs
 whose vector-Jacobian product is compared, whether its outputs must agree
 bit for bit (``exact``: the ops that only move, pick, order or round
-values) and its aux states. Ties are integer-valued inputs; the edge cases
+values; a tuple names the outputs that must, such as MultiBoxTarget's
+mask and class targets, the rest being close) and its aux states. Ties are integer-valued inputs; the edge cases
 (out-of-range ids, ``adj`` at or past the stride, grid points on integers
 and outside the image, empty ROI bins) are constants at both sizes where
 their shape must stay small.
@@ -30,8 +33,21 @@ class OpCase(NamedTuple):
     makers: list
     attrs: dict
     diff: list
-    exact: bool
+    exact: object    # bool, or a tuple of the exact outputs' indices
     aux: tuple = ()
+
+
+def exact_output(case, i):
+    """Whether output ``i`` of ``case`` must agree bit for bit."""
+    return case.exact is True or (isinstance(case.exact, tuple)
+                                  and i in case.exact)
+
+
+# the detection and signal ops of ``contrib.py`` (their cases run in the
+# ssd phase on the card)
+CONTRIB_OPS = ("Correlation", "MultiBoxDetection", "MultiBoxPrior",
+               "MultiBoxTarget", "Proposal", "count_sketch", "ctc_loss",
+               "fft", "ifft")
 
 
 def normal(*shape) -> Callable:
@@ -80,6 +96,101 @@ def affine(n) -> Callable:
                         + 0.05 * rng.randn(n, 6)).astype(np.float32)
 
 
+def saturating(*shape) -> Callable:
+    """Floats far past every integer type's range, at its edges, NaN and
+    the infinities, mixed with values in range."""
+    edges = np.array([np.nan, np.inf, -np.inf, 2147483648.0, -2147483648.0,
+                      2147483520.0, 255.9, 256.0, -0.9, -128.5, 127.99,
+                      1e10, -3e9, 70000.0], np.float32)
+
+    def make(rng):
+        x = (rng.randn(*shape) * 10.0 ** rng.randint(0, 10, shape)).astype(
+            np.float32)
+        flat = x.reshape(-1)
+        flat[:edges.size] = edges[:flat.size]
+        return x
+    return make
+
+
+def ctc_labels(batch, length, alphabet) -> Callable:
+    """(batch, length) CTC labels in 1..alphabet-1, 0-padded: the first row
+    empty, the second a run of repeated symbols (no skip between equal
+    neighbours), the rest random lengths."""
+    def make(rng):
+        lab = np.zeros((batch, length), np.float32)
+        lab[1, :length] = np.repeat(rng.randint(1, alphabet, length // 2 + 1),
+                                    2)[:length]
+        for b in range(2, batch):
+            n = rng.randint(1, length + 1)
+            lab[b, :n] = rng.randint(1, alphabet, n)
+        return lab
+    return make
+
+
+def random_boxes(rng, n, lo=0.0, hi=1.0, min_side=0.05, max_side=0.5):
+    """(n, 4) corner boxes inside [lo, hi] with sides in [min_side,
+    max_side) of the range."""
+    span = hi - lo
+    wh = rng.uniform(min_side, max_side, (n, 2)) * span
+    x0 = lo + rng.uniform(0, 1, (n, 2)) * (span - wh)
+    return np.concatenate([x0, x0 + wh], axis=1).astype(np.float32)
+
+
+def anchors(n) -> Callable:
+    return lambda rng: random_boxes(rng, n)[None]
+
+
+def box_labels(batch, rows, classes) -> Callable:
+    """(batch, rows, 5) ground truth [class, xmin, ymin, xmax, ymax], each
+    image 1..rows boxes, the rest -1 rows (padding)."""
+    def make(rng):
+        lab = np.full((batch, rows, 5), -1.0, np.float32)
+        for b in range(batch):
+            n = rng.randint(1, rows + 1)
+            lab[b, :n, 0] = rng.randint(0, classes, n)
+            lab[b, :n, 1:] = random_boxes(rng, n, min_side=0.1)
+        return lab
+    return make
+
+
+def padding_row_last_writer(rng):
+    """Anchors on a 1/8 grid and ground truth whose forced matches collide
+    on anchor 0: box 0's best anchor is anchor 0 at IoU 0.4 (under the
+    threshold), and the padding rows after it (IoU -1 everywhere, so their
+    argmax is anchor 0 too) win it as the last writers, so no anchor is
+    positive for box 0; boxes 1 and 2 tie at IoU 0.5 on anchor 2 (the
+    first maximum wins the best-ground-truth choice, the later row the
+    forced one)."""
+    return np.array([[[0.0, 0.0, 0.25, 0.25], [0.5, 0.5, 0.75, 0.75],
+                      [0.25, 0.0, 0.5, 0.25], [0.0, 0.5, 0.375, 1.0],
+                      [0.625, 0.0, 1.0, 0.375]]], np.float32)
+
+
+def last_writer_labels(rng):
+    return np.array([[[2, 0.0, 0.0, 0.25, 0.625],
+                      [0, 0.25, 0.0, 0.5, 0.125],
+                      [1, 0.25, 0.125, 0.5, 0.25],
+                      [-1, -1, -1, -1, -1], [-1, -1, -1, -1, -1]]],
+                    np.float32)
+
+
+def class_probs(batch, classes, n, ties=False) -> Callable:
+    """(batch, classes, n) per-anchor class probabilities (a softmax over
+    the classes); with ``ties`` quantised to 1/16, so scores tie across
+    anchors and classes."""
+    def make(rng):
+        z = rng.randn(batch, classes, n) * 2.0
+        p = np.exp(z) / np.exp(z).sum(axis=1, keepdims=True)
+        if ties:
+            p = np.round(p * 16) / 16
+        return p.astype(np.float32)
+    return make
+
+
+def signs(*shape) -> Callable:
+    return lambda rng: rng.choice([-1.0, 1.0], shape).astype(np.float32)
+
+
 ROUNDING = ("rint", "round", "ceil", "floor", "trunc", "fix")
 CAST_TYPES = ("bfloat16", "float16", "int32", "uint8")
 
@@ -125,6 +236,10 @@ def op_cases(big=False):
         case(op, op, [a, normal(*rc), normal(*rc)], {"num_args": 3})
     for dtype in CAST_TYPES:
         case("Cast_" + dtype, "Cast", [uniform(0.0, 200.0, *rc)],
+             {"dtype": dtype}, diff=[], exact=True)
+    # out of every integer type's range, NaN and the infinities: saturate
+    for dtype in ("uint8", "int8", "int32"):
+        case("Cast_saturate_" + dtype, "Cast", [saturating(*rc)],
              {"dtype": dtype}, diff=[], exact=True)
 
     # --- broadcast_reduce ----------------------------------------------------
@@ -375,4 +490,69 @@ def op_cases(big=False):
     case("crop_like", "Crop", [normal(*cshape),
                                normal(cshape[0], 1, *S((4, 5), (20, 24)))],
          {"num_args": 2, "center_crop": True}, diff=[0], exact=True)
+
+    # --- contrib: signal ops -------------------------------------------------
+    t, cb, alpha, length = S((12, 4, 6, 4), (100, 32, 50, 20))
+    case("ctc_loss", "ctc_loss", [normal(t, cb, alpha),
+                                  ctc_labels(cb, length, alpha)], diff=[0])
+    fr, fd = S((3, 8), (64, 1024))
+    case("fft", "fft", [normal(fr, fd)], diff=[0])
+    case("ifft", "ifft", [normal(fr, 2 * fd)], diff=[0])
+    cn, cin, cout = S((4, 10, 6), (256, 4096, 1024))
+    case("count_sketch", "count_sketch",
+         [normal(cn, cin), ints(cout, 1, cin), signs(1, cin)],
+         {"out_dim": cout}, diff=[0])
+    # FlowNetC's correlation (kernel 1, displacement 20 in steps of 2, pad
+    # 20) at its 1/8 scale, and a 3 x 3 window, both products and
+    # absolute differences
+    c1 = S((2, 3, 8, 9), (2, 256, 48, 64))
+    c3 = S((2, 3, 7, 8), (2, 64, 48, 64))
+    for mult in (True, False):
+        tag = "" if mult else "_absdiff"
+        case("correlation_k1" + tag, "Correlation", [normal(*c1), normal(*c1)],
+             dict(S({"max_displacement": 2, "stride2": 1, "pad_size": 2},
+                    {"max_displacement": 20, "stride2": 2, "pad_size": 20}),
+                  is_multiply=mult), diff=[0, 1])
+        case("correlation_k3" + tag, "Correlation", [normal(*c3), normal(*c3)],
+             {"kernel_size": 3, "max_displacement": 2, "stride2": 2,
+              "pad_size": 1, "is_multiply": mult}, diff=[0, 1])
+
+    # --- contrib: SSD and RCNN ops ---------------------------------------------
+    # SSD300's anchors: 4 a position over 18^2, 9^2, 5^2, 3^2
+    case("multibox_prior", "MultiBoxPrior", [normal(*S((1, 2, 5, 6),
+                                                       (2, 8, 18, 18)))],
+         {"sizes": (0.2, 0.272), "ratios": (1.0, 2.0, 0.5), "clip": True},
+         diff=[])
+    case("multibox_prior_steps", "MultiBoxPrior",
+         [normal(*S((1, 2, 4, 3), (2, 8, 38, 38)))],
+         {"sizes": (0.1, 0.141), "ratios": (1.0, 2.0, 0.5, 3.0),
+          "steps": (0.125, 0.1), "offsets": (0.25, 0.75)}, diff=[])
+    na, nb, ng, ncls = S((24, 2, 4, 3), (1756, 32, 8, 20))
+    case("multibox_target", "MultiBoxTarget",
+         [anchors(na), box_labels(nb, ng, ncls),
+          normal(nb, ncls + 1, na)], diff=[], exact=(1, 2))
+    case("multibox_target_padding_last_writer", "MultiBoxTarget",
+         [padding_row_last_writer, last_writer_labels, normal(1, 4, 5)],
+         diff=[], exact=(1, 2))
+    nd_ = S(2, 8)
+    case("multibox_detection", "MultiBoxDetection",
+         [class_probs(nd_, ncls + 1, na), normal(nd_, na * 4), anchors(na)],
+         {"nms_topk": S(10, 400)}, diff=[])
+    case("multibox_detection_ties", "MultiBoxDetection",
+         [class_probs(nd_, ncls + 1, na, ties=True),
+          lambda rng: (0.3 * rng.randn(nd_, na * 4)).astype(np.float32),
+          anchors(na)], {"nms_threshold": 0.45, "threshold": 0.05}, diff=[])
+    # RPN: 9 anchors over a 38 x 50 map (a 600 x 800 image at stride 16)
+    ph, pw, scales = S((4, 5, (2.0, 4.0)), (38, 50, (8.0, 16.0, 32.0)))
+    pa = 3 * len(scales)
+    post = S(12, 300)
+    info = const([[ph * 16.0, pw * 16.0, 1.0]])
+    for out_score in (False, True):
+        case("proposal" + ("_scores" if out_score else ""), "Proposal",
+             [uniform(0.0, 1.0, 1, 2 * pa, ph, pw),
+              lambda rng, _s=(1, 4 * pa, ph, pw): (
+                  0.2 * rng.randn(*_s)).astype(np.float32), info],
+             {"scales": scales, "rpn_post_nms_top_n": post,
+              "rpn_min_size": S(4, 16), "output_score": out_score},
+             diff=[])
     return cases

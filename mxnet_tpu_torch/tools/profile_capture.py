@@ -6,7 +6,12 @@ For each cell of ``chip_smoke.py``'s training phases (``train``: the LM's
 bf16 fused step at ``TRAIN``'s batch through ``make_train_step``;
 ``resnet``: ResNet-50's bf16 ``Module.fit_step`` at batch 32;
 ``image_zoo``: Inception-BN's, the same way (``tools/image_zoo.py``);
-``lstm`` /
+``ssd``: ssd-vgg16's bf16 ``fit_step`` at batch 32 on one host batch
+(``tools/ssd.py``), whose step copies the batch from pageable memory, and
+``ssd_prefetch``: the same step fed through ``DevicePrefetchIter`` (its
+pinned copy on a stream of its own, the step's copy device to device),
+with the device time of the copies by direction (``copy HtoD``, ``copy
+DtoD``); ``lstm`` /
 ``custom``: the LSTM LM's ``fit_step`` at batch 128 with the
 ``SoftmaxOutput`` / ``rtc_softmax`` head), first with the step captured
 as a CUDA graph, then eager (``MXNET_CUDA_GRAPH=0``),
@@ -31,10 +36,23 @@ import torch
 
 from . import profile_generate, profile_lstm, profile_module
 
-CELLS = ("train", "resnet", "image_zoo", "lstm", "custom")
+CELLS = ("train", "resnet", "image_zoo", "ssd", "ssd_prefetch", "lstm",
+         "custom")
+
+
+def _copy_kind(name):
+    """The batch copies by direction, the rest as ``profile_module``."""
+    low = name.lower()
+    if low.startswith("memcpy"):
+        return "copy " + ("HtoD" if "htod" in low else "DtoD" if "dtod"
+                          in low else "other")
+    return profile_module._kind(name)
+
+
 # each cell's kernel kinds: those of its own profile tool
 KIND = {"train": profile_generate._kind, "resnet": profile_module._kind,
-        "image_zoo": profile_module._kind, "lstm": profile_lstm._kind,
+        "image_zoo": profile_module._kind, "ssd": _copy_kind,
+        "ssd_prefetch": _copy_kind, "lstm": profile_lstm._kind,
         "custom": profile_lstm._kind}
 
 
@@ -44,7 +62,7 @@ def _emit(obj):
 
 def _setup(cell):
     """(one training step, its stats) of ``cell``, warmed up."""
-    from . import image_zoo, lm, lstm_lm, resnet, rtc_softmax
+    from . import image_zoo, lm, lstm_lm, resnet, rtc_softmax, ssd
 
     if cell == "train":
         exe, names = lm.lm_train_setup(lm.LM, lm.TRAIN)
@@ -63,6 +81,20 @@ def _setup(cell):
         mod, it, init = image_zoo.zoo_setup(
             cfg["model"], cfg, cfg["batch"], 4, compute_dtype=cfg["dtype"])
         kwargs = resnet.fit_args(cfg, init)
+    elif cell in ("ssd", "ssd_prefetch"):
+        from .. import io
+
+        cfg = ssd.SSD
+        mod, it, init = ssd.ssd_setup(cfg, cfg["batch"], 4,
+                                      compute_dtype=cfg["dtype"])
+        mod.fit(it, **ssd.fit_args(cfg, init))
+        it.reset()
+        if cell == "ssd":
+            batch = next(iter(it))
+            return (lambda: mod.fit_step(batch)), mod.fit_step_stats
+        # an endless epoch: each step takes the next prefetched batch
+        pre = io.DevicePrefetchIter(io.ResizeIter(it, 1 << 30))
+        return (lambda: mod.fit_step(pre.next())), mod.fit_step_stats
     else:
         cfg = lstm_lm.LSTM_LM
         sym = rtc_softmax.lstm_rtc_symbol(cfg) if cell == "custom" else None

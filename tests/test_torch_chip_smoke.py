@@ -1816,7 +1816,8 @@ def test_image_zoo_phase_on_cpu(monkeypatch, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["phase"] == "image_zoo" and line["path"] == "eager"
     assert set(line["checks"]) == {"vgg16"}
-    assert set(line["ops"]) == set(cs.op_cases(big=True))
+    assert set(line["ops"]) == {k for k, c in cs.op_cases(big=True).items()
+                                if c.op not in cs.CONTRIB_OPS}
     assert set(line["seconds"]) == {"ops", "conv_wgrad", "main", "check",
                                     "phase"}
 
@@ -1961,15 +1962,146 @@ def test_zoo_op_cases_cover_every_new_op():
     new op has a case; the exact kinds are the ops that only move, pick,
     order or round."""
     from mxnet_tpu_torch.tools.op_cases import op_cases
-    from test_torch_ops_core import NEW_OPS
+    from test_torch_ops_core import CONTRIB, NEW_OPS
 
     big, small = op_cases(big=True), op_cases()
     assert [(k, c.op, c.diff, c.exact, len(c.makers), len(c.aux))
             for k, c in sorted(big.items())] == [
         (k, c.op, c.diff, c.exact, len(c.makers), len(c.aux))
         for k, c in sorted(small.items())]
-    assert {c.op for c in big.values()} == set(NEW_OPS)
+    assert {c.op for c in big.values()} == set(NEW_OPS) | set(CONTRIB)
     exact = {c.op for c in big.values() if c.exact}
     assert {"take", "pick", "sort", "argsort", "topk", "round", "Cast",
             "broadcast_logical_xor", "Pad", "Crop", "slice", "tile",
             "repeat", "flip", "transpose", "ROIPooling"} <= exact
+
+
+# the ssd phase, narrow: ssd-vgg16 at 64 x 64 with 3 classes, batch 2, 2
+# batches, detection at batch 1 and 2 over 20 NMS rounds, the op cases at
+# their small shapes; the check's gates the CPU against itself
+TINY_SSD = dict(cs.SSD, classes=3, image=(3, 64, 64), batch=2, batches=2,
+                detect_batches=(1, 2), nms_topk=20)
+TINY_SSD_SPREAD = {"update": 0.0, "ce": (0.0, 0.0), "smooth_l1": (0.0, 0.0)}
+
+
+def _ssd_phase():
+    return cs.phase_ssd(TINY_SSD, device="cpu", spread=TINY_SSD_SPREAD,
+                        witness=1.0)
+
+
+def _small_op_cases(monkeypatch):
+    """The op table at its small shapes in place of the full ones."""
+    small = cs.op_cases
+    monkeypatch.setattr(cs, "op_cases", lambda big=False: small(big=False))
+
+
+def test_ssd_phase_on_cpu(monkeypatch, capsys):
+    """The phase on the host: the nine ops' cases, the check (with its
+    matching), the conv_wgrad table at ssd's shapes (both bf16 routes),
+    the run's exact launches (24 conv_wgrad a step, 54 updates), its eager
+    and DevicePrefetchIter twins bit for bit, the detection Predictors."""
+    _count_plain_calls(monkeypatch)
+    _small_op_cases(monkeypatch)
+    out = _ssd_phase()
+    assert out["main"] == {"conv_wgrad_partial": 48,
+                           "conv_wgrad_reduce": 48,
+                           "conv_wgrad_repack": 0,
+                           "sgd_mom_update": 54 * 2}
+    assert out["check"]["conv_wgrad_partial"] == 48
+    assert {r["route"] for r in out["wgrad"]} == {"wgmma", "simt", "f32"}
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "ssd" and line["path"] == "eager"
+    assert line["prefetch"]["bit_for_bit_with_ndarray_iter"]
+    assert set(line["detect"]) == {"1", "2"}
+    assert line["check"]["matching"]["differ"] == 0
+    assert set(line["ops"]) == {k for k, c in cs.op_cases().items()
+                                if c.op in cs.CONTRIB_OPS}
+    assert set(line["seconds"]) == {"ops", "check", "conv_wgrad", "run",
+                                    "detect", "phase"}
+
+
+def test_ssd_phase_fails_when_conv_wgrad_is_not_reached(monkeypatch):
+    """Nothing counts a launch on the host: the check's gate refuses."""
+    monkeypatch.setattr(cs, "_zoo_ops_check", lambda *a, **k: {})
+    with pytest.raises(RuntimeError, match="ssd check: conv_wgrad "
+                                           "launched"):
+        _ssd_phase()
+
+
+def test_ssd_prefetch_twin_refuses_other_parameters(monkeypatch):
+    """The DevicePrefetchIter run must land on the directly fed run's
+    parameters: here the iterator hands out every batch twice."""
+    from mxnet_tpu_torch import io
+
+    real = io.DevicePrefetchIter.next
+    seen = []
+
+    def twice(self):
+        if seen and len(seen) % 2:
+            seen.append(1)
+            return seen_batch[0]
+        b = real(self)
+        seen.append(1)
+        seen_batch[:] = [b]
+        return b
+
+    seen_batch = []
+    monkeypatch.setattr(io.DevicePrefetchIter, "next", twice)
+    _count_plain_calls(monkeypatch)
+    monkeypatch.setattr(cs, "_zoo_ops_check", lambda *a, **k: {})
+    monkeypatch.setattr(cs, "_ssd_check", lambda *a, **k: {
+        "matching": {"anchors": 0}, "conv_wgrad": {}})
+    monkeypatch.setattr(cs, "_zoo_wgrad", lambda *a, **k: ([], {}))
+    with pytest.raises(RuntimeError, match="fed through DevicePrefetchIter"):
+        _ssd_phase()
+
+
+def test_ssd_gates_and_launch_arithmetic():
+    """ssd_tol: 1.5 x the CPU spread x the witness where it exceeds 1,
+    floors on the metric's measures; SSD300's 24 routed 3x3 convolutions
+    split 17 wgmma / 7 simt in bf16 (34 repacks a step), all f32 in f32;
+    54 parameters."""
+    tol = cs.ssd_tol({"update": 0.01, "ce": (1e-9, 2e-3),
+                      "smooth_l1": (1e-7, 1e-3)}, 2.0)
+    assert tol["update"] == pytest.approx(0.03)
+    assert tol["ce"] == (cs.IMAGE_ZOO_CE_FLOOR, pytest.approx(6e-3))
+    assert tol["smooth_l1"] == (pytest.approx(3e-7), pytest.approx(3e-3))
+    assert cs.ssd_tol({"update": 0.01, "ce": (0.0, 0.0),
+                       "smooth_l1": (0.0, 0.0)}, 0.5)["update"] == \
+        pytest.approx(0.015)
+    sym = cs.ssd_symbol(cs.SSD)
+    assert cs.wgrad_convs(sym) == 24
+    assert cs.wgrad_routes(sym, cs.SSD["image"], 32, "bfloat16") == {
+        "wgmma": 17, "simt": 7}
+    assert cs.wgrad_routes(sym, cs.SSD["image"], 32, "float32") == {
+        "f32": 24}
+    assert len(sym.list_arguments()) - 2 == 54
+
+
+def test_nms_and_matching_excusals():
+    """A keep-mask difference is explained only after a near tie of
+    scores or an IoU at the threshold among the boxes scored at least as
+    high as the first difference; matching excuses an IoU at 0.5 and two
+    tied ground truths, nothing else."""
+    from mxnet_tpu_torch.tools.ssd import matching_excused, nms_explained
+
+    boxes = np.array([[0, 0, 0.5, 0.5], [0.6, 0.6, 1, 1],
+                      [0, 0, 0.5, 0.4]], np.float64)
+    scores = np.array([0.9, 0.8, 0.3])
+    valid = np.ones(3, bool)
+    a = np.array([True, True, False])
+    b = np.array([True, False, True])
+    assert not nms_explained(boxes, scores, valid, a, b, 0.5)[0]
+    tied = np.array([0.9, 0.8 + 1e-7, 0.8])
+    assert nms_explained(boxes, tied, valid, a, b, 0.5)[0]
+    assert nms_explained(boxes, scores, valid, a, a, 0.5) == (True, 0, None)
+    # box 2's IoU with box 0 is 0.8: at threshold 0.8 the choice is open
+    assert nms_explained(boxes, scores, valid, np.array([True, True, True]),
+                         a, 0.8)[0]
+    anchors = np.array([[0, 0, 0.5, 0.5], [0.5, 0.5, 1, 1],
+                        [0, 0, 0.5, 0.25]])
+    labels = np.array([[[0, 0, 0, 0.5, 0.25], [1, 0.5, 0.5, 1, 1],
+                        [-1, -1, -1, -1, -1]]], np.float32)
+    got = matching_excused(anchors, labels, 0.5)
+    # anchor 0's best IoU is 0.5 exactly; anchor 2 is box 0 exactly
+    np.testing.assert_array_equal(got, [[True, False, False]])

@@ -501,3 +501,30 @@ def test_wgrad_variants_edit_the_current_source(monkeypatch):
                                                {}, None))
     with pytest.raises(ValueError, match="occurs 0 times"):
         wv.variant_source("gone")
+
+
+def test_wgmma_splits_sum_at_most_max_split_units():
+    """No wgmma split sums more than MAX_SPLIT_UNITS tiles one after
+    another (the rounding of that f32 sum grows with its length); ssd's
+    long sums (37 x 37 x 256 -> 512 was 3 splits of 395 tiles) now split
+    further, ResNet-50's plans are unchanged; every plan still covers L."""
+    import chip_smoke as cs
+    from mxnet_tpu_torch.tools.image_zoo import wgrad_shapes
+    from mxnet_tpu_torch.tools.ssd import SSD, ssd_symbol
+
+    shapes = set(wgrad_shapes(ssd_symbol(SSD), SSD["image"], 32)) | set(
+        cs.zoo_wgrad_shapes(cs.IMAGE_ZOO))
+    wgmma = 0
+    for n, h, w, c, k, stride, pad in shapes:
+        p = cw.plan(n, h, w, c, k, 3, stride, pad, "bfloat16")
+        if p.route != "wgmma":
+            continue
+        wgmma += 1
+        assert p.chunk <= cw.MAX_SPLIT_UNITS
+        assert (p.splits - 1) * p.chunk < p.units <= p.splits * p.chunk
+    assert wgmma > 50
+    assert cw.plan(32, 37, 37, 256, 512, 3, 1, 1, "bfloat16").splits > 3
+    assert [cw.plan(32, h, h, c, c, 3, s, 1, "bfloat16")[7:]
+            for h, c, s in RESNET_3X3] == [
+        (78, 23), (28, 16), (28, 16), (7, 19), (7, 19), (1, 32), (1, 32)]
+    assert cw.pick_splits(4, 264, 1000, 1, 4, 0.0, max_units=100)[1] <= 100

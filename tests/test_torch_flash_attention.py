@@ -512,3 +512,77 @@ def test_bwd_operands_copy_a_misaligned_do_with_equal_values():
         assert tfa.tensor_map_plan(got[3])[1] is False
         assert got[3].data_ptr() % 16 == 0
         assert strides[9:] == tfa.tensor_map_plan(got[3])[0]
+
+
+@pytest.mark.parametrize("case", ["gqa_tq_lt_tk", "mqa"])
+def test_lse_autograd_matches_pallas_flash_with_lse(case):
+    """FlashAttentionLse (plain forward and backward on the CPU) against
+    the reference's ``_flash_with_lse`` in interpret mode: O, lse and the
+    vector-Jacobian product at seeded cotangents on both outputs (the
+    lse's folded into D := rowsum(dO * O) - g_lse)."""
+    import jax
+
+    b, h, hkv, tq, tk, d, causal = BWD_CASES[case]
+    g = h // hkv
+    scale = 1.0 / d ** 0.5
+    q, k, v = _inputs(b, h, hkv, tq, tk, d, seed=5)
+    rng = np.random.RandomState(6)
+    do = rng.randn(b, h, tq, d).astype(np.float32)
+    dl = rng.randn(b, h, tq).astype(np.float32)
+    q4 = jnp.asarray(q.reshape(b * hkv, g, tq, d))
+    k3, v3 = (jnp.asarray(a.reshape(b * hkv, tk, d)) for a in (k, v))
+    (o4, lse4), vjp = jax.vjp(
+        lambda q_, k_, v_: jfa._flash_with_lse(q_, k_, v_, causal, scale,
+                                               True), q4, k3, v3)
+    want = vjp((jnp.asarray(do.reshape(b * hkv, g, tq, d)),
+                jnp.asarray(dl.reshape(b * hkv, g, 1, tq))))
+    tq_, tk_, tv_ = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out, lse = tfa.FlashAttentionLse.apply(tq_, tk_, tv_, causal, scale)
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(o4).reshape(b, h, tq, d), atol=TOL)
+    np.testing.assert_allclose(lse.detach().numpy(),
+                               np.asarray(lse4).reshape(b, h, tq), atol=TOL)
+    torch.autograd.backward([out, lse], [torch.from_numpy(do),
+                                         torch.from_numpy(dl)])
+    shapes = ((b, h, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))
+    for name, t, ref, shape in zip("qkv", (tq_.grad, tk_.grad, tv_.grad),
+                                   want, shapes):
+        np.testing.assert_allclose(t.numpy(), np.asarray(ref).reshape(shape),
+                                   err_msg="d" + name, **BWD_TOL)
+    # the lse's cotangent moves the gradients: it is not dropped
+    plain = tfa.flash_attention_bwd_plain(
+        *(t.detach() for t in (tq_, tk_, tv_, out, lse)),
+        torch.from_numpy(do), causal, scale)
+    assert not torch.allclose(plain[0], tq_.grad)
+
+
+def test_zero_lse_cotangent_changes_nothing_bit_for_bit():
+    """A zero (or absent) lse cotangent gives FlashAttention's gradients
+    bit for bit, through the autograd function and the plain backward."""
+    b, h, hkv, tq, tk, d, causal = BWD_CASES["gqa_tq_lt_tk"]
+    q, k, v = _inputs(b, h, hkv, tq, tk, d, seed=7)
+    do = torch.from_numpy(
+        np.random.RandomState(8).randn(b, h, tq, d).astype(np.float32))
+    grads = []
+    for use_lse in (False, True):
+        ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        if use_lse:
+            out, lse = tfa.FlashAttentionLse.apply(*ts, causal, None)
+            torch.autograd.backward([out, lse], [do, torch.zeros_like(lse)])
+        else:
+            out = tfa.FlashAttention.apply(*ts, causal, None)
+            out.backward(do)
+        grads.append([t.grad for t in ts])
+    for a, b_ in zip(*grads):
+        assert torch.equal(a, b_)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    o, lse = tfa.flash_attention_plain(qt, kt, vt, causal=causal,
+                                       return_lse=True)
+    none = tfa.flash_attention_bwd(qt, kt, vt, o, lse, do, causal)
+    zero = tfa.flash_attention_bwd(qt, kt, vt, o, lse, do, causal,
+                                   g_lse=torch.zeros_like(lse))
+    for a, b_ in zip(none, zero):
+        assert torch.equal(a, b_)
+    with pytest.raises(ValueError, match="g_lse"):
+        tfa.flash_attention_bwd(qt, kt, vt, o, lse, do, causal,
+                                g_lse=lse[:, :, :2])

@@ -1,7 +1,8 @@
 """The image-classification zoo of the port against the JAX package's, on
 the CPU.
 
-- Every builder key of the JAX package's ``models`` (but ``ssd-vgg16``):
+- Every builder key of the JAX package's ``models`` (``ssd-vgg16`` with
+  its label):
   the same arguments, aux states and inferred shapes at the published
   input, in fresh name scopes (the unnamed layers take their auto-names).
 - alexnet (Dropout at p = 0 through the symbol's JSON), a narrow ResNeXt
@@ -38,7 +39,8 @@ INPUTS = {"mlp": ({}, {"data": (1, 784)}),
           "inception-resnet-v2": ({}, {"data": (1, 3, 299, 299)}),
           "lstm-lm": ({}, {"data": (2, 35), "softmax_label": (2, 35)}),
           "transformer-lm": ({"seq_len": 16, "num_layers": 1},
-                             {"data": (2, 16), "softmax_label": (2, 16)})}
+                             {"data": (2, 16), "softmax_label": (2, 16)}),
+          "ssd-vgg16": ({}, {"data": (1, 3, 300, 300), "label": (1, 8, 5)})}
 
 
 def _jax_without_dropout(sym):
@@ -58,7 +60,7 @@ def _both(name, **kwargs):
     return got, want
 
 
-@pytest.mark.parametrize("name", sorted(set(JAX_BUILDERS) - {"ssd-vgg16"}))
+@pytest.mark.parametrize("name", sorted(JAX_BUILDERS))
 def test_builder_matches_jax(name):
     kwargs, shapes = INPUTS.get(name, ({}, {"data": (1, 3, 224, 224)}))
     got, want = _both(name, **kwargs)
@@ -71,9 +73,13 @@ def test_builder_matches_jax(name):
 
 
 def test_only_ssd_is_missing_from_the_zoo():
-    assert set(JAX_BUILDERS) - set(mt.models._BUILDERS) == {"ssd-vgg16"}
+    """Nothing is missing any more: the port has every builder key of the
+    JAX package's zoo (ssd-vgg16 the last), and no other."""
+    assert set(JAX_BUILDERS) == set(mt.models._BUILDERS)
+    assert mt.models.get_symbol("ssd-vgg16").list_outputs() == [
+        "cls_prob_output", "loc_loss_output", "cls_target_output"]
     with pytest.raises(ValueError, match="unknown model"):
-        mt.models.get_symbol("ssd-vgg16")
+        mt.models.get_symbol("ssd-vgg19")
 
 
 def _resnext_stage(pkg):

@@ -45,6 +45,14 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def test_port_never_imports_an_image_codec():
+    """No module of the port (and not chip_smoke.py) imports cv2 or PIL:
+    the card machine has neither."""
+    bad = [(os.path.relpath(p, ROOT), m) for p in _port_files()
+           for m in _imports(p) if m.split(".")[0] in ("cv2", "PIL")]
+    assert not bad, bad
+
+
 def test_package_never_imports_a_root_script():
     """The package stands alone: chip_smoke.py imports from it, never the
     other way round."""

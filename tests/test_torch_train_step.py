@@ -386,6 +386,37 @@ def test_bf16_keeps_ids_and_labels_exact_at_vocab_10000():
     assert lm_exe._index_only == {"data", "softmax_label"}
 
 
+def test_bf16_keeps_ssd_boxes_exact_for_matching():
+    """SSD's label feeds only MultiBoxTarget's label slot, so under bf16
+    compute its box coordinates stay f32 (the JAX package casts them to
+    bf16): the class targets and the location loss's mask are those of the
+    f32 executor on the same label, to the bit, for boxes bf16 cannot
+    hold."""
+    from mxnet_tpu_torch.tools.ssd import ssd_labels
+
+    with mt.name.NameManager():
+        sym = mt.models.get_symbol("ssd-vgg16", num_classes=3)
+    internals = sym.get_internals()
+    group = mt.sym.Group([internals["multibox_target_output1"],
+                          internals["multibox_target_output2"]])
+    rng = np.random.RandomState(1)
+    label = ssd_labels(rng, 2, 8, 3)
+    assert (label != torch.tensor(label).to(torch.bfloat16).float()
+            .numpy()).any()
+    outs = []
+    for dtype in (None, "bfloat16"):
+        exe = group.simple_bind(mt.cpu(), compute_dtype=dtype,
+                                grad_req="null", data=(2, 3, 64, 64),
+                                label=label.shape)
+        if dtype:
+            assert "label" in exe._index_only
+        exe.arg_dict["label"][:] = label
+        outs.append([o.asnumpy() for o in exe.forward(is_train=False)])
+    assert (outs[0][1] > 0).any()
+    for got, want in zip(outs[1], outs[0]):
+        np.testing.assert_array_equal(got, want)
+
+
 # --- the fused Module.fit against the reference's fused Module.fit -----------
 def _module_fit(pkg, opt, model="mlp", batches=3, fused=True,
                 mutate=None, compute_dtype=None):
