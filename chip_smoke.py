@@ -314,6 +314,32 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    x / (1 - p) exactly; (5) ``Module.fit`` at seq 35 with dropout through
    the captured step against its eager twin, bit for bit, and two more
    replays on one batch, which must differ.
+9a. ``kvstore`` — communication in one process (``tools/dist_lstm.py``'s
+   ``DIST_LSTM``: the lstm phase's LM, batch 128, 8 batches, SGD lr 0.1
+   momentum 0.9, f32): the one-context unfused fit (``MXNET_FUSED_FIT=0``),
+   then ``Module.fit`` over ``context=[card, card]`` (64 rows each) with
+   kvstore "device" and then "local": each batch's update within
+   LSTM_UPDATE of one context's and the perplexity within LSTM_PPL, the
+   two contexts' parameters equal bit for bit after every batch, launches
+   exact (lstm_step 2 x 70 a batch, the scalar sgd_mom_update once a
+   parameter a batch, the device-lr entry never), the kvstore counters up
+   by exactly what was pushed and pulled, one
+   ``model.update_params_on_kvstore`` span a batch. Prints both runs' step
+   ms against one context's.
+9b. ``dist`` — across processes, against 9a's reference: ``dist_sync``
+   over NCCL at world size 1 in this process (bit for bit the reference);
+   the closed forms (``tools/dist_sync_kvstore.py``: 2 servers and 2
+   workers on the card, keys (4, 4) and (1200, 1200), 3 sync rounds and an
+   async one; ``tools/dist_collective.py``: 2 gloo ranks), every pull
+   exact; then the LM over two gloo ranks on the card (one card refuses
+   NCCL to two ranks) and through a parameter server on the host with two
+   workers on the card, each rank half of every batch, at 9a's gates, both
+   ranks' parameters bit for bit, each rank's launches exact. Every group
+   starts at once (``tools/dist_run.py``: servers on port 0, ranks at a
+   ``file://`` rendezvous); each LM group fits alone once its ranks are
+   set up. A child that fails or outlives DIST_CHILD_S fails the phase.
+   Prints step ms of both paths and each path's update (push and pull) ms
+   and bytes a step.
 10. ``kernels`` — one line per the port's kernel table.
 
 Then the card's ``nvidia-smi`` name/power-limit line and, last, the
@@ -355,6 +381,8 @@ from mxnet_tpu_torch.tools.seq_classify import RANDOM_OPS, SEQ, lr_sequence, \
     moments, seq_setup
 from mxnet_tpu_torch.tools.seq_classify import fit_args as seq_fit_args
 from mxnet_tpu_torch.tools import zoo
+from mxnet_tpu_torch.tools.dist_lstm import DIST_LSTM
+from mxnet_tpu_torch.tools.dist_lstm import fit_args as dp_fit_args
 from mxnet_tpu_torch.tools.image_zoo import IMAGE_ZOO, dead_shifts, \
     image_cfg, wgrad_shapes, zoo_setup, zoo_symbol
 from mxnet_tpu_torch.tools.op_cases import CONTRIB_OPS, exact_output, \
@@ -709,6 +737,9 @@ RESNET_EVENTS = {"conv_wgrad_partial": ("conv_wgrad_wgmma_kernel",
 SPAN_OVERHEAD_PREDICTED_US = 50
 # the whole script's watchdog (s): its time limit is 1200 s
 WATCHDOG_S = 1100
+#: the dist phase's limit on each group of worker processes (start-up,
+#: CUDA context, 8 batches at full width): past it the phase fails
+DIST_CHILD_S = 150
 # a sample line of the Prometheus text format (name, labels, value, and an
 # optional OpenMetrics exemplar)
 PROM_SAMPLE = re.compile(
@@ -7034,6 +7065,490 @@ def phase_bucketing(cfg=BUCKETING, device=None, ref_device="cpu",
             "capture_lstm_step": capture["launches"]["lstm_step"]}
 
 
+# --- communication: the kvstore and dist phases ----------------------------
+def _kv_counters():
+    """The communication phases' counters (the scalar and device-lr entries
+    of sgd_mom_update apart: the kvstore's updater runs the scalar one)."""
+    from mxnet_tpu_torch.ops.kernels import fused_update as fu
+    from mxnet_tpu_torch.ops.kernels import lstm as kl
+
+    return {"lstm_step": (kl.lstm_step,),
+            "sgd_mom_update": (fu.sgd_mom_update,),
+            "sgd_mom_update_lr": (fu.sgd_mom_update_lr,)}
+
+
+def _kv_registry():
+    from mxnet_tpu_torch import telemetry
+
+    return {n: v for n, v in telemetry.registry.get_name_value()
+            if n.startswith("kvstore_")}
+
+
+@contextlib.contextmanager
+def _env(**kv):
+    """Environment variables set inside the block, as they were after."""
+    was = {k: os.environ.get(k) for k in kv}
+    os.environ.update({k: str(v) for k, v in kv.items()})
+    try:
+        yield
+    finally:
+        for k, v in was.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _dp_fit(torch, mod, it, kwargs, on_card, also=None):
+    """``mod.fit(it, **kwargs)`` recording, after each batch, the host
+    parameters and the metric (then ``also(mod)``), outside the step
+    times: (states before and after each batch, metrics, step ms of each
+    batch after the first, the first batch's ms)."""
+    states, metrics, marks = [_host_state(mod)[0]], [], []
+    t0 = time.perf_counter()
+
+    def record(param):
+        if on_card:
+            torch.cuda.synchronize()
+        end = time.perf_counter()
+        metrics.append({k: float(v) for k, v in
+                        param.eval_metric.get_name_value()})
+        states.append(_host_state(mod)[0])
+        if also is not None:
+            also(mod)
+        marks.append((end, time.perf_counter()))
+
+    mod.fit(it, batch_end_callback=record, **kwargs)
+    steps = [(b[0] - a[1]) * 1e3 for a, b in zip(marks, marks[1:])]
+    return states, metrics, steps, (marks[0][0] - t0) * 1e3
+
+
+def _dp_gates(what, states, ppl, ref, cs):
+    """Each batch's update within LSTM_UPDATE of the reference's and its
+    perplexity within LSTM_PPL; raises naming ``what``; the record."""
+    failures = []
+    init_err = max(float(np.abs(states[0][n] - ref["states"][0][n]).max())
+                   for n in ref["states"][0])
+    if init_err != 0.0:
+        failures.append("initial weights differ by %g" % init_err)
+    upd = [_change_errs(states[0], states[b], ref["states"][0],
+                        ref["states"][b]) for b in range(1, cs + 1)]
+    ppl_err = [abs(g - r) / r for g, r in zip(ppl, ref["perplexity"])]
+    for b, (u, p) in enumerate(zip(upd, ppl_err)):
+        worst = max(u, key=u.get)
+        if not u[worst] <= LSTM_UPDATE:
+            failures.append("batch-%d update of %s off by %g (tol %g)"
+                            % (b + 1, worst, u[worst], LSTM_UPDATE))
+        if not p <= LSTM_PPL:
+            failures.append("batch-%d perplexity off by %g (tol %g)"
+                            % (b + 1, p, LSTM_PPL))
+    if len(states) != cs + 1 or len(ppl) != cs:
+        failures.append("%d states / %d perplexities recorded, want %d"
+                        % (len(states) - 1, len(ppl), cs))
+    if failures:
+        raise RuntimeError(what + ": " + "; ".join(failures))
+    return {"update_err_worst": max(max(u.values()) for u in upd),
+            "perplexity_rel_err": ppl_err,
+            "tol": {"update": LSTM_UPDATE, "perplexity": LSTM_PPL}}
+
+
+def kv_launches(cfg, contexts, batches, n_params):
+    """Launches of a data-parallel fit: lstm_step once a layer and step in
+    every executor's forward; the kvstore's updater the scalar
+    sgd_mom_update once a parameter a batch; the device-lr entry never."""
+    return {"lstm_step": contexts * lstm_steps(cfg, batches),
+            "sgd_mom_update": n_params * batches, "sgd_mom_update_lr": 0}
+
+
+def phase_kvstore(cfg=DIST_LSTM, device=None, seed=SEED):
+    """The LSTM LM through ``Module.fit`` over two contexts on one device
+    (64 rows each), with kvstore "device" and then "local", against the
+    one-context unfused fit on the same batches. Returns the launches and
+    the reference run (for the dist phase)."""
+    import torch
+    from mxnet_tpu_torch import metric, telemetry
+    from mxnet_tpu_torch.context import resolve_device
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    counters = _kv_counters()
+    batch, nb = cfg["batch"], cfg["batches"]
+
+    def kwargs(init):
+        return dp_fit_args(cfg, init, metric.Perplexity(ignore_label=None))
+
+    parts_s = {}
+    t0 = time.perf_counter()
+    # 1. the reference: one context, unfused
+    _fresh(torch, on_card)
+    with _env(MXNET_FUSED_FIT="0"):
+        mod, it, init = lstm_setup(cfg, batch, nb, dev, seed)
+        states, metrics, ref_ms, _ = _dp_fit(torch, mod, it, kwargs(init),
+                                             on_card)
+    ref_path = mod.fit_step_stats()
+    n_params = len(states[0])
+    param_bytes = int(sum(a.nbytes for a in states[0].values()))
+    del mod
+    ref = {"states": states, "metrics": metrics,
+           "perplexity": [m["Perplexity"] for m in metrics]}
+    if ref_path != {"path": "unfused", "reason": "MXNET_FUSED_FIT=0"}:
+        raise RuntimeError("kvstore phase: the reference ran %s" % ref_path)
+    parts_s["reference"] = time.perf_counter() - t0
+
+    # 2. two contexts through each kvstore
+    runs, launches = {}, {}
+    for kind in ("device", "local"):
+        t0 = time.perf_counter()
+        _fresh(torch, on_card)
+        mod, it, init = lstm_setup(cfg, batch, nb, [dev, dev], seed)
+        _zero(counters)
+        kv0 = _kv_registry()
+        telemetry.enable_spans("executor")
+        telemetry.drain_events()
+        unequal = []
+
+        def contexts_equal(m, unequal=unequal):
+            execs = m._exec_group.execs
+            for n in m._exec_group.param_names:
+                if not torch.equal(execs[0].arg_dict[n]._data,
+                                   execs[1].arg_dict[n]._data):
+                    unequal.append(n)
+
+        try:
+            states, metrics, step_ms, first_ms = _dp_fit(
+                torch, mod, it, kwargs(init), on_card, also=contexts_equal)
+        finally:
+            spans = [e for e in telemetry.drain_events()
+                     if e[1] == "model.update_params_on_kvstore"]
+            telemetry.disable_spans()
+        got = _count(counters)
+        kv1 = _kv_registry()
+        rise = {k: kv1[k] - kv0.get(k, 0) for k in kv1}
+        stats = mod.fit_step_stats()
+        memory = _peak(torch, on_card)
+        del mod
+        want = kv_launches(cfg, 2, nb, n_params)
+        want_kv = {"kvstore_push_total": n_params * nb,
+                   "kvstore_push_bytes_total": param_bytes * nb,
+                   "kvstore_pull_total": n_params * (nb + 1),
+                   "kvstore_pull_bytes_total": 2 * param_bytes * (nb + 1),
+                   "kvstore_barrier_total": 0}
+        failures = []
+        if got != want:
+            failures.append("launched %s, want %s" % (got, want))
+        if rise != want_kv:
+            failures.append("kvstore counters rose %s, want %s"
+                            % (rise, want_kv))
+        if len(spans) != nb:
+            failures.append("%d model.update_params_on_kvstore spans, want "
+                            "%d" % (len(spans), nb))
+        if unequal:
+            failures.append("the contexts' parameters differ after a batch "
+                            "(%s)" % sorted(set(unequal)))
+        if stats != {"path": "unfused", "reason": "a kvstore"}:
+            failures.append("fit_step took %s" % stats)
+        if failures:
+            raise RuntimeError("kvstore phase (%s): %s"
+                               % (kind, "; ".join(failures)))
+        t1 = time.perf_counter()
+        gates = _dp_gates("kvstore phase (%s)" % kind, states,
+                          [m["Perplexity"] for m in metrics], ref, nb)
+        parts_s[kind] = t1 - t0
+        parts_s[kind + "_gates"] = time.perf_counter() - t1
+        launches[kind] = got
+        runs[kind] = dict(gates, step_ms=step_ms, first_batch_ms=first_ms,
+                          median_step_ms=float(np.median(step_ms)),
+                          counters=rise, launches=got,
+                          contexts_equal_every_batch=True, path=stats,
+                          **memory)
+    tokens = batch * cfg["seq"]
+    one_ms = float(np.median(ref_ms))
+    result = {"phase": "kvstore", "vocab": cfg["vocab"],
+              "embed": cfg["embed"], "hidden": cfg["hidden"],
+              "layers": cfg["layers"], "seq": cfg["seq"], "batch": batch,
+              "batches": nb, "contexts": [str(dev), str(dev)],
+              "rows_per_context": batch // 2, "dtype": "float32",
+              "parameters": n_params, "parameter_bytes": param_bytes,
+              "one_context": {"step_ms": ref_ms, "median_step_ms": one_ms,
+                              "tokens_per_s": tokens / one_ms * 1e3,
+                              "path": ref_path},
+              "two_contexts": {k: dict(r, tokens_per_s=tokens
+                                       / r["median_step_ms"] * 1e3)
+                               for k, r in runs.items()},
+              "two_vs_one_step": {k: r["median_step_ms"] / one_ms
+                                  for k, r in runs.items()},
+              "parts_s": parts_s,
+              "card": nvidia_smi() if on_card else None}
+    emit(result)
+    total = {k: sum(launches[r][k] for r in launches)
+             for k in launches["device"]}
+    return {"launches": total, "reference": ref, "n_params": n_params,
+            "param_bytes": param_bytes}
+
+
+def _timeline(group, res):
+    """Seconds from the first worker's start to: the workers' main (the
+    imports), their first batch (set-up, the group's rendezvous) and the
+    end of their fits, and the fits' own seconds; from the workers' JSON
+    wall-clock stamps."""
+    t0 = min(group.spawned_at.values())
+    out = {k: max(r[k] for r in res) - t0
+           for k in ("main_at", "ready_at", "fit_done_at", "done_at")
+           if all(k in r for r in res)}
+    if "ready_at" in out:
+        out["fit"] = out["fit_done_at"] - out["ready_at"]
+    return out
+
+
+def _dist_worker_cmd(out, cfg, device, on_card, seed, *extra):
+    from mxnet_tpu_torch.tools.dist_run import module_cmd
+
+    args = ["--out", out, "--cfg", json.dumps(cfg), "--seed", seed,
+            "--states"]
+    if not on_card:
+        args += ["--device", "cpu", "--count-plain"]
+    elif device is not None:
+        args += ["--device", str(device)]
+    return module_cmd("mxnet_tpu_torch.tools.dist_lstm", *(args
+                                                           + list(extra)))
+
+
+def _lstm_group(cfg, device, on_card, ps, work, timeout_s, seed):
+    """Start the LSTM LM over ``cfg["ranks"]`` worker processes (the
+    collective store over gloo, or with ``ps`` through one parameter
+    server on the host); the ranks set up and wait for the go file.
+    Returns (group, its directory, go file, server command)."""
+    from mxnet_tpu_torch.tools.dist_run import Group
+
+    out = os.path.join(work, "ps" if ps else "collective")
+    os.makedirs(out)
+    go = os.path.join(out, "go")
+    cmd = _dist_worker_cmd(out, cfg, device, on_card, seed, "--go", go,
+                           *(() if ps else ("--backend", "gloo")))
+    g = Group(out)
+    if ps:
+        g.start_servers(cmd, 1, cfg["ranks"], timeout_s, wait=False)
+    else:
+        g.start_workers(cmd, cfg["ranks"])
+    return g, out, go, cmd
+
+
+def _lstm_group_run(g, out, go, cfg, ps, timeout_s):
+    """Wait until every rank is set up, say go and wait for the fits;
+    (worker results, timeline, wall s of the fits)."""
+    from mxnet_tpu_torch.tools.dist_run import last_json
+
+    n = cfg["ranks"]
+    g.wait_files([os.path.join(out, "ready%d" % r) for r in range(n)],
+                 timeout_s)
+    t0 = time.perf_counter()
+    open(go, "w").close()
+    outs = g.wait(timeout_s)
+    wall = time.perf_counter() - t0
+    if ps:
+        g.wait_servers(30)
+    res = [last_json(outs[r]) for r in range(n)]
+    return res, _timeline(g, res), wall
+
+
+def _lstm_group_gates(cfg, n_params, ps, ref, out, res, timeline, wall):
+    """The LSTM LM run ``res`` (rank 0's states and every rank's
+    probabilities in ``out``) against the one-process fit ``ref``: the
+    lstm gates, the ranks equal bit for bit, the launches; the record and
+    the launches summed over the ranks."""
+    from mxnet_tpu_torch.tools import dist_lstm as dl
+
+    n, nb = cfg["ranks"], cfg["batches"]
+    t1 = time.perf_counter()
+    states = [dict(np.load(os.path.join(out, "state%d.npz" % b)))
+              for b in range(nb + 1)]
+    finals = [dict(np.load(os.path.join(out, "final%d.npz" % r)))
+              for r in range(n)]
+    ppl = dl.combined_perplexity([np.load(os.path.join(out, "probs%d.npy"
+                                                       % r))
+                                  for r in range(n)])
+    what = "dist phase (%s)" % ("parameter server" if ps else
+                                "collective dist_sync")
+    same = [_equal_params(finals[r], finals[0]) for r in range(1, n)]
+    failures = []
+    if not all(s[0] for s in same):
+        failures.append("the ranks' final parameters differ: %s" % same)
+    if not _equal_params(states[-1], finals[0])[0]:
+        failures.append("rank 0's last state is not its final one")
+    want = kv_launches(cfg, 1, nb, 0 if ps else n_params)
+    for r in res:
+        if r["launches"] != want:
+            failures.append("rank %d launched %s, want %s"
+                            % (r["rank"], r["launches"], want))
+        if r["store"] != ("PSKVStore" if ps else "KVStore") \
+                or r["workers"] != n or r["batches"] != nb:
+            failures.append("rank %d ran %s" % (r["rank"], r))
+    if failures:
+        raise RuntimeError(what + ": " + "; ".join(failures))
+    gates = _dp_gates(what, states, ppl, ref, nb)
+    timeline["gates_s"] = time.perf_counter() - t1
+    steps = [s for r in res for s in r["step_ms"]]
+    rec = dict(gates, ranks=n, fit_wall_s=wall, timeline_s=timeline,
+               backend=res[0]["backend"], store=res[0]["store"],
+               device=res[0]["device"], rows_per_rank=res[0]["batch"],
+               ranks_equal_bit_for_bit=True,
+               median_step_ms=float(np.median(steps)),
+               step_ms_by_rank=[r["step_ms"] for r in res],
+               launches_by_rank=[r["launches"] for r in res],
+               counters_by_rank=[r["kvstore_counters"] for r in res])
+    # the update's share of a step: push (the all-reduce, or the RPC
+    # queued) and pull (a copy, or the server's round trip)
+    c = res[0]["kvstore_counters"]
+    rec.update(update_on_kvstore_ms_per_step=[r["update_on_kvstore_ms"]
+                                              for r in res],
+               pull_ms_per_step=[r["pull_ms"] for r in res],
+               push_bytes_per_step=c["kvstore_push_bytes_total"] / nb,
+               pull_bytes_per_step=c["kvstore_pull_bytes_total"] / (nb + 1))
+    return rec, {k: sum(r["launches"][k] for r in res) for k in want}
+
+
+def _closed_forms_start(device, on_card, work, timeout_s):
+    """Start the nightly checks' counterparts on ``device``: the parameter
+    server's (2 servers, 2 workers, keys (4, 4) and (1200, 1200), 3 sync
+    rounds and an async one) and the collective group's (2 ranks over
+    gloo), side by side. Returns the two groups."""
+    from mxnet_tpu_torch.tools.dist_run import Group, module_cmd
+
+    dev = ["--device", "cpu"] if not on_card else (
+        ["--device", str(device)] if device is not None else [])
+    ps_cmd = module_cmd("mxnet_tpu_torch.tools.dist_sync_kvstore", *dev)
+    coll_cmd = module_cmd("mxnet_tpu_torch.tools.dist_collective", *dev,
+                          "--backend", "gloo")
+    groups = [Group(os.path.join(work, "closed_ps")),
+              Group(os.path.join(work, "closed_collective"))]
+    groups[1].start_workers(coll_cmd, 2)
+    groups[0].start_servers(ps_cmd, 2, 2, timeout_s)
+    groups[0].start_workers(ps_cmd, 2)
+    return groups
+
+
+def _closed_forms_wait(groups, on_card, timeout_s):
+    """Every pull of both closed-form groups exact; the record."""
+    from mxnet_tpu_torch.tools.dist_run import last_json
+
+    outs = [g.wait(timeout_s) for g in groups]
+    groups[0].wait_servers(30)
+    res = [[last_json(o[r]) for r in (0, 1)] for o in outs]
+    timelines = [_timeline(g, r) for g, r in zip(groups, res)]
+    want_dev = "cuda" if on_card else "cpu"
+    for r in res[0] + res[1]:
+        if not r.get("ok") or r["exact_checks"] != 8 \
+                or not r["device"].startswith(want_dev):
+            raise RuntimeError("dist phase closed forms: %s" % r)
+    return {"parameter_server": {"servers": 2, "workers": 2,
+                                 "exact_checks": [r["exact_checks"]
+                                                  for r in res[0]],
+                                 "counters": res[0][0]["counters"]},
+            "collective": {"ranks": 2, "backend": res[1][0]["backend"],
+                           "allgather": res[1][0]["allgather"],
+                           "exact_checks": [r["exact_checks"]
+                                            for r in res[1]]},
+            "device": res[0][0]["device"],
+            "timeline_s": {"parameter_server": timelines[0],
+                           "collective": timelines[1]}}
+
+
+def _world1(torch, cfg, dev, on_card, seed, work, ref, n_params):
+    """``dist_sync`` over NCCL (gloo on the host) at world size 1 in this
+    process: the store's all-reduce of one rank changes nothing, so the
+    run equals the one-process reference bit for bit."""
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.parallel import dist
+
+    nb = cfg["batches"]
+    counters = _kv_counters()
+    backend = "nccl" if on_card else "gloo"
+    dist.init("file://" + os.path.join(work, "rendezvous"), 1, 0,
+              backend=backend, device=dev)
+    try:
+        _fresh(torch, on_card)
+        mod, it, init = lstm_setup(cfg, cfg["batch"], nb, dev, seed)
+        _zero(counters)
+        states, _, step_ms, _ = _dp_fit(
+            torch, mod, it, dict(dp_fit_args(
+                cfg, init, metric.Perplexity(ignore_label=None)),
+                kvstore="dist_sync"), on_card)
+        launched = _count(counters)
+        kind = mod._kvstore.type
+        workers = mod._kvstore.num_workers
+        del mod
+        used = dist.backend()
+    finally:
+        dist.shutdown()
+    want = kv_launches(cfg, 1, nb, n_params)
+    same = [_equal_params(s, r)[0] for s, r in zip(states, ref["states"])]
+    if launched != want or not all(same) or len(states) != nb + 1 \
+            or (kind, workers, used) != ("dist_sync", 1, backend):
+        raise RuntimeError(
+            "dist phase (%s, world 1): launched %s (want %s), %s over %d "
+            "worker(s) by %s, batches equal to the reference %s"
+            % (backend, launched, want, kind, workers, used, same))
+    return {"backend": used, "bit_for_bit": True, "step_ms": step_ms,
+            "launches": launched}, launched
+
+
+def phase_dist(cfg=DIST_LSTM, device=None, seed=SEED, kv=None,
+               timeout_s=DIST_CHILD_S):
+    """The dist_* stores against the kvstore phase's one-process reference
+    (``kv``): (a0) ``dist_sync`` over NCCL at world size 1 in this
+    process, bit for bit; (a) the collective store over two gloo ranks on
+    the card, each its half of every batch; (b) ``dist_sync`` through a
+    parameter server on the host with two workers on the card; (c) the
+    closed forms. The processes of (a), (b)'s server and (c) start
+    together; (a) and (b) fit each alone once their ranks are set up (the
+    go file), so their step times are their own. Returns the launches."""
+    import tempfile
+
+    import torch
+    from mxnet_tpu_torch.context import resolve_device
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    ref, n_params = kv["reference"], kv["n_params"]
+    work = tempfile.mkdtemp(prefix="mxtt_dist_")
+    groups, parts, t00 = [], {}, time.perf_counter()
+    try:
+        coll = _lstm_group(cfg, device, on_card, False, work, timeout_s,
+                           seed)
+        pss = _lstm_group(cfg, device, on_card, True, work, timeout_s, seed)
+        groups += [coll[0], pss[0]]
+        closed = _closed_forms_start(device, on_card, work, timeout_s)
+        groups += closed
+        t0 = time.perf_counter()
+        parts["world1"], launches = _world1(torch, cfg, dev, on_card, seed,
+                                            work, ref, n_params)
+        parts["world1"]["wall_s"] = time.perf_counter() - t0
+        parts["closed_forms"] = _closed_forms_wait(closed, on_card,
+                                                   timeout_s)
+        parts["closed_forms"]["done_s"] = time.perf_counter() - t00
+        runs = {}
+        for name, (g, out, go, cmd), ps in (
+                ("collective", coll, False),
+                ("parameter_server", pss, True)):
+            runs[name] = _lstm_group_run(g, out, go, cfg, ps, timeout_s)
+            if name == "collective":
+                # its gates on the host while the server's ranks set up
+                pss[0].servers_bound(timeout_s)
+                pss[0].start_workers(pss[3], cfg["ranks"])
+            parts[name], got = _lstm_group_gates(
+                cfg, n_params, ps, ref, out, *runs[name])
+            parts[name]["done_s"] = time.perf_counter() - t00
+            launches = {k: launches[k] + got[k] for k in launches}
+    finally:
+        for g in groups:
+            g.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "dist", "batch": cfg["batch"], "batches": cfg["batches"],
+          "ranks": cfg["ranks"], "dtype": "float32", **parts,
+          "seconds": time.perf_counter() - t00,
+          "card": nvidia_smi() if on_card else None})
+    return launches
+
 def main():
     import torch
 
@@ -7069,6 +7584,9 @@ def main():
     seq_launches = phase_seq()
     custom = phase_custom()
     bucketing = phase_bucketing()
+    kvstore = phase_kvstore()
+    dist_launched = phase_dist(kv=kvstore)
+    kv_launched = kvstore["launches"]
     t = timings["serve"]["float32"]
     rows = [{
         "name": "flash_attention_fwd", "route": "cuda", "source": FA_SRC,
@@ -7121,6 +7639,12 @@ def main():
             # ccSGD's captured runs (lr entry) and the SequentialModule's
             # Updater (scalar entry)
             by_phase["zoo"] = zoo_launches[kind] + zoo_launches[kind + "_lr"]
+        if kind in kv_launched:
+            # the kvstore's updater: the scalar entry (the lr entry 0)
+            by_phase["kvstore"] = kv_launched[kind] + kv_launched[
+                kind + "_lr"]
+            by_phase["dist"] = dist_launched[kind] + dist_launched[
+                kind + "_lr"]
         rows.append({
             "name": kind, "route": "cuda", "source": UPDATE_SRC,
             "replaces": UPDATE_REPLACES[kind],
@@ -7178,14 +7702,17 @@ def main():
         "replaces": LSTM_REPLACES,
         "launches": lstm["fit"] + lstm["score"] + zoo_launches["lstm_step"]
         + seq_launches + bucketing["lstm_step"]
-        + bucketing["capture_lstm_step"],
+        + bucketing["capture_lstm_step"] + kv_launched["lstm_step"]
+        + dist_launched["lstm_step"],
         "launches_by_phase": {"lstm_fit": lstm["fit"],
                               "lstm_score": lstm["score"],
                               "zoo": zoo_launches["lstm_step"],
                               "seq": seq_launches,
                               "bucketing": bucketing["lstm_step"],
                               "bucketing_capture":
-                                  bucketing["capture_lstm_step"]},
+                                  bucketing["capture_lstm_step"],
+                              "kvstore": kv_launched["lstm_step"],
+                              "dist": dist_launched["lstm_step"]},
         "max_abs_err": max(lstm_worst.values()), "max_err": lstm_worst,
         "dtype": "float32", "shape": "one step at (N, H) = (128, 512)",
         "kernel": t["kernel"], "layout": t["layout"],

@@ -42,12 +42,16 @@ tuner, fronting the generate path too) behind ``serving.frontend``'s HTTP
 ``lr_scheduler``; and the rest of training: the optimizer zoo, ``Monitor``,
 ``SequentialModule`` / ``PythonModule`` / ``PythonLossModule``,
 ``FeedForward`` and the reference's top-level names (``Variable``,
-``Group``, ``Context``, ``seed``, ...).
+``Group``, ``Context``, ``seed``, ...); and communication: ``kvstore``
+(local, device and the collective ``dist_*`` stores over
+``parallel.dist``'s ``torch.distributed`` group), the parameter server
+(``kvstore_server``) and ``Module`` data-parallel over several contexts.
 """
 from . import (autograd, base, callback, context, engine, executor,
-               initializer, interop, io, lr_scheduler, metric, model, models,
-               module, monitor, ndarray, operator, optimizer, predict,
-               profiler, quant, random, rnn, rtc, serving, symbol, telemetry)
+               initializer, interop, io, kvstore, kvstore_server,
+               lr_scheduler, metric, model, models, module, monitor, ndarray,
+               operator, optimizer, parallel, predict, profiler, quant,
+               random, rnn, rtc, serving, symbol, telemetry)
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
@@ -69,8 +73,10 @@ __all__ = ["AttrScope", "Context", "Executor", "FeedForward", "Group",
            "MXNetError", "Monitor", "NameManager", "Prefix", "Variable",
            "autograd", "base", "callback", "context", "cpu", "cpu_pinned",
            "current_context", "default_device", "engine", "executor", "gpu",
-           "init_registry", "initializer", "interop", "io", "lr_scheduler",
+           "init_registry", "initializer", "interop", "io", "kvstore",
+           "kvstore_server", "lr_scheduler",
            "metric", "mod", "model", "models", "module", "monitor", "nd",
-           "ndarray", "num_devices", "operator", "optimizer", "predict",
+           "ndarray", "num_devices", "operator", "optimizer", "parallel",
+           "predict",
            "profiler", "quant", "random", "rnn", "rtc", "seed", "serving",
            "sym", "symbol", "telemetry"]

@@ -1,17 +1,18 @@
 """Model helpers that ``Module`` calls.
 
 Counterpart of the part of ``mxnet_tpu/model.py`` (reference
-python/mxnet/model.py) the one-device training path uses: ``BatchEndParam``,
-the kvstore policy ``_create_kvstore`` and the local update
+python/mxnet/model.py) the training path uses: ``BatchEndParam``,
+the kvstore policy ``_create_kvstore`` and the update on the workers
 ``_update_params``, and the checkpoints ``save_checkpoint`` /
 ``load_checkpoint`` (the symbol's JSON and an ``nd.save`` blob of
 ``arg:`` / ``aux:`` arrays, readable by the JAX package), and the legacy
-estimator ``FeedForward`` over ``Module``. kvstores are not ported: a
-kvstore that would exist raises (the reference's
-``model.update_params_on_kvstore`` span comes with them).
+estimator ``FeedForward`` over ``Module``; with the kvstore helpers
+``_initialize_kvstore`` and ``_update_params_on_kvstore`` (the update on
+the kvstore).
 
 Telemetry (domain ``executor``): the update runs inside a
-``model.update_params`` span, and a checkpoint's host snapshot inside
+``model.update_params`` span (``model.update_params_on_kvstore`` when the
+kvstore updates), and a checkpoint's host snapshot inside
 ``model.checkpoint_snapshot`` (the blob's write is an engine op with a
 span of its own).
 """
@@ -24,6 +25,7 @@ from collections import namedtuple
 import numpy as np
 
 from . import engine
+from . import kvstore as kvs
 from . import ndarray as nd
 from . import symbol as sym_mod
 from . import telemetry
@@ -33,36 +35,92 @@ BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
 
 
+#: a ``local`` kvstore updates on the workers (``update_on_kvstore``
+#: False) when a parameter has more elements than this (reference
+#: model.py:55-60)
+BIG_PARAM_ELEMENTS = 1024 * 1024 * 16
+
+
 def _create_kvstore(kvstore, num_device, arg_params):
     """(kvstore, update_on_kvstore) for ``kvstore`` over ``num_device``
-    devices (reference model.py:40-66). One device and a non-``dist``
-    name, or None, need no kvstore: (None, False). Every other case would
-    create one, and kvstores are not ported, so it raises."""
-    del arg_params
-    if kvstore is None or (isinstance(kvstore, str) and num_device == 1
-                           and "dist" not in kvstore):
-        return (None, False)
-    raise MXNetError("kvstore %r over %d device(s) is not ported"
-                     % (kvstore, num_device))
+    devices (reference model.py:40-66): None, or one device with a name
+    that is not ``dist_*``, needs none; a ``local`` store with a parameter
+    of more than 16 M elements leaves the update to the workers."""
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            kv = None
+        else:
+            kv = kvs.create(kvstore)
+            if kvstore == "local":
+                max_size = max(int(np.prod(p.shape))
+                               for p in arg_params.values())
+                if max_size > BIG_PARAM_ELEMENTS:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    if kv is None:
+        update_on_kvstore = False
+    return (kv, update_on_kvstore)
 
 
-def _update_params(param_arrays, grad_arrays, updater, num_device,
-                   kvstore=None):
-    """The local update (reference model.py:99-122): one ``updater`` call
-    per parameter and device, index ``i * num_device + k``; parameters
-    without a gradient array (fixed) are skipped."""
-    if kvstore is not None:
-        raise MXNetError("updates through a kvstore are not ported")
-    with telemetry.span("model.update_params", domain="executor",
-                        n_params=len(param_arrays)):
-        pairs = []
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """Init each parameter's key (its index) from ``arg_params``; with
+    the update on the kvstore, pull it into every context's array
+    (reference model.py:68-86)."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        kvstore.init(idx, arg_params[param_names[idx]])
+        if update_on_kvstore:
+            kvstore.pull(idx, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore):
+    """Push each parameter's gradients (one a context) and pull its
+    updated weight into every context (reference model.py:88-97)."""
+    with telemetry.span("model.update_params_on_kvstore",
+                        domain="executor", n_params=len(param_arrays)):
         for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
                                                           grad_arrays)):
             if grad_list[0] is None:
                 continue
-            for k, (w, g) in enumerate(zip(arg_list, grad_list)):
-                pairs.append((index * num_device + k, g, w))
+            kvstore.push(index, grad_list, priority=-index)
+            kvstore.pull(index, arg_list, priority=-index)
+
+
+def _update_params(param_arrays, grad_arrays, updater, num_device,
+                   kvstore=None):
+    """The update on the workers (reference model.py:99-122). Over several
+    contexts the gradients are summed first (through ``kvstore``: push,
+    then pull into every context's gradient; without one, on the first
+    context), the first context's weight is updated at index ``i *
+    num_device`` (the JAX package's key: one slot of its mesh executor,
+    so optimizer-state files cross between the packages) and copied to
+    the others, which therefore stay equal bit for bit. Parameters
+    without a gradient array (fixed) are skipped."""
+    with telemetry.span("model.update_params", domain="executor",
+                        n_params=len(param_arrays)):
+        pairs, copies = [], []
+        for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                          grad_arrays)):
+            if grad_list[0] is None:
+                continue
+            grad = grad_list[0]
+            if kvstore is not None:
+                kvstore.push(index, grad_list, priority=-index)
+                kvstore.pull(index, grad_list, priority=-index)
+            elif len(grad_list) > 1:
+                grad = kvs._reduce(grad_list)
+            pairs.append((index * num_device, grad, arg_list[0]))
+            copies.append(arg_list)
         updater.update_all(pairs)
+        for arg_list in copies:
+            for w in arg_list[1:]:
+                w._data.copy_(arg_list[0]._data)
 
 
 def split_param_dict(save_dict, fname="params"):
@@ -139,7 +197,8 @@ class FeedForward:
     iterator with ``optimizer`` and the optimizer's keyword arguments,
     ``predict`` and ``score`` evaluate, ``save`` / ``load`` are
     ``save_checkpoint`` / ``load_checkpoint``. ``ctx`` None is the first
-    CUDA card; one context only."""
+    CUDA card; over a list of contexts ``fit`` trains data-parallel
+    through its ``kvstore``."""
 
     def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None,
                  optimizer="sgd", initializer=None, numpy_batch_size=128,

@@ -1,5 +1,6 @@
 """Training modules (counterpart of ``mxnet_tpu/module``, reference
-python/mxnet/module/): ``Module`` on one device, ``BucketingModule`` over
+python/mxnet/module/): ``Module`` on one device or
+data-parallel over several (through a kvstore), ``BucketingModule`` over
 buckets that share its parameters, ``SequentialModule`` (a chain of
 modules), ``PythonModule`` / ``PythonLossModule`` (modules without a
 graph), their ``BaseModule`` training loop and the executor group."""

@@ -1,13 +1,19 @@
-"""``Module``: the concrete training module, on one device.
+"""``Module``: the concrete training module.
 
 Counterpart of ``mxnet_tpu/module/module.py`` (reference
 python/mxnet/module/module.py), its unfused path: ``bind`` builds the
-executor group, ``init_params`` fills host copies of the parameters by
-name (weight by the initializer; bias and beta 0, gamma 1, moving_mean 0,
+executor group (one executor a context, each on its slice of the
+batch), ``init_params`` fills host copies of the parameters by name
+(weight by the initializer; bias and beta 0, gamma 1, moving_mean 0,
 moving_var 1) and copies them to the device, ``init_optimizer`` creates
-the optimizer with ``rescale_grad = 1 / batch_size`` and its ``Updater``,
-and ``update`` runs one updater call per parameter (the fused update
-kernels). ``context=None`` is the first CUDA card; without one it raises.
+the kvstore (``model._create_kvstore``: none for one context and a name
+that is not ``dist_*``), the optimizer with ``rescale_grad = 1 / batch_size``
+(times the workers for a ``dist_*sync*`` store) and either the kvstore's
+updater (``update_on_kvstore``: ``update`` pushes the gradients and pulls
+the weights) or its own ``Updater`` (``update`` sums the gradients through
+the kvstore and runs one updater call per parameter, the fused update
+kernels). ``context=None`` is the first CUDA card; without one it raises;
+a list of contexts trains data-parallel over them.
 ``compute_dtype`` ("bfloat16") passes to the executor.
 
 ``fit_step`` (what ``fit`` calls each batch) is the reference's fused
@@ -19,7 +25,8 @@ updates the executor's parameters and the updater's states in place, so
 same tensors. Per-parameter lr / wd go in as device arrays, uploaded again
 when their contents change (a schedule, Adam's bias correction, an
 in-place ``opt.lr_mult[name] = 2.0``). The reference's conditions apply
-(``MXNET_FUSED_FIT``, no kvstore, a pure rule, no input gradients, every
+(``MXNET_FUSED_FIT``, no kvstore (the reason then reads "a kvstore"),
+one context, a pure rule, no input gradients, every
 parameter's ``grad_req`` "write", no monitor: ``install_monitor`` drops
 the fused step, whose reason then reads "monitor install"), and one of
 the port's: no Custom op
@@ -39,7 +46,9 @@ engine (``async_write``). The fused step updates the executor's
 parameters and the updater's states in place, so a save reads the
 stepped values; loading optimizer states replaces the updater's tensors,
 so it drops the fused step, which the next ``fit_step`` builds (and, on
-the card, captures) anew. Kvstores and several contexts are not ported.
+the card, captures) anew. With the update on the kvstore the optimizer
+states are the kvstore's (its ``save_optimizer_states`` /
+``load_optimizer_states``).
 """
 from __future__ import annotations
 
@@ -55,7 +64,8 @@ from ..base import MXNetError
 from ..context import cpu, resolve_device
 from ..initializer import InitDesc, Uniform
 from ..io import DataDesc
-from ..model import _create_kvstore, _update_params, load_checkpoint
+from ..model import _create_kvstore, _initialize_kvstore, \
+    _update_params, _update_params_on_kvstore, load_checkpoint
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
 
@@ -69,11 +79,8 @@ class Module(BaseModule):
         self._compute_dtype = compute_dtype
         contexts = context if isinstance(context, (list, tuple)) \
             else [context]
-        if len(contexts) != 1:
-            raise MXNetError("a Module over %d contexts is not ported (one "
-                             "device)" % len(contexts))
-        self._context = [resolve_device(contexts[0])]
-        del work_load_list  # one device: nothing to balance
+        self._context = [resolve_device(c) for c in contexts]
+        del work_load_list  # even slices, as the JAX package's
         self._symbol = symbol
         data_names = list(data_names or [])
         label_names = list(label_names or [])
@@ -142,6 +149,9 @@ class Module(BaseModule):
         written atomically through the engine."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         blob = self._updater.get_states()
 
         def write():
@@ -159,8 +169,11 @@ class Module(BaseModule):
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
         engine.wait_for_file(fname)
-        with open(fname, "rb") as f:
-            self._updater.set_states(f.read())
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+        else:
+            with open(fname, "rb") as f:
+                self._updater.set_states(f.read())
         self._fused_fit = None
 
     def borrow_optimizer(self, shared_module):
@@ -313,18 +326,23 @@ class Module(BaseModule):
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """Create the optimizer (by name, with ``rescale_grad`` 1 / batch
-        size unless given) and its updater."""
+        """Create the kvstore, the optimizer (by name, with
+        ``rescale_grad`` 1 / batch size, times the workers of a
+        ``dist_*sync*`` store, unless given) and its updater: the
+        kvstore's when it updates, else the module's (reference
+        module.py:432)."""
         self._check_ready()
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring")
             return
         kv, update_on_kvstore = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
+        batch_size = self._exec_group.batch_size
+        if kv is not None and "dist" in kv.type and "_sync" in kv.type:
+            batch_size *= kv.num_workers
         if isinstance(optimizer, str):
             params = dict(optimizer_params)
-            params.setdefault("rescale_grad",
-                              1.0 / self._exec_group.batch_size)
+            params.setdefault("rescale_grad", 1.0 / batch_size)
             optimizer = opt.create(
                 optimizer, sym=self.symbol,
                 param_idx2name=dict(enumerate(self._exec_group.param_names)),
@@ -334,7 +352,19 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._kvstore = kv
         self._update_on_kvstore = update_on_kvstore
-        self._updater = opt.get_updater(optimizer)
+        self._updater = None
+        if kv is not None:
+            if self._params_dirty:
+                self._exec_group.get_params(self._arg_params,
+                                            self._aux_params)
+                self._params_dirty = False
+            _initialize_kvstore(kv, self._exec_group.param_arrays,
+                                self._arg_params, self._param_names,
+                                update_on_kvstore)
+        if update_on_kvstore:
+            kv.set_optimizer(optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         self._fused_fit = None
         if self._preload_opt_states is not None:
@@ -356,9 +386,16 @@ class Module(BaseModule):
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
         self._params_dirty = True
-        _update_params(self._exec_group.param_arrays,
-                       self._exec_group.grad_arrays, updater=self._updater,
-                       num_device=len(self._context), kvstore=self._kvstore)
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(self._exec_group.param_arrays,
+                                      self._exec_group.grad_arrays,
+                                      self._kvstore)
+        else:
+            _update_params(self._exec_group.param_arrays,
+                           self._exec_group.grad_arrays,
+                           updater=self._updater,
+                           num_device=len(self._context),
+                           kvstore=self._kvstore)
 
     # --- the fused step ---------------------------------------------------
     def fit_step(self, data_batch):
@@ -422,6 +459,8 @@ class Module(BaseModule):
             reason = "no optimizer"
         elif self._kvstore is not None or self._update_on_kvstore:
             reason = "a kvstore"
+        elif len(self._context) > 1:
+            reason = "several contexts"
         elif self._monitor_installed:
             reason = "monitor install"
         elif self._optimizer.pure_rule() is None:

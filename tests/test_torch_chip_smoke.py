@@ -2105,3 +2105,53 @@ def test_nms_and_matching_excusals():
     got = matching_excused(anchors, labels, 0.5)
     # anchor 0's best IoU is 0.5 exactly; anchor 2 is box 0 exactly
     np.testing.assert_array_equal(got, [[True, False, False]])
+
+
+# the data-parallel LSTM LM, 2 layers, narrow: 2 ranks of 4 rows
+TINY_DIST = dict(cs.DIST_LSTM, vocab=50, embed=16, hidden=16, seq=5,
+                 batch=8, batches=3)
+
+
+def test_kvstore_and_dist_phases_on_cpu(monkeypatch, capsys):
+    """Both communication phases on the host: two contexts through the
+    "device" and "local" kvstores against one context (launches, counters,
+    spans, contexts equal), then dist_sync over one gloo rank (bit for bit
+    the reference), two gloo ranks and a parameter server with two
+    workers (child processes counting their plain calls), and the closed
+    forms."""
+    _count_plain_calls(monkeypatch)
+    kv = cs.phase_kvstore(TINY_DIST, device="cpu")
+    n, nb = kv["n_params"], TINY_DIST["batches"]
+    per = TINY_DIST["layers"] * TINY_DIST["seq"] * nb
+    assert n == 4
+    assert kv["launches"] == {"lstm_step": 2 * 2 * per,
+                              "sgd_mom_update": 2 * n * nb,
+                              "sgd_mom_update_lr": 0}
+    launched = cs.phase_dist(TINY_DIST, device="cpu", kv=kv, timeout_s=90)
+    # world 1 and the collective ranks update on the workers, the server's
+    # workers do not
+    assert launched == {"lstm_step": 5 * per, "sgd_mom_update": 3 * n * nb,
+                        "sgd_mom_update_lr": 0}
+    lines = [json.loads(x) for x in
+             capsys.readouterr().out.strip().splitlines()]
+    kvl = next(x for x in lines if x.get("phase") == "kvstore")
+    dl = next(x for x in lines if x.get("phase") == "dist")
+    assert set(kvl["two_contexts"]) == {"device", "local"}
+    assert dl["world1"]["bit_for_bit"] and dl["world1"]["backend"] == "gloo"
+    assert dl["collective"]["ranks_equal_bit_for_bit"]
+    assert dl["parameter_server"]["store"] == "PSKVStore"
+    assert dl["closed_forms"]["collective"]["allgather"] == [1.0, 2.0]
+
+
+def test_kvstore_phase_fails_when_lstm_step_is_not_reached():
+    """On the host nothing counts a launch: the phase must refuse."""
+    with pytest.raises(RuntimeError, match=r"kvstore phase \(device\): "
+                                           "launched"):
+        cs.phase_kvstore(TINY_DIST, device="cpu")
+
+
+def test_kv_launch_arithmetic_at_full_width():
+    """2 x 70 lstm_step a batch over two contexts, one scalar
+    sgd_mom_update a parameter a batch, no device-lr launch."""
+    assert cs.kv_launches(cs.DIST_LSTM, 2, 8, 4) == {
+        "lstm_step": 1120, "sgd_mom_update": 32, "sgd_mom_update_lr": 0}

@@ -196,17 +196,31 @@ def test_module_fit_runs_callbacks_and_updates_every_parameter(caplog):
 
 
 def test_module_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """Without a card a Module needs the CPU named; two CPU contexts bind
+    (one executor each), and a dist_sync store without a launcher is one
+    worker's, as the JAX package's."""
     sym = mt.models.get_symbol("mlp", num_classes=3, hidden=(4,))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="no CUDA device"):
         mt.mod.Module(sym)
+    two = mt.mod.Module(sym, context=["cpu", "cpu"])
+    two.bind([("data", (2, 5))], [("softmax_label", (2,))])
+    assert len(two._exec_group.execs) == 2
     mod = mt.mod.Module(sym, context="cpu")
-    with pytest.raises(MXNetError, match="2 contexts"):
-        mt.mod.Module(sym, context=["cpu", "cpu"])
     mod.bind([("data", (2, 5))], [("softmax_label", (2,))])
     mod.init_params()
-    with pytest.raises(MXNetError, match="not ported"):
-        mod.init_optimizer(kvstore="dist_sync")
+    mod.init_optimizer(kvstore="dist_sync")
+    assert type(mod._kvstore) is mt.kvstore.KVStore
+    assert (mod._kvstore.type, mod._kvstore.rank,
+            mod._kvstore.num_workers) == ("dist_sync", 0, 1)
+    assert mod._update_on_kvstore
+    jmod = mx.mod.Module(mx.models.get_symbol("mlp", num_classes=3,
+                                              hidden=(4,)), context=mx.cpu())
+    jmod.bind([("data", (2, 5))], [("softmax_label", (2,))])
+    jmod.init_params()
+    jmod.init_optimizer(kvstore="dist_sync")
+    assert (jmod._kvstore.rank, jmod._kvstore.num_workers,
+            jmod._update_on_kvstore) == (0, 1, True)
 
 
 def test_module_input_grads_and_fixed_params():
