@@ -340,7 +340,31 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    set up. A child that fails or outlives DIST_CHILD_S fails the phase.
    Prints step ms of both paths and each path's update (push and pull) ms
    and bytes a step.
-10. ``kernels`` — one line per the port's kernel table.
+10. ``engine`` (``mxnet_tpu_torch/tools/engine_phase.py``) — the engine
+   on the card: ``engine.get()`` must be the native ``ThreadedEngine``
+   (built from ``mxnet_tpu_torch/native/engine.cc``) and the
+   happens-before sanitizer is on for the whole phase with no report at
+   its end. (1) ResNet-50 ``Module.fit`` at the resnet phase's size (224,
+   batch 32, bf16, 8 batches) three ways — the captured fused step as
+   today, under ``MXNET_ENGINE_CAPTURE=1`` (replays = batches - warm-up)
+   and under ``MXNET_ENGINE_FUSE=1`` as well (fused runs = batches -
+   warm-up, each a replay of ONE CUDA graph of the batch's copy and the
+   step) — the three equal bit for bit, each with exact ``conv_wgrad`` and
+   ``sgd_mom_update`` launches; (2) the LM (serve_fixed's width, T = 512)
+   behind ``InferenceServer`` eager, with ``capture=True`` and with
+   ``fuse=True``: the same responses bit for bit, exact flash launches, a
+   forced ladder swap mid-run that invalidates the sequences and a
+   recapture after it; (3) the decode scheduler under
+   ``MXNET_ENGINE_CAPTURE=1`` (captured step): the uncaptured run's tokens
+   and ``decode_step_r0`` replaying; (4) the program cache's warm restart,
+   two processes on one ``MXNET_PROGCACHE_DIR``: the first serves the LM,
+   retunes (the tuner adds a rung) and saves; the second adopts the tuned
+   ladder, disk-loads every bucket (``disk_load_count() == len(ladder)``,
+   no fresh trace in the compile witness), answers bit for bit as the
+   first and launches the flash kernel from the loaded programs; a
+   truncated entry falls back (``progcache_fallbacks`` 1) with the same
+   outputs.
+11. ``kernels`` — one line per the port's kernel table.
 
 Then the card's ``nvidia-smi`` name/power-limit line and, last, the
 ``{"ok": true, "device": ...}`` line. Exits non-zero without a CUDA card.
@@ -391,6 +415,8 @@ from mxnet_tpu_torch.tools.ssd import SSD, matching_excused, \
     nms_explained, ssd_data, ssd_setup, ssd_symbol, ssd_targets
 from mxnet_tpu_torch.tools.ssd import fit_args as ssd_fit_args
 from mxnet_tpu_torch.tools.zoo import ZOO
+from mxnet_tpu_torch.tools.engine_phase import ENGINE, lm_requests, \
+    lm_server, request_sizes, serve_in_turn, swap_ladder
 
 H100 = {"bf16_flops": 989e12, "f32_flops": 67e12, "int8_ops": 1979e12,
         "bytes_per_s": 3.35e12}
@@ -7549,6 +7575,400 @@ def phase_dist(cfg=DIST_LSTM, device=None, seed=SEED, kv=None,
           "card": nvidia_smi() if on_card else None})
     return launches
 
+def phase_host():
+    """One line, no gate: what the card machine offers a JPEG decoder (the
+    input plane's first question): ``jpeglib.h``, ``libjpeg.so*`` and
+    CUDA's ``libnvjpeg.so*``, each with the paths found."""
+    import glob
+
+    def found(patterns):
+        return sorted({p for pat in patterns for p in glob.glob(pat)})
+
+    emit({"phase": "host",
+          "jpeglib_h": found(["/usr/include/jpeglib.h",
+                              "/usr/include/*/jpeglib.h",
+                              "/usr/local/include/jpeglib.h"]),
+          "libjpeg": found(["/usr/lib/libjpeg.so*", "/usr/lib/*/libjpeg.so*",
+                            "/usr/lib64/libjpeg.so*",
+                            "/usr/local/lib/libjpeg.so*"]),
+          "libnvjpeg": found(["/usr/local/cuda/lib64/libnvjpeg.so*"])})
+
+
+def _engine_note(msg):
+    """A progress line of the engine phase on stderr."""
+    print("engine: %s" % msg, file=sys.stderr, flush=True)
+
+
+def _nominal_counts(sizes, ladder):
+    """{nominal bucket: requests} of requests of ``sizes`` rows against
+    ``ladder`` (the smallest rung holding each)."""
+    out = {}
+    for n in sizes:
+        b = next(b for b in sorted(ladder) if b >= n)
+        out[b] = out.get(b, 0) + 1
+    return out
+
+
+def _engine_fit(torch, cfg, device, seed, on_card, env):
+    """ResNet-50 ``Module.fit`` (one epoch of ``cfg``) under ``env``: its
+    parameters and aux states, launches, step path and seconds."""
+    from mxnet_tpu_torch import engine
+
+    _fresh(torch, on_card)
+    fused0 = engine.fused_stats()
+    with _env(**env):
+        mod, it, init = resnet_setup(cfg, cfg["batch"], cfg["batches"],
+                                     device, seed,
+                                     compute_dtype=cfg["dtype"])
+        counters = _resnet_counters()
+        _zero(counters)
+        t0 = time.time()
+        step_ms, first_ms, _metrics = _fit_timed(
+            torch, mod, it, fit_args(cfg, init), on_card)
+        state = _host_state(mod)
+        secs = time.time() - t0
+        launches = _count(counters)
+        stats = mod.fit_step_stats()
+        stats["step_ms"], stats["first_batch_ms"] = step_ms, first_ms
+    fused = {k: v - fused0[k] for k, v in engine.fused_stats().items()}
+    sym = mod.symbol
+    del mod, it
+    return state, launches, stats, fused, secs, sym
+
+
+def _engine_fits(torch, cfg, device, seed, on_card):
+    """ResNet-50's three ``fit`` modes (the captured fused step; engine
+    capture; capture and fuse): equal bit for bit, exact launches, the
+    engine's replays and fused runs."""
+    from mxnet_tpu_torch import engine
+
+    warm = engine.capture_warmup()
+    steps = cfg["batches"]
+    runs = {}
+    for mode, env in (("today", {}),
+                      ("capture", {"MXNET_ENGINE_CAPTURE": "1"}),
+                      ("fuse", {"MXNET_ENGINE_CAPTURE": "1",
+                                "MXNET_ENGINE_FUSE": "1"})):
+        runs[mode] = _engine_fit(torch, cfg, device, seed, on_card, env)
+        _engine_note("resnet fit %s in %.1f s" % (mode, runs[mode][4]))
+    (args, aux), _l, _s, _f, _t, sym = runs["today"]
+    per_step = wgrad_convs(sym)
+    per_route = wgrad_routes(sym, cfg["image"], cfg["batch"], cfg["dtype"])
+    want = dict(resnet_wgrad_launches(per_step, steps),
+                conv_wgrad_repack=2 * per_route.get("wgmma", 0) * steps
+                if on_card and cfg["dtype"] == "bfloat16" else 0,
+                sgd_mom_update=len(args) * steps)
+    out = {}
+    for mode, ((a, x), launches, stats, fused, secs, _sym) in runs.items():
+        if launches != want:
+            raise RuntimeError("engine phase: resnet fit (%s) launched %s, "
+                               "want %s" % (mode, launches, want))
+        for what, got, ref in (("parameters", a, args), ("aux states", x,
+                                                          aux)):
+            same, worst, name, n = _equal_params(got, ref)
+            if not same:
+                raise RuntimeError(
+                    "engine phase: resnet fit (%s) %s differ from today's "
+                    "by %g (%s, %d arrays)" % (mode, what, worst, name, n))
+        eng = stats.get("engine")
+        if mode == "today" and eng is not None:
+            raise RuntimeError("engine phase: resnet fit rode the engine's "
+                               "capture with it off: %s" % eng)
+        if mode == "capture" and (eng is None or eng["replays"]
+                                  != steps - warm or eng["bails"]
+                                  or eng["fused_runs"]):
+            raise RuntimeError("engine phase: resnet fit under capture: %s, "
+                               "want %d replays" % (eng, steps - warm))
+        if mode == "fuse" and (
+                eng is None or eng["fused_runs"] != steps - warm
+                or eng["fuse_bails"] or eng["replays"]
+                or fused["runs"] != steps - warm
+                or fused["captures"] != (1 if on_card else 0)):
+            raise RuntimeError("engine phase: resnet fit under fuse: %s %s, "
+                               "want %d fused runs" % (eng, fused,
+                                                       steps - warm))
+        if mode != "capture":
+            _require_captured("engine", [stats], on_card and mode == "today")
+        out[mode] = {"seconds": secs, "engine": eng, "fused": fused,
+                     "step_path": stats.get("path"),
+                     "step_ms": stats["step_ms"],
+                     "median_step_ms": float(np.median(stats["step_ms"]))
+                     if stats["step_ms"] else None,
+                     "first_batch_ms": stats["first_batch_ms"]}
+    return {"batch": cfg["batch"], "batches": steps, "dtype": cfg["dtype"],
+            "warmup": warm, "launches_each": want, "bit_for_bit": True,
+            "modes": out}, {k: 3 * v for k, v in want.items()}
+
+
+def _engine_server(torch, cfg, eng, device, seed, on_card):
+    """The LM behind ``InferenceServer`` eager, captured and fused: the
+    same responses bit for bit, exact flash launches, a forced ladder swap
+    that invalidates the sequences and a recapture after it."""
+    from mxnet_tpu_torch import engine
+    from mxnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    params = lm_arg_params(cfg, seed)
+    seq = eng["serve_seq"]
+    reqs = lm_requests(cfg, seq, request_sizes(eng), seed + 40)
+    cut = eng["swap_after"]
+    arms, ref, launches = {}, None, 0
+    for arm, cap, fuse in (("eager", False, False), ("capture", True, False),
+                           ("fuse", True, True)):
+        fa.flash_attention.launches = 0
+        t0 = time.time()
+        srv = lm_server(cfg, seq, params, eng["buckets"], device,
+                        capture=cap, fuse=fuse, adaptive=True)
+        preds = {}
+
+        def collect():
+            for p in list(srv._replicas[0].cache._execs.values()):
+                preds[id(p)] = p
+
+        collect()
+        with srv:
+            outs = serve_in_turn(srv, reqs[:cut])
+            before = srv.capture_stats()[0]
+            old = list(srv._replicas[0].captures.values())
+            collect()
+            swap_ladder(srv, eng["swap_ladder"])
+            collect()
+            outs += serve_in_turn(srv, reqs[cut:])
+            after = srv.capture_stats()[0]
+            collect()
+        got = fa.flash_attention.launches
+        launches += got
+        fused_runs = sum(st["fused_program_runs"]
+                         for st in list(before.values())
+                         + list(after.values()))
+        forwards = _forward_calls(preds.values())
+        want = cfg["layers"] * (forwards + fused_runs)
+        if got != want:
+            raise RuntimeError(
+                "engine phase: the %s server launched the flash kernel %d "
+                "times, want %d (%d predictor forwards, %d fused runs)"
+                % (arm, got, want, forwards, fused_runs))
+        if ref is None:
+            ref = outs
+        else:
+            for i, (o, r) in enumerate(zip(outs, ref)):
+                if not np.array_equal(o, r):
+                    raise RuntimeError(
+                        "engine phase: the %s server's response %d differs "
+                        "from the eager one by %g"
+                        % (arm, i, float(np.abs(o - r).max())))
+        rec = {"seconds": time.time() - t0, "flash_launches": got,
+               "predictor_forwards": forwards, "fused_runs": fused_runs,
+               "before_swap": before, "after_swap": after}
+        if cap:
+            key = "fused_runs" if fuse else "replays"
+            warm = engine.capture_warmup()
+            sizes = request_sizes(eng)
+            # each nominal bucket's sequence warms up, then runs the rest
+            want_before = {b: max(0, n - warm) for b, n in _nominal_counts(
+                sizes[:cut], eng["buckets"]).items()}
+            want_after = {b: max(0, n - warm) for b, n in _nominal_counts(
+                sizes[cut:], eng["swap_ladder"]).items()}
+            got_before = {b: st[key] for b, st in before.items()}
+            got_after = {b: st[key] for b, st in after.items()}
+            stale = [cs.name for cs in old if cs._invalid_reason is None]
+            bails = sum(st["fuse_bails"] + st["bails"]
+                        for st in list(before.values())
+                        + list(after.values()))
+            if got_before != want_before or got_after != want_after \
+                    or stale or bails or (fuse and not on_card and any(
+                        st["fused_replays"] for st in after.values())) \
+                    or (fuse and on_card and any(
+                        st["fused_replays"] != st["fused_runs"]
+                        for st in after.values())):
+                raise RuntimeError(
+                    "engine phase: the %s server's sequences: %s before the "
+                    "swap (want %s), %s after (want %s), not invalidated %s,"
+                    " bails %d" % (arm, got_before, want_before, got_after,
+                                   want_after, stale, bails))
+        arms[arm] = rec
+        del srv, preds
+        _fresh(torch, on_card)
+    return {"seq": seq, "buckets": list(eng["buckets"]),
+            "swap_ladder": list(eng["swap_ladder"]),
+            "requests": len(reqs), "bit_for_bit": True,
+            "arms": arms}, launches
+
+
+def _engine_decode(torch, cfg, serve, eng, device, seed, on_card):
+    """The decode scheduler eager and under ``MXNET_ENGINE_CAPTURE=1``
+    (the captured step inside ``decode_step_r0``): the same tokens, the
+    sequence replaying, exact flash launches (one a prompt and layer)."""
+    from mxnet_tpu_torch import engine
+    from mxnet_tpu_torch.serving import generate as gen
+
+    params = lm_arg_params(cfg, seed)
+    spec = gen.DecodeSpec(num_heads=cfg["heads"],
+                          num_kv_heads=cfg["kv_heads"])
+    model = gen.DecodeModel.from_arg_params(params, spec, device=device)
+    prompts = serve_prompts(cfg, serve, seed)[:eng["decode_prompts"]]
+    conf = dict(serve, max_new_tokens=eng["decode_new_tokens"])
+    plain = _serve_streams(gen, model, cfg, conf, prompts, together=True)
+    with _env(MXNET_ENGINE_CAPTURE="1"):
+        cap = _serve_streams(gen, model, cfg, conf, prompts, together=True,
+                             capture=True)
+    if plain["tokens"] != cap["tokens"]:
+        raise RuntimeError("engine phase: the decode under engine capture "
+                           "gave %s, eager %s" % (cap["tokens"],
+                                                  plain["tokens"]))
+    if "engine_capture" in plain["stats"]:
+        raise RuntimeError("engine phase: the eager decode rode a captured "
+                           "sequence")
+    seqs = cap["stats"].get("engine_capture") or [None]
+    st = seqs[0]
+    steps = cap["stats"]["steps"]
+    warm = engine.capture_warmup()
+    if st is None or st["name"] != "decode_step_r0" or \
+            st["replays"] != steps - warm or st["bails"]:
+        raise RuntimeError("engine phase: decode_step_r0 %s, want %d "
+                           "replays" % (st, steps - warm))
+    _require_decode_capture("engine phase decode", cap["stats"], on_card)
+    want = len(prompts) * cfg["layers"]
+    for r in (plain, cap):
+        if r["launches"] != want:
+            raise RuntimeError("engine phase: the decode launched the flash "
+                               "kernel %d times, want %d"
+                               % (r["launches"], want))
+    del model
+    _fresh(torch, on_card)
+    return {"prompts": [len(p) for p in prompts],
+            "new_tokens": eng["decode_new_tokens"], "steps": steps,
+            "tokens_equal": True, "decode_step_r0": st,
+            "ms_per_token": {"eager": plain["ms_per_token"],
+                             "capture": cap["ms_per_token"]}}, \
+        plain["launches"] + cap["launches"]
+
+
+def _engine_restart(cfg, eng, device, on_card, timeout_s=600):
+    """The program cache's warm restart: two processes in turn on one
+    temporary ``MXNET_PROGCACHE_DIR`` (removed after)."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="mxtt-restart-")
+    env = dict(os.environ, MXNET_PROGCACHE_DIR=os.path.join(work, "cache"),
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    for k in ("MXNET_PROGCACHE", "MXNET_ENGINE_CAPTURE", "MXNET_ENGINE_FUSE"):
+        env.pop(k, None)
+    conf = json.dumps({"lm": cfg, "engine": {
+        k: list(v) if isinstance(v, tuple) else v for k, v in eng.items()}})
+    dev = "cuda" if on_card else str(device)
+    recs, outs = {}, {}
+    try:
+        for role in ("first", "second"):
+            out = os.path.join(work, role + ".json")
+            t0 = time.time()
+            proc = subprocess.run(
+                [sys.executable, "-m", "mxnet_tpu_torch.tools.engine_phase",
+                 "restart", role, out, "--device", dev, "--config", conf],
+                cwd=root, env=env, timeout=timeout_s,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError("engine phase: the %s restart process "
+                                   "failed (%d):\n%s" % (
+                                       role, proc.returncode,
+                                       proc.stdout[-4000:]))
+            with open(out) as f:
+                recs[role] = json.load(f)
+            recs[role]["seconds"] = time.time() - t0
+            recs[role]["log_tail"] = proc.stdout[-3000:]
+            outs[role] = recs[role].pop("digests")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    first, second = recs["first"], recs["second"]
+    ladder = first["ladder"]
+    problems = []
+    if sorted(ladder) == sorted(eng["restart_buckets"]):
+        problems.append("the first process's retune kept %s" % ladder)
+    if second["ladder_at_start"] != ladder:
+        problems.append("the second started at %s, not the tuned %s"
+                        % (second["ladder_at_start"], ladder))
+    if second["disk_loads"] != len(ladder) or second["binds"]:
+        problems.append("the second disk-loaded %d programs and built %d "
+                        "(ladder %s)" % (second["disk_loads"],
+                                         second["binds"], ladder))
+    if second["compiles"] or second["witness_disk_loads"] != len(ladder):
+        problems.append("the witness saw %d fresh traces and %d disk loads"
+                        % (second["compiles"],
+                           second["witness_disk_loads"]))
+    if {first["engine"], second["engine"]} != {"NativeEngine"}:
+        problems.append("engines %s / %s" % (first["engine"],
+                                             second["engine"]))
+    if on_card and second["flash_launches"] <= 0:
+        problems.append("the loaded programs launched no flash kernel")
+    if outs["first"] != outs["second"] or \
+            len(outs["first"]) != len(eng["restart_sizes"]):
+        problems.append("the second process's outputs differ from the "
+                        "first's (sha256 of each)")
+    tr = second["truncated"]
+    if tr["fallbacks"] != 1 or tr["source"] != "compile" \
+            or not tr["same_outputs"]:
+        problems.append("the truncated entry: %s" % tr)
+    if problems:
+        raise RuntimeError("engine phase: warm restart: %s\nfirst: %s\n"
+                           "second: %s" % ("; ".join(problems), first,
+                                           second))
+    return {"ladder": ladder, "first": first, "second": second,
+            "outputs_equal": True, "cold_ready_s": first["ready_s"],
+            "warm_ready_s": second["ready_s"],
+            "cold_process_s": first["seconds"],
+            "warm_process_s": second["seconds"]}, \
+        first["flash_launches"] + second["flash_launches"]
+
+
+def phase_engine(cfg=LM, resnet=RESNET, eng=ENGINE, serve=SERVE,
+                 device=None, seed=SEED):
+    """The engine on the card (see the module's docstring, phase 10).
+    Returns its launches by kernel."""
+    import torch
+
+    from mxnet_tpu_torch import engine
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    t0 = time.time()
+    native = engine.get()
+    if type(native).__name__ != "NativeEngine" or \
+            native.engine_type != "ThreadedEngine":
+        raise RuntimeError("engine phase: engine.get() is %s (%s), not the "
+                           "native ThreadedEngine" % (
+                               type(native).__name__,
+                               getattr(native, "engine_type", "?")))
+    engine.sanitizer_enable(True)
+    try:
+        fits, fit_launches = _engine_fits(torch, resnet, device, seed,
+                                          on_card)
+        server, srv_launches = _engine_server(torch, cfg, eng, device, seed,
+                                              on_card)
+        _engine_note("server arms done")
+        decode, dec_launches = _engine_decode(torch, cfg, serve, eng, device,
+                                              seed, on_card)
+        _engine_note("decode done")
+        restart, restart_launches = _engine_restart(cfg, eng, device,
+                                                    on_card)
+        reports = engine.sanitizer_reports()
+    finally:
+        engine.sanitizer_enable(False)
+    if reports:
+        raise RuntimeError("engine phase: the sanitizer reported %d race(s): "
+                           "%s" % (len(reports), [
+                               {k: r[k] for k in ("rule", "op", "site",
+                                                  "other_op", "other_site")}
+                               for r in reports[:4]]))
+    emit({"phase": "engine", "engine": "NativeEngine",
+          "workers_env": os.environ.get("MXNET_CPU_WORKER_NTHREADS", ""),
+          "sanitizer_reports": 0, "resnet": fits, "server": server,
+          "decode": decode, "restart": restart,
+          "seconds": time.time() - t0})
+    return dict(fit_launches, flash_attention_fwd=srv_launches
+                + dec_launches, flash_attention_fwd_restart=restart_launches)
+
+
 def main():
     import torch
 
@@ -7561,6 +7981,7 @@ def main():
     # the reference products run in full f32: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_host()
     phase_build()
     worst, timings = phase_kernel(torch)
     bwd_worst, bwd_timings = phase_kernel_bwd(torch)
@@ -7586,6 +8007,7 @@ def main():
     bucketing = phase_bucketing()
     kvstore = phase_kvstore()
     dist_launched = phase_dist(kv=kvstore)
+    engine_launched = phase_engine()
     kv_launched = kvstore["launches"]
     t = timings["serve"]["float32"]
     rows = [{
@@ -7593,14 +8015,20 @@ def main():
         "replaces": FA_REPLACES,
         "launches": serve_launches + paged_launches + spec_launches
         + trace_launches + fixed_launches + http_launches
-        + train["flash_attention_fwd"],
+        + train["flash_attention_fwd"]
+        + engine_launched["flash_attention_fwd"]
+        + engine_launched["flash_attention_fwd_restart"],
         "launches_by_phase": {"serve": serve_launches,
                               "serve_paged": paged_launches,
                               "serve_spec": spec_launches,
                               "serve_trace": trace_launches,
                               "serve_fixed": fixed_launches,
                               "serve_http": http_launches,
-                              "train": train["flash_attention_fwd"]},
+                              "train": train["flash_attention_fwd"],
+                              "engine": engine_launched[
+                                  "flash_attention_fwd"],
+                              "engine_restart": engine_launched[
+                                  "flash_attention_fwd_restart"]},
         "max_abs_err": max(worst.values()), "max_err": worst,
         "dtype": "float32", "shape": t["shape"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -7629,6 +8057,7 @@ def main():
         by_phase = {"train": train[kind]}
         if kind in resnet:
             by_phase["resnet"] = resnet[kind]
+            by_phase["engine"] = engine_launched[kind]
             by_phase["image_zoo"] = image_zoo["main"][kind]
             by_phase["ssd"] = ssd["main"][kind]
         if kind in bucketing:
@@ -7667,7 +8096,8 @@ def main():
         "image_zoo": sum(image_zoo["main"][k] for k in wgrad_parts),
         "image_zoo_check": sum(image_zoo["check"].values()),
         "ssd": sum(ssd["main"][k] for k in wgrad_parts),
-        "ssd_check": sum(ssd["check"][k] for k in wgrad_parts)}
+        "ssd_check": sum(ssd["check"][k] for k in wgrad_parts),
+        "engine": sum(engine_launched[k] for k in wgrad_parts)}
     rows.append({
         "name": "conv_wgrad", "route": "cuda", "source": WGRAD_SRC,
         "replaces": WGRAD_REPLACES,
@@ -7679,6 +8109,7 @@ def main():
             + image_zoo["check"].get("conv_wgrad_" + part, 0)
             + ssd["main"]["conv_wgrad_" + part]
             + ssd["check"]["conv_wgrad_" + part]
+            + engine_launched["conv_wgrad_" + part]
             for part in ("partial", "reduce", "repack")},
         "max_abs_err": max(wgrad_worst.values()), "max_err": wgrad_worst,
         "dtype": RESNET["dtype"],

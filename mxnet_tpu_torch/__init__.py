@@ -45,13 +45,16 @@ tuner, fronting the generate path too) behind ``serving.frontend``'s HTTP
 ``Group``, ``Context``, ``seed``, ...); and communication: ``kvstore``
 (local, device and the collective ``dist_*`` stores over
 ``parallel.dist``'s ``torch.distributed`` group), the parameter server
-(``kvstore_server``) and ``Module`` data-parallel over several contexts.
+(``kvstore_server``) and ``Module`` data-parallel over several contexts;
+and the engine: ``engine`` (the native dependency engine, capture/replay,
+trace-and-fuse, the sanitizer), ``progcache`` (the persistent program
+cache) and ``analysis.compile_witness``.
 """
-from . import (autograd, base, callback, context, engine, executor,
-               initializer, interop, io, kvstore, kvstore_server,
+from . import (analysis, autograd, base, callback, context, engine,
+               executor, initializer, interop, io, kvstore, kvstore_server,
                lr_scheduler, metric, model, models, module, monitor, ndarray,
-               operator, optimizer, parallel, predict, profiler, quant,
-               random, rnn, rtc, serving, symbol, telemetry)
+               operator, optimizer, parallel, predict, profiler, progcache,
+               quant, random, rnn, rtc, serving, symbol, telemetry)
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
@@ -71,12 +74,12 @@ __version__ = "0.9.5-torch.5"
 
 __all__ = ["AttrScope", "Context", "Executor", "FeedForward", "Group",
            "MXNetError", "Monitor", "NameManager", "Prefix", "Variable",
-           "autograd", "base", "callback", "context", "cpu", "cpu_pinned",
+           "analysis", "autograd", "base", "callback", "context", "cpu", "cpu_pinned",
            "current_context", "default_device", "engine", "executor", "gpu",
            "init_registry", "initializer", "interop", "io", "kvstore",
            "kvstore_server", "lr_scheduler",
            "metric", "mod", "model", "models", "module", "monitor", "nd",
            "ndarray", "num_devices", "operator", "optimizer", "parallel",
-           "predict",
+           "predict", "progcache",
            "profiler", "quant", "random", "rnn", "rtc", "seed", "serving",
            "sym", "symbol", "telemetry"]

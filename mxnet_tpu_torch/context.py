@@ -116,3 +116,24 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         return gpu(0)
     return device
+
+
+def prepare_capture_thread(device, stream) -> None:
+    """Create the calling thread's cuDNN and cuBLAS handles on ``device``
+    (and cuBLAS's workspace for ``stream``) outside a CUDA graph capture.
+
+    The libraries make a handle a thread at first use, and making one
+    allocates device memory, which a capture refuses: a graph captured on
+    a thread that never ran a convolution or a product (an engine worker
+    capturing a step that warmed up on other workers) would fail. Three
+    tiny operations on ``stream`` make them first; they launch none of the
+    port's kernels."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        a = torch.ones((8, 8), device=device)
+        a @ a
+        a.bfloat16() @ a.bfloat16()
+        torch.nn.functional.conv2d(a.view(1, 1, 8, 8),
+                                   a[:3, :3].reshape(1, 1, 3, 3))

@@ -27,6 +27,10 @@ exactly only up to 256; the reference casts them.
 :meth:`Executor.make_train_step` is the whole training step (forward,
 backward and the caller's update) as one function; on the card it is one
 CUDA graph, captured after a few warm-up calls and replayed (``_TrainStep``).
+:class:`CapturedTrainStep` runs such a step's two host ops (load the batch,
+step) through the engine's ``CapturedSequence`` (``MXNET_ENGINE_CAPTURE``);
+``_TrainStep.fused_body`` is the step's body for the engine's
+trace-and-fuse, which captures the load and the step as one graph.
 
 An operator that draws (``Dropout``, the ``RNN`` op's dropout) takes the
 device's generator (``random.generator``) in every training forward, so
@@ -58,7 +62,7 @@ is its own graph run and records one.
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -66,7 +70,7 @@ import torch
 from . import random as _random
 from . import telemetry as _telemetry
 from .base import MXNetError
-from .context import resolve_device
+from .context import prepare_capture_thread, resolve_device
 from .ndarray import NDArray, _as_torch_dtype
 from .ops.kernels import _launches
 from .symbol import _grad_reqs
@@ -597,9 +601,14 @@ class _TrainStep:
             if self._exe._symbol._needs_rng():
                 # replays advance the generator as eager steps would
                 graph.register_generator_state(_random.generator(device))
+            # the capturing thread may not be the one that warmed up (an
+            # engine worker under MXNET_ENGINE_CAPTURE)
+            stream = torch.cuda.Stream(device)
+            stream.wait_stream(main)
+            prepare_capture_thread(device, stream)
 
             def record():
-                with torch.cuda.graph(graph):
+                with torch.cuda.graph(graph, stream=stream):
                     self._graph_outs = self._body(extra)
 
             try:
@@ -614,6 +623,15 @@ class _TrainStep:
         _launches.replayed(self._delta)
         self.replays += 1
         return [o.clone() for o in self._graph_outs]
+
+    def fused_body(self, extra):
+        """The step's body on its adopted tensors (forward, backward and
+        the update in place), for a caller that captures it inside a graph
+        of its own (the engine's trace-and-fuse, ``Module.fit_step``
+        under ``MXNET_ENGINE_FUSE``); the outputs."""
+        if self._params is None:
+            raise MXNetError("train step: fused before its first call")
+        return self._body(tuple(extra))
 
     def _set_gauges(self):
         """The reference's per-device byte gauges at ZeRO stage 0 (one
@@ -666,3 +684,59 @@ class _TrainStep:
         exe.outputs = [NDArray(o) for o in outs]
         return (outs, dict(self._params),
                 _unflatten(self._states[0], self._states[1]))
+
+
+class CapturedTrainStep:
+    """Engine capture/replay of a steady-state train step
+    (``MXNET_ENGINE_CAPTURE``; see ``engine.CapturedSequence``).
+
+    Each step is two engine ops: ``fit.load_data`` writes the executor's
+    data buffers (mutable ``data_var``) and ``fit.step`` reads them and
+    updates the parameters and optimizer states in place (const
+    ``data_var``, mutable ``step_var``). The WAR edge on ``data_var``
+    orders step N's read before load N+1's write, so steps pipeline
+    through one submission each after the warm-up.
+
+    :meth:`fence` is the happens-before edge readers of the step's results
+    need (parameters, outputs, metrics); :meth:`close` drains and retires
+    the engine vars.
+    """
+
+    def __init__(self, name: str = "train_step"):
+        from . import engine
+        self._engine = engine
+        self.data_var: Optional[int] = engine.new_variable()
+        self.step_var: Optional[int] = engine.new_variable()
+        self.seq = engine.CapturedSequence(name=name)
+
+    def step(self, load_fn, step_fn, fuse_load=None, fuse_step=None):
+        """One iteration through the capture state machine: eager during
+        the warm-up, one replayed submission once the sequence is stable;
+        with ``fuse_load`` / ``fuse_step`` (``engine.FuseOp``) and
+        ``MXNET_ENGINE_FUSE``, one fused program."""
+        seq = self.seq
+        seq.begin_step()
+        seq.push(load_fn, mutable_vars=(self.data_var,),
+                 name="fit.load_data", fuse=fuse_load)
+        seq.push(step_fn, const_vars=(self.data_var,),
+                 mutable_vars=(self.step_var,), name="fit.step",
+                 fuse=fuse_step)
+        seq.end_step()
+
+    def invalidate(self, reason: str):
+        self.seq.invalidate(reason)
+
+    def fence(self):
+        """Order every pushed or replayed step before the caller goes on."""
+        if self.data_var is not None:
+            self._engine.fence([self.data_var, self.step_var],
+                               name="fit.capture_fence").wait()
+
+    def close(self):
+        """Drain outstanding steps and retire the engine vars."""
+        if self.data_var is None:
+            return
+        self.fence()
+        self._engine.delete_variable(self.data_var)
+        self._engine.delete_variable(self.step_var)
+        self.data_var = self.step_var = None

@@ -34,6 +34,17 @@ that copies to the host (a ``NumpyOp``). Otherwise ``fit_step`` runs
 ``forward_backward`` and ``update`` and :meth:`Module.fit_step_stats`
 says why.
 
+Under ``MXNET_ENGINE_CAPTURE`` the fused step's two host ops
+(``fit.load_data``, ``fit.step``) ride an engine ``CapturedSequence``
+(``executor.CapturedTrainStep``): eager for the warm-up steps, then one
+engine submission a step; the step itself is still the one CUDA graph.
+Under ``MXNET_ENGINE_FUSE`` as well, the stable sequence becomes one
+fused program (``engine.FusedSequence``): on the card ONE CUDA graph of
+the batch's host-to-device copy (from a pinned staging buffer, inside the
+graph) and the step; on the CPU the same ops eagerly. A graph that draws
+(``Dropout``) stays on replay. Readers of the step's results (parameters,
+outputs, metrics, checkpoints) fence the sequence first.
+
 ``bind(shared_module=...)`` (``BucketingModule``'s buckets) shares that
 module's parameter and aux-state tensors and host copies; both must list
 their parameters in the same order, the updater's index keys.
@@ -56,6 +67,7 @@ import logging
 import os
 
 import numpy as np
+import torch
 
 from .. import engine
 from .. import ndarray as nd
@@ -68,6 +80,15 @@ from ..model import _create_kvstore, _initialize_kvstore, \
     _update_params, _update_params_on_kvstore, load_checkpoint
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
+
+
+def _batch_tensor(x):
+    """A batch array as a tensor where it lies (an NDArray's own)."""
+    if isinstance(x, nd.NDArray):
+        return x._data
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x))
 
 
 class Module(BaseModule):
@@ -152,6 +173,7 @@ class Module(BaseModule):
         if self._update_on_kvstore:
             self._kvstore.save_optimizer_states(fname)
             return
+        self._capture_fence()
         blob = self._updater.get_states()
 
         def write():
@@ -174,7 +196,7 @@ class Module(BaseModule):
         else:
             with open(fname, "rb") as f:
                 self._updater.set_states(f.read())
-        self._fused_fit = None
+        self._drop_fused("optimizer state load")
 
     def borrow_optimizer(self, shared_module):
         """Share ``shared_module``'s optimizer and updater (reference
@@ -186,7 +208,7 @@ class Module(BaseModule):
         self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
         self.optimizer_initialized = True
-        self._fused_fit = None
+        self._drop_fused("optimizer borrow")
 
     # --- properties -------------------------------------------------------
     @property
@@ -226,6 +248,7 @@ class Module(BaseModule):
     def get_params(self):
         """(arg_params, aux_params): host NDArrays by name."""
         self._check_ready()
+        self._capture_fence()
         if self._params_dirty:
             self._exec_group.get_params(self._arg_params, self._aux_params)
             self._params_dirty = False
@@ -239,6 +262,7 @@ class Module(BaseModule):
         if self.params_initialized and not force_init:
             return
         self._check_bound()
+        self._capture_fence()  # steps in flight write these tensors
         exe = self._exec_group._exec
         if self._arg_params is None:
             self._arg_params = {n: nd.zeros(a.shape, cpu())
@@ -293,9 +317,9 @@ class Module(BaseModule):
                     "states" % (shared_module._param_names,
                                 self._param_names))
         if force_rebind:
+            self._drop_fused("rebind")
             self.binded = False
             self._exec_group = None
-            self._fused_fit = None
         if self.binded:
             self.logger.warning("Already bound, ignoring bind()")
             return
@@ -314,7 +338,7 @@ class Module(BaseModule):
             grad_req=grad_req, compute_dtype=self._compute_dtype,
             shared_group=(shared_module._exec_group
                           if shared_module is not None else None))
-        self._fused_fit = None
+        self._drop_fused("bind")
         self.binded = True
         if shared_module is not None:
             self.params_initialized = True
@@ -335,6 +359,7 @@ class Module(BaseModule):
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring")
             return
+        self._drop_fused("optimizer re-init")
         kv, update_on_kvstore = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
         batch_size = self._exec_group.batch_size
@@ -374,6 +399,7 @@ class Module(BaseModule):
     # --- computations -----------------------------------------------------
     def forward(self, data_batch, is_train=None):
         self._check_ready()
+        self._capture_fence()
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self, out_grads=None):
@@ -385,6 +411,7 @@ class Module(BaseModule):
         self._check_ready()
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer first")
+        self._capture_fence()
         self._params_dirty = True
         if self._update_on_kvstore:
             _update_params_on_kvstore(self._exec_group.param_arrays,
@@ -401,7 +428,10 @@ class Module(BaseModule):
     def fit_step(self, data_batch):
         """One training step: the fused step (forward, backward and update
         as one ``make_train_step``, one CUDA graph on the card) where the
-        set-up allows it, else ``forward_backward`` + ``update``."""
+        set-up allows it, else ``forward_backward`` + ``update``. Under
+        ``MXNET_ENGINE_CAPTURE`` its two host ops ride the engine's
+        capture/replay (and under ``MXNET_ENGINE_FUSE`` one fused
+        program)."""
         fs = self._fused_fit_state()
         if fs is None:
             self.forward_backward(data_batch)
@@ -409,21 +439,139 @@ class Module(BaseModule):
             return
         exe, update = self._exec_group._exec, fs["update"]
         lr_arr, wd_arr = update.lr_wd(exe._device)
-        self._exec_group._load_data(data_batch)
-        # the executor's parameters and the updater's states, which the
-        # step updates in place (the first call adopts them)
-        params = {n: exe.arg_dict[n]._data for n in update.names}
-        fs["step"](params, update.states(exe.arg_dict), None, lr_arr, wd_arr)
+        cap = self._fit_capture(fs, data_batch)
+        if cap is not None:
+            # the closures read the executor's tensors when they run: each
+            # replayed step consumes what its predecessor updated in place
+            exec_group = self._exec_group
+
+            def load(_db=data_batch):
+                exec_group._load_data(_db)
+
+            def stepped(_lr=lr_arr, _wd=wd_arr):
+                params = {n: exe.arg_dict[n]._data for n in update.names}
+                fs["step"](params, update.states(exe.arg_dict), None, _lr,
+                           _wd)
+
+            f_load, f_step = self._fit_fuse_ops(fs, cap, data_batch,
+                                                lr_arr, wd_arr)
+            cap.step(load, stepped, fuse_load=f_load, fuse_step=f_step)
+        else:
+            self._exec_group._load_data(data_batch)
+            # the executor's parameters and the updater's states, which the
+            # step updates in place (the first call adopts them)
+            params = {n: exe.arg_dict[n]._data for n in update.names}
+            fs["step"](params, update.states(exe.arg_dict), None, lr_arr,
+                       wd_arr)
         self._params_dirty = True
         if not fs["host_checked"]:
             # the first step created the Custom operators: a NumpyOp reads
             # the host, which no captured step can hold
             fs["host_checked"] = True
+            if cap is not None:
+                cap.fence()
             ops = exe._host_copy_ops()
             if ops:
                 self._fused_ineligible(
                     "a Custom op copies to the host (%s)"
                     % ", ".join(sorted({type(o).__name__ for o in ops})))
+
+    def _fit_capture(self, fs, data_batch):
+        """The fused step's ``CapturedTrainStep``, or None when
+        ``MXNET_ENGINE_CAPTURE`` is off (a harness left from an earlier
+        step is drained and retired). A new batch geometry invalidates the
+        recording."""
+        if not engine.capture_enabled():
+            cap = fs.pop("capture", None)
+            if cap is not None:
+                cap.close()
+            return None
+        cap = fs.get("capture")
+        if cap is None:
+            from ..executor import CapturedTrainStep
+            cap = fs["capture"] = CapturedTrainStep(name="fit_step")
+        shapes = tuple(tuple(a.shape) for a in
+                       list(data_batch.data) + list(data_batch.label or []))
+        prev = fs.get("capture_shapes")
+        if prev is not None and prev != shapes:
+            cap.invalidate("reshape: %s -> %s" % (prev, shapes))
+            cap.fence()
+        fs["capture_shapes"] = shapes
+        return cap
+
+    def _fit_fuse_ops(self, fs, cap, data_batch, lr_arr, wd_arr):
+        """(fuse_load, fuse_step) ``engine.FuseOp``s that stitch the
+        captured step into one fused program (``MXNET_ENGINE_FUSE``), or
+        (None, None) where the step stays on replay (a graph that draws).
+        The load's feed is the batch's host arrays: on the card they land
+        in pinned staging buffers and the copies into the executor's data
+        buffers run inside the graph. The step's register on
+        ``cap.step_var`` is (parameters, optimizer states, outputs), the
+        first two updated in place; its writeback publishes the outputs."""
+        if not engine.fuse_enabled():
+            return None, None
+        exe = self._exec_group._exec
+        if exe._symbol._needs_rng():
+            return None, None
+        step = fs["step"]
+        eg = self._exec_group
+        dvar, svar = cap.data_var, cap.step_var
+        pairs = [(n, i, False) for i, n in enumerate(eg.data_names)
+                 if n in exe.arg_dict]
+        if eg.label_names and data_batch.label:
+            pairs += [(n, i, True) for i, n in enumerate(eg.label_names)
+                      if n in exe.arg_dict]
+        names = tuple(n for n, _i, _l in pairs)
+
+        def load_feed(_db=data_batch):
+            return tuple(_batch_tensor((_db.label if is_l else _db.data)[i])
+                         for _n, i, is_l in pairs)
+
+        def load_fn(*vals):
+            for n, v in zip(names, vals):
+                exe.arg_dict[n]._data.copy_(v, non_blocking=v.is_pinned())
+            return ({n: exe.arg_dict[n]._data for n in names},)
+
+        fuse_load = engine.FuseOp(
+            load_fn, out_vars=(dvar,), feed=load_feed,
+            fingerprint="fit.load_data:v1:%r" % (names,))
+
+        def step_fn(_data_reg, step_reg, lr, wd):
+            outs = step.fused_body((lr, wd))
+            params, states, _outs = step_reg
+            return ((params, states, tuple(outs)),)
+
+        def step_init():
+            return (dict(step._params), list(step._states[0]),
+                    tuple(o._data for o in exe.outputs))
+
+        def step_writeback(d):
+            exe.outputs = [nd.NDArray(o.clone()) for o in d[svar][2]]
+
+        fuse_step = engine.FuseOp(
+            step_fn, in_vars=(dvar, svar), out_vars=(svar,),
+            feed=lambda _lr=lr_arr, _wd=wd_arr: (_lr, _wd),
+            init={svar: step_init}, writeback=step_writeback,
+            fingerprint="fit.step:v1")
+        return fuse_load, fuse_step
+
+    def _capture_fence(self):
+        """Happens-before for readers of the step's results while the
+        engine pipelines ``fit_step`` (nothing otherwise)."""
+        fs = self._fused_fit
+        cap = fs.get("capture") if isinstance(fs, dict) else None
+        if cap is not None:
+            cap.fence()
+
+    def _drop_fused(self, reason):
+        """Drain and retire the fused step's capture harness, then drop
+        the fused step (built anew at the next ``fit_step``)."""
+        fs = self._fused_fit
+        cap = fs.pop("capture", None) if isinstance(fs, dict) else None
+        if cap is not None:
+            cap.invalidate(reason)
+            cap.close()
+        self._fused_fit = None
 
     def fit_step_stats(self):
         """Which path ``fit_step`` takes: {"path": "captured" | "eager" |
@@ -431,12 +579,18 @@ class Module(BaseModule):
         counts (warm-up calls, captures, replays), the unfused one the
         reason."""
         if self._fused_fit:
-            return dict(self._fused_fit["step"].stats(), **{
+            out = dict(self._fused_fit["step"].stats(), **{
                 "compute_dtype": str(self._exec_group._exec.compute_dtype
                                      or "float32").replace("torch.", "")})
+            cap = self._fused_fit.get("capture")
+            if cap is not None:
+                out["engine"] = cap.seq.stats()
+            return out
         return {"path": "unfused", "reason": self._fused_reason}
 
     def _fused_ineligible(self, reason):
+        if self._fused_fit:
+            self._drop_fused(reason)
         self._fused_fit = False
         self._fused_reason = reason
 
@@ -447,7 +601,7 @@ class Module(BaseModule):
             if self._fused_fit and self._fused_fit["update"].key != \
                     self._optimizer._hyperparam_key():
                 # a hyperparameter the rule fixes changed: build anew
-                self._fused_fit = None
+                self._drop_fused("hyperparameter change")
             else:
                 return self._fused_fit or None
         exe = self._exec_group._exec if self._exec_group else None
@@ -489,14 +643,17 @@ class Module(BaseModule):
         the executor's tensors in place: nothing to copy back)."""
         self._check_bound()
         self._monitor_installed = True
+        self._drop_fused("monitor install")
         self._fused_ineligible("monitor install")
         self._exec_group.install_monitor(mon)
 
     def update_metric(self, eval_metric, labels):
+        self._capture_fence()  # the step's outputs are set on a worker
         self._exec_group.update_metric(eval_metric, labels)
 
     def get_outputs(self, merge_multi_context=True):
         self._check_ready()
+        self._capture_fence()
         return self._exec_group.get_outputs(merge_multi_context)
 
     def get_input_grads(self, merge_multi_context=True):

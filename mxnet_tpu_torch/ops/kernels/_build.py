@@ -10,10 +10,16 @@ Libraries land in ``mxnet_tpu_torch/_build/`` at first use, keyed by a hash
 of the flags, the source and the ``csrc`` headers it includes, so an edited
 source or header rebuilds the libraries that read it and no others. :func:`build_all` starts one ``nvcc`` per source at once.
 A missing ``nvcc`` or a failed build raises; nothing falls back.
+
+:func:`build_host` builds a host library (no CUDA: the native engine) with
+``g++`` under the same naming, ``<name>-<hash>.so`` beside the kernels,
+holding a file lock while it builds so processes that start together
+(pytest-xdist workers) build it once.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -156,3 +162,48 @@ def kernel(name: str, symbol: str, argtypes) -> object:
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn
+
+
+#: g++ flags of a host library (:func:`build_host`)
+HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-pthread", "-shared"]
+
+
+def host_lib_path(name: str, src: str) -> str:
+    """Where host library ``name`` built from ``src`` lives: keyed by a
+    hash of the flags and the source, as the kernels' libraries are."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    with open(src, "rb") as fh:
+        h.update(fh.read())
+    return os.path.join(BUILD_DIR, "%s-%s.so" % (name, h.hexdigest()[:16]))
+
+
+def build_host(name: str, src: str) -> str:
+    """Build ``src`` (C++) into host library ``name`` with ``g++`` unless
+    built already; returns its path. The build holds ``<path>.lock``
+    (``flock``), so concurrent processes build once and the rest load the
+    result; a missing ``g++`` or a failed build raises."""
+    out = host_lib_path(name, src)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(out + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(out):
+                return out
+            cxx = shutil.which(os.environ.get("CXX", "g++"))
+            if cxx is None:
+                raise MXNetError("g++ not found: the native engine is built "
+                                 "from source at first use")
+            tmp = "%s.tmp%d" % (out, os.getpid())
+            proc = subprocess.run([cxx] + HOST_FLAGS + ["-o", tmp, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  timeout=300)
+            if proc.returncode != 0:
+                raise MXNetError("g++ failed for %s (exit %d):\n%s"
+                                 % (src, proc.returncode, proc.stdout))
+            os.replace(tmp, out)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return out

@@ -14,13 +14,18 @@ around the pair is :class:`FlashAttention`.
 Hkv dividing H. For CPU tensors it runs :func:`flash_attention_plain`; for
 CUDA tensors it launches the kernel and counts the launch in
 ``flash_attention.launches`` (and by type in ``launches_by_dtype``), or
-raises — it never falls back. Unlike the
+raises — it never falls back. Both go through the custom op
+``torch.ops.mxtt.flash_attention_fwd`` (``torch.library``: its CUDA
+implementation the kernel's launch, its CPU one the plain version, a fake
+one for tracing), so a program traced with ``torch.export`` holds the op
+and, loaded again, still launches the hand-written kernel. Unlike the
 reference there is no shape contract beyond the kernel's own limits
 (ragged lengths are masked in the kernel) and no minimum-length gate.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -165,6 +170,40 @@ def _launch(q, k, v, causal, scale, return_lse):
     return (out, lse) if return_lse else out
 
 
+@torch.library.custom_op("mxtt::flash_attention_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: float, return_lse: bool) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """(O, lse) of the forward; lse is empty without ``return_lse``. The
+    default implementation serves devices with no other (none here: the
+    CPU and CUDA ones below are registered)."""
+    raise ValueError("flash_attention: no path for device %s" % q.device)
+
+
+@_fwd_op.register_kernel("cpu")
+def _fwd_cpu(q, k, v, causal, scale, return_lse):
+    if return_lse:
+        return flash_attention_plain(q, k, v, causal, scale, True)
+    return (flash_attention_plain(q, k, v, causal, scale),
+            q.new_empty((0,), dtype=torch.float32))
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_cuda(q, k, v, causal, scale, return_lse):
+    if return_lse:
+        return _launch(q, k, v, causal, scale, True)
+    return (_launch(q, k, v, causal, scale, False),
+            q.new_empty((0,), dtype=torch.float32))
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, causal, scale, return_lse):
+    b, h, tq, _d = q.shape
+    lse = q.new_empty((b, h, tq) if return_lse else (0,),
+                      dtype=torch.float32)
+    return torch.empty_like(q, memory_format=torch.contiguous_format), lse
+
+
 def flash_attention(q, k, v, causal=False, scale=None, return_lse=False):
     """Attention over q (B, H, Tq, D) against k/v (B, Hkv, Tk, D).
 
@@ -177,14 +216,14 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False):
     _check(q, k, v, causal)
     if scale is None:
         scale = 1.0 / q.shape[-1] ** 0.5
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, scale, return_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError("flash_attention: no path for device %s" % q.device)
-    if q.numel() == 0 or k.numel() == 0:
+    if q.device.type == "cuda" and (q.numel() == 0 or k.numel() == 0):
         raise ValueError("flash_attention: empty input %s / %s"
                          % (tuple(q.shape), tuple(k.shape)))
-    return _launch(q, k, v, causal, scale, return_lse)
+    out, lse = torch.ops.mxtt.flash_attention_fwd(
+        q, k, v, bool(causal), float(scale), bool(return_lse))
+    return (out, lse) if return_lse else out
 
 
 counted(flash_attention)

@@ -19,11 +19,24 @@ replica's ``.cpu()``, a bind on another replica) never break one.
 ``MXNET_CUDA_GRAPH=0`` at bind time runs the forward eagerly; on the CPU
 it always runs eagerly.
 
-:func:`compile_count` counts binds (one a ``Predictor`` or ``reshape``):
-the number the serving bucket cache's "no more programs than buckets"
-contract is held to. :func:`disk_load_count` reads 0: the program cache
-(``progcache``) is not ported. ``export`` / ``ExportedPredictor`` /
-``load`` (the reference's StableHLO artifact) are not ported either.
+:func:`compile_count` counts binds built from the symbol (one a
+``Predictor`` or ``reshape``): the number the serving bucket cache's "no
+more programs than buckets" contract is held to.
+
+With the persistent program cache on (``progcache``: ``MXNET_PROGCACHE_DIR``
+or ``MXNET_PROGCACHE=1``) a bind looks its program up by key (the model's
+fingerprint, which hashes the weights' bytes, the input signature, the
+device and the runtime). On a miss it builds the forward from the symbol,
+traces it with ``torch.export`` (weights, aux states and bound zeros are
+program inputs, so the payload is the graph alone; the flash forward is
+the custom op ``mxtt::flash_attention_fwd``, so the saved program still
+launches the hand-written kernel) and stores it; on a hit it loads the
+exported program with no symbol build, no shape inference and no trace
+(:func:`disk_load_count` counts these). Either way the bind then runs that
+program, captured as a CUDA graph on a card. An unusable entry is the
+cache's counted fallback to a fresh build, with the same outputs.
+``export`` / ``ExportedPredictor`` (the reference's StableHLO artifact)
+are not ported.
 """
 from __future__ import annotations
 
@@ -35,7 +48,9 @@ from typing import Dict, List, Optional
 import torch
 
 from . import ndarray as nd
+from . import progcache
 from . import symbol as sym_mod
+from .analysis import compile_witness as _witness
 from .base import MXNetError
 from .context import resolve_device
 from .ndarray import NDArray, _as_torch_dtype
@@ -46,18 +61,48 @@ CAPTURE_WARMUP = 2
 
 _count_lock = threading.Lock()
 _COMPILE_COUNT = 0
+_DISK_LOAD_COUNT = 0
 
 
 def compile_count() -> int:
-    """Predictor binds in this process (float and quantized)."""
+    """Predictor binds built from the symbol in this process (float and
+    quantized)."""
     with _count_lock:
         return _COMPILE_COUNT
 
 
 def disk_load_count() -> int:
-    """Predictor programs loaded from a program cache: always 0 here (the
-    reference's ``progcache`` is not ported)."""
-    return 0
+    """Predictor programs loaded from the program cache in this process
+    (float and quantized)."""
+    with _count_lock:
+        return _DISK_LOAD_COUNT
+
+
+class _Forward(torch.nn.Module):
+    """The bound forward as a module over (raw weights, aux states, bound
+    zeros, inputs), the shape ``torch.export`` traces."""
+
+    def __init__(self, predictor):
+        super().__init__()
+        self._p = predictor
+
+    def forward(self, raw, aux, zeros, inputs):
+        p = self._p
+        args = p._widen(raw)
+        args.update(zeros)
+        args.update(inputs)
+        outs, _ = p._eval(args, aux, False)
+        return tuple(outs)
+
+
+def _load_program(payload: bytes, meta: Dict):
+    """A saved program back as a callable; raises on anything unusable."""
+    import io
+
+    from .ops.kernels import flash_attention  # noqa: F401  the custom op
+
+    ep = torch.export.load(io.BytesIO(payload))
+    return ep.module(), meta
 
 
 def _use_graph() -> bool:
@@ -138,31 +183,124 @@ class Predictor:
                                  dtype=_as_torch_dtype(self._dtype))
         return out
 
-    def _param_values(self) -> Dict[str, torch.Tensor]:
-        """The weights the forward reads (a quantized predictor widens its
-        weights here, inside the captured forward)."""
+    def _raw_params(self) -> Dict[str, object]:
+        """The weights as the predictor holds them (a quantized predictor's
+        ``(q, scale)`` pairs): the program's first input."""
         return {n: a._data for n, a in self._arg_params.items()}
 
+    def _widen(self, raw) -> Dict[str, torch.Tensor]:
+        """The weights the forward reads, from :meth:`_raw_params` (a
+        quantized predictor widens them here, inside the forward)."""
+        return dict(raw)
+
+    def _param_values(self) -> Dict[str, torch.Tensor]:
+        return self._widen(self._raw_params())
+
     def _run(self, inputs: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        aux = {n: a._data for n, a in self._aux_params.items()}
+        if self._program is not None:
+            return list(self._program(self._raw_params(), aux,
+                                      dict(self._zeros), dict(inputs)))
         args = self._param_values()
         args.update(self._zeros)
         args.update(inputs)
-        aux = {n: a._data for n, a in self._aux_params.items()}
         outs, _ = self._eval(args, aux, False)
         return list(outs)
 
+    def _cache_key(self) -> Optional[str]:
+        """The program cache's key of this bind (None with the cache
+        off)."""
+        if not progcache.enabled():
+            return None
+        fp = getattr(self, "_progcache_model_fp", None)
+        if fp is None:
+            fp = progcache.model_fingerprint(
+                self._symbol, self._arg_params, self._aux_params)
+            self._progcache_model_fp = fp
+        return progcache.predictor_key(
+            fp, self._input_names, self._input_shapes, self._dtype,
+            self._device, extra=self._cache_extra())
+
+    def _cache_extra(self) -> str:
+        return ""
+
+    _cache_kind = "predictor"
+
+    def _export(self) -> bytes:
+        """The forward traced with ``torch.export`` and saved: the
+        program-cache payload."""
+        import io
+
+        dt = _as_torch_dtype(self._dtype)
+        inputs = {n: torch.zeros(self._input_shapes[n], dtype=dt,
+                                 device=self._device)
+                  for n in self._input_names}
+        aux = {n: a._data for n, a in self._aux_params.items()}
+        with torch.no_grad():
+            ep = torch.export.export(
+                _Forward(self), (self._raw_params(), aux, dict(self._zeros),
+                                 inputs), strict=False)
+        # the example inputs hold every weight: saved, they would make the
+        # payload the model's size
+        ep.example_inputs = None
+        buf = io.BytesIO()
+        torch.export.save(ep, buf)
+        return buf.getvalue()
+
     def _compile(self):
-        global _COMPILE_COUNT
-        self._eval = self._symbol.build_eval()
-        self._zeros = self._bind_zeros()
+        global _COMPILE_COUNT, _DISK_LOAD_COUNT
         self._graph = None
         self._stream = None
+        self._program = None
         self.warmup_calls = self.captures = self.replays = 0
         self.eager_calls = 0
+        key = self._cache_key()
+        loaded = (progcache.load(key, kind=self._cache_kind,
+                                 decode=_load_program)
+                  if key is not None else None)
+        if loaded is not None:
+            # no symbol build, no shape inference, no trace: the program
+            # and the bound zeros' shapes come from the entry
+            self._program, meta = loaded
+            dt = _as_torch_dtype(self._dtype)
+            self._zeros = {n: torch.zeros(tuple(shape), dtype=dt,
+                                          device=self._device)
+                           for n, shape in meta["zeros"].items()}
+            self.progcache_source = "disk"
+            with _count_lock:
+                _DISK_LOAD_COUNT += 1
+        else:
+            self._eval = self._symbol.build_eval()
+            self._zeros = self._bind_zeros()
+            with _count_lock:
+                _COMPILE_COUNT += 1
+            self.progcache_source = "compile"
+            _witness.record_compile(
+                self._cache_kind, key=key or "",
+                shapes=repr(sorted(self._input_shapes.items())))
+            if key is not None:
+                # the fresh bind runs the program it stores, so a warm
+                # restart computes what this process computed
+                payload = self._export()
+                self._program = _load_program(payload, {})[0]
+                progcache.store(
+                    key, payload, note=self._cache_kind,
+                    kind=self._cache_kind,
+                    meta={"zeros": {n: list(z.shape)
+                                    for n, z in self._zeros.items()}})
         if self._device.type == "cuda" and _use_graph():
             self._capture()
-        with _count_lock:
-            _COMPILE_COUNT += 1
+            _witness.record_capture(self._cache_kind)
+
+    def _fused_forward(self, vals) -> List[torch.Tensor]:
+        """The bound forward on ``vals`` (name -> tensor or array, on the
+        host or the device), without this predictor's own graph: the body
+        the engine's trace-and-fuse stitches (and captures on a card)."""
+        dt = _as_torch_dtype(self._dtype)
+        with torch.no_grad():
+            return self._run({n: _as_tensor(v).to(self._device, dt,
+                                                  non_blocking=True)
+                              for n, v in vals.items()})
 
     def _capture(self):
         """Two warm-up forwards on the predictor's stream, then one capture
@@ -273,9 +411,13 @@ class Predictor:
 
     def _shared(self) -> Dict[str, object]:
         """What a reshape shares with this predictor."""
-        return {"_symbol": self._symbol, "_arg_params": self._arg_params,
-                "_aux_params": self._aux_params, "_dtype": self._dtype,
-                "_zero_bound": self._zero_bound}
+        out = {"_symbol": self._symbol, "_arg_params": self._arg_params,
+               "_aux_params": self._aux_params, "_dtype": self._dtype,
+               "_zero_bound": self._zero_bound}
+        fp = getattr(self, "_progcache_model_fp", None)
+        if fp is not None:
+            out["_progcache_model_fp"] = fp
+        return out
 
     def reshape(self, new_input_shapes: Dict[str, tuple],
                 device=None) -> "Predictor":

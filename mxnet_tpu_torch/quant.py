@@ -236,11 +236,20 @@ class QuantizedPredictor(predict_mod.Predictor):
             self._qvals = self._quantize_params()
         super()._compile()
 
-    def _param_values(self) -> Dict[str, torch.Tensor]:
-        # dequant on load, inside the forward
+    def _raw_params(self) -> Dict[str, object]:
+        return self._qvals
+
+    def _widen(self, raw) -> Dict[str, torch.Tensor]:
+        # dequant on load, inside the forward (and the exported program)
         return {n: dequantize_weight(v["q"], v["scale"])
                 if isinstance(v, dict) else v
-                for n, v in self._qvals.items()}
+                for n, v in raw.items()}
+
+    _cache_kind = "quant"
+
+    def _cache_extra(self) -> str:
+        return "quant_predictor:%s:%s" % (self._qconfig.weight_dtype,
+                                          self._qconfig.act_dtype)
 
     def _shared(self) -> Dict[str, object]:
         return dict(super()._shared(), _qconfig=self._qconfig,

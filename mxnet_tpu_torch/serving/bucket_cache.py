@@ -9,15 +9,21 @@ by ``Predictor.reshape`` (the weights shared, the bind per bucket: on a
 card a CUDA graph a bucket), and the base predictor is enrolled as its
 own bucket, so a server over buckets (1, 4, 8) binds exactly three times.
 
-The reference's persistent program cache (``progcache``: the model
-fingerprint, per-bucket keys, the saved ladder and ``restore_ladder``) is
-not ported; :meth:`BucketCache.restore_ladder` raises ``not_ported``.
+With the persistent program cache on (``progcache``), each bucket's bind
+is a disk load where a previous process stored that program (``stats()``
+splits ``compiles`` from ``disk_hits``), every ladder swap saves the new
+ladder under the model's fingerprint and bumps its entries' LRU clocks,
+and :meth:`BucketCache.restore_ladder` adopts the ladder a previous
+process saved: a restarted server lands on the tuned rungs and disk-loads
+exactly their programs.
 """
 from __future__ import annotations
 
 import threading
 from typing import Dict, List, Optional, Sequence
 
+from .. import progcache as _progcache
+from ..analysis import compile_witness as _witness
 from .batcher import ServingError
 
 
@@ -42,10 +48,11 @@ class BucketCache:
         self._execs: Dict[int, object] = {}
         self.hits = 0
         self.misses = 0
-        # a miss binds the bucket (the reference splits compiles from
-        # program-cache disk loads; with no program cache every miss binds)
+        # a miss binds the bucket: a build from the symbol (compiles) or,
+        # with the program cache on, a disk load of its program
         self.compiles = 0
         self.disk_hits = 0
+        self._witness_scope = _witness.new_scope()
         # LRU bookkeeping for ladder swaps: logical tick per get(), so
         # set_ladder can retire the executors traffic stopped touching
         self._tick = 0
@@ -76,7 +83,14 @@ class BucketCache:
 
     def _bind(self, bucket: int):
         shapes = {n: (bucket,) + s for n, s in self._example_shapes.items()}
-        return self._base.reshape(shapes, device=self._device)
+        with _witness.surface(self._witness_scope):
+            return self._base.reshape(shapes, device=self._device)
+
+    def _count_build(self, exe):
+        if getattr(exe, "progcache_source", "compile") == "disk":
+            self.disk_hits += 1
+        else:
+            self.compiles += 1
 
     def _fetch_locked(self, bucket: int):
         """The executor for ``bucket``, binding it on a miss (caller holds
@@ -87,7 +101,7 @@ class BucketCache:
         else:
             self.misses += 1
             exe = self._bind(bucket)
-            self.compiles += 1
+            self._count_build(exe)
             self._execs[bucket] = exe
         self._last_used[bucket] = self._tick
         return exe
@@ -130,7 +144,7 @@ class BucketCache:
             cur = self._execs.get(bucket)
             if cur is not None:
                 return cur  # lost the race; the duplicate is dropped
-            self.compiles += 1
+            self._count_build(exe)
             self._execs[bucket] = exe
             self._last_used[bucket] = self._tick
             return exe
@@ -163,14 +177,63 @@ class BucketCache:
             for b in retired:
                 del self._execs[b]
                 self._last_used.pop(b, None)
+        # outside _lock (progcache locks and writes files itself): save the
+        # tuned ladder for a restarted server and bump the kept buckets'
+        # LRU clocks, so the byte budget ages out the retired programs first
+        self._progcache_sync(nb)
         return retired
 
+    # --- persistent-cache integration ------------------------------------
+    def _model_fp(self) -> Optional[str]:
+        """The base predictor's model fingerprint (None with the program
+        cache off or a base that cannot be hashed)."""
+        if not _progcache.enabled():
+            return None
+        fp = getattr(self._base, "_progcache_model_fp", None)
+        if fp is None:
+            try:
+                fp = _progcache.model_fingerprint(
+                    self._base._symbol, self._base._arg_params,
+                    self._base._aux_params)
+                self._base._progcache_model_fp = fp
+            except Exception:
+                return None
+        return fp
+
+    def _bucket_key(self, fp: str, bucket: int) -> str:
+        shapes = {n: (bucket,) + s for n, s in self._example_shapes.items()}
+        device = (self._device if self._device is not None
+                  else self._base._device)
+        return _progcache.predictor_key(
+            fp, list(shapes), shapes, self._base._dtype, device,
+            extra=self._base._cache_extra())
+
+    def _progcache_sync(self, buckets: List[int]):
+        fp = self._model_fp()
+        if fp is None:
+            return
+        _progcache.save_ladder(fp, buckets)
+        for b in buckets:
+            _progcache.touch(self._bucket_key(fp, b))
+
     def restore_ladder(self, budget: Optional[int] = None) -> bool:
-        """The reference adopts the ladder a previous process saved in its
-        program cache; that cache is not ported."""
-        raise ServingError("BucketCache.restore_ladder needs the persistent "
-                           "program cache (progcache), which is not ported",
-                           "not_ported")
+        """Adopt the ladder a previous process saved for this model
+        (``progcache.save_ladder``), so a warm restart starts at the tuned
+        ladder and disk-loads exactly those programs. True when adopted;
+        a saved ladder with another max_batch or over ``budget`` is
+        ignored."""
+        fp = self._model_fp()
+        if fp is None:
+            return False
+        ladder = _progcache.load_ladder(fp)
+        if not ladder or ladder == self.buckets:
+            return False
+        if ladder[-1] != self.max_batch:
+            return False
+        if budget is not None and len(ladder) > budget:
+            return False
+        self.set_ladder(ladder, budget)
+        return True
 
     def warm(self):
         """Bind every bucket now (trade startup time for tail latency)."""
@@ -181,12 +244,19 @@ class BucketCache:
                 self.get(b)
 
     def stats(self) -> Dict[str, object]:
-        """``compiles`` counts binds (every miss and every ``prepare``
-        that enrolled); ``disk_hits`` stays 0 (no program cache);
-        ``cache_hits`` is the in-memory hit count (alias of ``hits``)."""
+        """``compiles`` counts binds built from the symbol, ``disk_hits``
+        binds loaded from the program cache (every miss and every
+        ``prepare`` that enrolled is one or the other); ``cache_hits`` is
+        the in-memory hit count (alias of ``hits``). With the compile
+        witness armed the split comes from its record of this cache."""
         with self._lock:
-            return {"hits": self.hits, "cache_hits": self.hits,
-                    "misses": self.misses, "compiles": self.compiles,
-                    "disk_hits": self.disk_hits,
-                    "buckets": list(self.buckets),
-                    "compiled": sorted(self._execs)}
+            out = {"hits": self.hits, "cache_hits": self.hits,
+                   "misses": self.misses, "compiles": self.compiles,
+                   "disk_hits": self.disk_hits,
+                   "buckets": list(self.buckets),
+                   "compiled": sorted(self._execs)}
+        if _witness.enabled():
+            sc = _witness.scope_counts(self._witness_scope)
+            out["compiles"] = sc["compiles"]
+            out["disk_hits"] = sc["disk_hits"]
+        return out

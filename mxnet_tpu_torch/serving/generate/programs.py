@@ -46,6 +46,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...context import prepare_capture_thread
 from ...ops.kernels import _launches
 from ..batcher import ServingError
 from .model import KV_SLAB_DTYPES, DecodeModel
@@ -173,9 +174,14 @@ class _DecodeStep:
 
     def _capture(self):
         graph = torch.cuda.CUDAGraph()
+        # the engine worker that captures may not be the one that warmed up
+        stream = torch.cuda.Stream(self._device)
+        stream.wait_stream(torch.cuda.current_stream(self._device))
+        prepare_capture_thread(self._device, stream)
 
         def record():
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode="thread_local"):
                 self._out = self._fn(*self._slabs, *self._inputs)
 
         try:

@@ -58,8 +58,12 @@ exemplar) and the flight recorder, and a deadline miss writes a flight
 bundle. A stream's trace is the ``trace`` given to :meth:`submit`, else
 the submitting thread's ``telemetry.context.current_context()``.
 
-Not ported: the reference's engine-wide capture (``MXNET_ENGINE_CAPTURE``,
-``engine.CapturedSequence``).
+Engine capture (``capture=True`` or ``MXNET_ENGINE_CAPTURE``): each
+replica's decode step rides a ``CapturedSequence`` named
+``decode_step_r<replica>``: eager for the warm-up steps, then one replayed
+engine submission a step (the step itself, captured, is still one CUDA
+graph replay); :meth:`DecodeScheduler.engine_capture_stats` reads its
+replays and bails.
 """
 from __future__ import annotations
 
@@ -237,6 +241,7 @@ class DecodeScheduler:
             self.programs.replica() for _ in range(self.replicas - 1)]
         # KVCacheManager | PagedKVCacheManager, one a replica, from start()
         self.caches: List = []
+        self._captures: List[Optional[_engine.CapturedSequence]] = []
         self._cond = threading.Condition()
         self._queue: deque = deque()   # (stream, prompt, temperature, rng)
         # (replica, slot) -> sequence
@@ -305,6 +310,10 @@ class DecodeScheduler:
             self.caches = [KVCacheManager(p) for p in self._programs]
             self._m_blocks_total.set(0)
             self._m_blocks_free.set(0)
+        use_capture = self.config.capture or _engine.capture_enabled()
+        self._captures = [
+            _engine.CapturedSequence(name="decode_step_r%d" % i)
+            if use_capture else None for i in range(self.replicas)]
         kv_total = sum(c.kv_bytes() for c in self.caches)
         self._m_kv.set(kv_total)
         self._m_kv_dtype.set(kv_total)
@@ -349,6 +358,9 @@ class DecodeScheduler:
             leftovers.append(a.stream)
         for s in leftovers:
             s._fail(ServingError("decode scheduler stopped", code=code))
+        for cs in self._captures:
+            if cs is not None:
+                cs.invalidate("scheduler stopped")
         if self.caches:
             _engine.fence([c.var for c in self.caches]).wait()
             for c in self.caches:
@@ -706,7 +718,14 @@ class DecodeScheduler:
                 except Exception as e:      # noqa: BLE001 — reported below
                     holder["error"] = e
 
-            _engine.push(op, mutable_vars=[cache.var], name="decode.step")
+            cs = self._captures[rep] if rep < len(self._captures) else None
+            if cs is not None:
+                cs.begin_step()
+                cs.push(op, mutable_vars=[cache.var], name="decode.step")
+                cs.end_step()
+            else:
+                _engine.push(op, mutable_vars=[cache.var],
+                             name="decode.step")
         if not stepped:
             return
         _engine.fence([self.caches[rep].var for rep, _, _ in stepped]).wait()
@@ -734,6 +753,12 @@ class DecodeScheduler:
                                            a.rng))
 
     # --- introspection ----------------------------------------------------
+    def engine_capture_stats(self) -> List[Optional[Dict[str, object]]]:
+        """Each replica's ``decode_step_r<i>`` engine sequence (its state,
+        replays and bails), None where engine capture is off."""
+        return [cs.stats() if cs is not None else None
+                for cs in self._captures]
+
     def capture_stats(self) -> List[Dict[str, object]]:
         """Each replica's decode-step path (``DecodePrograms.capture_stats``
         of its program set) and the steps it took."""
@@ -746,7 +771,8 @@ class DecodeScheduler:
         rate, the decode step's path with its warm-up calls, captures and
         replays (summed over replicas; each replica's under ``"replica"``
         when there are several; with spec, the verify's too), and (paged)
-        the pools and the prefix counters, summed."""
+        the pools and the prefix counters, summed; with engine capture,
+        each replica's sequence under ``"engine_capture"``."""
         with self._cond:
             queued = len(self._queue)
             active = len(self._active)
@@ -783,6 +809,8 @@ class DecodeScheduler:
                     st["verify_" + k] = sum(c["verify"][k] for c in caps)
         if self.replicas > 1:
             st["replica"] = caps
+        if any(cs is not None for cs in self._captures):
+            st["engine_capture"] = self.engine_capture_stats()
         caches = self.caches
         if self.config.paged and caches:
             st.update(

@@ -13,19 +13,28 @@ a host-engine op or a thread of its own, so they overlap):
 
 Each replica is a ``BucketCache`` over a ``Predictor`` on its device (a
 CUDA graph a bucket on a card), a ``StagingPool`` (pinned host buffers on
-a card) and an engine variable. The port's engine is one FIFO worker, so
-dispatches run one at a time in push order, while the former keeps
-coalescing the next micro-batch. The ``rr`` / ``least_loaded`` routers,
+a card) and an engine variable: dispatches to one replica serialize on
+its variable, dispatches to different replicas run concurrently on the
+engine's workers, while the former keeps coalescing the next micro-batch.
+The ``rr`` / ``least_loaded`` routers,
 adaptive ladder retunes (``BucketTuner``), ``warm`` / ``ready`` and
 ``stop(drain)`` are the reference's. With ``decode=GenerateConfig(...)``
 the server also fronts a ``DecodeScheduler`` (``submit_stream`` /
 ``generate``) over the same weights, one KV cache a replica.
 
 Configuration comes from ``ServingConfig`` with ``MXNET_SERVING_*`` env
-defaults. Not ported: the reference's engine-level ``CapturedSequence`` /
-``FusedSequence`` of the dispatch (``ServingConfig.capture`` / ``fuse``,
-off by default there): setting either raises ``not_ported``. The
-per-bucket program on the device is already the Predictor's graph.
+defaults. ``ServingConfig.capture`` (``MXNET_ENGINE_CAPTURE``) routes each
+dispatch through a ``CapturedSequence`` kept per (replica, nominal bucket)
+and invalidated by a ladder swap; ``fuse`` (``MXNET_ENGINE_FUSE``) also
+stitches the dispatch into one fused program over the bucket Predictor's
+forward (on a card one CUDA graph of the staged inputs' host-to-device
+copy and the forward), which bails to replay when ``acquire()`` resolves
+another bucket.
+
+With the persistent program cache on (``MXNET_PROGCACHE`` /
+``MXNET_PROGCACHE_DIR``) a server adopts the ladder a previous process
+tuned and saved (``BucketCache.restore_ladder``) and binds its whole
+ladder at start, each bucket a disk load of its exported forward.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ import numpy as np
 
 from .. import engine
 from .. import predict as predict_mod
+from .. import progcache as _progcache
 from .. import telemetry
 from ..context import resolve_device
 from ..telemetry import context as trace_context
@@ -104,11 +114,12 @@ class ServingConfig:
     #: min observed requests before the tuner will propose a ladder
     retune_min_samples: int = field(default_factory=lambda: int(
         os.environ.get("MXNET_SERVING_RETUNE_MIN_SAMPLES", "64")))
-    #: the reference's engine capture / trace-and-fuse of the dispatch
-    #: (MXNET_ENGINE_CAPTURE / MXNET_ENGINE_FUSE): not ported, and the
-    #: server refuses them
+    #: engine capture/replay of the dispatch (MXNET_ENGINE_CAPTURE): one
+    #: CapturedSequence per (replica, nominal bucket)
     capture: bool = field(
         default_factory=lambda: _env_flag("MXNET_ENGINE_CAPTURE"))
+    #: trace-and-fuse of the captured dispatch (MXNET_ENGINE_FUSE; needs
+    #: capture)
     fuse: bool = field(default_factory=lambda: _env_flag("MXNET_ENGINE_FUSE"))
     #: post-training weight quantization for the replicas: "" (off) | int8
     #: | fp8_e4m3. Each replica binds a quant.QuantizedPredictor; its
@@ -118,7 +129,8 @@ class ServingConfig:
 
 
 class _Replica:
-    __slots__ = ("index", "device", "cache", "var", "staging", "dispatched")
+    __slots__ = ("index", "device", "cache", "var", "staging", "dispatched",
+                 "captures")
 
     def __init__(self, index: int, device, cache: BucketCache, var: int,
                  staging: StagingPool):
@@ -128,13 +140,20 @@ class _Replica:
         self.var = var
         self.staging = staging
         self.dispatched = 0
+        #: one CapturedSequence per nominal bucket; written by the former
+        #: thread, invalidated and cleared by retunes and stop
+        self.captures: Dict[int, "engine.CapturedSequence"] = {}
 
 
 def _host(o) -> np.ndarray:
     """An output on the host: a copy on the caller's stream that waits for
     it (never a device-wide synchronize, which another replica's capture
     would see)."""
-    return o._data.detach().cpu().numpy()
+    return _host_tensor(o._data)
+
+
+def _host_tensor(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
 
 
 class InferenceServer:
@@ -156,12 +175,6 @@ class InferenceServer:
         self.config = config or ServingConfig()
         if not self.config.buckets:
             raise ServingError("no buckets configured")
-        if self.config.capture or self.config.fuse:
-            raise ServingError(
-                "ServingConfig.capture / fuse (the engine's CapturedSequence "
-                "and FusedSequence of the dispatch) are not ported; each "
-                "bucket's forward is already one CUDA graph on a card",
-                "not_ported")
         self._example_shapes = {n: tuple(s)
                                 for n, s in example_shapes.items()}
         self._input_names = list(self._example_shapes)
@@ -239,8 +252,18 @@ class InferenceServer:
         self._nbatch = 0
         self._thread: Optional[threading.Thread] = None
         self._started = False
-        if self.config.warm:
-            self.warm()
+        # with the program cache on, a restarted server adopts the ladder a
+        # previous process tuned and saved, then binds that whole ladder
+        # now: each bucket a disk load, not a trace
+        if self.config.warm or _progcache.enabled():
+            budget = (self.config.program_budget
+                      if self.config.adaptive else None)
+            for rep in self._replicas:
+                if _progcache.enabled():
+                    rep.cache.restore_ladder(budget)
+                rep.cache.warm()
+            if _progcache.enabled():
+                self._ladder = tuple(self._replicas[0].cache.buckets)
 
     def _make_former(self) -> BatchFormer:
         former = BatchFormer(
@@ -338,6 +361,9 @@ class InferenceServer:
             engine.untrack_inflight(rep.var)
             engine.delete_variable(rep.var)
             rep.var = None
+            # recorded sequences name the deleted var; start() issues a
+            # fresh one, so capture warms up again
+            rep.captures.clear()
         if self._tuner_var is not None:
             engine.wait_for_var(self._tuner_var)
             engine.delete_variable(self._tuner_var)
@@ -493,14 +519,112 @@ class InferenceServer:
             rep = self._pick_replica()
             self._nbatch += 1
             nbatch = self._nbatch
-            engine.push_async(
-                lambda done, batch=batch, rep=rep, nbatch=nbatch:
-                self._dispatch(batch, rep, nbatch, done),
-                mutable_vars=[rep.var],
-                name="serving_dispatch_r%d" % rep.index)
+            dispatch = (lambda done, batch=batch, rep=rep, nbatch=nbatch:
+                        self._dispatch(batch, rep, nbatch, done))
+            if self.config.capture:
+                self._push_captured(rep, batch, dispatch, nbatch)
+            else:
+                engine.push_async(
+                    dispatch, mutable_vars=[rep.var],
+                    name="serving_dispatch_r%d" % rep.index)
             if (self._tuner is not None and self.config.retune_interval > 0
                     and nbatch % self.config.retune_interval == 0):
                 self._push_retune()
+
+    def _push_captured(self, rep: _Replica, batch: List[Request],
+                       dispatch: Callable, nbatch: int):
+        """Dispatch through the replica's CapturedSequence of the nominal
+        bucket (the smallest rung of the current ladder holding the
+        batch); ``acquire()`` still picks the real bucket at run time, so
+        a ladder swap never strands a request, it only invalidates the
+        sequence (``_retune_op``)."""
+        ladder = self._ladder  # atomic tuple snapshot
+        rows = sum(r.rows for r in batch)
+        bucket = next((b for b in ladder if b >= rows), ladder[-1])
+        cs = rep.captures.get(bucket)
+        if cs is None:
+            cs = engine.CapturedSequence(
+                name="serving_r%d_b%d" % (rep.index, bucket),
+                fuse=True if self.config.fuse else None)
+            rep.captures[bucket] = cs
+        fuse = (self._fuse_dispatch_op(rep, bucket, batch, nbatch)
+                if self.config.fuse else None)
+        cs.begin_step()
+        cs.push_async(dispatch, mutable_vars=(rep.var,),
+                      name="serving_dispatch_r%d" % rep.index, fuse=fuse)
+        cs.end_step()
+
+    def _fuse_dispatch_op(self, rep: _Replica, bucket: int,
+                          batch: List[Request], nbatch: int):
+        """The traceable metadata of one captured dispatch
+        (``engine.FuseOp``): the staged computation is the nominal bucket
+        Predictor's forward; the feed re-runs ``acquire()`` and the pad on
+        the engine worker and bails to replay when it resolves another
+        bucket; the writeback publishes the results as ``_dispatch``
+        does."""
+        exe = rep.cache.prepare(bucket)
+        names = list(self._input_names)
+
+        def fwd_fn(*vals, _exe=exe):
+            return (tuple(_exe._fused_forward(dict(zip(names, vals)))),)
+
+        def feed(_batch=batch, _exe=exe, _bucket=bucket):
+            # a failure here comes before anything is published: as a
+            # bail, the iteration replays through _dispatch, whose handler
+            # delivers request errors
+            try:
+                rows = sum(r.rows for r in _batch)
+                b, got = rep.cache.acquire(rows)
+                if got is not _exe:
+                    raise engine._FuseBail(
+                        "bucket drift: acquire() resolved b%d, staged b%d"
+                        % (b, _bucket))
+                fd = self._feed(rep, _batch, b, rows)
+                return tuple(fd[n] for n in names)
+            except engine._FuseBail:
+                raise
+            except BaseException as e:
+                raise engine._FuseBail("dispatch feed failed: %s: %s"
+                                       % (type(e).__name__, e))
+
+        def writeback(d, _batch=batch, _nbatch=nbatch, _bucket=bucket):
+            try:
+                outs = [_host_tensor(o) for o in d[rep.var]]
+                self._publish_outputs(_batch, rep, _nbatch, _bucket,
+                                      sum(r.rows for r in _batch), outs)
+            except BaseException as e:  # _dispatch's error contract
+                err = e if isinstance(e, ServingError) else ServingError(
+                    "dispatch failed: %s: %s" % (type(e).__name__, e),
+                    "dispatch_error")
+                self.metrics.record_error(err.code)
+                for r in _batch:
+                    if not r.done():
+                        r.set_error(err)
+                        _flight.request_end(r.trace, ok=False,
+                                            code=err.code,
+                                            latency_ms=r.latency_ms,
+                                            request_id=r.request_id)
+
+        return engine.FuseOp(
+            fwd_fn, out_vars=(rep.var,), feed=feed, writeback=writeback,
+            fingerprint="serving:b%d:%s:%r" % (bucket, self._dtype, names),
+            device=exe._device)
+
+    def capture_stats(self) -> List[Dict[int, Dict]]:
+        """Each replica's captured dispatch sequences: {nominal bucket:
+        the sequence's stats, with its fused program's runs and graph
+        replays}."""
+        out = []
+        for rep in self._replicas:
+            d = {}
+            for b, cs in list(rep.captures.items()):
+                st = cs.stats()
+                prog = cs.fused
+                st["fused_program_runs"] = prog.runs if prog else 0
+                st["fused_replays"] = prog.replays if prog else 0
+                d[b] = st
+            out.append(d)
+        return out
 
     def _pick_replica(self) -> _Replica:
         """Routing policy. ``rr``: round-robin. ``least_loaded``: the
@@ -561,6 +685,14 @@ class InferenceServer:
                     rep.staging.retain(ladder)
                 self._ladder = tuple(ladder)
                 self._ladder_version += 1
+                # captured dispatch sequences recorded against the old
+                # ladder warm up again against the new one; a replay
+                # already submitted runs on (acquire() is swap-atomic)
+                for rep in self._replicas:
+                    for cs in list(rep.captures.values()):
+                        cs.invalidate("ladder swap v%d"
+                                      % self._ladder_version)
+                    rep.captures.clear()
             telemetry.instant("serving.ladder_swap", domain="serving",
                               version=self._ladder_version,
                               ladder=str(ladder))

@@ -2155,3 +2155,68 @@ def test_kv_launch_arithmetic_at_full_width():
     sgd_mom_update a parameter a batch, no device-lr launch."""
     assert cs.kv_launches(cs.DIST_LSTM, 2, 8, 4) == {
         "lstm_step": 1120, "sgd_mom_update": 32, "sgd_mom_update_lr": 0}
+
+
+# --- the engine phase ------------------------------------------------------
+# ResNet-18 (CIFAR stem) in f32 for 5 batches: 3 warm-up steps, then 2
+# replays or fused runs; the LM server at T = 8, the decode at 6 new tokens,
+# the warm restart at T = 8
+TINY_ENGINE_RESNET = dict(TINY_RESNET, dtype="float32", batches=5)
+TINY_ENGINE = dict(cs.ENGINE, serve_seq=8, decode_new_tokens=6,
+                   restart_seq=8)
+
+
+def test_engine_phase_on_cpu(monkeypatch, capsys):
+    _count_plain_calls(monkeypatch)
+    launches = cs.phase_engine(TINY, TINY_ENGINE_RESNET, TINY_ENGINE,
+                               TINY_SERVE, device="cpu")
+    steps = TINY_ENGINE_RESNET["batches"]
+    assert launches["conv_wgrad_partial"] == 3 * 17 * steps
+    assert launches["sgd_mom_update"] == 3 * 59 * steps
+    assert launches["flash_attention_fwd"] > 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "engine" and line["sanitizer_reports"] == 0
+    fuse = line["resnet"]["modes"]["fuse"]
+    assert fuse["engine"]["fused_runs"] == steps - 3
+    assert fuse["fused"]["captures"] == 0   # eager on the CPU
+    assert line["decode"]["decode_step_r0"]["replays"] > 0
+    restart = line["restart"]
+    assert restart["second"]["disk_loads"] == len(restart["ladder"]) == 3
+    assert restart["second"]["truncated"]["fallbacks"] == 1
+
+
+def test_engine_phase_fails_without_the_native_engine(monkeypatch):
+    from mxnet_tpu_torch import engine
+
+    monkeypatch.setattr(engine, "_engine", engine.PythonEngine(
+        0, "ThreadedEngine"))
+    with pytest.raises(RuntimeError, match="not the native ThreadedEngine"):
+        cs.phase_engine(TINY, TINY_ENGINE_RESNET, TINY_ENGINE, TINY_SERVE,
+                        device="cpu")
+
+
+def test_engine_phase_fails_when_a_fused_step_differs(monkeypatch):
+    """A fused step that moves a parameter the eager step does not must
+    fail the bit-for-bit gate."""
+    from mxnet_tpu_torch import executor
+
+    _count_plain_calls(monkeypatch)
+    body = executor._TrainStep.fused_body
+
+    def skewed(self, extra):
+        outs = body(self, extra)
+        next(iter(self._params.values())).add_(1e-3)
+        return outs
+
+    monkeypatch.setattr(executor._TrainStep, "fused_body", skewed)
+    with pytest.raises(RuntimeError, match=r"resnet fit \(fuse\)"):
+        cs._engine_fits(__import__("torch"),
+                        dict(TINY_ENGINE_RESNET, batches=4), "cpu", cs.SEED,
+                        False)
+
+
+def test_phase_host_prints_the_jpeg_facts(capsys):
+    cs.phase_host()
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "host"
+    assert set(line) == {"phase", "jpeglib_h", "libjpeg", "libnvjpeg"}

@@ -286,14 +286,21 @@ def test_quant_weights_server_matches_the_quantized_predictor():
 
 
 def test_options_not_ported_refuse():
-    for kw in ({"capture": True}, {"fuse": True}):
-        with pytest.raises(ServingError) as ei:
-            _server(**kw)
-        assert ei.value.code == "not_ported"
+    """The options once refused as not ported now work: ``capture`` and
+    ``fuse`` build a server whose dispatch rides the engine's sequences,
+    and ``restore_ladder`` without the program cache adopts nothing."""
+    x = np.ones((1, 10), np.float32)
+    want = None
+    for kw in ({}, {"capture": True}, {"capture": True, "fuse": True}):
+        srv = _server(**kw)
+        with srv:
+            got = [srv.predict(data=x)[0] for _ in range(5)]
+            if kw:
+                assert srv._replicas[0].captures
+        want = got[0] if want is None else want
+        assert all(np.array_equal(g, want) for g in got)
     srv = _server()
-    with pytest.raises(ServingError) as ei:
-        srv._replicas[0].cache.restore_ladder()
-    assert ei.value.code == "not_ported"
+    assert srv._replicas[0].cache.restore_ladder() is False
     srv.stop()
 
 

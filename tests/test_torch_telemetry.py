@@ -725,12 +725,16 @@ def test_engine_pending_gauge_never_creates_an_engine(monkeypatch):
     assert gauge.value == 0 and tengine._engine is None
     monkeypatch.undo()
     release = threading.Event()
-    tengine.push(lambda: release.wait(10), name="held")
-    tengine.push(lambda: None, name="queued")
+    # both ops write one variable, so "queued" waits behind "held" on any
+    # engine (the native ThreadedEngine runs independent ops at once)
+    var = tengine.new_variable()
+    tengine.push(lambda: release.wait(10), mutable_vars=[var], name="held")
+    tengine.push(lambda: None, mutable_vars=[var], name="queued")
     try:
         assert gauge.value == 2
     finally:
         release.set()
+    tengine.delete_variable(var)
     tengine.wait_for_all()
     assert gauge.value == 0
     assert "engine_pending_ops 0" in PROCESS_REGISTRY[1].exposition()
